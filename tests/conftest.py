@@ -19,3 +19,8 @@ os.environ.setdefault("JAX_ENABLE_X64", "0")
 import jax
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and nvcc; skips where there is none")

@@ -1,0 +1,145 @@
+"""Serving the committed exp3 8-UBS TarMAC checkpoint: the port against JAX at
+full width (hidden 256, 4 heads of 64, msg 64, key 16), tolerance 1e-4; the
+serving entry point with JAX, optax, pandas and matplotlib absent; and no
+import of them anywhere in the port or in ``chip_smoke.py``.
+"""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace as SN
+
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from uav_bs_ctrl_tpu.algos.madrqn.config import DEFAULT_CONFIG as JAX_DEFAULTS
+from uav_bs_ctrl_tpu.envs import jax_env
+from uav_bs_ctrl_tpu.models.agents import GnnAgent as JaxGnnAgent
+from uav_bs_ctrl_tpu_torch import serve
+from uav_bs_ctrl_tpu_torch.envs import torch_env
+from uav_bs_ctrl_tpu_torch.utils import checkpoint
+
+ROOT = Path(__file__).resolve().parents[1]
+RUN_DIR = (ROOT / "data" / "exp3_fast_8ubs_tarmac_qmix_il10_lay64k"
+           / "exp3_fast_8ubs_tarmac_qmix_il10_lay64k_s0")
+TOL = dict(atol=1e-4, rtol=1e-4)
+FORBIDDEN = {"jax", "jaxlib", "optax", "orbax", "flax", "pandas", "matplotlib",
+             "uav_bs_ctrl_tpu"}
+
+
+def _jax_policy():
+    config = json.loads((RUN_DIR / "config.json").read_text())
+    args = SN(**{**JAX_DEFAULTS, **config["args"]})
+    params = checkpoint.load(serve.latest_checkpoint(RUN_DIR))["model_state_dict"]
+    env_params = jax_env.make_params(config["map_id"])
+    agent = JaxGnnAgent({"agent": 2, "gt": 4, "ubs": 2}, env_params.n_actions, args)
+    return agent, params, env_params
+
+
+def _worlds(env_params, seed):
+    """Two worlds from the serving test pool; in the second every UBS starts
+    next to a GT group, so its 'seen' slots are populated."""
+    ubs, gts = serve.test_pool("8ubs", seed)
+    ubs, gts = ubs[:2].copy(), gts[:2].copy()
+    ubs[1] = gts[1][::gts.shape[1] // ubs.shape[1]][:ubs.shape[1]] + 30.0
+    keys = jax.random.split(jax.random.PRNGKey(seed), 2)
+    prior = np.stack([np.asarray(jax.random.permutation(k, env_params.n_gts)) for k in keys])
+    return ubs, gts, keys, prior
+
+
+def _to_torch_obs(obs):
+    return {k: torch.from_numpy(np.array(v)) for k, v in obs.items()}
+
+
+def test_checkpoint_q_matches_jax_at_full_width():
+    jagent, params, jp = _jax_policy()
+    ubs, gts, keys, _ = _worlds(jp, seed=0)
+    states = jax.vmap(lambda u, g, k: jax_env.reset_from_positions(jp, u, g, k))(
+        jnp.asarray(ubs), jnp.asarray(gts), keys)
+    obs = jax.vmap(lambda s: jax_env.get_obs(jp, s))(states)
+    assert float(obs["gt"][..., 0].sum()) > 0
+    h = np.tanh(np.random.default_rng(0).normal(size=(2, jp.n_ubs, 256))).astype(np.float32)
+    q_want, h_want = jax.jit(jagent.apply)(params, obs, jnp.asarray(h))
+
+    agent, _ = serve.load_policy(RUN_DIR, device="cpu")
+    with torch.no_grad():
+        for use_kernels in (True, False):
+            q, h2 = agent(_to_torch_obs(obs), torch.from_numpy(h), use_kernels=use_kernels)
+            np.testing.assert_allclose(q.numpy(), np.asarray(q_want), **TOL)
+            np.testing.assert_allclose(h2.numpy(), np.asarray(h_want), **TOL)
+
+
+def test_teacher_forced_rollout_matches_jax():
+    """Five steps of both envs and both policies from the same worlds; both envs
+    take the JAX policy's greedy actions."""
+    jagent, params, jp = _jax_policy()
+    tp = torch_env.make_params("8ubs")
+    ubs, gts, keys, prior = _worlds(jp, seed=1)
+    js = jax.vmap(lambda u, g, k: jax_env.reset_from_positions(jp, u, g, k))(
+        jnp.asarray(ubs), jnp.asarray(gts), keys)
+    ts = torch_env.reset_from_positions(tp, torch.from_numpy(ubs), torch.from_numpy(gts),
+                                        torch.from_numpy(prior))
+    agent, _ = serve.load_policy(RUN_DIR, device="cpu")
+    jh = jnp.zeros((2, jp.n_ubs, 256))
+    th = torch.zeros((2, jp.n_ubs, 256))
+    jstep = jax.jit(jax.vmap(lambda s, a: jax_env.step(jp, s, a)))
+    japply = jax.jit(jagent.apply)
+    with torch.no_grad():
+        for _ in range(5):
+            jq, jh = japply(params, jax.vmap(lambda s: jax_env.get_obs(jp, s))(js), jh)
+            tq, th = agent(torch_env.get_obs(tp, ts), th)
+            np.testing.assert_allclose(tq.numpy(), np.asarray(jq), **TOL)
+            np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+            acts = np.array(jnp.argmax(jq, axis=-1))
+            js, _, _, jrew, _ = jstep(js, jnp.asarray(acts))
+            ts, _, trew, _ = torch_env.step(tp, ts, torch.from_numpy(acts))
+            np.testing.assert_allclose(trew.numpy(), np.asarray(jrew), **TOL)
+            for name in ("ep_ret", "fair_idx", "avg_global_util", "total_throughput", "n_colls"):
+                np.testing.assert_allclose(getattr(ts, name).numpy(),
+                                           np.asarray(getattr(js, name)), err_msg=name, **TOL)
+            # Exact rate ties may order differently (see test_torch_env.py).
+            ts = ts._replace(prior_gts=torch.from_numpy(np.asarray(js.prior_gts, np.int64)))
+
+
+def test_serve_runs_where_jax_optax_pandas_are_missing():
+    """The GPU machine has none of these; reproduce that here, in a subprocess."""
+    blocked = sorted(FORBIDDEN | {"jaxlib"})
+    code = (
+        "import sys, runpy\n"
+        f"for name in {blocked!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from uav_bs_ctrl_tpu_torch import serve\n"
+        f"agent, config = serve.load_policy({str(RUN_DIR)!r}, device='cpu')\n"
+        "assert config['map_id'] == '8ubs' and agent.hidden == 256\n"
+        f"sys.argv = ['serve', '--run-dir', {str(RUN_DIR)!r}, '--episodes', '2',"
+        " '--device', 'cpu']\n"
+        "runpy.run_module('uav_bs_ctrl_tpu_torch.serve', run_name='__main__')\n"
+        f"assert not any(sys.modules.get(n) for n in {blocked!r})\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    stats = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(stats) == {"TestEpRet", "TestFairIdx", "TestAvgGlobalUtility",
+                          "TestTotalThroughput", "TestProbCollision"}
+    assert all(np.isfinite(v) for v in stats.values())
+
+
+def test_port_and_chip_smoke_import_nothing_of_jax():
+    files = sorted((ROOT / "uav_bs_ctrl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                assert node.level == 0, f"{path}: relative import"
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"

@@ -1,0 +1,5 @@
+"""PyTorch/CUDA port of ``uav_bs_ctrl_tpu``: serve a trained policy on an H100.
+
+The package imports torch and numpy only. Entry points run on ``cuda`` unless
+the caller passes ``device="cpu"``; see :mod:`uav_bs_ctrl_tpu_torch.serve`.
+"""

@@ -1,0 +1,70 @@
+"""Recurrent GNN agent (counterpart of ``models/agents.py:GnnAgent``).
+
+hetero-GATv2 encoder -> one TarMAC round on the talk graph -> GRU -> (dueling)
+Q head. ``encode`` is the h-independent observation encoding, ``step`` the
+recurrent part, and calling the module (``forward``) is ``step . encode``, the
+JAX ``apply``. With ``use_kernels`` (the default) the encoder goes through
+``flash_gat_fused`` and the step through the fused ``tarmac_step``: the CUDA
+kernels on a card, their plain versions on the CPU. ``use_kernels=False`` takes
+the unfused module path, the independent reference.
+"""
+
+import torch
+from torch import nn
+
+from uav_bs_ctrl_tpu_torch.models.comm import TarMAC
+from uav_bs_ctrl_tpu_torch.models.encoders import GraphObservationEncoder
+from uav_bs_ctrl_tpu_torch.models.heads import DuelingLayer
+from uav_bs_ctrl_tpu_torch.models.modules import Linear
+from uav_bs_ctrl_tpu_torch.ops.step_kernels import tarmac_step
+
+
+class GnnAgent(nn.Module):
+    def __init__(self, obs_shape: dict, n_actions, args):
+        super().__init__()
+        if not isinstance(obs_shape, dict):
+            raise NotImplementedError("the dense MLP observation encoder is still "
+                                      "to be ported (ROADMAP.md Queue 1)")
+        if args.c != "tarmac" or args.n_rounds != 1:
+            raise NotImplementedError(f"only one-round TarMAC is ported, got "
+                                      f"c={args.c!r}, n_rounds={args.n_rounds}")
+        self.hidden = args.hidden_size
+        self.key_size = args.key_size
+        self.dueling = bool(args.dueling)
+        self.enc = GraphObservationEncoder(obs_shape, args.hidden_size, args.n_heads)
+        self.f_comm = TarMAC(args.hidden_size, args.msg_size, args.key_size, args.n_rounds)
+        self.f_out = (DuelingLayer(args.hidden_size, n_actions) if self.dueling
+                      else Linear(args.hidden_size, n_actions))
+
+    def encode(self, obs, use_kernels=True):
+        return self.enc(obs, use_kernels)                  # [..., A, hidden]
+
+    def step(self, x, adj, h, use_kernels=True):
+        if use_kernels:
+            return self._step_fused(x, adj, h)
+        h = self.f_comm(adj, x, h)
+        return self.f_out(h), h
+
+    def forward(self, obs, h, use_kernels=True):
+        return self.step(self.encode(obs, use_kernels), obs["adj"], h, use_kernels)
+
+    def _step_fused(self, x, adj, h):
+        """Flatten [..., A, H] rows world-major, run one fused step, restore the shape."""
+        a, hidden = x.shape[-2], x.shape[-1]
+        lead = x.shape[:-2]
+        adjf = torch.broadcast_to(adj, lead + (a, a)).reshape(-1, a)
+        if self.dueling:
+            wo, bo = self.f_out.adv.w, self.f_out.adv.b
+            wvh, bvh = self.f_out.v.w, self.f_out.v.b
+        else:
+            wo, bo = self.f_out.w, self.f_out.b
+            wvh = torch.zeros((hidden, 1), dtype=x.dtype, device=x.device)
+            bvh = torch.zeros((1,), dtype=x.dtype, device=x.device)
+        c = self.f_comm
+        q, h_new = tarmac_step(
+            x.reshape(-1, hidden).contiguous(), h.reshape(-1, hidden).contiguous(),
+            adjf.to(x.dtype).contiguous(),
+            c.f_val.w, c.f_val.b, c.f_sign.w, c.f_sign.b, c.f_que.w, c.f_que.b,
+            c.f_udt.wi, c.f_udt.wh, c.f_udt.bi, c.f_udt.bh,
+            wo, bo, wvh, bvh, a, self.key_size, self.dueling)
+        return q.reshape(lead + (a, -1)), h_new.reshape(lead + (a, hidden))

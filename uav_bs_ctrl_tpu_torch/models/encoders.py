@@ -1,0 +1,91 @@
+"""Heterograph GATv2 observation encoder (counterpart of ``models/encoders.py``).
+
+Each agent owns fixed-size neighbourhood slot arrays (``[..., A, M, d]``
+features plus a ``[..., A, M]`` visibility mask), exactly the env's obs layout.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from uav_bs_ctrl_tpu_torch.models.modules import Linear
+from uav_bs_ctrl_tpu_torch.ops.gat_kernels import flash_gat_fused
+from uav_bs_ctrl_tpu_torch.ops.masked import masked_softmax
+
+
+class GATv2(nn.Module):
+    """Masked bipartite GATv2 with residual and ReLU (DGL 0.9 ``GATv2Conv``):
+    ``e_ij = a . LeakyReLU(W_src x_j + W_dst x_i)``, softmax over each
+    destination's valid slots, message ``W_src x_j``; no valid slot leaves the
+    residual only."""
+
+    def __init__(self, d_src, d_dst, n_heads, feats_per_head, negative_slope=0.2):
+        super().__init__()
+        out = n_heads * feats_per_head
+        self.n_heads = n_heads
+        self.negative_slope = negative_slope
+        self.fc_src = Linear(d_src, out)
+        self.fc_dst = Linear(d_dst, out)
+        k = 1.0 / math.sqrt(feats_per_head)
+        self.attn = nn.Parameter(torch.empty(n_heads, feats_per_head).uniform_(-k, k))
+        self.res_fc = Linear(d_dst, out) if d_dst != out else None
+
+    def forward(self, x_src, x_dst, mask, use_kernels=True):
+        """x_src: [..., M, d_src], x_dst: [..., d_dst], mask: [..., M] bool.
+
+        ``use_kernels`` takes the fused kernel (``flash_gat_fused``: the CUDA
+        kernel on a card, its plain version on the CPU); ``False`` takes the
+        dense path, the independent reference.
+        """
+        res = self.res_fc(x_dst) if self.res_fc is not None else x_dst
+        if x_src.shape[-2] == 0:          # no slots at all: residual only
+            return torch.relu(res)
+        er = self.fc_dst(x_dst)                                   # [..., H*F]
+        hf = er.shape[-1]
+        if use_kernels:
+            batch = x_src.shape[:-2]
+            m, d = x_src.shape[-2:]
+            mask2 = torch.broadcast_to(mask, batch + (m,)).reshape(-1, m)
+            ft, _, _ = flash_gat_fused(
+                x_src.reshape(-1, m, d).contiguous(), self.fc_src.w, self.fc_src.b,
+                er.reshape(-1, hf).contiguous(), self.attn,
+                mask2.to(x_src.dtype).contiguous(), self.n_heads, self.negative_slope)
+            rst = ft.reshape(batch + (hf,))
+        else:
+            feats = hf // self.n_heads
+            el = self.fc_src(x_src)                               # [..., M, H*F]
+            el_h = el.reshape(el.shape[:-1] + (self.n_heads, feats))
+            er_h = er.reshape(er.shape[:-1] + (1, self.n_heads, feats))
+            e = F.leaky_relu(el_h + er_h, self.negative_slope)    # [..., M, H, F]
+            scores = (e * self.attn).sum(-1)                      # [..., M, H]
+            alpha = masked_softmax(scores, mask[..., None], dim=-2)
+            ft = (alpha[..., None] * el_h).sum(-3)                # [..., H, F]
+            rst = ft.reshape(ft.shape[:-2] + (hf,))
+        return torch.relu(rst + res)
+
+
+class GraphObservationEncoder(nn.Module):
+    """GATv2 per relation ('seen': GT -> agent, 'near': UBS -> agent), concat,
+    Linear + ReLU.
+
+    obs: 'agent' [..., A, d_agent]; 'gt' [..., A, M, 1 + d_gt]; 'ubs'
+    [..., A, K, 1 + d_ubs]. Column 0 of a gt/ubs row is the visibility flag
+    used as the slot mask; columns 1: are the features.
+    """
+
+    def __init__(self, obs_shape: dict, hidden, n_heads):
+        super().__init__()
+        if hidden % n_heads:
+            raise ValueError(f"hidden_size {hidden} is not a multiple of n_heads {n_heads}")
+        f = hidden // n_heads
+        self.seen = GATv2(obs_shape["gt"], obs_shape["agent"], n_heads, f)
+        self.near = GATv2(obs_shape["ubs"], obs_shape["agent"], n_heads, f)
+        self.aggr = Linear(2 * hidden, hidden)
+
+    def forward(self, obs, use_kernels=True):
+        gt, ubs = obs["gt"], obs["ubs"]
+        x_gt = self.seen(gt[..., 1:], obs["agent"], gt[..., 0] > 0, use_kernels)
+        x_ubs = self.near(ubs[..., 1:], obs["agent"], ubs[..., 0] > 0, use_kernels)
+        return torch.relu(self.aggr(torch.cat([x_gt, x_ubs], dim=-1)))

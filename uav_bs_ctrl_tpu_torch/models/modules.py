@@ -1,0 +1,68 @@
+"""Primitive modules: Linear, MLP, GRU cell (counterpart of ``models/modules.py``).
+
+Weights keep the JAX package's layout, ``[in, out]``, under its names (``w``,
+``b``; ``wi``, ``wh``, ``bi``, ``bh``), so a JAX parameter tree loads leaf by
+leaf with no transposes (``utils/convert.py``). Parameters start from the
+PyTorch default uniform init; served weights come from a checkpoint.
+"""
+
+import math
+
+import torch
+from torch import nn
+
+
+def linear(x, w, b):
+    return x @ w + b
+
+
+def gru(x, h, wi, wh, bi, bh):
+    """GRU cell step, gate order (r, z, n): h' = (1 - z) * n + z * h."""
+    i_r, i_z, i_n = torch.chunk(x @ wi + bi, 3, dim=-1)
+    h_r, h_z, h_n = torch.chunk(h @ wh + bh, 3, dim=-1)
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return (1 - z) * n + z * h
+
+
+def _uniform(shape, bound):
+    return nn.Parameter(torch.empty(shape).uniform_(-bound, bound))
+
+
+class Linear(nn.Module):
+    def __init__(self, in_f, out_f):
+        super().__init__()
+        k = 1.0 / math.sqrt(in_f)
+        self.w = _uniform((in_f, out_f), k)
+        self.b = _uniform((out_f,), k)
+
+    def forward(self, x):
+        return linear(x, self.w, self.b)
+
+
+class MLP(nn.Module):
+    """``n_layers`` x (Linear -> ReLU)."""
+
+    def __init__(self, in_f, hidden, n_layers):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [Linear(in_f if i == 0 else hidden, hidden) for i in range(n_layers)])
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = torch.relu(layer(x))
+        return x
+
+
+class GRUCell(nn.Module):
+    def __init__(self, in_f, hidden):
+        super().__init__()
+        k = 1.0 / math.sqrt(hidden)
+        self.wi = _uniform((in_f, 3 * hidden), k)
+        self.wh = _uniform((hidden, 3 * hidden), k)
+        self.bi = _uniform((3 * hidden,), k)
+        self.bh = _uniform((3 * hidden,), k)
+
+    def forward(self, x, h):
+        return gru(x, h, self.wi, self.wh, self.bi, self.bh)

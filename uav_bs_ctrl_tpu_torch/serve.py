@@ -1,0 +1,84 @@
+"""Serve a trained policy: load a run's checkpoint and play test episodes.
+
+The port's counterpart of the load-and-evaluate step in ``test_policies.py`` /
+``algos/madrqn/run.py:load_and_run_policy``, run on the on-device env:
+
+    python -m uav_bs_ctrl_tpu_torch.serve --run-dir <run dir> --episodes 40
+
+Runs on ``cuda`` unless ``--device cpu`` is given; the GATv2 encoder and the
+recurrent step then go through the hand-written CUDA kernels.
+"""
+
+import argparse
+import json
+import re
+from pathlib import Path
+
+import torch
+
+from uav_bs_ctrl_tpu_torch.algos import collect
+from uav_bs_ctrl_tpu_torch.config import make_args
+from uav_bs_ctrl_tpu_torch.envs import torch_env
+from uav_bs_ctrl_tpu_torch.models.agents import GnnAgent
+from uav_bs_ctrl_tpu_torch.utils import checkpoint
+from uav_bs_ctrl_tpu_torch.utils.convert import params_from_jax
+
+N_TEST_LAYOUTS = 256        # held-out layout pool, as the fused trainer's test pool
+TEST_POOL_SEED = 10_000
+# Per-slot feature widths of the env's obs (fair_service): own position; GT
+# relative position, rate, average rate; UBS relative position.
+OBS_SHAPE = {"agent": 2, "gt": 4, "ubs": 2}
+
+
+def latest_checkpoint(run_dir) -> Path:
+    found = sorted(Path(run_dir).glob("checkpoint_epoch*.pt"),
+                   key=lambda p: int(re.search(r"epoch(\d+)", p.name).group(1)))
+    if not found:
+        raise FileNotFoundError(f"no checkpoint_epoch*.pt in {run_dir}")
+    return found[-1]
+
+
+def load_policy(run_dir, device=None, checkpoint_path=None):
+    """``(agent, config)`` for a run directory: its ``config.json`` and its
+    newest (or the given) checkpoint, on ``device`` (default ``cuda``). The
+    agent is frozen (no parameter requires grad): it only serves."""
+    config = json.loads((Path(run_dir) / "config.json").read_text())
+    args = make_args(config["args"], device)
+    env_params = torch_env.make_params(config["map_id"])
+    agent = GnnAgent(OBS_SHAPE, env_params.n_actions, args)
+    ckpt = checkpoint.load(checkpoint_path or latest_checkpoint(run_dir))
+    agent.load_state_dict(params_from_jax(ckpt["model_state_dict"], agent))
+    return agent.to(args.device).eval().requires_grad_(False), config
+
+
+def test_pool(map_id, seed):
+    return collect.make_layout_pool(map_id, N_TEST_LAYOUTS, seed=seed + TEST_POOL_SEED)
+
+
+@torch.no_grad()
+def evaluate(run_dir, n_episodes, eps=0.05, seed=0, device=None, checkpoint_path=None):
+    """Episode statistics ([n_episodes] tensors) of the run's policy playing
+    ``n_episodes`` worlds, one episode each, in parallel."""
+    agent, config = load_policy(run_dir, device, checkpoint_path)
+    env_params = torch_env.make_params(config["map_id"])
+    generator = torch.Generator().manual_seed(seed)
+    return collect.evaluate_policy(env_params, agent, test_pool(config["map_id"], seed),
+                                   agent.hidden, generator, n_episodes,
+                                   next(agent.parameters()).device, eps)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--run-dir", required=True)
+    parser.add_argument("--episodes", type=int, default=40)
+    parser.add_argument("--eps", type=float, default=0.05)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("--checkpoint", default=None)
+    cli = parser.parse_args(argv)
+    stats = evaluate(cli.run_dir, cli.episodes, cli.eps, cli.seed, cli.device, cli.checkpoint)
+    print(json.dumps({k: float(v.mean()) for k, v in stats.items()}))
+
+
+if __name__ == "__main__":
+    main()

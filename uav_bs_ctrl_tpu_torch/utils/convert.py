@@ -1,0 +1,46 @@
+"""Carry a JAX parameter tree into a port module, leaf by leaf.
+
+The port keeps the JAX layout (``[in, out]`` weights under the same names), so
+a tree's dotted paths are the module's ``state_dict`` keys and no leaf is
+transposed.
+"""
+
+import numpy as np
+import torch
+
+
+def flatten(tree, prefix="") -> dict:
+    """``{"enc.seen.fc_src.w": leaf, ...}`` for nested dicts and lists."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    flat = {}
+    for key, sub in items:
+        flat.update(flatten(sub, f"{prefix}.{key}" if prefix else str(key)))
+    return flat
+
+
+def params_from_jax(tree, module: torch.nn.Module) -> dict:
+    """A ``state_dict`` for ``module`` from a JAX parameter tree of numpy arrays.
+
+    Raises on a leaf the module has no parameter for, on a parameter no leaf
+    fills, and on a shape mismatch.
+    """
+    flat = flatten(tree)
+    own = module.state_dict()
+    unused = sorted(flat.keys() - own.keys())
+    missing = sorted(own.keys() - flat.keys())
+    if unused or missing:
+        raise KeyError(f"JAX tree and module disagree: leaves without a parameter "
+                       f"{unused}, parameters without a leaf {missing}")
+    out = {}
+    for key, target in own.items():
+        leaf = np.asarray(flat[key], dtype=np.float32)
+        if tuple(leaf.shape) != tuple(target.shape):
+            raise ValueError(f"{key}: JAX leaf has shape {leaf.shape}, parameter "
+                             f"{tuple(target.shape)}")
+        out[key] = torch.from_numpy(leaf.copy())
+    return out
