@@ -2,11 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (``uav_bs_ctrl_tpu_torch``) on one GPU.
 
 Run from anywhere: ``python3 chip_smoke.py``. Phases, each printed with its wall
-time: the device; the nvcc build of every kernel; each kernel against its plain
-PyTorch version on the card; serving the committed exp3 8-UBS TarMAC policy
-(40 worlds, one 50-step episode) through the kernels, with every step's Q
-checked against the plain path; and timings. Any failed phase exits non-zero
-with no result line. The last line is the JSON device record.
+time: the device; the nvcc build of every kernel (one nvcc per source, in
+parallel); each forward and backward kernel against its plain PyTorch version
+on the card; serving the committed exp3 8-UBS TarMAC policy (40 worlds, one
+50-step episode) through the kernels, with every step's Q checked against the
+plain path; training that run through ``uav_bs_ctrl_tpu_torch.train``'s code
+path (one warm-up and one full iteration of 40 updates, then evaluation); one
+update through the kernels against the same update on the plain path, and
+repeated bit for bit; and timings. Any failed phase exits non-zero with no
+result line. The last line is the JSON device record.
 """
 
 import contextlib
@@ -32,7 +36,16 @@ N_WORLDS = 40             # the run's n_worlds
 EPS = 0.05                # evaluate_policy's test epsilon
 DEVICE = "cuda"
 REPLACES = {"flash_gat_fused": "uav_bs_ctrl_tpu/ops/pallas_kernels.py:329",
-            "tarmac_step": "uav_bs_ctrl_tpu/ops/step_kernels.py:314"}
+            "flash_gat_fused_bwd": "uav_bs_ctrl_tpu/ops/pallas_kernels.py:623",
+            "tarmac_step": "uav_bs_ctrl_tpu/ops/step_kernels.py:314",
+            "tarmac_step_bwd": "uav_bs_ctrl_tpu/ops/step_kernels.py:379"}
+BWD_RTOL = 1e-4           # backward kernel vs plain: of each output's largest entry
+UPDATE_LOSS_RTOL = 1e-5   # one update, kernels vs plain path: LossQ
+UPDATE_GRAD_RTOL = 1e-4   # clipped grads, of the group's largest raw-gradient entry
+UPDATE_PARAM_ATOL = 1e-5  # updated params and targets, where the gradient is resolved:
+RESOLVED_RTOL = 1e-5      # |raw grad| above this share of the group's largest entry; below
+                          # it the gradient is at the f32 roundoff of the sums (zero in
+                          # exact arithmetic for some entries) and Adam's step has either sign
 
 
 @contextlib.contextmanager
@@ -155,16 +168,76 @@ def step_cost(args):
     return ops, nbytes
 
 
+def gat_bwd_cost(x, mask, hf, heads, need_dx):
+    """(operations, bytes) one flash_gat_fused_bwd call needs: per valid slot
+    the recompute of el, z, LeakyReLU and the score (2*D*HF + 5*HF), d_alpha
+    (2*HF), d_s, d_z and d_el (5*HF), the der/dattn/db sums (4*HF) and dW
+    (2*D*HF), plus 4 per head for alpha; dx adds 2*D*HF per slot. Each input
+    (x, mask, w, b, er, attn, g, out, m, l) read once, each output written once."""
+    n, m, d = x.shape
+    valid = float((mask > 0).sum())
+    ops = valid * (hf * (4 * d + 16 + (2 * d if need_dx else 0)) + 4 * heads) + 2 * n * hf
+    nbytes = 4 * (x.numel() + mask.numel() + 3 * n * hf + 2 * n * heads + 2 * d * hf + 2 * hf
+                  + n * hf + d * hf + 2 * hf + (x.numel() if need_dx else 0))
+    return ops, nbytes
+
+
+def step_bwd_cost(args):
+    """(operations, bytes) one tarmac_step_bwd call needs: the forward
+    recompute up to h2; the head, GRU (elementwise) and attention backwards;
+    the transposed products [dx|dc] = dgi wi^T, dgh wh^T and dv/ds/dq times
+    the v/s/q weights; and the 14 weight gradients X^T G with their bias sums.
+    Inputs (x, h, adjf, weights, gq, gh2) read once, outputs (dx, dh, 14
+    weight gradients) written once."""
+    x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo, wvh, bvh = args[:17]
+    rows, hid = x.shape
+    msg, key, n_act = wv.shape[1], ws.shape[1], wo.shape[1]
+    edges = float((adjf > 0).sum())
+    vsq = rows * 2 * 2 * hid * (msg + 2 * key)                  # [x|h] @ [wv|ws|wq]
+    gru = rows * 2 * ((hid + msg) * 3 * hid + hid * 3 * hid)   # the GRU's two products
+    attn = edges * (2 * key + 3 + 2 * msg)
+    recompute = vsq + attn + gru + rows * hid * 10
+    backward = (rows * 2 * hid * (n_act + 1) + rows * hid * 12  # head, GRU gates
+                + gru                                          # dgi wi^T, dgh wh^T
+                + edges * (4 * msg + 4 * key + 4)              # dalpha, dv, dscore, ds, dq
+                + vsq // 2)                                    # dv/ds/dq @ v/s/q weights
+    weight_grads = vsq + gru + rows * 2 * hid * (n_act + 1) + rows * (6 * hid + msg + 2 * key
+                                                                      + n_act + 1)
+    weights = args[3:17]
+    nbytes = 4 * (2 * sum(t.numel() for t in weights) + x.numel() + h.numel() + adjf.numel()
+                  + rows * (n_act + hid) + 2 * rows * hid)
+    return recompute + backward + weight_grads, nbytes
+
+
+def rel_err(got, want, what, limit=BWD_RTOL):
+    """max |got - want| / max(1, max |want|) over the outputs; raises beyond
+    ``limit`` or on a shape mismatch or non-finite values."""
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, want)):
+        if r is None and g is None:
+            continue
+        if g is None or r is None or g.shape != r.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{what} output {i}: bad output (missing, shape, or non-finite)")
+        err = (g - r).abs().max().item() / max(1.0, r.abs().max().item())
+        if err > limit:
+            raise AssertionError(f"{what} output {i}: max |kernel - plain| / max(1, max|plain|)"
+                                 f" = {err:.3e} beyond {limit}")
+        worst = max(worst, err)
+    return worst
+
+
 def bound(ops, nbytes):
     t_ops, t_bytes = ops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def capture_kernel_calls(agent, obs, h):
-    """The (name, args) of every kernel call one policy forward makes."""
+    """The (name, args) of every kernel call one policy forward makes (the
+    models call the forward kernels through their autograd Functions, with
+    the forward kernels' arguments)."""
     from uav_bs_ctrl_tpu_torch.models import agents, encoders
     calls = []
-    orig_gat, orig_step = encoders.flash_gat_fused, agents.tarmac_step
+    orig_gat, orig_step = encoders.flash_gat_fused_train, agents.tarmac_step_train
 
     def rec_gat(*args):
         calls.append(("flash_gat_fused", args))
@@ -174,12 +247,89 @@ def capture_kernel_calls(agent, obs, h):
         calls.append(("tarmac_step", args))
         return orig_step(*args)
 
-    encoders.flash_gat_fused, agents.tarmac_step = rec_gat, rec_step
+    encoders.flash_gat_fused_train, agents.tarmac_step_train = rec_gat, rec_step
     try:
         agent(obs, h)
     finally:
-        encoders.flash_gat_fused, agents.tarmac_step = orig_gat, orig_step
+        encoders.flash_gat_fused_train, agents.tarmac_step_train = orig_gat, orig_step
     return calls
+
+
+def capture_backward_calls(learner, batch, step):
+    """Run one kernel-path backward of ``learner`` on ``batch`` and return the
+    inputs the two backward kernels got at policy step ``step``:
+    ``[("flash_gat_fused_bwd", (fwd_args, g)) x2, ("tarmac_step_bwd",
+    (fwd_args, gq, gh2))]``, the cotangents caught by hooks on the outputs."""
+    from uav_bs_ctrl_tpu_torch.models import agents, encoders
+    orig_gat, orig_step = encoders.flash_gat_fused_train, agents.tarmac_step_train
+    seen = {"gat": 0, "step": 0}
+    grads = {}
+
+    def hook(key):
+        def store(g):
+            grads[key] = g.detach().contiguous().clone()
+        return store
+
+    def rec_gat(*args):
+        out = orig_gat(*args)
+        if torch.is_grad_enabled():
+            if seen["gat"] // 2 == step:
+                key = ("gat", seen["gat"] % 2)
+                grads[key + ("args",)] = tuple(a.detach() if torch.is_tensor(a) else a
+                                               for a in args)
+                out.register_hook(hook(key))
+            seen["gat"] += 1
+        return out
+
+    def rec_step(*args):
+        q, h2 = orig_step(*args)
+        if torch.is_grad_enabled():
+            if seen["step"] == step:
+                grads["step_args"] = tuple(a.detach() if torch.is_tensor(a) else a
+                                           for a in args)
+                q.register_hook(hook("gq"))
+                h2.register_hook(hook("gh2"))
+            seen["step"] += 1
+        return q, h2
+
+    encoders.flash_gat_fused_train, agents.tarmac_step_train = rec_gat, rec_step
+    try:
+        learner.backward(batch, use_kernels=True)
+    finally:
+        encoders.flash_gat_fused_train, agents.tarmac_step_train = orig_gat, orig_step
+    return [("flash_gat_fused_bwd", (grads[("gat", 0, "args")], grads[("gat", 0)])),
+            ("flash_gat_fused_bwd", (grads[("gat", 1, "args")], grads[("gat", 1)])),
+            ("tarmac_step_bwd", (grads["step_args"], grads["gq"], grads["gh2"]))]
+
+
+def profile_updates(learner, batch, n, ms_per_update):
+    """Device time of ``n`` kernel-path updates by kernel, from
+    ``torch.profiler`` (device-side events only, so no kernel is counted twice
+    through the operator that launched it), against ``ms_per_update``, the
+    wall time of an update measured without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with torch.enable_grad():
+        learner.update_on_batch(batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                learner.update_on_batch(batch)
+            torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3 / n, e.count // n, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  reverse=True)
+    if not rows:
+        print("  profiler: no device time recorded; the busy share is not measured", flush=True)
+        return
+    busy = sum(r[0] for r in rows)
+    print(f"  profiler, {n} updates through the kernels: device busy {busy:.2f} ms per update, "
+          f"{100 * busy / ms_per_update:.1f} % of the {ms_per_update:.2f} ms an update takes "
+          f"without the profiler; {sum(r[1] for r in rows)} kernel launches per update",
+          flush=True)
+    for ms, count, key in rows[:8]:
+        print(f"    {ms:8.3f} ms/update  {count:6d} launches/update  {key[:80]}", flush=True)
 
 
 def training_log_test_stats(run_dir, epoch):
@@ -205,14 +355,27 @@ def main():
               f"must sit beside {Path(__file__).name}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from uav_bs_ctrl_tpu_torch import serve
+    from uav_bs_ctrl_tpu_torch import serve, train
     from uav_bs_ctrl_tpu_torch.algos import collect
     from uav_bs_ctrl_tpu_torch.envs import torch_env
     from uav_bs_ctrl_tpu_torch.ops import build
-    from uav_bs_ctrl_tpu_torch.ops.gat_kernels import flash_gat_fused, flash_gat_fused_plain
-    from uav_bs_ctrl_tpu_torch.ops.step_kernels import tarmac_step, tarmac_step_plain
+    from uav_bs_ctrl_tpu_torch.ops.gat_kernels import (
+        flash_gat_fused, flash_gat_fused_bwd, flash_gat_fused_bwd_plain, flash_gat_fused_plain)
+    from uav_bs_ctrl_tpu_torch.ops.step_kernels import (
+        tarmac_step, tarmac_step_bwd, tarmac_step_bwd_plain, tarmac_step_plain)
     kernels = {"flash_gat_fused": (flash_gat_fused, flash_gat_fused_plain),
                "tarmac_step": (tarmac_step, tarmac_step_plain)}
+    bwd_kernels = {"flash_gat_fused_bwd": (flash_gat_fused_bwd, flash_gat_fused_bwd_plain),
+                   "tarmac_step_bwd": (tarmac_step_bwd, tarmac_step_bwd_plain)}
+    all_kernels = {name: table[name] for name in REPLACES
+                   for table in (kernels, bwd_kernels) if name in table}
+
+    def reset_counts():
+        for fn, _ in all_kernels.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, (fn, _) in all_kernels.items()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -227,9 +390,9 @@ def main():
               f"nvidia-smi: {card}", flush=True)
 
     with phase("build"):
-        build.build(list(kernels))
+        build.build(list(all_kernels))
 
-    worst = dict.fromkeys(kernels, 0.0)
+    worst = dict.fromkeys(all_kernels, 0.0)
     rng = np.random.default_rng(0)
     with phase("kernels against plain versions"):
         for n, m, d, label in ((320, 50, 4, "seen"), (320, 7, 2, "near"), (4096, 50, 4, "large")):
@@ -254,20 +417,49 @@ def main():
                       f"(isolated destination {iso.abs().max().item():.1e})", flush=True)
                 worst["tarmac_step"] = max(worst["tarmac_step"], err)
 
+    with phase("backward kernels against plain versions"):
+        for n in (256, 4096):
+            for m, d in ((50, 4), (7, 2)):
+                c = gat_case(rng, n, m, d, 256, 4, masked_rows=[1, 5, n - 1])
+                args = (c["x"], c["w"], c["b"], c["er"], c["attn"], c["mask"])
+                out, mstat, lstat = flash_gat_fused(*args, 4)
+                g = torch.randn(out.shape, device=device)
+                for need_dx in (False, True):
+                    bwd_args = args + (out, mstat, lstat, g, 4, 0.2, need_dx)
+                    got = flash_gat_fused_bwd(*bwd_args)
+                    what = f"flash_gat_fused_bwd N={n} M={m} D={d} dx={need_dx}"
+                    err = rel_err(got, flash_gat_fused_bwd_plain(*bwd_args), what)
+                    zero = got[3][[1, 5, n - 1]].abs().max().item()
+                    if zero != 0.0:
+                        raise AssertionError(f"{what}: fully masked rows gave der {zero}")
+                    print(f"  {what}: max rel err {err:.3e}", flush=True)
+                    worst["flash_gat_fused_bwd"] = max(worst["flash_gat_fused_bwd"], err)
+        for w in (32, 512):
+            for dueling in (False, True):
+                c = step_case(rng, w, 8, 256, 64, 16, 9)
+                gq = torch.randn((w * 8, 9), device=device)
+                gh2 = torch.randn((w * 8, 256), device=device)
+                args = tuple(c.values()) + (gq, gh2, 8, 16, dueling)
+                what = f"tarmac_step_bwd W={w} dueling={dueling}"
+                err = rel_err(tarmac_step_bwd(*args), tarmac_step_bwd_plain(*args), what)
+                print(f"  {what} (world 0, agent 1 hears no one): max rel err {err:.3e}",
+                      flush=True)
+                worst["tarmac_step_bwd"] = max(worst["tarmac_step_bwd"], err)
+
     with phase(f"serve {RUN_DIR.name}: {N_WORLDS} worlds, one episode, eps={EPS}"):
-        flash_gat_fused.launches = 0
-        tarmac_step.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         stats = serve.evaluate(RUN_DIR, N_WORLDS, eps=EPS, seed=0, device=DEVICE)
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
-        launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+        serve_launches = counts()
         steps = torch_env.make_params("8ubs").episode_limit
-        print(f"  launches on the main path: {launches} over {steps} env steps "
+        print(f"  launches on the serving path: {serve_launches} over {steps} env steps "
               f"({serve_s:.2f} s, loading included)", flush=True)
-        if launches != {"flash_gat_fused": 2 * steps, "tarmac_step": steps}:
-            raise AssertionError(f"expected {2 * steps} flash_gat_fused and {steps} "
-                                 f"tarmac_step launches, got {launches}")
+        want = {"flash_gat_fused": 2 * steps, "tarmac_step": steps,
+                "flash_gat_fused_bwd": 0, "tarmac_step_bwd": 0}
+        if serve_launches != want:
+            raise AssertionError(f"expected {want} launches, got {serve_launches}")
         for key, v in stats.items():
             if tuple(v.shape) != (N_WORLDS,) or not torch.isfinite(v).all():
                 raise AssertionError(f"{key}: shape {tuple(v.shape)} or non-finite values")
@@ -304,32 +496,184 @@ def main():
             worst[name] = max(worst[name], max_err(fn(*args), plain(*args),
                                                    f"{name} on serving inputs"))
 
+    with phase(f"train {RUN_DIR.name}: one warm-up and one full iteration, then "
+               f"{N_WORLDS} test episodes"):
+        with torch.enable_grad():
+            t0 = time.perf_counter()
+            trainer = train.build_trainer(RUN_DIR, DEVICE)
+            learner = trainer.learner
+            n_updates = trainer.updates_per_iter
+            T, B, A = trainer.T, learner.batch_size, trainer.env_params.n_ubs
+            print(f"  {trainer.n_worlds} worlds, interleave {trainer.interleave}, "
+                  f"{trainer.updates_per_iter} updates per iteration at B={B}, T={T}; ring of "
+                  f"{trainer.capacity} chunks; {len(trainer.pool[0])} layouts (the run's 64k cut "
+                  f"to the trainer's default); lr {learner.lr} x {learner.lr_scale}", flush=True)
+            reset_counts()
+            t1 = time.perf_counter()
+            warm = trainer.run_iteration(EPS, warmup=True)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            metrics = trainer.run_iteration(EPS)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            test = trainer.evaluate(N_WORLDS, eps=EPS)
+            train_launches = counts()
+        losses = trainer.last_losses.tolist()
+        print(f"  load {t1 - t0:.2f} s, warm-up {t2 - t1:.2f} s, iteration {t3 - t2:.2f} s "
+              f"(eps {EPS})", flush=True)
+        print(f"  warm-up episode stats: {json.dumps(warm)}")
+        print(f"  LossQ per update: {json.dumps([round(v, 4) for v in losses])}")
+        print(f"  iteration: {json.dumps(metrics)}")
+        print(f"  test episodes: {json.dumps({k: float(v.mean()) for k, v in test.items()})}")
+        print(f"  launches on the training path: {train_launches}", flush=True)
+        if len(losses) != n_updates or not all(np.isfinite(losses)):
+            raise AssertionError(f"expected {n_updates} finite LossQ values, got {losses}")
+        if (trainer._size, trainer._ptr) != (2 * trainer.n_worlds, 2 * trainer.n_worlds):
+            raise AssertionError(f"ring size/ptr {trainer._size}/{trainer._ptr}, "
+                                 f"expected {2 * trainer.n_worlds}")
+        policy_steps = (1 + trainer.interleave + 1) * T       # warm-up, sub-iterations, test
+        per_update = {"flash_gat_fused": 2 * (2 * T + 1), "tarmac_step": 2 * T + 1,
+                      "flash_gat_fused_bwd": 2 * T, "tarmac_step_bwd": T}
+        want = {k: n_updates * v for k, v in per_update.items()}
+        want["flash_gat_fused"] += 2 * policy_steps
+        want["tarmac_step"] += policy_steps
+        if train_launches != want:
+            raise AssertionError(f"expected {want} launches, got {train_launches}")
+
+    with phase("one update through the kernels against the plain path, then again bit for bit"):
+        batch = trainer.sample_batch()
+        snap = learner.state_dict()
+        names = [f"net.{k}" for k, _ in learner.net.named_parameters()] + \
+            [f"mixer.{k}" for k, _ in learner.mixer.named_parameters()]
+
+        def one_update(use_kernels):
+            learner.load_state_dict(snap)
+            with torch.enable_grad():
+                m = learner.backward(batch, use_kernels)
+                raw = [p.grad.detach().clone() for p in learner.parameters()]
+                learner.apply_grads()
+            clipped = [p.grad.detach().clone() for p in learner.parameters()]
+            return float(m["LossQ"]), raw, clipped, learner.state_dict()
+
+        before = counts()
+        kern = one_update(True)
+        launched = {k: v - before[k] for k, v in counts().items()}
+        plain_upd = one_update(False)
+        again = one_update(True)
+        learner.load_state_dict(snap)
+        print(f"  launches in one update: {launched}", flush=True)
+        if launched != per_update:
+            raise AssertionError(f"expected {per_update} launches per update, got {launched}")
+        loss_err = abs(kern[0] - plain_upd[0]) / abs(plain_upd[0])
+        scale = {g: max(r.abs().max().item() for n, r in zip(names, plain_upd[1])
+                        if n.startswith(g)) for g in ("net", "mixer")}
+        grad_err = max((k - q).abs().max().item() / scale[n.split(".")[0]]
+                       for n, k, q in zip(names, kern[2], plain_upd[2]))
+        resolved = {n: r.abs() > RESOLVED_RTOL * scale[n.split(".")[0]]
+                    for n, r in zip(names, plain_upd[1])}
+        param_err, loose, loose_err, n_entries = 0.0, 0, 0.0, 0
+        for mod in ("net", "mixer", "target_net", "target_mixer"):
+            for k, v in kern[3][mod].items():
+                name = f"{mod.replace('target_', '')}.{k}"
+                diff = (v - plain_upd[3][mod][k]).abs()
+                param_err = max(param_err, diff[resolved[name]].max().item()
+                                if resolved[name].any() else 0.0)
+                n_entries += diff.numel()
+                if not resolved[name].all():
+                    loose += int((~resolved[name]).sum())
+                    loose_err = max(loose_err, diff[~resolved[name]].max().item())
+        bitwise = kern[0] == again[0] and all(
+            torch.equal(a, b) for a, b in zip(kern[2] + kern[1], again[2] + again[1])) and all(
+            torch.equal(v, again[3][mod][k]) for mod in ("net", "mixer", "target_net",
+                                                         "target_mixer")
+            for k, v in kern[3][mod].items())
+        print(f"  LossQ kernels {kern[0]:.6f}, plain {plain_upd[0]:.6f} (rel diff {loss_err:.2e},"
+              f" limit {UPDATE_LOSS_RTOL}); clipped grads max |diff| / largest raw gradient "
+              f"of the group {grad_err:.2e} (limit {UPDATE_GRAD_RTOL}; largest raw gradient "
+              f"net {scale['net']:.4g}, mixer {scale['mixer']:.4g}); params and targets max "
+              f"|diff| {param_err:.2e} where the gradient is resolved (limit {UPDATE_PARAM_ATOL})"
+              f"; repeated kernel update bit-identical: {bitwise}", flush=True)
+        print(f"  {loose} of {n_entries} param and target entries have a raw gradient below "
+              f"{RESOLVED_RTOL} of their group's largest (roundoff level); there the two "
+              f"updates differ by up to {loose_err:.2e}", flush=True)
+        if not (loss_err <= UPDATE_LOSS_RTOL and grad_err <= UPDATE_GRAD_RTOL
+                and param_err <= UPDATE_PARAM_ATOL and bitwise):
+            raise AssertionError("the kernel update disagrees with the plain path or does "
+                                 "not repeat bit for bit")
+
     record = []
     with phase("times"):
         print(f"  card: {card}", flush=True)
-        for name, (fn, plain) in kernels.items():
-            rows = []
-            for cname, args in calls:
-                if cname != name:
-                    continue
-                ms = time_cuda(lambda: fn(*args))
-                plain_ms = time_cuda(lambda: plain(*args))
-                cost = (gat_cost(args[0], args[5], args[1].shape[1], args[6])
-                        if name == "flash_gat_fused" else step_cost(args))
+        for cname, args in calls:
+            fn, plain = kernels[cname]
+            print(f"  serving {cname} {tuple(args[0].shape)}: {time_cuda(lambda: fn(*args)):.4f}"
+                  f" ms, plain {time_cuda(lambda: plain(*args)):.4f} ms", flush=True)
+        with torch.enable_grad():
+            bwd_calls = capture_backward_calls(learner, batch, T // 2)
+        learner.load_state_dict(snap)
+        timed = {name: [] for name in all_kernels}
+        for name, captured in bwd_calls:
+            fwd_args = captured[0]
+            if name == "flash_gat_fused_bwd":
+                out, mstat, lstat = flash_gat_fused(*fwd_args)
+                fwd_name, fwd_cost = "flash_gat_fused", gat_cost(fwd_args[0], fwd_args[5],
+                                                                 fwd_args[1].shape[1],
+                                                                 fwd_args[6])
+                bwd_args = fwd_args[:6] + (out, mstat, lstat, captured[1]) + fwd_args[6:] + \
+                    (False,)
+                bwd_cost = gat_bwd_cost(fwd_args[0], fwd_args[5], fwd_args[1].shape[1],
+                                        fwd_args[6], False)
+            else:
+                fwd_name, fwd_cost = "tarmac_step", step_cost(fwd_args)
+                bwd_args = fwd_args[:17] + captured[1:] + fwd_args[17:]
+                bwd_cost = step_bwd_cost(fwd_args)
+            worst[name] = max(worst[name], rel_err(all_kernels[name][0](*bwd_args),
+                                                   all_kernels[name][1](*bwd_args),
+                                                   f"{name} on training inputs"))
+            for kname, kargs, cost in ((fwd_name, fwd_args, fwd_cost),
+                                       (name, bwd_args, bwd_cost)):
+                fn, plain = all_kernels[kname]
+                ms = time_cuda(lambda: fn(*kargs))
+                plain_ms = time_cuda(lambda: plain(*kargs))
                 bound_ms, bound_by = bound(*cost)
-                print(f"  {name} {tuple(args[0].shape)}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                      f"bound {bound_ms:.5f} ms ({bound_by}: {cost[0]:.3e} ops, "
-                      f"{cost[1]:.3e} bytes)", flush=True)
-                rows.append((ms, plain_ms, bound_ms, bound_by))
+                print(f"  training {kname} {tuple(kargs[0].shape)}: {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+                      f"{cost[0]:.3e} ops, {cost[1]:.3e} bytes)", flush=True)
+                timed[kname].append((ms, plain_ms, bound_ms, bound_by))
+        for name, rows in timed.items():
             record.append({
                 "name": name, "route": "cuda",
                 "source": f"uav_bs_ctrl_tpu_torch/ops/csrc/{name}.cu",
-                "replaces": REPLACES[name], "launches": launches[name],
+                "replaces": REPLACES[name], "launches": train_launches[name],
                 "max_abs_err": worst[name],
                 "ms": statistics.mean(r[0] for r in rows),
                 "plain_ms": statistics.mean(r[1] for r in rows),
                 "bound_ms": statistics.mean(r[2] for r in rows),
                 "bound_by": rows[0][3], "library_ms": None})
+
+        def ms_per_update(use_kernels, n=5):
+            learner.load_state_dict(snap)
+            with torch.enable_grad():
+                learner.update_on_batch(batch, use_kernels)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    learner.update_on_batch(batch, use_kernels)
+                torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        upd = {True: [], False: []}
+        for use_kernels in (False, True, True, False):
+            upd[use_kernels].append(ms_per_update(use_kernels))
+        learner.load_state_dict(snap)
+        edges = B * (2 * T + 1) * A * (trainer.env_params.n_gts + (A - 1) + A)
+        for use_kernels, label in ((True, "kernels"), (False, "plain path")):
+            ms = statistics.mean(upd[use_kernels])
+            print(f"  one update ({label}): {ms:.2f} ms (runs {upd[use_kernels]}), "
+                  f"{1e3 / ms:.2f} updates/s, {edges * 1e3 / ms:.4g} message-passing edges/s "
+                  f"({edges} edges per update = B(2T+1)A(M+K+A))", flush=True)
+        profile_updates(learner, batch, 2, statistics.mean(upd[True]))
+        learner.load_state_dict(snap)
         obs, h = first
         fwd_ms = time_cuda(lambda: agent(obs, h))
         host = []

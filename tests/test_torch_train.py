@@ -1,0 +1,240 @@
+"""The port's training slice against the JAX package's, around the update
+(which ``test_torch_update.py`` holds to JAX): the QMIX mixer, the global
+state vector, the replay buffer's sampling, ``collect_chunk``, the fused
+trainer and the ``train`` entry point. Inputs are made with numpy from a seed
+and handed to both packages. Tolerance 1e-5 (f32, sums taken in another
+order).
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace as SN
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from uav_bs_ctrl_tpu.algos import collect as jcollect
+from uav_bs_ctrl_tpu.algos.buffer import SequenceReplayBuffer as JaxBuffer
+from uav_bs_ctrl_tpu.algos.madrqn.fused import FusedMadrqnTrainer as JaxTrainer
+from uav_bs_ctrl_tpu.envs import jax_env
+from uav_bs_ctrl_tpu.models import agents as jagents
+from uav_bs_ctrl_tpu.models import heads as jheads
+from uav_bs_ctrl_tpu_torch.algos import collect
+from uav_bs_ctrl_tpu_torch.algos.buffer import SequenceReplayBuffer
+from uav_bs_ctrl_tpu_torch.algos.madrqn.fused import FusedMadrqnTrainer
+from uav_bs_ctrl_tpu_torch.config import make_args
+from uav_bs_ctrl_tpu_torch.envs import torch_env
+from uav_bs_ctrl_tpu_torch.models.agents import GnnAgent
+from uav_bs_ctrl_tpu_torch.models.heads import QMixer
+from uav_bs_ctrl_tpu_torch.utils.convert import params_from_jax
+
+ROOT = Path(__file__).resolve().parents[1]
+RUN_DIR = (ROOT / "data" / "exp3_fast_8ubs_tarmac_qmix_il10_lay64k"
+           / "exp3_fast_8ubs_tarmac_qmix_il10_lay64k_s0")
+TOL = dict(atol=1e-5, rtol=1e-5)
+TIE_RTOL = 1e-6
+OBS_SHAPE = {"agent": 2, "gt": 4, "ubs": 2}
+BLOCKED = ["flax", "jax", "jaxlib", "matplotlib", "optax", "orbax", "pandas",
+           "uav_bs_ctrl_tpu"]
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _close(got, want, tol=TOL, what=""):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(want), err_msg=what, **tol)
+
+
+# ---------------------------------------------------------------- small modules
+
+def test_qmixer_matches_jax():
+    rng = np.random.default_rng(0)
+    jm = jheads.QMixer(22, 3, SN(embed_dim=8))
+    p = jm.init(jax.random.PRNGKey(0))
+    qs = rng.normal(size=(5, 4, 3)).astype(np.float32)
+    states = rng.normal(size=(5, 4, 22)).astype(np.float32)
+    port = QMixer(22, 3, 8)
+    port.load_state_dict(params_from_jax(_np(p), port))
+    _close(port(torch.from_numpy(qs), torch.from_numpy(states)), jm.apply(p, qs, states))
+
+
+@pytest.mark.parametrize("map_id,width", [("debug", 22), ("8ubs", 216)])
+def test_get_state_vec_matches_jax(map_id, width):
+    jp, tp = jax_env.make_params(map_id), torch_env.make_params(map_id)
+    ubs, gts = collect.make_layout_pool(map_id, 2, seed=3)
+    ubs = gts[:, ::max(1, jp.n_gts // jp.n_ubs)][:, :jp.n_ubs] + 20.0   # serve from step 0
+    keys = jax.random.split(jax.random.PRNGKey(3), 2)
+    prior = np.stack([np.asarray(jax.random.permutation(k, jp.n_gts)) for k in keys])
+    js = jax.vmap(lambda u, g, k: jax_env.reset_from_positions(jp, u, g, k))(
+        jnp.asarray(ubs), jnp.asarray(gts), keys)
+    ts = torch_env.reset_from_positions(tp, torch.from_numpy(ubs), torch.from_numpy(gts),
+                                        torch.from_numpy(prior))
+    want = jax.vmap(lambda s: jax_env.get_state_vec(jp, s))(js)
+    got = torch_env.get_state_vec(tp, ts)
+    assert tuple(got.shape) == (2, width)
+    assert float(np.abs(np.asarray(want)[:, 2 * jp.n_ubs:]).max()) > 0
+    _close(got, want)
+
+
+def _chunks(rng, n, t, a):
+    return dict(obs={"agent": rng.normal(size=(n, t + 1, a, 2)).astype(np.float32),
+                     "adj": rng.random((n, t + 1, a, a)) > 0.5},
+                h=rng.normal(size=(n, 2, a, 4)).astype(np.float32),
+                act=rng.integers(0, 5, size=(n, t, a)).astype(np.int32),
+                rew=rng.normal(size=(n, t, a)).astype(np.float32),
+                done=np.zeros((n, t), np.float32))
+
+
+def test_replay_buffer_samples_the_same_chunks_as_jax():
+    """Chunks pushed at once (wrapping around the ring) and transitions pushed
+    one by one (T+1 entries for obs/h, T for act/rew/done); then the same
+    indices, without replacement, from the same RandomState."""
+    rng = np.random.default_rng(1)
+    port, ref = SequenceReplayBuffer(7, 3), JaxBuffer(7, 3)
+    for n in (3, 4, 2):
+        chunks = _chunks(rng, n, 3, 2)
+        port.push_chunks(chunks)
+        ref.push_chunks(chunks)
+    port_tr, ref_tr = SequenceReplayBuffer(4, 3), JaxBuffer(4, 3)
+    for step in range(9):                   # three chunks of T=3
+        tr = dict(obs={"agent": rng.normal(size=(2, 2)).astype(np.float32),
+                       "adj": rng.random((2, 2)) > 0.5},
+                  h=rng.normal(size=(2, 4)).astype(np.float32),
+                  act=np.asarray([1, step % 5], np.int32), rew=np.float32(step),
+                  done=np.float32(0), next_obs={"agent": np.ones((2, 2), np.float32),
+                                                "adj": np.ones((2, 2), bool)},
+                  next_h=np.ones((2, 4), np.float32))
+        port_tr.push(tr)
+        ref_tr.push(tr)
+    for p, r, n in ((port, ref, 7), (port_tr, ref_tr, 3)):
+        assert len(p) == len(r) == n and p._write_ptr == r._write_ptr
+        for seed in (0, 1):
+            got = p.sample(3, np.random.RandomState(seed))
+            want = r.sample(3, np.random.RandomState(seed))
+            assert got["obs"]["agent"].shape[1] == 4 and got["act"].shape[1] == 3
+            for g, w in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+                np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------- collection, trainer
+
+HID, HEADS, MSG, KEY = 16, 2, 8, 4
+
+
+def _kw(mixer, dueling):
+    return dict(o="gnn", c="tarmac", hidden_size=HID, n_heads=HEADS, msg_size=MSG,
+                key_size=KEY, n_rounds=1, mixer=mixer, double_q=True, dueling=dueling)
+
+
+def _assert_priority_equal_up_to_ties(got, want_prior, want_avg):
+    g, w, avg = got.numpy(), np.asarray(want_prior), np.asarray(want_avg)
+    for world in range(g.shape[0]):
+        assert sorted(g[world]) == list(range(g.shape[1]))
+        np.testing.assert_allclose(avg[world][g[world]], avg[world][w[world]],
+                                   rtol=TIE_RTOL, atol=0, err_msg="prior_gts")
+
+
+def test_collect_chunk_matches_jax(monkeypatch):
+    """eps = 0 from the same reset states; the torch env continues from the
+    JAX priority order after each step, where the two may differ only by an
+    exact rate tie (as in test_torch_env.py)."""
+    map_id, n_w = "debug", 3
+    jp, tp = jax_env.make_params(map_id), torch_env.make_params(map_id)
+    T = jp.episode_limit
+    ubs, gts = collect.make_layout_pool(map_id, n_w, seed=4)
+    ubs = gts[:, :jp.n_ubs] + 15.0
+    keys = jax.random.split(jax.random.PRNGKey(4), n_w)
+    prior = np.stack([np.asarray(jax.random.permutation(k, jp.n_gts)) for k in keys])
+    js = jax.vmap(lambda u, g, k: jax_env.reset_from_positions(jp, u, g, k))(
+        jnp.asarray(ubs), jnp.asarray(gts), keys)
+    ts = torch_env.reset_from_positions(tp, torch.from_numpy(ubs), torch.from_numpy(gts),
+                                        torch.from_numpy(prior))
+    args = SN(**_kw(False, False))
+    jagent = jagents.GnnAgent(OBS_SHAPE, jp.n_actions, args)
+    p = jagent.init(jax.random.PRNGKey(7))
+    agent = GnnAgent(OBS_SHAPE, jp.n_actions, make_args(_kw(False, False), device="cpu"))
+    agent.load_state_dict(params_from_jax(_np(p), agent))
+    h0 = np.zeros((n_w, jp.n_ubs, HID), np.float32)
+    want, _, want_stats = jcollect.collect_chunk(jp, jagent.apply, p, js, jnp.asarray(h0), T,
+                                                 jax.random.PRNGKey(0), jnp.float32(0.0))
+
+    # The JAX env's states after each step, from the chunk's actions.
+    jstep = jax.jit(jax.vmap(lambda s, a: jax_env.step(jp, s, a)))
+    jstates = []
+    for t in range(T):
+        js = jstep(js, want["act"][:, t])[0]
+        jstates.append(js)
+    step, calls = torch_env.step, []
+
+    def resynced_step(params, state, actions):
+        state, obs, rew, done = step(params, state, actions)
+        ref = jstates[len(calls)]
+        calls.append(None)
+        _assert_priority_equal_up_to_ties(state.prior_gts, ref.prior_gts, ref.avg_rate_per_gt)
+        prior_j = torch.from_numpy(np.asarray(ref.prior_gts, np.int64))
+        return state._replace(prior_gts=prior_j), obs, rew, done
+
+    monkeypatch.setattr(torch_env, "step", resynced_step)
+    with torch.no_grad():
+        got, _, got_stats = collect.collect_chunk(tp, agent, ts, torch.from_numpy(h0), T,
+                                                  torch.Generator().manual_seed(0), 0.0)
+    assert len(calls) == T
+    for k in ("agent", "gt", "ubs"):
+        _close(got["obs"][k], want["obs"][k], what=k)
+    np.testing.assert_array_equal(got["obs"]["adj"].numpy(), np.asarray(want["obs"]["adj"]))
+    np.testing.assert_array_equal(got["act"].numpy(), np.asarray(want["act"]))
+    assert got["act"].dtype == torch.int32
+    for k in ("h", "state", "rew", "done"):
+        assert tuple(got[k].shape) == want[k].shape, k
+        _close(got[k], want[k], what=k)
+    assert not got["done"].any()
+    for k in want_stats:
+        _close(got_stats[k], want_stats[k], what=k)
+    assert float(np.abs(np.asarray(want["rew"])).sum()) > 0
+
+
+def test_fused_trainer_runs_and_moves_the_ring_as_jax():
+    kw = dict(device="cpu", o="gnn", c="tarmac", hidden_size=16, msg_size=8, batch_size=4,
+              mixer=True, double_q=True)
+    sizes = dict(n_worlds=4, capacity_chunks=8, updates_per_iter=4, n_layouts=4, seed=0,
+                 interleave=2)
+    port, ref = FusedMadrqnTrainer("debug", kw, **sizes), JaxTrainer("debug", kw, **sizes)
+    p0 = {k: v.clone() for k, v in port.learner.net.state_dict().items()}
+    for warmup in (True, False, False):
+        mp = port.run_iteration(eps=0.5, warmup=warmup)
+        mr = ref.run_iteration(eps=0.5, warmup=warmup)
+        assert (port._ptr, port._size) == (ref._ptr, ref._size)
+        assert set(mp) == set(mr) and all(np.isfinite(v) for v in mp.values())
+    assert (port._ptr, port._size) == (4, 8)          # wrapped once, capped at capacity
+    assert port.replay["obs"]["gt"].shape == ref.replay["obs"]["gt"].shape
+    assert port.replay["rew"].shape[-1] == 1          # QMIX: one shared reward
+    assert any(not torch.equal(p0[k], v) for k, v in port.learner.net.state_dict().items())
+    stats = port.evaluate(n_episodes=3)
+    assert all(v.shape == (3,) and np.isfinite(v).all() for v in stats.values())
+
+
+def test_train_entry_point_runs_where_jax_optax_pandas_are_missing():
+    """``train --device cpu`` with the modules the GPU machine lacks blocked:
+    one tiny iteration from the committed checkpoint at full width."""
+    code = (
+        "import sys, runpy\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"sys.argv = ['train', '--run-dir', {str(RUN_DIR)!r}, '--device', 'cpu',"
+        " '--iterations', '1', '--tiny']\n"
+        "runpy.run_module('uav_bs_ctrl_tpu_torch.train', run_name='__main__')\n"
+        f"assert not any(sys.modules.get(n) for n in {BLOCKED!r})\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    metrics = json.loads(out.stdout.strip().splitlines()[-1])
+    assert {"LossQ", "EpRet", "TestEpRet"} <= set(metrics)
+    assert all(np.isfinite(v) for v in metrics.values())

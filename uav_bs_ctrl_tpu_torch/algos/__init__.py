@@ -1,1 +1,1 @@
-"""Serving-side rollout: layout pools, world resets and test episodes."""
+"""Rollouts, replay, the recurrent Q-learning update and the fused trainer."""

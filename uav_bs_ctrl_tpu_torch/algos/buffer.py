@@ -1,0 +1,88 @@
+"""Fixed-shape ring replay buffer for recurrent agents (counterpart of
+``algos/buffer.py``).
+
+Host NumPy storage: transitions accumulate into a chunk of ``max_seq_len``
+steps; each completed chunk is written into preallocated ring storage, so a
+sample is one fancy-index gather giving ``[B, T(+1), ...]`` batches. Sequence
+fields (``obs``/``h``/``state``) store T+1 entries, the last being the *next*
+obs/h/state after the final step; ``act``/``rew``/``done`` store T. The fused
+trainer keeps its own ring on the device (``algos/madrqn/fused.py``).
+"""
+
+import numpy as np
+
+SEQ_KEYS = ("obs", "h", "state")  # fields that carry the trailing next-value
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (the layout of every chunk)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+class SequenceReplayBuffer:
+    """Ring buffer of fixed-length transition chunks (dict-valued fields)."""
+
+    def __init__(self, capacity: int, max_seq_len: int):
+        self.capacity = capacity
+        self.max_seq_len = max_seq_len
+        self._storage = None      # key -> tree of np arrays [capacity, T(+1), ...]
+        self._size = 0
+        self._write_ptr = 0
+        self._chunk = []          # transition dicts of the current chunk
+
+    def __len__(self):
+        return self._size
+
+    def push(self, transition: dict):
+        """Store one transition: ``obs``/``h`` (trees), optional ``state``,
+        ``act``, ``rew``, ``done``, plus ``next_obs``/``next_h``/
+        [``next_state``], read only when the chunk completes."""
+        self._chunk.append(transition)
+        if len(self._chunk) == self.max_seq_len:
+            self._commit_chunk()
+            self._chunk = []
+
+    def _commit_chunk(self):
+        last = self._chunk[-1]
+        chunk = {}
+        for k in ("obs", "h", "state", "act", "rew", "done"):
+            if k not in last:
+                continue
+            steps = [tr[k] for tr in self._chunk]
+            if k in SEQ_KEYS:
+                steps = steps + [last["next_" + k]]
+            chunk[k] = tree_map(lambda *xs: np.stack(xs), *steps)
+        if self._storage is None:
+            self._storage = tree_map(
+                lambda x: np.zeros((self.capacity,) + np.shape(x), np.asarray(x).dtype), chunk)
+        idx = self._write_ptr
+        tree_map(lambda store, x: store.__setitem__(idx, x), self._storage, chunk)
+        self._write_ptr = (self._write_ptr + 1) % self.capacity
+        self._size = min(self._size + 1, self.capacity)
+
+    def push_chunks(self, chunks: dict):
+        """Write a batch of completed chunks at once: a tree with leaves
+        ``[B, T(+1), ...]``, the layout of ``algos.collect.collect_chunk``."""
+        chunks = tree_map(np.asarray, chunks)
+        n_new = tree_leaves(chunks)[0].shape[0]
+        if self._storage is None:
+            self._storage = tree_map(
+                lambda x: np.zeros((self.capacity,) + x.shape[1:], x.dtype), chunks)
+        idx = (self._write_ptr + np.arange(n_new)) % self.capacity
+        tree_map(lambda store, x: store.__setitem__(idx, x), self._storage, chunks)
+        self._write_ptr = (self._write_ptr + n_new) % self.capacity
+        self._size = min(self._size + n_new, self.capacity)
+
+    def sample(self, batch_size: int, rng=None) -> dict:
+        """Chunks drawn uniformly without replacement -> leaves [B, T(+1), ...]."""
+        rng = rng if rng is not None else np.random
+        idx = rng.choice(self._size, size=batch_size, replace=False)
+        return tree_map(lambda store: store[idx], self._storage)

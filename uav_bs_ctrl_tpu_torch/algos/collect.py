@@ -1,10 +1,11 @@
-"""Serving-side rollouts on the device (counterpart of ``algos/collect.py``).
+"""Rollouts on the device (counterpart of ``algos/collect.py``).
 
-Test episodes run W worlds at once: the policy acts greedily with a joint
-epsilon per world per step (the reference's exploration rule), and only the
-final episode statistics leave the device. Random draws come from a CPU
-``torch.Generator`` and are moved to the device, so one seed gives the same
-draws on the CPU and on the card.
+Episodes run W worlds at once: the policy acts greedily with a joint epsilon
+per world per step (the reference's exploration rule). ``collect_chunk``
+returns the experience in the replay layout; ``eval_rollout`` only the final
+episode statistics. Random draws come from a CPU ``torch.Generator`` and are
+moved to the device, so one seed gives the same draws on the CPU and on the
+card.
 """
 
 import numpy as np
@@ -38,25 +39,66 @@ def reset_worlds(params, pool, generator, n_worlds, device):
                                           pool_gts[idx].to(device), prior.to(device))
 
 
+def _act(policy, obs, h, generator, eps, n_actions):
+    """Joint epsilon-greedy actions [W, A] and the next hidden state."""
+    q, h2 = policy(obs, h)
+    greedy = q.argmax(-1)                                       # [W, A]
+    rand = torch.randint(0, n_actions, tuple(greedy.shape), generator=generator)
+    explore = torch.rand((greedy.shape[0], 1), generator=generator) < eps
+    return torch.where(explore.to(h.device), rand.to(h.device), greedy), h2
+
+
+def episode_stats(states, prefix=""):
+    return {f"{prefix}EpRet": states.ep_ret, f"{prefix}FairIdx": states.fair_idx,
+            f"{prefix}AvgGlobalUtility": states.avg_global_util,
+            f"{prefix}TotalThroughput": states.total_throughput,
+            f"{prefix}ProbCollision": states.n_colls / torch.clamp(
+                states.t.to(torch.float32), min=1)}
+
+
+def collect_chunk(env_params, policy, states, h0, n_steps, generator, eps):
+    """Roll ``n_steps`` steps of every world; returns ``(chunk, states, stats)``.
+
+    The chunk is in the replay layout: ``obs`` dict of [W, T+1, ...] (the last
+    entry is the obs after the final step), ``h`` [W, 2, A, H] (h at t=0 and
+    t=1, all the BPTT update reads), ``state`` [W, T+1, ds], ``act`` [W, T, A]
+    int32, ``rew`` [W, T, A] and ``done`` [W, T]. Episodes end only by
+    timeout, where the reference stores ``(1 - bad_mask) * done`` with
+    ``bad_mask == done``: the stored ``done`` is identically zero, so TD
+    targets always bootstrap.
+    """
+    obs_seq, state_seq, h_pair, acts_seq, rew_seq, done_seq = [], [], [h0], [], [], []
+    h = h0
+    obs = torch_env.get_obs(env_params, states)
+    for _ in range(n_steps):
+        obs_seq.append(obs)
+        state_seq.append(torch_env.get_state_vec(env_params, states))
+        acts, h = _act(policy, obs, h, generator, eps, env_params.n_actions)
+        if len(h_pair) == 1:
+            h_pair.append(h)
+        states, obs, rew, done = torch_env.step(env_params, states, acts)
+        acts_seq.append(acts)
+        rew_seq.append(rew)
+        done_seq.append(done)
+    obs_seq.append(obs)
+    state_seq.append(torch_env.get_state_vec(env_params, states))
+    raw_done = torch.stack(done_seq, 1).to(torch.float32)
+    chunk = dict(obs={k: torch.stack([o[k] for o in obs_seq], 1) for k in obs_seq[0]},
+                 h=torch.stack(h_pair, 1), state=torch.stack(state_seq, 1),
+                 act=torch.stack(acts_seq, 1).to(torch.int32),
+                 rew=torch.stack(rew_seq, 1), done=raw_done * (1.0 - raw_done))
+    return chunk, states, episode_stats(states)
+
+
 def eval_rollout(env_params, policy, states, h0, n_steps, generator, eps):
     """Roll ``n_steps`` steps of every world with ``policy(obs, h) -> (q, h')``
     choosing epsilon-greedy actions; returns the episode statistics [W]."""
-    n_w, n_act = h0.shape[0], env_params.n_actions
-    device = h0.device
     h = h0
+    obs = torch_env.get_obs(env_params, states)
     for _ in range(n_steps):
-        obs = torch_env.get_obs(env_params, states)
-        q, h = policy(obs, h)
-        greedy = q.argmax(-1)                                   # [W, A]
-        rand = torch.randint(0, n_act, tuple(greedy.shape), generator=generator)
-        explore = torch.rand((n_w, 1), generator=generator) < eps
-        acts = torch.where(explore.to(device), rand.to(device), greedy)
-        states, _, _, _ = torch_env.step(env_params, states, acts)
-    return dict(TestEpRet=states.ep_ret, TestFairIdx=states.fair_idx,
-                TestAvgGlobalUtility=states.avg_global_util,
-                TestTotalThroughput=states.total_throughput,
-                TestProbCollision=states.n_colls / torch.clamp(
-                    states.t.to(torch.float32), min=1))
+        acts, h = _act(policy, obs, h, generator, eps, env_params.n_actions)
+        states, obs, _, _ = torch_env.step(env_params, states, acts)
+    return episode_stats(states, "Test")
 
 
 def evaluate_policy(env_params, policy, pool, hidden_size, generator, n_episodes,

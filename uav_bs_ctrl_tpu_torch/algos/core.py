@@ -1,0 +1,223 @@
+"""Recurrent Q-learning core: the scan-BPTT double-Q update (counterpart of
+``algos/core.py``, its ``per_step`` schedule).
+
+One update, as the JAX package's jitted ``_update_fn``:
+
+- policy unroll of the agent over T+1 steps from the stored h[0], target
+  unroll over the T next observations from the stored h[1], under
+  ``torch.no_grad()``;
+- Q of the taken actions; the next value from the target net at the policy's
+  detached argmax (double-Q) or the target's max; QMIX mixes per-agent Q with
+  the states at t (policy) and t+1 (target);
+- MSE against ``r + gamma (1 - done) V_next``;
+- value clip of the **net** gradients to [-1, 1], mixer gradients unclipped
+  (the reference clips ``policy_net.parameters()`` only);
+- AdamW with betas (0.9, 0.999), eps 1e-8, weight decay 0.01 at
+  ``lr * lr_scale``; ``torch.optim.AdamW`` computes optax's ``adamw`` update
+  (decoupled decay on the old params, eps added to sqrt(v_hat)), which
+  ``tests/test_torch_train.py`` holds against optax;
+- Polyak averaging of net and mixer targets.
+
+With ``use_kernels`` (the default) every GATv2 and recurrent step goes through
+the kernels' autograd Functions, forward and backward; ``False`` takes the
+unfused module path, the reference the kernel path is held against.
+
+A JAX checkpoint's optimizer state is an optax object, which the numpy-only
+unpickler turns into stubs, so :meth:`load_checkpoint` takes the params, the
+mixer and the LR scale and restarts AdamW's moments from zero; resuming the
+moments belongs with the checkpoint save/resume contract (ROADMAP.md Queue 1).
+"""
+
+import copy
+
+import numpy as np
+import torch
+
+from uav_bs_ctrl_tpu_torch.algos.buffer import SequenceReplayBuffer, tree_map
+from uav_bs_ctrl_tpu_torch.utils import checkpoint as ckpt_io
+from uav_bs_ctrl_tpu_torch.utils.convert import learner_params_from_jax
+
+CLIP_VALUE = 1.0
+BETAS, ADAM_EPS, WEIGHT_DECAY = (0.9, 0.999), 1e-8, 0.01
+
+
+class RecurrentQLearner:
+    """Shared core for the recurrent Q-learners (MADRQN with mixer/double-Q)."""
+
+    def __init__(self, env_info, args, agent, mixer=None):
+        self.device = args.device
+        self.max_seq_len = (args.max_seq_len if args.max_seq_len is not None
+                            else env_info["episode_limit"])
+        self.gamma = args.gamma
+        self.polyak = args.polyak
+        self.batch_size = args.batch_size
+        self.double_q = bool(args.double_q)
+        self.share_reward = bool(args.share_reward)
+
+        self.net = agent.to(self.device)
+        self.mixer = None if mixer is None else mixer.to(self.device)
+        self.target_net = copy.deepcopy(self.net).requires_grad_(False)
+        self.target_mixer = (None if mixer is None
+                             else copy.deepcopy(self.mixer).requires_grad_(False))
+
+        self.buffer = SequenceReplayBuffer(args.replay_size, self.max_seq_len)
+        self.lr = args.lr
+        self.anneal_lr = bool(args.anneal_lr)
+        self.lr_scale = 1.0
+        self._epoch = 0
+        self.optimizer = self._make_optimizer()
+
+    def _make_optimizer(self):
+        return torch.optim.AdamW(self.parameters(), lr=self.lr, betas=BETAS, eps=ADAM_EPS,
+                                 weight_decay=WEIGHT_DECAY)
+
+    def parameters(self):
+        """Net then mixer parameters: what AdamW updates."""
+        mixer = [] if self.mixer is None else list(self.mixer.parameters())
+        return list(self.net.parameters()) + mixer
+
+    def target_parameters(self):
+        mixer = [] if self.target_mixer is None else list(self.target_mixer.parameters())
+        return list(self.target_net.parameters()) + mixer
+
+    # ------------------------------------------------------------------ #
+    # Experience
+
+    def cache(self, obs, h, state, act, rew, next_obs, next_h, next_state, done, bad_mask):
+        """Push one host transition (the classic host-loop path)."""
+        rew = np.asarray(rew, dtype=np.float32).reshape(-1)
+        if self.share_reward:
+            rew = rew.mean(keepdims=True)
+        transition = dict(
+            obs=obs, h=np.asarray(h, np.float32),
+            act=np.asarray(act, np.int32).reshape(-1), rew=rew,
+            done=np.float32((1 - bad_mask) * done),
+            next_obs=next_obs, next_h=np.asarray((1 - done) * next_h, np.float32))
+        if state is not None:
+            transition["state"] = np.asarray(state, np.float32)
+            transition["next_state"] = np.asarray(next_state, np.float32)
+        self.buffer.push(transition)
+
+    # ------------------------------------------------------------------ #
+    # Update
+
+    def _unroll(self, net, obs, h, t0, n_steps, use_kernels):
+        qs = []
+        for t in range(t0, t0 + n_steps):
+            q, h = net({k: v[:, t] for k, v in obs.items()}, h, use_kernels)
+            qs.append(q)
+        return qs
+
+    def _loss(self, batch, use_kernels):
+        """``(loss, qvals)`` for a batch-major batch (leaves [B, T(+1), ...])."""
+        T = self.max_seq_len
+        obs = batch["obs"]
+        # The policy's step T feeds only the detached double-Q argmax, so
+        # autograd never reaches it: T backward steps, not T+1.
+        q_pol = self._unroll(self.net, obs, batch["h"][:, 0], 0, T + 1, use_kernels)
+        with torch.no_grad():
+            target_out = torch.stack(
+                self._unroll(self.target_net, obs, batch["h"][:, 1], 1, T, use_kernels), 1)
+        acts = batch["act"].long()[..., None]                          # [B, T, A, 1]
+        qvals = torch.stack(q_pol[:T], 1).gather(-1, acts)[..., 0]     # [B, T, A]
+        if self.double_q:
+            next_acts = torch.stack(q_pol[1:], 1).detach().argmax(-1, keepdim=True)
+            next_vals = target_out.gather(-1, next_acts)[..., 0]
+        else:
+            next_vals = target_out.amax(-1)
+        if self.mixer is not None:
+            states = batch["state"]
+            qvals = self.mixer(qvals, states[:, :T])                   # [B, T, 1]
+            with torch.no_grad():
+                next_vals = self.target_mixer(next_vals, states[:, 1:])
+        target_q = batch["rew"] + self.gamma * (1.0 - batch["done"][..., None]) * next_vals
+        loss = torch.mean(torch.square(qvals - target_q.broadcast_to(qvals.shape)))
+        return loss, qvals
+
+    def update_on_batch(self, batch, use_kernels=True):
+        """One update from a batch on the device; returns ``{LossQ, QVals}`` as
+        0-d tensors (no host sync). The clipped gradients stay in ``.grad``."""
+        metrics = self.backward(batch, use_kernels)
+        self.apply_grads()
+        return metrics
+
+    def backward(self, batch, use_kernels=True):
+        """The loss and its raw gradients in ``.grad`` (no clip, no step)."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, qvals = self._loss(batch, use_kernels)
+        loss.backward()
+        return dict(LossQ=loss.detach(), QVals=qvals.detach().mean())
+
+    def apply_grads(self):
+        """Clip the net's ``.grad`` to [-1, 1], step AdamW at ``lr * lr_scale``
+        and Polyak-average the targets."""
+        params = self.parameters()
+        for p in params:                  # optax updates (and decays) every leaf
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        torch.nn.utils.clip_grad_value_(self.net.parameters(), CLIP_VALUE)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr * self.lr_scale
+        self.optimizer.step()
+        with torch.no_grad():
+            for t, p in zip(self.target_parameters(), params):
+                t.mul_(self.polyak).add_(p, alpha=1.0 - self.polyak)
+
+    def update(self):
+        """One update from a host-buffer sample (without replacement)."""
+        if len(self.buffer) < self.batch_size:
+            raise RuntimeError("insufficient samples for an update")
+        batch = tree_map(lambda x: torch.as_tensor(x, device=self.device),
+                         self.buffer.sample(self.batch_size))
+        return {k: float(v) for k, v in self.update_on_batch(batch).items()}
+
+    def step_lr_scheduler(self):
+        """Epoch-stepped LambdaLR: scale = max(0.4, 1 - epoch/100)."""
+        self._epoch += 1
+        if self.anneal_lr:
+            self.lr_scale = max(0.4, 1.0 - self._epoch / 100)
+
+    # ------------------------------------------------------------------ #
+    # State
+
+    def state_dict(self) -> dict:
+        """A deep copy of everything an update reads and writes."""
+        modules = dict(net=self.net, target_net=self.target_net)
+        if self.mixer is not None:
+            modules.update(mixer=self.mixer, target_mixer=self.target_mixer)
+        state = {k: m.state_dict() for k, m in modules.items()}
+        state.update(optimizer=self.optimizer.state_dict(), lr_scale=self.lr_scale,
+                     epoch=self._epoch)
+        return copy.deepcopy(state)
+
+    def load_state_dict(self, state: dict):
+        state = copy.deepcopy(state)
+        for name in ("net", "target_net", "mixer", "target_mixer"):
+            if name in state:
+                getattr(self, name).load_state_dict(state[name])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.lr_scale, self._epoch = state["lr_scale"], state["epoch"]
+
+    def load_params(self, tree):
+        """Net (and mixer) from a JAX learner tree ``{"net": ..., "mixer": ...}``;
+        targets become copies and AdamW starts afresh."""
+        loaded = learner_params_from_jax(tree, self.net, self.mixer)
+        self.net.load_state_dict(loaded["net"])
+        self.target_net.load_state_dict(loaded["net"])
+        if self.mixer is not None:
+            self.mixer.load_state_dict(loaded["mixer"])
+            self.target_mixer.load_state_dict(loaded["mixer"])
+        self.optimizer = self._make_optimizer()
+
+    def load_checkpoint(self, path):
+        """The params side of the JAX ``load_checkpoint``: net, mixer, LR
+        scale; returns the ``{epoch, t}`` stamp."""
+        ckpt = ckpt_io.load(path)
+        tree = {"net": ckpt["model_state_dict"]}
+        if self.mixer is not None:
+            tree["mixer"] = ckpt["mixer_state_dict"]
+        self.load_params(tree)
+        if self.anneal_lr and "lr_scheduler_state_dict" in ckpt:
+            self._epoch = int(ckpt["lr_scheduler_state_dict"]["epoch"])
+            self.lr_scale = float(ckpt["lr_scheduler_state_dict"]["lr_scale"])
+        return dict(epoch=int(ckpt["epoch"]), t=int(ckpt["t"]))

@@ -1,0 +1,129 @@
+"""Fused MADRQN training on the device (counterpart of ``algos/madrqn/fused.py``).
+
+An iteration runs ``interleave`` sub-iterations of [collect ``n_worlds/S``
+episodes on the device -> write them into the device replay ring -> ``K/S``
+updates, each on B chunks drawn with replacement from the ring]. Experience,
+ring and updates stay on the device; the host schedules and makes the random
+draws, from one CPU ``torch.Generator`` (resets, exploration, sample
+indices) moved to the device, so a seed gives the same run on the CPU and on
+the card. The JAX trainer's ``mesh`` (data-parallel sharding) is not ported
+(ROADMAP.md Queue 1).
+
+Memory: the ring holds ``capacity_chunks`` episodes; at exp3 8-UBS that is
+about 0.5 MB per chunk, 2.5 GB at 5000 chunks.
+"""
+
+from types import SimpleNamespace as SN
+
+import torch
+
+from uav_bs_ctrl_tpu_torch.algos import collect
+from uav_bs_ctrl_tpu_torch.algos.buffer import tree_leaves, tree_map
+from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
+from uav_bs_ctrl_tpu_torch.config import DEFAULT_CONFIG, check_args_sanity
+from uav_bs_ctrl_tpu_torch.envs import torch_env
+
+
+class FusedMadrqnTrainer:
+    """Device-resident replay ring + on-device collection and updates."""
+
+    def __init__(self, map_id, train_kwargs=None, n_worlds=16, capacity_chunks=256,
+                 updates_per_iter=None, n_layouts=64, seed=0, interleave=1):
+        cfg = dict(DEFAULT_CONFIG)
+        cfg.update(train_kwargs or {})
+        self.args = args = check_args_sanity(SN(**cfg))
+        self.device = args.device
+
+        self.env_params = torch_env.make_params(map_id)
+        self.T = self.env_params.episode_limit
+        args.max_seq_len = None            # chunk == episode
+
+        if capacity_chunks % n_worlds:
+            raise ValueError("capacity_chunks must be a multiple of n_worlds "
+                             "(the ring's write stride)")
+        self.n_worlds = n_worlds
+        self.capacity = capacity_chunks
+        self.updates_per_iter = updates_per_iter or n_worlds
+        if n_worlds % interleave or self.updates_per_iter % interleave:
+            raise ValueError("interleave must divide n_worlds and updates_per_iter")
+        self.interleave = interleave
+
+        n_ubs, n_gts = self.env_params.n_ubs, self.env_params.n_gts
+        env_info = dict(                   # the env's fair-service observations and state
+            obs_shape=dict(agent=2, gt=4, ubs=2), state_shape=n_ubs * 2 + n_gts * 4,
+            n_actions=self.env_params.n_actions, n_agents=n_ubs, episode_limit=self.T)
+        self.learner = MultiAgentQLearner(env_info, args, seed=seed)
+
+        self.pool = collect.make_layout_pool(map_id, n_layouts, seed=seed)
+        self.test_pool = collect.make_layout_pool(map_id, n_layouts, seed=seed + 10_000)
+        self.generator = torch.Generator().manual_seed(seed)
+        self.replay = None                 # tree of [capacity, ...] device tensors
+        self.last_losses = None            # LossQ of each update of the last iteration
+        self._ptr = 0
+        self._size = 0
+
+    # ------------------------------------------------------------------ #
+
+    @torch.no_grad()
+    def _collect(self, eps, n_worlds):
+        states = collect.reset_worlds(self.env_params, self.pool, self.generator, n_worlds,
+                                      self.device)
+        h0 = torch.zeros((n_worlds, self.env_params.n_ubs, self.args.hidden_size),
+                         device=self.device)
+        chunk, _, stats = collect.collect_chunk(self.env_params, self.learner.net, states, h0,
+                                                self.T, self.generator, eps)
+        if self.learner.share_reward:
+            chunk["rew"] = chunk["rew"].mean(-1, keepdim=True)
+        return chunk, stats
+
+    def _write(self, chunk):
+        """Write ``chunk`` (leaves [n, ...]) into the ring at ``ptr``."""
+        n = tree_leaves(chunk)[0].shape[0]
+        if self.replay is None:
+            self.replay = tree_map(lambda x: torch.zeros((self.capacity,) + tuple(x.shape[1:]),
+                                                         dtype=x.dtype, device=self.device),
+                                   chunk)
+        if self._ptr + n > self.capacity:
+            raise AssertionError("a ring write must not wrap")
+        tree_map(lambda store, x: store[self._ptr:self._ptr + n].copy_(x), self.replay, chunk)
+        self._size = min(self._size + n, self.capacity)
+        self._ptr = (self._ptr + n) % self.capacity
+
+    def sample_batch(self):
+        """B chunks drawn with replacement from the ``size`` written ones."""
+        idx = torch.randint(0, self._size, (self.learner.batch_size,),
+                            generator=self.generator).to(self.device)
+        return tree_map(lambda store: store[idx], self.replay)
+
+    # ------------------------------------------------------------------ #
+
+    @torch.no_grad()
+    def evaluate(self, n_episodes=8, eps=0.05):
+        """Test episodes on held-out layouts (the reference's test_agent)."""
+        stats = collect.evaluate_policy(self.env_params, self.learner.net, self.test_pool,
+                                        self.args.hidden_size, self.generator, n_episodes,
+                                        self.device, eps)
+        return {k: v.cpu().numpy() for k, v in stats.items()}
+
+    def run_iteration(self, eps, warmup=False):
+        """One iteration; returns host-side metric floats. ``warmup=True``
+        collects ``n_worlds`` episodes into the ring without updating."""
+        if warmup:
+            chunk, stats = self._collect(eps, self.n_worlds)
+            self._write(chunk)
+            return {k: float(v.mean()) for k, v in stats.items()}
+        sub_worlds = self.n_worlds // self.interleave
+        k_sub = self.updates_per_iter // self.interleave
+        losses, all_stats = [], []
+        for _ in range(self.interleave):
+            chunk, stats = self._collect(eps, sub_worlds)
+            self._write(chunk)
+            all_stats.append(stats)
+            for _ in range(k_sub):
+                losses.append(self.learner.update_on_batch(self.sample_batch())["LossQ"])
+        stats = {k: torch.cat([s[k] for s in all_stats]) for k in all_stats[0]}
+        self.last_losses = torch.stack(losses)
+        metrics = dict(LossQ=self.last_losses.mean(), EpRet=stats["EpRet"].mean(),
+                       FairIdx=stats["FairIdx"].mean(),
+                       AvgGlobalUtility=stats["AvgGlobalUtility"].mean())
+        return {k: float(v) for k, v in metrics.items()}

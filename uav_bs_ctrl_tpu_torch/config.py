@@ -1,10 +1,11 @@
-"""Serving configuration (counterpart of ``algos/madrqn/config.py``).
+"""Configuration (counterpart of ``algos/madrqn/config.py`` and
+``algos/common.py:check_args_sanity``).
 
-``DEFAULT_CONFIG`` holds the defaults the serving slice reads; a run's saved
-``config.json`` args are laid over them. JAX backend names are accepted: every
-GATv2 backend maps to the fused kernel and every step backend to the fused
-step, except ``gat_backend='pallas'`` (the unfused ``flash_gat`` kernel, not yet
-ported).
+``DEFAULT_CONFIG`` holds the JAX package's defaults for the keys the port
+reads, serving and training; a run's saved ``config.json`` args are laid over
+them. JAX backend names are accepted: every GATv2 backend maps to the fused
+kernels and every step backend to the fused step, except
+``gat_backend='pallas'`` (the unfused ``flash_gat`` kernel, not yet ported).
 """
 
 from types import SimpleNamespace
@@ -15,16 +16,32 @@ DEFAULT_CONFIG = {
     'device': 'cuda',
     'o': 'mlp',            # observation encoder ('mlp' | 'gnn')
     'c': None,             # comm protocol; the port has 'tarmac' only
+    'share_reward': False,
     'hidden_size': 64,
     'n_heads': 4,
     'msg_size': 64,
     'key_size': 16,
     'n_rounds': 1,
+    'embed_dim': 32,       # QMixer embedding dim
     'gat_backend': 'dense',
     'comm_backend': 'dense',
     'step_backend': 'xla',
     'compute_dtype': 'float32',
+    'bptt_encoder': 'per_step',
     'dueling': False,
+    # training
+    'lr': 5e-4,
+    'gamma': 0.99,
+    'polyak': 0.995,
+    'batch_size': 32,
+    'replay_size': int(5e3),
+    'decay_steps': int(5e4),
+    'max_seq_len': None,   # None -> episode_limit
+    'steps_per_epoch': 4000,
+    'update_after': 2000,
+    'anneal_lr': True,
+    'double_q': False,
+    'mixer': False,
 }
 
 GAT_BACKENDS = ('dense', 'pallas_fused', 'pallas_fused_mxu', 'graph_parallel')
@@ -40,12 +57,14 @@ def make_args(saved_args: dict, device=None) -> SimpleNamespace:
 
 
 def check_args_sanity(args):
-    """Resolve ``args.device`` (raises when CUDA is asked for and absent) and
-    reject what the port does not serve."""
+    """Resolve ``args.device`` (raises when CUDA is asked for and absent),
+    force a shared reward under QMIX, and reject what the port does not run."""
     args.device = resolve_device(args.device)
+    if getattr(args, 'mixer', False) and not getattr(args, 'share_reward', False):
+        args.share_reward = True        # QMIX mixes one scalar team reward
     if args.o != 'gnn' or args.c != 'tarmac' or args.n_rounds != 1:
         raise NotImplementedError(
-            f"the port serves the GNN agent with one-round TarMAC only; got "
+            f"the port runs the GNN agent with one-round TarMAC only; got "
             f"o={args.o!r}, c={args.c!r}, n_rounds={args.n_rounds} (ROADMAP.md Queue 1)")
     if args.gat_backend == 'pallas':
         raise NotImplementedError(
@@ -60,6 +79,11 @@ def check_args_sanity(args):
     if args.step_backend not in ('xla', 'pallas'):
         raise ValueError(f"step_backend must be 'xla' or 'pallas', got {args.step_backend!r}")
     if args.compute_dtype != 'float32':
-        raise NotImplementedError(f"compute_dtype={args.compute_dtype!r}: the port "
-                                  "serves float32 only")
+        raise NotImplementedError(f"compute_dtype={args.compute_dtype!r}: the port runs "
+                                  "float32 only; bf16 compute is still to be ported "
+                                  "(ROADMAP.md Queue 1)")
+    if getattr(args, 'bptt_encoder', 'per_step') != 'per_step':
+        raise NotImplementedError(f"bptt_encoder={args.bptt_encoder!r}: the port runs the "
+                                  "'per_step' schedule only; 'hoisted' and 'merged' are "
+                                  "still to be ported (ROADMAP.md Queue 1)")
     return args

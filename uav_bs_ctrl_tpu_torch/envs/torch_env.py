@@ -242,6 +242,21 @@ def step(params: EnvParams, state: EnvState, actions):
     return state, get_obs(params, state), rew, done
 
 
+def get_state_vec(params: EnvParams, state: EnvState):
+    """The global state the QMIX mixer reads, [W, 2N + M*(3 + fair_service)]:
+    UBS positions, then per GT its position, rate and (fair service) average
+    rate, each normalised as in the observations."""
+    n_w = state.pos_ubs.shape[0]
+    ubs = (state.pos_ubs / params.range_pos).reshape(n_w, -1)
+    cols = [state.pos_gts / params.range_pos,
+            (state.rate_per_gt / params.max_rate)[..., None]]
+    if params.fair_service:
+        cols.append((state.avg_rate_per_gt / params.max_rate
+                     * params.n_gts / (params.n_ubs * params.n_rbs))[..., None])
+    gts = torch.cat(cols, -1).reshape(n_w, -1)
+    return torch.cat([ubs, gts], -1)
+
+
 def _others_index(n, device):
     """[n, n-1] index of all agents but the row agent, in index order."""
     idx = np.arange(n)[None, :].repeat(n, 0)

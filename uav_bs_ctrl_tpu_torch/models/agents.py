@@ -4,9 +4,10 @@ hetero-GATv2 encoder -> one TarMAC round on the talk graph -> GRU -> (dueling)
 Q head. ``encode`` is the h-independent observation encoding, ``step`` the
 recurrent part, and calling the module (``forward``) is ``step . encode``, the
 JAX ``apply``. With ``use_kernels`` (the default) the encoder goes through
-``flash_gat_fused`` and the step through the fused ``tarmac_step``: the CUDA
+``flash_gat_fused_train`` and the step through ``tarmac_step_train``: one
+forward launch each, and under autograd one backward launch each; the CUDA
 kernels on a card, their plain versions on the CPU. ``use_kernels=False`` takes
-the unfused module path, the independent reference.
+the unfused module path, whose autograd is the independent reference.
 """
 
 import torch
@@ -16,7 +17,7 @@ from uav_bs_ctrl_tpu_torch.models.comm import TarMAC
 from uav_bs_ctrl_tpu_torch.models.encoders import GraphObservationEncoder
 from uav_bs_ctrl_tpu_torch.models.heads import DuelingLayer
 from uav_bs_ctrl_tpu_torch.models.modules import Linear
-from uav_bs_ctrl_tpu_torch.ops.step_kernels import tarmac_step
+from uav_bs_ctrl_tpu_torch.ops.step_kernels import tarmac_step_train
 
 
 class GnnAgent(nn.Module):
@@ -61,7 +62,7 @@ class GnnAgent(nn.Module):
             wvh = torch.zeros((hidden, 1), dtype=x.dtype, device=x.device)
             bvh = torch.zeros((1,), dtype=x.dtype, device=x.device)
         c = self.f_comm
-        q, h_new = tarmac_step(
+        q, h_new = tarmac_step_train(
             x.reshape(-1, hidden).contiguous(), h.reshape(-1, hidden).contiguous(),
             adjf.to(x.dtype).contiguous(),
             c.f_val.w, c.f_val.b, c.f_sign.w, c.f_sign.b, c.f_que.w, c.f_que.b,

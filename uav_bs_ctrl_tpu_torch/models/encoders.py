@@ -11,7 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from uav_bs_ctrl_tpu_torch.models.modules import Linear
-from uav_bs_ctrl_tpu_torch.ops.gat_kernels import flash_gat_fused
+from uav_bs_ctrl_tpu_torch.ops.gat_kernels import flash_gat_fused_train
 from uav_bs_ctrl_tpu_torch.ops.masked import masked_softmax
 
 
@@ -35,9 +35,10 @@ class GATv2(nn.Module):
     def forward(self, x_src, x_dst, mask, use_kernels=True):
         """x_src: [..., M, d_src], x_dst: [..., d_dst], mask: [..., M] bool.
 
-        ``use_kernels`` takes the fused kernel (``flash_gat_fused``: the CUDA
-        kernel on a card, its plain version on the CPU); ``False`` takes the
-        dense path, the independent reference.
+        ``use_kernels`` takes the fused kernels (``flash_gat_fused_train``: one
+        forward launch, and under autograd one backward launch; the CUDA
+        kernels on a card, their plain versions on the CPU); ``False`` takes
+        the dense path, whose autograd is the independent reference.
         """
         res = self.res_fc(x_dst) if self.res_fc is not None else x_dst
         if x_src.shape[-2] == 0:          # no slots at all: residual only
@@ -48,7 +49,7 @@ class GATv2(nn.Module):
             batch = x_src.shape[:-2]
             m, d = x_src.shape[-2:]
             mask2 = torch.broadcast_to(mask, batch + (m,)).reshape(-1, m)
-            ft, _, _ = flash_gat_fused(
+            ft = flash_gat_fused_train(
                 x_src.reshape(-1, m, d).contiguous(), self.fc_src.w, self.fc_src.b,
                 er.reshape(-1, hf).contiguous(), self.attn,
                 mask2.to(x_src.dtype).contiguous(), self.n_heads, self.negative_slope)

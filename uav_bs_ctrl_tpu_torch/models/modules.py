@@ -2,8 +2,10 @@
 
 Weights keep the JAX package's layout, ``[in, out]``, under its names (``w``,
 ``b``; ``wi``, ``wh``, ``bi``, ``bh``), so a JAX parameter tree loads leaf by
-leaf with no transposes (``utils/convert.py``). Parameters start from the
-PyTorch default uniform init; served weights come from a checkpoint.
+leaf with no transposes (``utils/convert.py``). ``Linear`` and ``GRUCell``
+start from U(-1/sqrt(fan), 1/sqrt(fan)), the distribution of the JAX package's
+``linear_init``/``gru_init``, which the QMIX mixer relies on when it starts
+without a checkpoint; served and trained weights come from a checkpoint.
 """
 
 import math

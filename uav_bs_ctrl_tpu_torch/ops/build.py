@@ -102,7 +102,8 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
 def pointers(device, tensors: dict) -> list:
     """Device pointers of ``tensors`` after checking what the kernels take:
     float32, contiguous, on ``device``, and not part of an autograd graph
-    (the kernels are forward only)."""
+    (autograd reaches a kernel only through its ``torch.autograd.Function``,
+    ``flash_gat_fused_train`` or ``tarmac_step_train``)."""
     grad = torch.is_grad_enabled()
     ptrs = []
     for name, t in tensors.items():
@@ -114,8 +115,8 @@ def pointers(device, tensors: dict) -> list:
             raise ValueError(f"{name} is not contiguous")
         if grad and t.requires_grad:
             raise NotImplementedError(
-                f"{name} requires grad, but the CUDA kernel is forward only "
-                "(its backward is still to be ported, ROADMAP.md Queue 2)")
+                f"{name} requires grad: differentiate through the kernel's "
+                "torch.autograd.Function (flash_gat_fused_train, tarmac_step_train)")
         ptrs.append(ctypes.c_void_p(t.data_ptr()))
     return ptrs
 

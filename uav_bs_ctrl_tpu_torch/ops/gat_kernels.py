@@ -1,8 +1,11 @@
-"""Projection-fused GATv2 attention: the CUDA kernel and its plain version.
+"""Projection-fused GATv2 attention: the CUDA kernels and their plain versions.
 
-Counterpart of ``uav_bs_ctrl_tpu/ops/pallas_kernels.py:flash_gat_fused``. The
-kernel is ``csrc/flash_gat_fused.cu`` (forward only); one kernel serves both of
-the JAX package's ``pallas_fused`` and ``pallas_fused_mxu`` backends, whose
+Counterpart of ``uav_bs_ctrl_tpu/ops/pallas_kernels.py``: ``flash_gat_fused``
+(forward, ``csrc/flash_gat_fused.cu``), ``flash_gat_fused_bwd`` (the
+recompute backward of ``_fgf_bwd``, ``csrc/flash_gat_fused_bwd.cu``) and
+``flash_gat_fused_train``, the ``torch.autograd.Function`` that joins them
+(``flash_gat_fused_train``'s custom VJP). One kernel pair serves both of the
+JAX package's ``pallas_fused`` and ``pallas_fused_mxu`` backends, whose
 difference is a TPU layout choice.
 """
 
@@ -14,10 +17,15 @@ import torch.nn.functional as F
 from uav_bs_ctrl_tpu_torch.ops import build
 from uav_bs_ctrl_tpu_torch.ops.masked import NEG_BIG
 
+MAX_D = 8                 # source feature width the backward kernel holds in registers
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flash_gat_fused_forward": (_I, [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]),
     "flash_gat_fused_error_string": (ctypes.c_char_p, [_I]),
+}
+_BWD_SIGNATURES = {
+    "flash_gat_fused_backward": (_I, [_P] * 16 + [_I] * 5 + [ctypes.c_float, _P]),
+    "flash_gat_fused_bwd_error_string": (ctypes.c_char_p, [_I]),
 }
 
 
@@ -43,6 +51,27 @@ def flash_gat_fused_plain(x, w, b, er, attn, mask, n_heads, negative_slope=0.2):
     return out.reshape(n, hf), mstat, lstat
 
 
+def _check_shapes(what, x, w, b, er, attn, mask, n_heads, **backward):
+    """Raise unless the operands fit the kernels; ``backward`` holds the
+    backward's extra operands (``out``, ``g``, ``mstat``, ``lstat``)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    n, m, d = x.shape
+    hf = w.shape[1]
+    f = hf // n_heads
+    expected = {"w": (d, hf), "b": (hf,), "er": (n, hf), "attn": (n_heads, f),
+                "mask": (n, m), "out": (n, hf), "g": (n, hf), "mstat": (n, n_heads),
+                "lstat": (n, n_heads)}
+    operands = {"w": w, "b": b, "er": er, "attn": attn, "mask": mask, **backward}
+    for name, t in operands.items():
+        if tuple(t.shape) != expected[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {expected[name]}")
+    if hf % n_heads or f % 32 or hf > 1024 or d > MAX_D:
+        raise ValueError(f"the kernels need H*F <= 1024 with F a multiple of 32 and "
+                         f"D <= {MAX_D}; got H={n_heads}, H*F={hf}, D={d}")
+    return n, m, d
+
+
 def flash_gat_fused(x, w, b, er, attn, mask, n_heads, negative_slope=0.2):
     """Fused projection + masked GATv2 attention + aggregation.
 
@@ -57,19 +86,8 @@ def flash_gat_fused(x, w, b, er, attn, mask, n_heads, negative_slope=0.2):
     """
     if x.device.type == "cpu":
         return flash_gat_fused_plain(x, w, b, er, attn, mask, n_heads, negative_slope)
-    if x.device.type != "cuda":
-        raise ValueError(f"flash_gat_fused runs on cpu or cuda, not {x.device}")
-    n, m, d = x.shape
+    n, m, d = _check_shapes("flash_gat_fused", x, w, b, er, attn, mask, n_heads)
     hf = w.shape[1]
-    f = hf // n_heads
-    expected = {"w": (d, hf), "b": (hf,), "er": (n, hf), "attn": (n_heads, f),
-                "mask": (n, m)}
-    for name, t in (("w", w), ("b", b), ("er", er), ("attn", attn), ("mask", mask)):
-        if tuple(t.shape) != expected[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {expected[name]}")
-    if hf % n_heads or f % 32 or hf > 1024:
-        raise ValueError(f"the kernel needs H*F <= 1024 with F a multiple of 32; "
-                         f"got H={n_heads}, H*F={hf}")
     out = torch.empty((n, hf), dtype=torch.float32, device=x.device)
     mstat = torch.empty((n, n_heads), dtype=torch.float32, device=x.device)
     lstat = torch.empty_like(mstat)
@@ -84,3 +102,105 @@ def flash_gat_fused(x, w, b, er, attn, mask, n_heads, negative_slope=0.2):
 
 
 flash_gat_fused.launches = 0
+
+
+def flash_gat_fused_bwd_plain(x, w, b, er, attn, mask, out, mstat, lstat, g, n_heads,
+                              negative_slope=0.2, need_dx=False):
+    """Plain PyTorch version of :func:`flash_gat_fused_bwd`.
+
+    The recompute formulas of ``pallas_kernels.py:_flash_gat_fused_bwd_kernel``:
+    with ``D[n,h] = sum_f g*out``, ``d_alpha = sum_f g*el``,
+    ``d_s = alpha (d_alpha - D)``, ``d_z = d_s attn leaky'(z)`` and
+    ``d_el = alpha g + d_z``: ``der = sum_m d_z``, ``dattn = sum d_s leaky(z)``,
+    ``dW = x^T d_el``, ``db = sum d_el`` and, when ``need_dx``, ``dx = d_el W^T``.
+    Returns ``(dx or None, dw, db, der, dattn)``.
+    """
+    n, m, d = x.shape
+    hf = w.shape[1]
+    f = hf // n_heads
+    el = (x @ w + b).reshape(n, m, n_heads, f)
+    z = el + er.reshape(n, 1, n_heads, f)
+    lz = F.leaky_relu(z, negative_slope)
+    scores = (lz * attn).sum(-1)                                  # [N, M, H]
+    shift = torch.where(mstat <= NEG_BIG / 2, 0.0, mstat)
+    p = torch.where((mask > 0)[:, :, None], torch.exp(scores - shift[:, None, :]), 0.0)
+    alpha = p / torch.clamp_min(lstat, 1e-30)[:, None, :]
+    g4 = g.reshape(n, 1, n_heads, f)
+    dvec = (g * out).reshape(n, n_heads, f).sum(-1)               # [N, H]
+    d_s = alpha * ((g4 * el).sum(-1) - dvec[:, None, :])          # [N, M, H]
+    d_z = d_s[..., None] * attn * torch.where(z >= 0, 1.0, negative_slope)
+    d_el = (alpha[..., None] * g4 + d_z).reshape(n * m, hf)
+    der = d_z.sum(1).reshape(n, hf)
+    dattn = (d_s[..., None] * lz).sum((0, 1))
+    dw = x.reshape(n * m, d).T @ d_el
+    db = d_el.sum(0)
+    dx = (d_el @ w.T).reshape(n, m, d) if need_dx else None
+    return dx, dw, db, der, dattn
+
+
+def flash_gat_fused_bwd(x, w, b, er, attn, mask, out, mstat, lstat, g, n_heads,
+                        negative_slope=0.2, need_dx=False):
+    """Backward of :func:`flash_gat_fused` from its saved row statistics.
+
+    ``out, mstat, lstat`` are the forward's outputs and ``g = dL/dout``
+    [N, H*F]. Returns ``(dx or None, dw [D, H*F], db [H*F], der [N, H*F],
+    dattn [H, F])``; ``dx`` [N, M, D] only when ``need_dx``. The mask gets no
+    gradient. A CPU tensor runs the plain version; a CUDA tensor always
+    launches the kernel or raises.
+    """
+    if x.device.type == "cpu":
+        return flash_gat_fused_bwd_plain(x, w, b, er, attn, mask, out, mstat, lstat, g,
+                                         n_heads, negative_slope, need_dx)
+    n, m, d = _check_shapes("flash_gat_fused_bwd", x, w, b, er, attn, mask, n_heads,
+                            out=out, mstat=mstat, lstat=lstat, g=g)
+    hf = w.shape[1]
+    dev = x.device
+    dw = torch.empty((d, hf), dtype=torch.float32, device=dev)
+    db = torch.empty((hf,), dtype=torch.float32, device=dev)
+    der = torch.empty((n, hf), dtype=torch.float32, device=dev)
+    dattn = torch.empty_like(attn, dtype=torch.float32)
+    dx = torch.empty((n, m, d), dtype=torch.float32, device=dev) if need_dx else None
+    partial = torch.empty((max(n, 1), (d + 2) * hf), dtype=torch.float32, device=dev)
+    ptrs = build.pointers(dev, {"x": x, "w": w, "b": b, "er": er, "attn": attn, "mask": mask,
+                                "g": g, "out": out, "m": mstat, "l": lstat, "dw": dw,
+                                "db": db, "der": der, "dattn": dattn, "partial": partial})
+    lib = build.load("flash_gat_fused_bwd", _BWD_SIGNATURES)
+    dx_ptr = build.pointers(dev, {"dx": dx})[0] if need_dx else _P(None)
+    err = lib.flash_gat_fused_backward(*ptrs[:14], dx_ptr, ptrs[14], n, m, d, hf, n_heads,
+                                       float(negative_slope), build.stream_of(dev))
+    build.check_launch(lib, "flash_gat_fused_bwd_error_string", err, "flash_gat_fused_bwd")
+    flash_gat_fused_bwd.launches += 1
+    return dx, dw, db, der, dattn
+
+
+flash_gat_fused_bwd.launches = 0
+
+
+class _FlashGatFusedFn(torch.autograd.Function):
+    """``flash_gat_fused`` forward + ``flash_gat_fused_bwd`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, er, attn, mask, n_heads, negative_slope):
+        x, w, b, er, attn, mask = (t.detach() for t in (x, w, b, er, attn, mask))
+        out, mstat, lstat = flash_gat_fused(x, w, b, er, attn, mask, n_heads, negative_slope)
+        ctx.save_for_backward(x, w, b, er, attn, mask, out, mstat, lstat)
+        ctx.cfg = (n_heads, negative_slope)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        dx, dw, db, der, dattn = flash_gat_fused_bwd(
+            *ctx.saved_tensors, g.contiguous(), *ctx.cfg, need_dx=need[0])
+        grads = (dx, dw, db, der, dattn)
+        return tuple(gr if need[i] else None for i, gr in enumerate(grads)) + (None,) * 3
+
+
+def flash_gat_fused_train(x, w, b, er, attn, mask, n_heads, negative_slope=0.2):
+    """Differentiable :func:`flash_gat_fused`; returns ``out`` [N, H*F] only.
+
+    One forward launch; autograd's backward is one :func:`flash_gat_fused_bwd`
+    call, with ``dx`` computed only when ``x`` requires grad (the JAX
+    package's ``need_dx``). The mask gets no gradient.
+    """
+    return _FlashGatFusedFn.apply(x, w, b, er, attn, mask, n_heads, negative_slope)

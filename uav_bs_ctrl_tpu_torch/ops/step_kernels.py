@@ -1,7 +1,10 @@
-"""Fused recurrent step (TarMAC + GRU + Q head): the CUDA kernel and its plain version.
+"""Fused recurrent step (TarMAC + GRU + Q head): the CUDA kernels and their plain versions.
 
-Counterpart of ``uav_bs_ctrl_tpu/ops/step_kernels.py:tarmac_step``, with the
-same flattened contract. The kernel is ``csrc/tarmac_step.cu`` (forward only).
+Counterpart of ``uav_bs_ctrl_tpu/ops/step_kernels.py``, with the same
+flattened contract: ``tarmac_step`` (forward, ``csrc/tarmac_step.cu``),
+``tarmac_step_bwd`` (the recompute backward of ``_tst_bwd``,
+``csrc/tarmac_step_bwd.cu``) and ``tarmac_step_train``, the
+``torch.autograd.Function`` that joins them (``tarmac_step_train``'s custom VJP).
 """
 
 import ctypes
@@ -16,6 +19,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "tarmac_step_forward": (_I, [_P] * 19 + [_I] * 7 + [ctypes.c_float, _P]),
     "tarmac_step_error_string": (ctypes.c_char_p, [_I]),
+}
+_BWD_SIGNATURES = {
+    "tarmac_step_backward": (_I, [_P] * 36 + [_I] * 7 + [ctypes.c_float, _P]),
+    "tarmac_step_bwd_error_string": (ctypes.c_char_p, [_I]),
 }
 _WEIGHTS = ("wv", "bv", "ws", "bs", "wq", "bq", "wi", "wh", "bi", "bh",
             "wo", "bo", "wvh", "bvh")
@@ -44,6 +51,28 @@ def tarmac_step_plain(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh,
     return qv.reshape(w * a, -1), h2.reshape(w * a, -1)
 
 
+def _check_shapes(what, x, h, adjf, weights, a, **backward):
+    """Raise unless the operands fit the kernels; ``backward`` holds the
+    backward's cotangents (``gq``, ``gh2``). Returns ``(rows, hidden, n_act)``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    n_rows, hidden = x.shape
+    wv, ws, wo = weights["wv"], weights["ws"], weights["wo"]
+    msg, ks, n_act = wv.shape[1], ws.shape[1], wo.shape[1]
+    if n_rows % a:
+        raise ValueError(f"{n_rows} rows is not a whole number of worlds of {a} agents")
+    expected = {"wv": (2 * hidden, msg), "bv": (msg,), "ws": (2 * hidden, ks), "bs": (ks,),
+                "wq": (2 * hidden, ks), "bq": (ks,), "wi": (hidden + msg, 3 * hidden),
+                "wh": (hidden, 3 * hidden), "bi": (3 * hidden,), "bh": (3 * hidden,),
+                "wo": (hidden, n_act), "bo": (n_act,), "wvh": (hidden, 1), "bvh": (1,),
+                "h": (n_rows, hidden), "adjf": (n_rows, a), "gq": (n_rows, n_act),
+                "gh2": (n_rows, hidden)}
+    for name, t in (("h", h), ("adjf", adjf), *weights.items(), *backward.items()):
+        if tuple(t.shape) != expected[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {expected[name]}")
+    return n_rows, hidden, n_act
+
+
 def tarmac_step(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
                 wvh, bvh, a, key_size, dueling):
     """One TarMAC round + GRU cell + (dueling) Q head for every (world, agent) row.
@@ -60,23 +89,8 @@ def tarmac_step(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
                                   wo, bo, wvh, bvh)))
     if x.device.type == "cpu":
         return tarmac_step_plain(x, h, adjf, *weights.values(), a, key_size, dueling)
-    if x.device.type != "cuda":
-        raise ValueError(f"tarmac_step runs on cpu or cuda, not {x.device}")
-    rows, hidden = x.shape
-    msg, ks, n_act = wv.shape[1], ws.shape[1], wo.shape[1]
-    if rows % a:
-        raise ValueError(f"{rows} rows is not a whole number of worlds of {a} agents")
-    expected = {"wv": (2 * hidden, msg), "bv": (msg,), "ws": (2 * hidden, ks), "bs": (ks,),
-                "wq": (2 * hidden, ks), "bq": (ks,), "wi": (hidden + msg, 3 * hidden),
-                "wh": (hidden, 3 * hidden), "bi": (3 * hidden,), "bh": (3 * hidden,),
-                "wo": (hidden, n_act), "bo": (n_act,), "wvh": (hidden, 1), "bvh": (1,)}
-    for name, t in (("h", h), ("adjf", adjf)):
-        want = (rows, hidden) if name == "h" else (rows, a)
-        if tuple(t.shape) != want:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
-    for name, t in weights.items():
-        if tuple(t.shape) != expected[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {expected[name]}")
+    rows, hidden, n_act = _check_shapes("tarmac_step", x, h, adjf, weights, a)
+    msg, ks = wv.shape[1], ws.shape[1]
     q = torch.empty((rows, n_act), dtype=torch.float32, device=x.device)
     h2 = torch.empty((rows, hidden), dtype=torch.float32, device=x.device)
     ptrs = build.pointers(x.device, {"x": x, "h": h, "adjf": adjf, **weights,
@@ -91,3 +105,144 @@ def tarmac_step(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
 
 
 tarmac_step.launches = 0
+
+
+def tarmac_step_bwd_plain(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh,
+                          wo, bo, wvh, bvh, gq, gh2, a, key_size, dueling):
+    """Plain PyTorch version of :func:`tarmac_step_bwd`, in the order of
+    ``step_kernels.py:_step_bwd_kernel``: recompute, head, GRU, attention, then
+    the v/s/q linears. ``h`` reaches v/s/q without gradient, so ``dh`` carries
+    the GRU path only, while ``dwv/dws/dwq`` still see ``h`` as an input.
+    """
+    n_rows, hid = x.shape
+    w = n_rows // a
+    x3, h3 = x.reshape(w, a, hid), h.reshape(w, a, hid)
+    gq3, gh3 = gq.reshape(w, a, -1), gh2.reshape(w, a, hid)
+    adj = adjf.reshape(w, a, a) > 0
+    flat = lambda t: t.reshape(-1, t.shape[-1])
+    # forward recompute
+    inputs = torch.cat([x3, h3], dim=-1)
+    v = inputs @ wv + bv
+    s = inputs @ ws + bs
+    q = inputs @ wq + bq
+    alpha = masked_softmax(torch.einsum("wsk,wdk->wsd", s, q) / key_size, adj, dim=-2)
+    c = torch.einsum("wsd,wsm->wdm", alpha, v)
+    u = torch.cat([x3, c], dim=-1)
+    i_r, i_z, i_n = torch.chunk(u @ wi + bi, 3, dim=-1)
+    h_r, h_z, hn = torch.chunk(h3 @ wh + bh, 3, dim=-1)
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * hn)
+    h2 = (1 - z) * n + z * h3
+    # head
+    if dueling:
+        dvh = gq3.sum(-1, keepdim=True)
+        dadv = gq3 - gq3.mean(-1, keepdim=True)
+        dh2 = dadv @ wo.T + dvh @ wvh.T
+    else:
+        dvh = torch.zeros_like(gq3[..., :1])
+        dadv = gq3
+        dh2 = dadv @ wo.T
+    dh2 = dh2 + gh3
+    # GRU
+    dn = dh2 * (1 - z)
+    dz = dh2 * (h3 - n)
+    dpre_n = dn * (1 - n * n)
+    dr = dpre_n * hn
+    dhn = dpre_n * r
+    dpre_z = dz * z * (1 - z)
+    dpre_r = dr * r * (1 - r)
+    dgi = torch.cat([dpre_r, dpre_z, dpre_n], dim=-1)
+    dgh = torch.cat([dpre_r, dpre_z, dhn], dim=-1)
+    du = dgi @ wi.T
+    dx, dc = du[..., :hid], du[..., hid:]
+    dh = dh2 * z + dgh @ wh.T
+    # attention
+    dalpha = torch.einsum("wsm,wdm->wsd", v, dc)
+    dv = torch.einsum("wsd,wdm->wsm", alpha, dc)
+    dscore = alpha * (dalpha - (alpha * dalpha).sum(1, keepdim=True))
+    ds = torch.einsum("wsd,wdk->wsk", dscore, q) / key_size
+    dq = torch.einsum("wsd,wsk->wdk", dscore, s) / key_size
+    # v/s/q linears
+    dx = dx + dv @ wv[:hid].T + ds @ ws[:hid].T + dq @ wq[:hid].T
+    grads = []
+    for inp, g_out in ((inputs, dv), (inputs, ds), (inputs, dq)):
+        grads += [flat(inp).T @ flat(g_out), flat(g_out).sum(0)]
+    grads += [flat(u).T @ flat(dgi), flat(h3).T @ flat(dgh), flat(dgi).sum(0),
+              flat(dgh).sum(0), flat(h2).T @ flat(dadv), flat(dadv).sum(0),
+              flat(h2).T @ flat(dvh), flat(dvh).sum(0)]
+    return (dx.reshape(n_rows, hid), dh.reshape(n_rows, hid), *grads)
+
+
+def bwd_scratch_floats(rows, hidden, msg, key, n_act):
+    """Floats of the scratch buffer ``tarmac_step_bwd`` hands its second pass:
+    per row dpre_r|dpre_z|dpre_n|dhn, c, h2, dv, ds, dq, dadv, dvh."""
+    return rows * (5 * hidden + 2 * msg + 2 * key + n_act + 1)
+
+
+def tarmac_step_bwd(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
+                    wvh, bvh, gq, gh2, a, key_size, dueling):
+    """Backward of :func:`tarmac_step` by recompute, from its inputs and the
+    cotangents ``gq`` [W*A, n_act], ``gh2`` [W*A, H].
+
+    Returns ``(dx, dh, dwv, dbv, dws, dbs, dwq, dbq, dwi, dwh, dbi, dbh, dwo,
+    dbo, dwvh, dbvh)`` in the operands' shapes; ``dh`` is the GRU path only
+    (``h`` is stop-gradient into v/s/q); ``dwvh``/``dbvh`` are zero without
+    ``dueling``. A CPU tensor runs the plain version; a CUDA tensor always
+    launches the kernel or raises.
+    """
+    weights = dict(zip(_WEIGHTS, (wv, bv, ws, bs, wq, bq, wi, wh, bi, bh,
+                                  wo, bo, wvh, bvh)))
+    if x.device.type == "cpu":
+        return tarmac_step_bwd_plain(x, h, adjf, *weights.values(), gq, gh2, a,
+                                     key_size, dueling)
+    rows, hidden, n_act = _check_shapes("tarmac_step_bwd", x, h, adjf, weights, a,
+                                        gq=gq, gh2=gh2)
+    msg, ks = wv.shape[1], ws.shape[1]
+    dx = torch.empty_like(x)
+    dh = torch.empty_like(h)
+    dweights = {f"d{k}": torch.empty_like(t) for k, t in weights.items()}
+    scratch = torch.empty(max(1, bwd_scratch_floats(rows, hidden, msg, ks, n_act)),
+                          dtype=torch.float32, device=x.device)
+    ptrs = build.pointers(x.device, {"x": x, "h": h, "adjf": adjf, **weights, "gq": gq,
+                                     "gh2": gh2, "dx": dx, "dh": dh, **dweights,
+                                     "scratch": scratch})
+    lib = build.load("tarmac_step_bwd", _BWD_SIGNATURES)
+    err = lib.tarmac_step_backward(*ptrs, rows // a, a, hidden, msg, ks, n_act,
+                                   int(bool(dueling)), float(key_size),
+                                   build.stream_of(x.device))
+    build.check_launch(lib, "tarmac_step_bwd_error_string", err, "tarmac_step_bwd")
+    tarmac_step_bwd.launches += 1
+    return (dx, dh, *dweights.values())
+
+
+tarmac_step_bwd.launches = 0
+
+
+class _TarmacStepFn(torch.autograd.Function):
+    """``tarmac_step`` forward + ``tarmac_step_bwd`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, h, adjf, *rest):
+        tensors = tuple(t.detach() for t in (x, h, adjf) + rest[:14])
+        q, h2 = tarmac_step(*tensors, *rest[14:])
+        ctx.save_for_backward(*tensors)
+        ctx.cfg = rest[14:]
+        return q, h2
+
+    @staticmethod
+    def backward(ctx, gq, gh2):
+        grads = tarmac_step_bwd(*ctx.saved_tensors, gq.contiguous(), gh2.contiguous(),
+                                *ctx.cfg)
+        need = ctx.needs_input_grad
+        grads = grads[:2] + (None,) + grads[2:]
+        return tuple(g if need[i] else None for i, g in enumerate(grads)) + (None,) * 3
+
+
+def tarmac_step_train(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
+                      wvh, bvh, a, key_size, dueling):
+    """Differentiable :func:`tarmac_step` (same contract): one forward launch,
+    and autograd's backward is one :func:`tarmac_step_bwd` call. ``adjf``
+    gets no gradient."""
+    return _TarmacStepFn.apply(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh,
+                               wo, bo, wvh, bvh, a, key_size, dueling)

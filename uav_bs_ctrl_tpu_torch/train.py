@@ -1,0 +1,77 @@
+"""Train a run's policy on the device: resume from its checkpoint and run
+fused iterations (the counterpart of ``run_fast.py --exp exp3 --resume``,
+without logging, checkpoint writing or the epsilon schedule):
+
+    python -m uav_bs_ctrl_tpu_torch.train --run-dir <run dir> [--iterations N] [--eps E]
+
+It reads the run's ``config.json`` and newest checkpoint (net, mixer, LR
+scale), builds the fused trainer at the run's own settings, runs one warm-up
+iteration (collection only) and N training iterations, evaluates, and prints
+one JSON line of mean metrics. AdamW starts with fresh moments: the
+checkpoint's optimizer state is an optax object the port does not read
+(ROADMAP.md Queue 1). Runs on ``cuda`` unless ``--device cpu`` is given;
+``--tiny`` shrinks the run to a few seconds at full width for a check on the
+CPU.
+"""
+
+import argparse
+import json
+from pathlib import Path
+
+import numpy as np
+
+from uav_bs_ctrl_tpu_torch.algos.madrqn.fused import FusedMadrqnTrainer
+from uav_bs_ctrl_tpu_torch.serve import latest_checkpoint
+
+N_LAYOUTS = 64            # the fused trainer's default layout pool
+TINY = dict(n_worlds=2, interleave=1, updates_per_iter=1, batch_size=2, capacity_chunks=4,
+            n_layouts=4)
+
+
+def build_trainer(run_dir, device=None, n_layouts=N_LAYOUTS, n_worlds=None, interleave=None,
+                  updates_per_iter=None, batch_size=None, capacity_chunks=None):
+    """A :class:`FusedMadrqnTrainer` at the run's settings (``None`` keeps the
+    run's value), loaded from the run's newest checkpoint."""
+    config = json.loads((Path(run_dir) / "config.json").read_text())
+    kw = dict(config["args"], device=device or "cuda")
+    if batch_size is not None:
+        kw["batch_size"] = batch_size
+    n_worlds = n_worlds or config["n_worlds"]
+    if capacity_chunks is None:        # run_fast.py: replay_size rounded down to n_worlds
+        capacity_chunks = kw["replay_size"] - kw["replay_size"] % n_worlds
+    trainer = FusedMadrqnTrainer(config["map_id"], train_kwargs=kw, n_worlds=n_worlds,
+                                 capacity_chunks=capacity_chunks,
+                                 updates_per_iter=updates_per_iter, n_layouts=n_layouts,
+                                 seed=config["seed"],
+                                 interleave=interleave or config.get("interleave", 1))
+    trainer.learner.load_checkpoint(latest_checkpoint(run_dir))
+    return trainer
+
+
+def train(trainer, iterations, eps, eval_episodes):
+    """Warm-up, ``iterations`` training iterations, evaluation; mean metrics."""
+    trainer.run_iteration(eps, warmup=True)
+    history = [trainer.run_iteration(eps) for _ in range(iterations)]
+    out = {k: float(np.mean([m[k] for m in history])) for k in history[0]} if history else {}
+    out.update({k: float(np.mean(v))
+                for k, v in trainer.evaluate(eval_episodes, eps=0.05).items()})
+    return out
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--run-dir", required=True)
+    parser.add_argument("--iterations", type=int, default=1)
+    parser.add_argument("--eps", type=float, default=0.05,
+                        help="exploration epsilon (run_fast's floor, where the run ended)")
+    parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("--tiny", action="store_true",
+                        help=f"a quick check: {TINY} and 2 test episodes")
+    cli = parser.parse_args(argv)
+    trainer = build_trainer(cli.run_dir, cli.device, **(TINY if cli.tiny else {}))
+    eval_episodes = 2 if cli.tiny else trainer.n_worlds
+    print(json.dumps(train(trainer, cli.iterations, cli.eps, eval_episodes)))
+
+
+if __name__ == "__main__":
+    main()

@@ -44,3 +44,15 @@ def params_from_jax(tree, module: torch.nn.Module) -> dict:
                              f"{tuple(target.shape)}")
         out[key] = torch.from_numpy(leaf.copy())
     return out
+
+
+def learner_params_from_jax(tree, net: torch.nn.Module, mixer=None) -> dict:
+    """``{"net": state_dict[, "mixer": state_dict]}`` from a JAX learner tree
+    ``{"net": ..., "mixer": ...}`` (the mixer only when the learner has one)."""
+    if (mixer is None) != ("mixer" not in tree):
+        raise KeyError(f"the JAX tree has {sorted(tree)}, the learner "
+                       f"{'has no' if mixer is None else 'has a'} mixer")
+    out = {"net": params_from_jax(tree["net"], net)}
+    if mixer is not None:
+        out["mixer"] = params_from_jax(tree["mixer"], mixer)
+    return out
