@@ -3,19 +3,24 @@
 
 Run from anywhere: ``python3 chip_smoke.py``. Phases, each printed with its wall
 time: the device; the nvcc build of every kernel (one nvcc per source, in
-parallel); each forward and backward kernel against its plain PyTorch version
-on the card; serving the committed exp3 8-UBS TarMAC policy (40 worlds, one
-50-step episode) through the kernels, with every step's Q checked against the
-plain path; training that run through ``uav_bs_ctrl_tpu_torch.train``'s code
-path (one warm-up and one full iteration of 40 updates, then evaluation); one
-update through the kernels against the same update on the plain path, and
-repeated bit for bit; and timings. Any failed phase exits non-zero with no
-result line. The last line is the JSON device record.
+parallel); each of the five kernels against its plain PyTorch version on the
+card; serving the committed exp3 8-UBS TarMAC policy (40 worlds, one 50-step
+episode) through the kernels, with every step's Q checked against the plain
+path; serving the committed exp3 4-UBS DiscreteComm policy with
+``gat_backend='pallas'`` (``flash_gat``), every step's Q checked against the
+plain path fed the same Gumbel noise; the 8-UBS policy served through
+``flash_gat`` against its fused-kernel serving; training the 8-UBS run through
+``uav_bs_ctrl_tpu_torch.train``'s code path (resumed with its AdamW state, two
+warm-ups and one full iteration of 40 updates, then evaluation); one update
+through the kernels against the same update on the plain path, and repeated
+bit for bit; and timings. Any failed phase exits non-zero with no result line.
+The last line is the JSON device record.
 """
 
 import contextlib
 import faulthandler
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -32,10 +37,12 @@ F32_PEAK_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores (data sheet)
 HBM_BYTES_PER_S = 3.35e12
 RUN_DIR = ROOT / "data" / "exp3_fast_8ubs_tarmac_qmix_il10_lay64k" / \
     "exp3_fast_8ubs_tarmac_qmix_il10_lay64k_s0"
+DISC_DIR = ROOT / "data" / "exp3_fast_4ubs_disc_lay64k" / "exp3_fast_4ubs_disc_lay64k_s0"
 N_WORLDS = 40             # the run's n_worlds
 EPS = 0.05                # evaluate_policy's test epsilon
 DEVICE = "cuda"
-REPLACES = {"flash_gat_fused": "uav_bs_ctrl_tpu/ops/pallas_kernels.py:329",
+REPLACES = {"flash_gat": "uav_bs_ctrl_tpu/ops/pallas_kernels.py:138",
+            "flash_gat_fused": "uav_bs_ctrl_tpu/ops/pallas_kernels.py:329",
             "flash_gat_fused_bwd": "uav_bs_ctrl_tpu/ops/pallas_kernels.py:623",
             "tarmac_step": "uav_bs_ctrl_tpu/ops/step_kernels.py:314",
             "tarmac_step_bwd": "uav_bs_ctrl_tpu/ops/step_kernels.py:379"}
@@ -46,6 +53,11 @@ UPDATE_PARAM_ATOL = 1e-5  # updated params and targets, where the gradient is re
 RESOLVED_RTOL = 1e-5      # |raw grad| above this share of the group's largest entry; below
                           # it the gradient is at the f32 roundoff of the sums (zero in
                           # exact arithmetic for some entries) and Adam's step has either sign
+FLASH_RTOL = 1e-5         # flash_gat vs plain: of max(1, the output's largest entry)
+DISC_Q_RTOL = 1e-4        # 4-UBS DiscreteComm Q vs the plain path: of max(1, max |Q|); Q is
+                          # 150-190 there, where one f32 ulp is 1.5e-5
+TIE = 1e-4                # a Gumbel margin |z0 - z1| this small rounds either way: a roundoff
+                          # tie, where the plain path's bit may follow the kernel path's
 
 
 @contextlib.contextmanager
@@ -106,6 +118,17 @@ def gat_case(rng, n, m, d, hf, heads, masked_rows):
         mask=arr(mask))
 
 
+def flash_gat_case(gen, n, m, hf, heads, masked_rows, scale=1.0):
+    """(el, er, attn, mask) for flash_gat, drawn on the device from the
+    device generator ``gen`` (N = 4096, M = 256 is 268 M values); ``scale``
+    multiplies el and er."""
+    f = hf // heads
+    normal = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE)
+    mask = (torch.rand((n, m), generator=gen, device=DEVICE) > 0.3).to(torch.float32)
+    mask[masked_rows] = 0.0
+    return scale * normal(n, m, hf), scale * normal(n, hf), normal(heads, f) / f ** 0.5, mask
+
+
 def step_case(rng, w, a, hidden, msg, key, n_act):
     arr = lambda t: torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(DEVICE)
     lin = lambda i, o: rng.normal(size=(i, o)) / np.sqrt(i)
@@ -148,6 +171,19 @@ def gat_cost(x, mask, hf, heads):
     valid = float((mask > 0).sum())
     ops = valid * (hf * (2 * d + 7) + 3 * heads) + n * hf
     nbytes = 4 * (x.numel() + mask.numel() + 2 * n * hf + d * hf + 2 * hf + 2 * n * heads)
+    return ops, nbytes
+
+
+def flash_gat_cost(el, mask, heads):
+    """(operations, bytes) one flash_gat call needs: per valid slot +er,
+    LeakyReLU (2), x attn, the score sum and the weighted sum (2), about 7*HF,
+    plus 3 per head for the softmax, and a divide per output. Bytes: the mask,
+    er and attn read once, the output written once, and of el only the valid
+    slots' rows (a masked slot's contiguous HF-row does not reach the output)."""
+    n, m, hf = el.shape
+    valid = float((mask > 0).sum())
+    ops = valid * (7 * hf + 3 * heads) + n * hf
+    nbytes = 4 * (valid * hf + mask.numel() + 2 * n * hf + hf)
     return ops, nbytes
 
 
@@ -231,28 +267,69 @@ def bound(ops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def capture_kernel_calls(agent, obs, h):
+def capture_kernel_calls(agent, obs, h, key=None):
     """The (name, args) of every kernel call one policy forward makes (the
-    models call the forward kernels through their autograd Functions, with
-    the forward kernels' arguments)."""
+    models call the fused forward kernels through their autograd Functions,
+    with the forward kernels' arguments, and flash_gat directly)."""
     from uav_bs_ctrl_tpu_torch.models import agents, encoders
     calls = []
-    orig_gat, orig_step = encoders.flash_gat_fused_train, agents.tarmac_step_train
+    targets = {"flash_gat": (encoders, "flash_gat"),
+               "flash_gat_fused": (encoders, "flash_gat_fused_train"),
+               "tarmac_step": (agents, "tarmac_step_train")}
+    orig = {name: getattr(mod, attr) for name, (mod, attr) in targets.items()}
 
-    def rec_gat(*args):
-        calls.append(("flash_gat_fused", args))
-        return orig_gat(*args)
+    def recorder(name):
+        def rec(*args):
+            calls.append((name, args))
+            return orig[name](*args)
+        return rec
 
-    def rec_step(*args):
-        calls.append(("tarmac_step", args))
-        return orig_step(*args)
-
-    encoders.flash_gat_fused_train, agents.tarmac_step_train = rec_gat, rec_step
+    for name, (mod, attr) in targets.items():
+        setattr(mod, attr, recorder(name))
     try:
-        agent(obs, h)
+        agent(obs, h, key=key)
     finally:
-        encoders.flash_gat_fused_train, agents.tarmac_step_train = orig_gat, orig_step
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, orig[name])
     return calls
+
+
+@contextlib.contextmanager
+def same_bits_at_ties(ties):
+    """DiscreteComm's sample, for a policy called twice per step on the same
+    noise (kernel path, then plain path): where the two paths' hard bits
+    differ, the plain path's Gumbel margin |z0 - z1| must be within ``TIE``
+    (logits an f32 roundoff apart round the sample either way) and the plain
+    path then takes the kernel path's bit; a wider difference raises.
+    ``ties`` counts such bits and keeps the smallest margin seen."""
+    from uav_bs_ctrl_tpu_torch.models import comm
+    from uav_bs_ctrl_tpu_torch.models.modules import gumbel_noise, gumbel_softmax
+    first = []
+
+    def sample(logits, tau=1.0, hard=False, seed=None, noise=None):
+        if noise is None:
+            noise = gumbel_noise(logits.shape, seed, logits.device)
+        z = logits + noise
+        bits = gumbel_softmax(logits, tau, hard, noise=noise)
+        margin = (z[..., 0] - z[..., 1]).abs()
+        ties["min_margin"] = min(ties["min_margin"], margin.min().item())
+        if not first:
+            first.append(bits)
+            return bits
+        bits_k = first.pop()
+        differ = (bits != bits_k).any(-1)
+        wide = (differ & (margin > TIE)).sum().item()
+        if wide:
+            raise AssertionError(f"{wide} DiscreteComm bits differ between the kernel and "
+                                 f"the plain path at Gumbel margins beyond {TIE}")
+        ties["bits"] += int(differ.sum())
+        return torch.where(differ[..., None], bits_k, bits)
+
+    comm.gumbel_softmax = sample
+    try:
+        yield
+    finally:
+        comm.gumbel_softmax = gumbel_softmax
 
 
 def capture_backward_calls(learner, batch, step):
@@ -339,7 +416,8 @@ def training_log_test_stats(run_dir, epoch):
         row = dict(zip(head, line.split("\t")))
         if int(float(row["Epoch"])) == epoch:
             return {k: float(v) for k, v in row.items()
-                    if k in ("AverageTestEpRet", "TestFairIdx", "TestAvgGlobalUtility",
+                    if k in ("AverageTestEpRet", "StdTestEpRet", "TestFairIdx",
+                             "TestAvgGlobalUtility",
                              "TestTotalThroughput", "TestProbCollision")}
     return {}
 
@@ -350,20 +428,25 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
-    if not (ROOT / "uav_bs_ctrl_tpu_torch").is_dir() or not RUN_DIR.is_dir():
-        print(f"chip_smoke: the uav_bs_ctrl_tpu_torch package and {RUN_DIR.relative_to(ROOT)} "
-              f"must sit beside {Path(__file__).name}", file=sys.stderr)
+    if not (ROOT / "uav_bs_ctrl_tpu_torch").is_dir() or not RUN_DIR.is_dir() \
+            or not DISC_DIR.is_dir():
+        print(f"chip_smoke: the uav_bs_ctrl_tpu_torch package, {RUN_DIR.relative_to(ROOT)} and "
+              f"{DISC_DIR.relative_to(ROOT)} must sit beside {Path(__file__).name}",
+              file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     from uav_bs_ctrl_tpu_torch import serve, train
     from uav_bs_ctrl_tpu_torch.algos import collect
     from uav_bs_ctrl_tpu_torch.envs import torch_env
+    from uav_bs_ctrl_tpu_torch.models.modules import gumbel_noise
     from uav_bs_ctrl_tpu_torch.ops import build
     from uav_bs_ctrl_tpu_torch.ops.gat_kernels import (
-        flash_gat_fused, flash_gat_fused_bwd, flash_gat_fused_bwd_plain, flash_gat_fused_plain)
+        flash_gat, flash_gat_fused, flash_gat_fused_bwd, flash_gat_fused_bwd_plain,
+        flash_gat_fused_plain, flash_gat_plain)
     from uav_bs_ctrl_tpu_torch.ops.step_kernels import (
         tarmac_step, tarmac_step_bwd, tarmac_step_bwd_plain, tarmac_step_plain)
-    kernels = {"flash_gat_fused": (flash_gat_fused, flash_gat_fused_plain),
+    kernels = {"flash_gat": (flash_gat, flash_gat_plain),
+               "flash_gat_fused": (flash_gat_fused, flash_gat_fused_plain),
                "tarmac_step": (tarmac_step, tarmac_step_plain)}
     bwd_kernels = {"flash_gat_fused_bwd": (flash_gat_fused_bwd, flash_gat_fused_bwd_plain),
                    "tarmac_step_bwd": (tarmac_step_bwd, tarmac_step_bwd_plain)}
@@ -394,7 +477,30 @@ def main():
 
     worst = dict.fromkeys(all_kernels, 0.0)
     rng = np.random.default_rng(0)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
     with phase("kernels against plain versions"):
+        k_4ubs = torch_env.make_params("4ubs").n_ubs - 1           # 'near' slots at 4 UBS
+        for n in (160, 320, 4096):
+            for m in (50, k_4ubs, 256):
+                for hf, heads in ((256, 4), (128, 2)):
+                    args = flash_gat_case(gen, n, m, hf, heads, masked_rows=[1, 5, n - 1]) + \
+                        (heads,)
+                    got = flash_gat(*args)
+                    what = f"flash_gat N={n} M={m} HF={hf} H={heads}"
+                    err = rel_err([got], [flash_gat_plain(*args)], what, FLASH_RTOL)
+                    zero = got[args[3].sum(1) == 0].abs().max().item()
+                    if zero != 0.0:
+                        raise AssertionError(f"{what}: fully masked rows gave {zero}")
+                    worst["flash_gat"] = max(worst["flash_gat"], err)
+        print(f"  flash_gat, 18 cases (N 160/320/4096, M 50/{k_4ubs}/256, 4x64 and 2x128): max "
+              f"|k - p| / max(1, max|p|) {worst['flash_gat']:.3e}, fully masked rows exactly 0",
+              flush=True)
+        args = flash_gat_case(gen, 320, 256, 128, 2, masked_rows=[1], scale=50.0) + (2,)
+        got = flash_gat(*args)
+        err = rel_err([got], [flash_gat_plain(*args)], "flash_gat x50 scores", FLASH_RTOL)
+        print(f"  flash_gat x50 score magnitudes N=320 M=256: {err:.3e} (max |out| "
+              f"{got.abs().max().item():.1f})", flush=True)
+        worst["flash_gat"] = max(worst["flash_gat"], err)
         for n, m, d, label in ((320, 50, 4, "seen"), (320, 7, 2, "near"), (4096, 50, 4, "large")):
             c = gat_case(rng, n, m, d, 256, 4, masked_rows=[1, 5, n - 1])
             args = (c["x"], c["w"], c["b"], c["er"], c["attn"], c["mask"], 4)
@@ -456,8 +562,7 @@ def main():
         steps = torch_env.make_params("8ubs").episode_limit
         print(f"  launches on the serving path: {serve_launches} over {steps} env steps "
               f"({serve_s:.2f} s, loading included)", flush=True)
-        want = {"flash_gat_fused": 2 * steps, "tarmac_step": steps,
-                "flash_gat_fused_bwd": 0, "tarmac_step_bwd": 0}
+        want = dict(dict.fromkeys(all_kernels, 0), flash_gat_fused=2 * steps, tarmac_step=steps)
         if serve_launches != want:
             raise AssertionError(f"expected {want} launches, got {serve_launches}")
         for key, v in stats.items():
@@ -473,7 +578,7 @@ def main():
         env_params = torch_env.make_params(config["map_id"])
         errs, calls, first = [], [], []
 
-        def checked(obs, h):
+        def checked(obs, h, key=None):
             if not calls:
                 first.extend((obs, h))
                 calls.extend(capture_kernel_calls(agent, obs, h))
@@ -496,8 +601,102 @@ def main():
             worst[name] = max(worst[name], max_err(fn(*args), plain(*args),
                                                    f"{name} on serving inputs"))
 
-    with phase(f"train {RUN_DIR.name}: one warm-up and one full iteration, then "
-               f"{N_WORLDS} test episodes"):
+    with phase(f"serve {DISC_DIR.name} with gat_backend='pallas': {N_WORLDS} worlds, one "
+               f"episode, eps={EPS}"):
+        reset_counts()
+        t0 = time.perf_counter()
+        disc_stats = serve.evaluate(DISC_DIR, N_WORLDS, eps=EPS, seed=0, device=DEVICE,
+                                    gat_backend="pallas")
+        torch.cuda.synchronize()
+        disc_s = time.perf_counter() - t0
+        disc_launches = counts()
+        disc_steps = torch_env.make_params("4ubs").episode_limit
+        print(f"  launches on the serving path: {disc_launches} over {disc_steps} env steps "
+              f"({disc_s:.2f} s, loading included)", flush=True)
+        want = dict(dict.fromkeys(all_kernels, 0), flash_gat=2 * disc_steps)
+        if disc_launches != want:
+            raise AssertionError(f"expected {want} launches, got {disc_launches}")
+        for key, v in disc_stats.items():
+            if tuple(v.shape) != (N_WORLDS,) or not torch.isfinite(v).all():
+                raise AssertionError(f"{key}: shape {tuple(v.shape)} or non-finite values")
+        print(f"  episode stats (mean over {N_WORLDS} worlds): "
+              f"{json.dumps({k: float(v.mean()) for k, v in disc_stats.items()})}")
+        print(f"  the training log's test stats at epoch 200 (JAX, other layouts): "
+              f"{json.dumps(training_log_test_stats(DISC_DIR, 200))}", flush=True)
+
+    with phase("serve the 4-UBS policy again, every step's Q and h' against the plain path "
+               "on the same Gumbel noise"):
+        dagent, dconfig = serve.load_policy(DISC_DIR, DEVICE, gat_backend="pallas")
+        denv = torch_env.make_params(dconfig["map_id"])
+        derrs, dcalls = [], []
+        ties = {"bits": 0, "min_margin": float("inf")}
+
+        def dchecked(obs, h, key):
+            seed = int(key)                  # one seed, so the same noise, for every call
+            if not dcalls:
+                dcalls.extend(capture_kernel_calls(dagent, obs, h, seed))
+            with same_bits_at_ties(ties):
+                q, h2 = dagent(obs, h, key=seed)
+                q_ref, h_ref = dagent(obs, h, use_kernels=False, key=seed)
+            derrs.append(((q - q_ref).abs().max().item() / max(1.0, q_ref.abs().max().item()),
+                          (h2 - h_ref).abs().max().item()))
+            return q, h2
+
+        dpool = serve.test_pool(dconfig["map_id"], 0)
+        stats2 = collect.evaluate_policy(denv, dchecked, dpool, dagent.hidden,
+                                         torch.Generator().manual_seed(0), N_WORLDS, device, EPS)
+        worst_q, worst_h = max(e[0] for e in derrs), max(e[1] for e in derrs)
+        print(f"  {len(derrs)} steps: max |dQ| / max(1, max |Q|) {worst_q:.3e} (bound "
+              f"{DISC_Q_RTOL}), max |dh'| {worst_h:.3e} (bound {ATOL}); DiscreteComm bits "
+              f"taken from the kernel path at roundoff ties: {ties['bits']} (smallest Gumbel "
+              f"margin {ties['min_margin']:.2e}, tie bound {TIE}); same episode stats as the "
+              f"first run: {all(torch.equal(disc_stats[k], stats2[k]) for k in disc_stats)}",
+              flush=True)
+        if len(derrs) != disc_steps or worst_q > DISC_Q_RTOL or worst_h > ATOL:
+            raise AssertionError(f"per-step Q/h' beyond {DISC_Q_RTOL}/{ATOL}: "
+                                 f"{worst_q:.3e} / {worst_h:.3e}")
+        if [name for name, _ in dcalls] != ["flash_gat", "flash_gat"]:
+            raise AssertionError(f"a 4-UBS policy step called {[n for n, _ in dcalls]}")
+        for name, args in dcalls:
+            worst[name] = max(worst[name], rel_err([flash_gat(*args)], [flash_gat_plain(*args)],
+                                                   "flash_gat on serving inputs", FLASH_RTOL))
+
+    with phase(f"serve {RUN_DIR.name} with gat_backend='pallas': {N_WORLDS} worlds, one "
+               f"episode, every step's Q against the fused-kernel serving path"):
+        pagent, _ = serve.load_policy(RUN_DIR, DEVICE, gat_backend="pallas")
+        perrs = []
+        reset_counts()
+
+        def pchecked(obs, h, key=None):
+            q, h2 = pagent(obs, h)
+            q_ref, h_ref = agent(obs, h)
+            perrs.append(((q - q_ref).abs().max().item(), (h2 - h_ref).abs().max().item()))
+            return q, h2
+
+        stats3 = collect.evaluate_policy(env_params, pchecked, serve.test_pool(config["map_id"], 0),
+                                         agent.hidden, torch.Generator().manual_seed(0),
+                                         N_WORLDS, device, EPS)
+        torch.cuda.synchronize()
+        # The 'pallas' policy launches flash_gat x2 and tarmac_step per step; the
+        # fused reference beside it flash_gat_fused x2 and tarmac_step.
+        pallas_launches = counts()
+        want = dict(dict.fromkeys(all_kernels, 0), flash_gat=2 * steps,
+                    flash_gat_fused=2 * steps, tarmac_step=2 * steps)
+        worst_q, worst_h = max(e[0] for e in perrs), max(e[1] for e in perrs)
+        print(f"  launches, the 'pallas' policy and its fused reference: {pallas_launches}",
+              flush=True)
+        print(f"  {len(perrs)} steps: max |dQ| {worst_q:.3e}, max |dh'| {worst_h:.3e} against "
+              f"the fused kernels (bound {ATOL}); episode stats "
+              f"{json.dumps({k: float(v.mean()) for k, v in stats3.items()})}; the same as "
+              f"the fused serving: {all(torch.equal(stats[k], stats3[k]) for k in stats)}",
+              flush=True)
+        if pallas_launches != want:
+            raise AssertionError(f"expected {want} launches, got {pallas_launches}")
+        if len(perrs) != steps or worst_q > ATOL or worst_h > ATOL:
+            raise AssertionError(f"per-step Q/h' beyond {ATOL}: {worst_q:.3e} / {worst_h:.3e}")
+
+    with phase(f"train {RUN_DIR.name}: resume with the AdamW state, {train.N_WARMUPS} warm-ups "
+               f"and one full iteration, then {N_WORLDS} test episodes"):
         with torch.enable_grad():
             t0 = time.perf_counter()
             trainer = train.build_trainer(RUN_DIR, DEVICE)
@@ -506,11 +705,14 @@ def main():
             T, B, A = trainer.T, learner.batch_size, trainer.env_params.n_ubs
             print(f"  {trainer.n_worlds} worlds, interleave {trainer.interleave}, "
                   f"{trainer.updates_per_iter} updates per iteration at B={B}, T={T}; ring of "
-                  f"{trainer.capacity} chunks; {len(trainer.pool[0])} layouts (the run's 64k cut "
-                  f"to the trainer's default); lr {learner.lr} x {learner.lr_scale}", flush=True)
+                  f"{trainer.capacity} chunks; a pool of {len(trainer.pool[0])} layouts (the "
+                  f"run's 64k cut to run_fast.py's default); lr {learner.lr} x "
+                  f"{learner.lr_scale}; AdamW resumed at step "
+                  f"{learner.optimizer.state[learner.parameters()[0]]['step'].item():.0f}",
+                  flush=True)
             reset_counts()
             t1 = time.perf_counter()
-            warm = trainer.run_iteration(EPS, warmup=True)
+            warm = [trainer.run_iteration(EPS, warmup=True) for _ in range(train.N_WARMUPS)]
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             metrics = trainer.run_iteration(EPS)
@@ -519,8 +721,8 @@ def main():
             test = trainer.evaluate(N_WORLDS, eps=EPS)
             train_launches = counts()
         losses = trainer.last_losses.tolist()
-        print(f"  load {t1 - t0:.2f} s, warm-up {t2 - t1:.2f} s, iteration {t3 - t2:.2f} s "
-              f"(eps {EPS})", flush=True)
+        print(f"  load {t1 - t0:.2f} s, {train.N_WARMUPS} warm-ups {t2 - t1:.2f} s, iteration "
+              f"{t3 - t2:.2f} s (eps {EPS})", flush=True)
         print(f"  warm-up episode stats: {json.dumps(warm)}")
         print(f"  LossQ per update: {json.dumps([round(v, 4) for v in losses])}")
         print(f"  iteration: {json.dumps(metrics)}")
@@ -528,12 +730,13 @@ def main():
         print(f"  launches on the training path: {train_launches}", flush=True)
         if len(losses) != n_updates or not all(np.isfinite(losses)):
             raise AssertionError(f"expected {n_updates} finite LossQ values, got {losses}")
-        if (trainer._size, trainer._ptr) != (2 * trainer.n_worlds, 2 * trainer.n_worlds):
-            raise AssertionError(f"ring size/ptr {trainer._size}/{trainer._ptr}, "
-                                 f"expected {2 * trainer.n_worlds}")
-        policy_steps = (1 + trainer.interleave + 1) * T       # warm-up, sub-iterations, test
-        per_update = {"flash_gat_fused": 2 * (2 * T + 1), "tarmac_step": 2 * T + 1,
-                      "flash_gat_fused_bwd": 2 * T, "tarmac_step_bwd": T}
+        chunks = (train.N_WARMUPS + 1) * trainer.n_worlds
+        if (trainer._size, trainer._ptr) != (chunks, chunks):
+            raise AssertionError(f"ring size/ptr {trainer._size}/{trainer._ptr}, expected {chunks}")
+        # warm-ups, sub-iterations, test
+        policy_steps = (train.N_WARMUPS + trainer.interleave + 1) * T
+        per_update = {"flash_gat": 0, "flash_gat_fused": 2 * (2 * T + 1),
+                      "tarmac_step": 2 * T + 1, "flash_gat_fused_bwd": 2 * T, "tarmac_step_bwd": T}
         want = {k: n_updates * v for k, v in per_update.items()}
         want["flash_gat_fused"] += 2 * policy_steps
         want["tarmac_step"] += policy_steps
@@ -612,6 +815,16 @@ def main():
             bwd_calls = capture_backward_calls(learner, batch, T // 2)
         learner.load_state_dict(snap)
         timed = {name: [] for name in all_kernels}
+        for args in (a for _, a in dcalls):
+            ms = time_cuda(lambda: flash_gat(*args))
+            plain_ms = time_cuda(lambda: flash_gat_plain(*args))
+            cost = flash_gat_cost(args[0], args[3], args[4])
+            bound_ms, bound_by = bound(*cost)
+            print(f"  4-UBS serving flash_gat {tuple(args[0].shape)}: {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: {cost[0]:.3e} ops, "
+                  f"{cost[1]:.3e} bytes); {disc_launches['flash_gat'] // disc_steps} launches "
+                  f"per env step", flush=True)
+            timed["flash_gat"].append((ms, plain_ms, bound_ms, bound_by))
         for name, captured in bwd_calls:
             fwd_args = captured[0]
             if name == "flash_gat_fused_bwd":
@@ -640,11 +853,14 @@ def main():
                       f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
                       f"{cost[0]:.3e} ops, {cost[1]:.3e} bytes)", flush=True)
                 timed[kname].append((ms, plain_ms, bound_ms, bound_by))
+        # Each kernel's launches on its main path: flash_gat's the 4-UBS 'pallas'
+        # serving, the others' the training path.
+        path_launches = dict(train_launches, flash_gat=disc_launches["flash_gat"])
         for name, rows in timed.items():
             record.append({
                 "name": name, "route": "cuda",
                 "source": f"uav_bs_ctrl_tpu_torch/ops/csrc/{name}.cu",
-                "replaces": REPLACES[name], "launches": train_launches[name],
+                "replaces": REPLACES[name], "launches": path_launches[name],
                 "max_abs_err": worst[name],
                 "ms": statistics.mean(r[0] for r in rows),
                 "plain_ms": statistics.mean(r[1] for r in rows),
@@ -684,17 +900,55 @@ def main():
             host.append((time.perf_counter() - t0) * 1e3)
         print(f"  policy forward per env step ({N_WORLDS} worlds): device {fwd_ms:.4f} ms, "
               f"host wall {statistics.median(host):.4f} ms", flush=True)
-        pool = serve.test_pool(config["map_id"], 0)
-        for n_worlds in (N_WORLDS, 512):
-            generator = torch.Generator().manual_seed(1)
-            t0 = time.perf_counter()
-            collect.evaluate_policy(env_params, agent, pool, agent.hidden, generator,
-                                    n_worlds, device, EPS)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            print(f"  {n_worlds} worlds x {steps} steps with the policy in the loop: "
-                  f"{dt:.3f} s, {n_worlds * steps / dt:.1f} env steps/s "
-                  f"({steps / dt:.2f} batched steps/s)", flush=True)
+        first_512 = []
+
+        def dagent_512(obs, h, key):
+            if not first_512 and obs["agent"].shape[0] == 512:
+                first_512.append((obs, h))
+            return dagent(obs, h, key=key)
+
+        batched_ms = {}
+        for label, pol, hidden, env, pool, n_steps in (
+                ("8-UBS TarMAC, fused kernels", agent, agent.hidden, env_params,
+                 serve.test_pool(config["map_id"], 0), steps),
+                ("4-UBS DiscreteComm, 'pallas'", dagent_512, dagent.hidden, denv, dpool,
+                 disc_steps)):
+            for n_worlds in (N_WORLDS, 512):
+                generator = torch.Generator().manual_seed(1)
+                t0 = time.perf_counter()
+                collect.evaluate_policy(env, pol, pool, hidden, generator, n_worlds,
+                                        device, EPS)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                batched_ms[label, n_worlds] = dt * 1e3 / n_steps
+                print(f"  {label}: {n_worlds} worlds x {n_steps} steps with the policy in the "
+                      f"loop: {dt:.3f} s, {n_worlds * n_steps / dt:.1f} env steps/s "
+                      f"({n_steps / dt:.2f} batched steps/s)", flush=True)
+
+        def host_ms(fn, n=10):
+            """Median host wall ms of ``fn(i)``, the card idle before and after."""
+            out = []
+            for i in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(i)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(out)
+
+        obs, h = first_512[0]
+        a4 = h.shape[1]
+        shape = (512, a4, a4, dagent.f_comm.msg_size, 2)      # DiscreteComm's per-edge noise
+        pol_ms = host_ms(lambda i: dagent(obs, h, key=i))
+        card_noise_ms = host_ms(lambda i: gumbel_noise(shape, i, device))
+        host_noise_ms = host_ms(lambda i: (-torch.empty(shape).exponential_(
+            generator=torch.Generator().manual_seed(i)).log()).to(device))
+        step_ms = batched_ms["4-UBS DiscreteComm, 'pallas'", 512]
+        print(f"  4-UBS batched step at 512 worlds, {step_ms:.2f} ms: policy forward "
+              f"{pol_ms:.3f} ms host wall (its {math.prod(shape)} Gumbel values drawn on the "
+              f"card in {card_noise_ms:.3f} ms; drawn on the host and copied, as before, "
+              f"{host_noise_ms:.3f} ms), so about {step_ms - pol_ms:.2f} ms for the env step "
+              f"and the exploration draws", flush=True)
 
     print(json.dumps({"kernels": record}))
     print(card)

@@ -1,4 +1,4 @@
-"""The backward CUDA kernels against their plain versions, on the card.
+"""The backward CUDA kernels and ``flash_gat`` against their plain versions, on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a GPU
 machine that has no JAX: ``python -m pytest --noconftest
@@ -89,6 +89,28 @@ def test_flash_gat_fused_bwd_kernel_matches_plain(cuda_device, n, m, d, need_dx)
     again = gat_kernels.flash_gat_fused_bwd(*args, out, mstat, lstat, c["g"], 4,
                                             need_dx=need_dx)
     assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,heads,f", [(160, 50, 4, 64), (160, 3, 4, 64), (37, 256, 2, 128),
+                                         (9, 20, 4, 8)])
+def test_flash_gat_kernel_matches_plain(cuda_device, n, m, heads, f):
+    """Serving shapes (4-UBS: 50 GT slots, 3 UBS slots), several slot chunks,
+    and F = 8 (heads padded to whole warps); an all-masked row gives 0."""
+    rng = np.random.default_rng(n + m)
+    mask = rng.random((n, m)) > 0.4
+    mask[1] = False
+    el = _on(cuda_device, rng.normal(size=(n, m, heads * f)))
+    er = _on(cuda_device, rng.normal(size=(n, heads * f)))
+    attn = _on(cuda_device, rng.normal(size=(heads, f)) / np.sqrt(f))
+    maskf = _on(cuda_device, mask)
+    before = gat_kernels.flash_gat.launches
+    got = gat_kernels.flash_gat(el, er, attn, maskf, heads)
+    assert gat_kernels.flash_gat.launches == before + 1
+    _assert_close_to_scale([got], [gat_kernels.flash_gat_plain(el, er, attn, maskf, heads)],
+                           "flash_gat")
+    assert torch.all(got[1] == 0)
+    assert torch.equal(got, gat_kernels.flash_gat(el, er, attn, maskf, heads))
 
 
 @pytest.mark.cuda

@@ -20,6 +20,7 @@ from uav_bs_ctrl_tpu.models import comm as jcomm
 from uav_bs_ctrl_tpu.models import encoders as jenc
 from uav_bs_ctrl_tpu.models import heads as jheads
 from uav_bs_ctrl_tpu.models import modules as jmod
+from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
 from uav_bs_ctrl_tpu_torch.config import make_args
 from uav_bs_ctrl_tpu_torch.models import modules
 from uav_bs_ctrl_tpu_torch.models.agents import GnnAgent
@@ -161,11 +162,26 @@ def test_params_from_jax_uses_every_leaf_and_fills_every_parameter():
 
 
 def test_config_accepts_jax_backend_names_but_not_unported_ones():
-    for gat in ("dense", "pallas_fused", "pallas_fused_mxu", "graph_parallel"):
+    """Serving takes every GATv2 backend ('pallas': the flash_gat kernel) and
+    every comm protocol; training rejects 'pallas' as JAX does (no gradient)
+    and, for now, any protocol but one-round TarMAC; the MLP encoder is not
+    ported."""
+    for gat in ("dense", "pallas", "pallas_fused", "pallas_fused_mxu", "graph_parallel"):
         make_args(_agent_args(False, gat_backend=gat, step_backend="pallas"), device="cpu")
+    for c in (None, "base", "disc", "commnet", "tarmac", "econv"):
+        make_args(dict(_agent_args(False), c=c, n_rounds=2), device="cpu")
+    env_info = dict(obs_shape=OBS_SHAPE, state_shape=22, n_actions=N_ACT, n_agents=3,
+                    episode_limit=5)
+    with pytest.raises(ValueError, match="no custom VJP"):
+        MultiAgentQLearner(env_info, make_args(_agent_args(False, gat_backend="pallas"),
+                                               device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_args(_agent_args(False, gat_backend="pallas"), device="cpu")
+        MultiAgentQLearner(env_info, make_args(dict(_agent_args(False), c="disc"), device="cpu"))
     with pytest.raises(ValueError):
         make_args(_agent_args(False, gat_backend="flash"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_args(dict(_agent_args(False), c="disc"), device="cpu")
+    with pytest.raises(ValueError, match="requires c='tarmac'"):
+        make_args(dict(_agent_args(False), c="disc", step_backend="pallas"), device="cpu")
+    with pytest.raises(KeyError):
+        make_args(dict(_agent_args(False), c="gossip"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_args(dict(_agent_args(False), o="mlp"), device="cpu")

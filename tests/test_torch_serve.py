@@ -1,7 +1,9 @@
-"""Serving the committed exp3 8-UBS TarMAC checkpoint: the port against JAX at
-full width (hidden 256, 4 heads of 64, msg 64, key 16), tolerance 1e-4; the
-serving entry point with JAX, optax, pandas and matplotlib absent; and no
-import of them anywhere in the port or in ``chip_smoke.py``.
+"""Serving the committed exp3 checkpoints: the 8-UBS TarMAC run (hidden 256, 4
+heads of 64, msg 64, key 16) through the fused GATv2 kernels and through
+'pallas' (``flash_gat``), and the 4-UBS DiscreteComm run (msg 64, no mixer)
+fed JAX's own Gumbel noise; the port against JAX at full width, tolerance
+1e-4. Also the serving entry point with JAX, optax, pandas and matplotlib
+absent, and no import of them anywhere in the port or in ``chip_smoke.py``.
 """
 
 import ast
@@ -27,24 +29,25 @@ from uav_bs_ctrl_tpu_torch.utils import checkpoint
 ROOT = Path(__file__).resolve().parents[1]
 RUN_DIR = (ROOT / "data" / "exp3_fast_8ubs_tarmac_qmix_il10_lay64k"
            / "exp3_fast_8ubs_tarmac_qmix_il10_lay64k_s0")
+DISC_DIR = ROOT / "data" / "exp3_fast_4ubs_disc_lay64k" / "exp3_fast_4ubs_disc_lay64k_s0"
 TOL = dict(atol=1e-4, rtol=1e-4)
 FORBIDDEN = {"jax", "jaxlib", "optax", "orbax", "flax", "pandas", "matplotlib",
              "uav_bs_ctrl_tpu"}
 
 
-def _jax_policy():
-    config = json.loads((RUN_DIR / "config.json").read_text())
+def _jax_policy(run_dir=RUN_DIR):
+    config = json.loads((run_dir / "config.json").read_text())
     args = SN(**{**JAX_DEFAULTS, **config["args"]})
-    params = checkpoint.load(serve.latest_checkpoint(RUN_DIR))["model_state_dict"]
+    params = checkpoint.load(serve.latest_checkpoint(run_dir))["model_state_dict"]
     env_params = jax_env.make_params(config["map_id"])
     agent = JaxGnnAgent({"agent": 2, "gt": 4, "ubs": 2}, env_params.n_actions, args)
     return agent, params, env_params
 
 
-def _worlds(env_params, seed):
+def _worlds(env_params, seed, map_id="8ubs"):
     """Two worlds from the serving test pool; in the second every UBS starts
     next to a GT group, so its 'seen' slots are populated."""
-    ubs, gts = serve.test_pool("8ubs", seed)
+    ubs, gts = serve.test_pool(map_id, seed)
     ubs, gts = ubs[:2].copy(), gts[:2].copy()
     ubs[1] = gts[1][::gts.shape[1] // ubs.shape[1]][:ubs.shape[1]] + 30.0
     keys = jax.random.split(jax.random.PRNGKey(seed), 2)
@@ -72,6 +75,62 @@ def test_checkpoint_q_matches_jax_at_full_width():
             q, h2 = agent(_to_torch_obs(obs), torch.from_numpy(h), use_kernels=use_kernels)
             np.testing.assert_allclose(q.numpy(), np.asarray(q_want), **TOL)
             np.testing.assert_allclose(h2.numpy(), np.asarray(h_want), **TOL)
+
+
+def test_checkpoint_pallas_backend_matches_jax_dense():
+    """``--gat-backend pallas`` (both relations through ``flash_gat``) gives
+    the JAX dense agent's Q and h'."""
+    jagent, params, jp = _jax_policy()
+    ubs, gts, keys, _ = _worlds(jp, seed=2)
+    states = jax.vmap(lambda u, g, k: jax_env.reset_from_positions(jp, u, g, k))(
+        jnp.asarray(ubs), jnp.asarray(gts), keys)
+    obs = jax.vmap(lambda s: jax_env.get_obs(jp, s))(states)
+    h = np.tanh(np.random.default_rng(2).normal(size=(2, jp.n_ubs, 256))).astype(np.float32)
+    assert jagent.enc.backend == "dense"
+    q_want, h_want = jax.jit(jagent.apply)(params, obs, jnp.asarray(h))
+    agent, _ = serve.load_policy(RUN_DIR, device="cpu", gat_backend="pallas")
+    assert agent.enc.seen.backend == agent.enc.near.backend == "pallas"
+    with torch.no_grad():
+        q, h2 = agent(_to_torch_obs(obs), torch.from_numpy(h))
+    np.testing.assert_allclose(q.numpy(), np.asarray(q_want), **TOL)
+    np.testing.assert_allclose(h2.numpy(), np.asarray(h_want), **TOL)
+
+
+def test_disc_checkpoint_teacher_forced_rollout_matches_jax():
+    """The 4-UBS DiscreteComm run (epoch 200), five greedy steps of both envs
+    and both policies from the same layouts; each step splits a fresh policy
+    key for the JAX agent, and the port gets that key's Gumbel noise. The port
+    serves through 'pallas' and through its default backend."""
+    jagent, params, jp = _jax_policy(DISC_DIR)
+    tp = torch_env.make_params("4ubs")
+    ubs, gts, keys, prior = _worlds(jp, seed=3, map_id="4ubs")
+    js = jax.vmap(lambda u, g, k: jax_env.reset_from_positions(jp, u, g, k))(
+        jnp.asarray(ubs), jnp.asarray(gts), keys)
+    agents = [serve.load_policy(DISC_DIR, device="cpu", gat_backend=b)[0]
+              for b in ("pallas", None)]
+    states = [torch_env.reset_from_positions(tp, torch.from_numpy(ubs), torch.from_numpy(gts),
+                                             torch.from_numpy(prior)) for _ in agents]
+    jh = jnp.zeros((2, jp.n_ubs, 256))
+    hs = [torch.zeros((2, jp.n_ubs, 256)) for _ in agents]
+    jstep = jax.jit(jax.vmap(lambda s, a: jax_env.step(jp, s, a)))
+    japply = jax.jit(jagent.apply)
+    key = jax.random.PRNGKey(3)
+    with torch.no_grad():
+        for _ in range(5):
+            key, k_pol = jax.random.split(key)
+            jq, jh = japply(params, jax.vmap(lambda s: jax_env.get_obs(jp, s))(js), jh, k_pol)
+            noise = torch.from_numpy(np.array(jax.random.gumbel(
+                k_pol, (2, jp.n_ubs, jp.n_ubs, 64, 2), jnp.float32)))
+            acts = np.array(jnp.argmax(jq, axis=-1))
+            js, _, _, jrew, _ = jstep(js, jnp.asarray(acts))
+            for i, agent in enumerate(agents):
+                tq, hs[i] = agent(torch_env.get_obs(tp, states[i]), hs[i], key=noise)
+                np.testing.assert_allclose(tq.numpy(), np.asarray(jq), **TOL)
+                np.testing.assert_allclose(hs[i].numpy(), np.asarray(jh), **TOL)
+                states[i], _, trew, _ = torch_env.step(tp, states[i], torch.from_numpy(acts))
+                np.testing.assert_allclose(trew.numpy(), np.asarray(jrew), **TOL)
+                states[i] = states[i]._replace(
+                    prior_gts=torch.from_numpy(np.asarray(js.prior_gts, np.int64)))
 
 
 def test_teacher_forced_rollout_matches_jax():
@@ -116,17 +175,20 @@ def test_serve_runs_where_jax_optax_pandas_are_missing():
         "from uav_bs_ctrl_tpu_torch import serve\n"
         f"agent, config = serve.load_policy({str(RUN_DIR)!r}, device='cpu')\n"
         "assert config['map_id'] == '8ubs' and agent.hidden == 256\n"
-        f"sys.argv = ['serve', '--run-dir', {str(RUN_DIR)!r}, '--episodes', '2',"
-        " '--device', 'cpu']\n"
-        "runpy.run_module('uav_bs_ctrl_tpu_torch.serve', run_name='__main__')\n"
+        f"for run_dir in ({str(RUN_DIR)!r}, {str(DISC_DIR)!r}):\n"
+        "    sys.argv = ['serve', '--run-dir', run_dir, '--episodes', '2', '--device', 'cpu',"
+        " '--gat-backend', 'pallas']\n"
+        "    runpy.run_module('uav_bs_ctrl_tpu_torch.serve', run_name='__main__')\n"
         f"assert not any(sys.modules.get(n) for n in {blocked!r})\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=240)
     assert out.returncode == 0, out.stderr
-    stats = json.loads(out.stdout.strip().splitlines()[-1])
-    assert set(stats) == {"TestEpRet", "TestFairIdx", "TestAvgGlobalUtility",
-                          "TestTotalThroughput", "TestProbCollision"}
-    assert all(np.isfinite(v) for v in stats.values())
+    lines = out.stdout.strip().splitlines()[-2:]
+    for line in lines:
+        stats = json.loads(line)
+        assert set(stats) == {"TestEpRet", "TestFairIdx", "TestAvgGlobalUtility",
+                              "TestTotalThroughput", "TestProbCollision"}
+        assert all(np.isfinite(v) for v in stats.values())
 
 
 def test_port_and_chip_smoke_import_nothing_of_jax():

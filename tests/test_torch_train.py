@@ -1,9 +1,9 @@
 """The port's training slice against the JAX package's, around the update
 (which ``test_torch_update.py`` holds to JAX): the QMIX mixer, the global
 state vector, the replay buffer's sampling, ``collect_chunk``, the fused
-trainer and the ``train`` entry point. Inputs are made with numpy from a seed
-and handed to both packages. Tolerance 1e-5 (f32, sums taken in another
-order).
+trainer, resuming a checkpoint with its AdamW state, and the ``train`` entry
+point. Inputs are made with numpy from a seed and handed to both packages.
+Tolerance 1e-5 (f32, sums taken in another order).
 """
 
 import json
@@ -21,18 +21,24 @@ import jax.numpy as jnp
 
 from uav_bs_ctrl_tpu.algos import collect as jcollect
 from uav_bs_ctrl_tpu.algos.buffer import SequenceReplayBuffer as JaxBuffer
+from uav_bs_ctrl_tpu.algos.common import check_args_sanity as jax_check_args
+from uav_bs_ctrl_tpu.algos.madrqn.config import DEFAULT_CONFIG as JAX_DEFAULTS
+from uav_bs_ctrl_tpu.algos.madrqn.learner import MultiAgentQLearner as JaxLearner
 from uav_bs_ctrl_tpu.algos.madrqn.fused import FusedMadrqnTrainer as JaxTrainer
 from uav_bs_ctrl_tpu.envs import jax_env
 from uav_bs_ctrl_tpu.models import agents as jagents
 from uav_bs_ctrl_tpu.models import heads as jheads
+from uav_bs_ctrl_tpu_torch import train
 from uav_bs_ctrl_tpu_torch.algos import collect
 from uav_bs_ctrl_tpu_torch.algos.buffer import SequenceReplayBuffer
+from uav_bs_ctrl_tpu_torch.algos.core import BETAS
 from uav_bs_ctrl_tpu_torch.algos.madrqn.fused import FusedMadrqnTrainer
+from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
 from uav_bs_ctrl_tpu_torch.config import make_args
 from uav_bs_ctrl_tpu_torch.envs import torch_env
 from uav_bs_ctrl_tpu_torch.models.agents import GnnAgent
 from uav_bs_ctrl_tpu_torch.models.heads import QMixer
-from uav_bs_ctrl_tpu_torch.utils.convert import params_from_jax
+from uav_bs_ctrl_tpu_torch.utils.convert import flatten, params_from_jax
 
 ROOT = Path(__file__).resolve().parents[1]
 RUN_DIR = (ROOT / "data" / "exp3_fast_8ubs_tarmac_qmix_il10_lay64k"
@@ -238,3 +244,129 @@ def test_train_entry_point_runs_where_jax_optax_pandas_are_missing():
     metrics = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"LossQ", "EpRet", "TestEpRet"} <= set(metrics)
     assert all(np.isfinite(v) for v in metrics.values())
+
+
+# ---------------------------------------------------------------- resuming a checkpoint
+
+def _named(tree):
+    return {k: np.array(v) for k, v in flatten(_np(tree)).items()}
+
+
+def test_resume_restores_adamw_and_the_first_update_matches_jax():
+    """Both packages resume the committed 8-UBS checkpoint (net, mixer, LR
+    scale 0.4 and optax's ScaleByAdamState: count 119,600, mu and nu of 38
+    leaves each) and take one update on the same batch of real experience
+    (B = 2, T = 4). LossQ to 1e-5 relative. Every gradient entry is a sum over
+    one BPTT graph, so its f32 roundoff scales with the group's largest raw
+    gradient: clipped grads are held to gtol = 1e-5 of it, the moments to what
+    that allows (mu: (1 - b1) gtol, nu: (1 - b2)(2|g| + gtol) gtol, each plus
+    1e-5 relative). Params and targets are held to 1e-5 where the raw gradient
+    exceeds gtol; below it (zero in exact arithmetic, see PERF.md §6) Adam
+    normalises roundoff, and the two updates differ by at most the sum of the
+    two packages' Adam steps."""
+    config = json.loads((RUN_DIR / "config.json").read_text())
+    kw = dict(config["args"], max_seq_len=4, batch_size=2)
+    env_info = dict(obs_shape=OBS_SHAPE, state_shape=216, n_actions=9, n_agents=8,
+                    episode_limit=50)
+    path = RUN_DIR / "checkpoint_epoch200.pt"
+    jl = JaxLearner(env_info, jax_check_args(SN(**{**JAX_DEFAULTS, **kw, "device": "cpu"})))
+    jl.load_checkpoint(str(path))
+    tl = MultiAgentQLearner(env_info, make_args(kw, device="cpu"))
+    assert tl.load_checkpoint(path) == {"epoch": 200, "t": 6_000_000}
+    assert tl.lr_scale == pytest.approx(jl.lr_scale) == 0.4
+    names = [f"net.{k}" for k, _ in tl.net.named_parameters()] + \
+        [f"mixer.{k}" for k, _ in tl.mixer.named_parameters()]
+    adam = jl.opt_state.inner_state[0]
+    mu0, nu0 = _named(adam.mu), _named(adam.nu)
+    assert int(adam.count) == 119_600 and len(mu0) == len(nu0) == len(names) == 38
+    for name, p in zip(names, tl.parameters()):       # the resumed state itself
+        st = tl.optimizer.state[p]
+        assert st["step"].item() == 119_600
+        assert torch.equal(st["exp_avg"], torch.from_numpy(mu0[name]))
+        assert torch.equal(st["exp_avg_sq"], torch.from_numpy(nu0[name]))
+
+    tp = torch_env.make_params("8ubs")
+    gen = torch.Generator().manual_seed(6)
+    states = collect.reset_worlds(tp, collect.make_layout_pool("8ubs", 4, seed=6), gen, 2,
+                                  torch.device("cpu"))
+    with torch.no_grad():
+        chunk, _, _ = collect.collect_chunk(tp, tl.net, states, torch.zeros((2, 8, 256)), 4,
+                                            gen, 0.5)
+    chunk["rew"] = chunk["rew"].mean(-1, keepdim=True)
+    jbatch = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), chunk)
+    key = jax.random.PRNGKey(0)
+    (loss, _), grads = jax.value_and_grad(jl._loss_fn, has_aux=True)(
+        jl.params, jl.target_params, jbatch, key)
+    raw = _named(grads)
+    grads["net"] = jax.tree_util.tree_map(lambda g: jnp.clip(g, -1.0, 1.0), grads["net"])
+    clipped = _named(grads)
+    params, targets, opt_state, _ = jl._update_jit(
+        jl.params, jl.target_params, jl.opt_state, jbatch, key, jnp.float32(jl.lr_scale))
+    mu, nu = _named(opt_state.inner_state[0].mu), _named(opt_state.inner_state[0].nu)
+    want = {"params": _named(params), "targets": _named(targets)}
+
+    got = tl.update_on_batch(chunk)
+    _close(got["LossQ"], float(loss), dict(atol=0, rtol=1e-5), "LossQ")
+    assert int(opt_state.inner_state[0].count) == 119_601
+    scale = {grp: max(np.abs(v).max() for k, v in raw.items() if k.startswith(grp))
+             for grp in ("net", "mixer")}
+    lr_step = tl.lr * tl.lr_scale
+    b1, b2 = BETAS
+    got_named = {attr: {f"{grp}.{k}": v.numpy() for grp, mod in mods.items()
+                        for k, v in mod.state_dict().items()}
+                 for attr, mods in (("params", {"net": tl.net, "mixer": tl.mixer}),
+                                    ("targets", {"net": tl.target_net,
+                                                 "mixer": tl.target_mixer}))}
+    n_unresolved = 0
+    for name, p in zip(names, tl.parameters()):
+        gtol = 1e-5 * scale[name.split(".")[0]]
+        st = tl.optimizer.state[p]
+        assert st["step"].item() == 119_601
+        g, m_got, v_got = p.grad.numpy(), st["exp_avg"].numpy(), st["exp_avg_sq"].numpy()
+        assert np.all(np.abs(g - clipped[name]) <= gtol), f"grad {name}"
+        assert np.all(np.abs(m_got - mu[name]) <= (1 - b1) * gtol + 1e-5 * np.abs(mu[name])), \
+            f"mu {name}"
+        assert np.all(np.abs(v_got - nu[name]) <= (1 - b2) * (2 * np.abs(clipped[name]) + gtol)
+                      * gtol + 1e-5 * np.abs(nu[name])), f"nu {name}"
+        resolved = np.abs(raw[name]) > gtol
+        n_unresolved += int((~resolved).sum())
+        steps = lr_step * (np.abs(m_got) / (np.sqrt(v_got) + 1e-8)
+                           + np.abs(mu[name]) / (np.sqrt(nu[name]) + 1e-8))
+        for attr, shrink in (("params", 1.0), ("targets", 1.0 - tl.polyak)):
+            diff = got_named[attr][name] - want[attr][name]
+            _close(got_named[attr][name][resolved], want[attr][name][resolved], TOL,
+                   f"{attr} {name}")
+            assert np.all(np.abs(diff[~resolved]) <= shrink * steps[~resolved] * 1.001 + 1e-7), \
+                f"{attr} {name} (unresolved)"
+    assert 0 < n_unresolved < sum(p.numel() for p in tl.parameters())
+
+
+def test_train_runs_two_warmups_and_takes_the_layout_pool_size(monkeypatch):
+    """``train.train`` refills the ring with two warm-up collections before
+    its first update (``run_fast.py:_maybe_resume``), and ``--n-layouts``
+    (default 256, as ``run_fast.py``) reaches the trainer's pools."""
+    built = {}
+    calls = []
+
+    class FakeTrainer:
+        n_worlds = 2
+
+        def run_iteration(self, eps, warmup=False):
+            calls.append(warmup)
+            return {"LossQ": 1.0}
+
+        def evaluate(self, n_episodes, eps):
+            return {"TestEpRet": np.zeros(n_episodes)}
+
+    def fake_build(run_dir, device=None, n_layouts=train.N_LAYOUTS, **kw):
+        built.update(n_layouts=n_layouts, **kw)
+        return FakeTrainer()
+
+    monkeypatch.setattr(train, "build_trainer", fake_build)
+    train.main(["--run-dir", str(RUN_DIR), "--iterations", "2", "--device", "cpu"])
+    assert calls == [True, True, False, False] and built["n_layouts"] == 256
+    train.main(["--run-dir", str(RUN_DIR), "--n-layouts", "3", "--tiny", "--device", "cpu"])
+    assert built["n_layouts"] == 3 and built["n_worlds"] == 2
+    monkeypatch.undo()
+    trainer = train.build_trainer(RUN_DIR, "cpu", 3, **train.TINY)
+    assert len(trainer.pool[0]) == len(trainer.test_pool[0]) == 3

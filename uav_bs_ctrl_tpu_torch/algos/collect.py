@@ -5,7 +5,11 @@ per world per step (the reference's exploration rule). ``collect_chunk``
 returns the experience in the replay layout; ``eval_rollout`` only the final
 episode statistics. Random draws come from a CPU ``torch.Generator`` and are
 moved to the device, so one seed gives the same draws on the CPU and on the
-card.
+card. Each step hands the policy its own key, as the JAX rollouts split
+``k_pol`` off theirs: a ``StepKey``, a seed drawn from the rollout's
+generator only when the policy reads it (the DiscreteComm agent seeds its
+Gumbel noise with it), so a policy that samples nothing leaves the rollout's
+stream as it was.
 """
 
 import numpy as np
@@ -39,9 +43,23 @@ def reset_worlds(params, pool, generator, n_worlds, device):
                                           pool_gts[idx].to(device), prior.to(device))
 
 
+class StepKey:
+    """One env step's policy key: ``int(key)`` draws a seed from the rollout's
+    generator the first time and returns the same seed after."""
+
+    def __init__(self, generator):
+        self._generator, self._seed = generator, None
+
+    def __int__(self):
+        if self._seed is None:
+            self._seed = int(torch.randint(0, 2**62, (), generator=self._generator))
+        return self._seed
+
+
 def _act(policy, obs, h, generator, eps, n_actions):
-    """Joint epsilon-greedy actions [W, A] and the next hidden state."""
-    q, h2 = policy(obs, h)
+    """Joint epsilon-greedy actions [W, A] and the next hidden state;
+    ``policy(obs, h, key=...)`` gets the step's ``StepKey``."""
+    q, h2 = policy(obs, h, key=StepKey(generator))
     greedy = q.argmax(-1)                                       # [W, A]
     rand = torch.randint(0, n_actions, tuple(greedy.shape), generator=generator)
     explore = torch.rand((greedy.shape[0], 1), generator=generator) < eps
@@ -91,7 +109,7 @@ def collect_chunk(env_params, policy, states, h0, n_steps, generator, eps):
 
 
 def eval_rollout(env_params, policy, states, h0, n_steps, generator, eps):
-    """Roll ``n_steps`` steps of every world with ``policy(obs, h) -> (q, h')``
+    """Roll ``n_steps`` steps of every world with ``policy(obs, h, key) -> (q, h')``
     choosing epsilon-greedy actions; returns the episode statistics [W]."""
     h = h0
     obs = torch_env.get_obs(env_params, states)

@@ -22,10 +22,12 @@ With ``use_kernels`` (the default) every GATv2 and recurrent step goes through
 the kernels' autograd Functions, forward and backward; ``False`` takes the
 unfused module path, the reference the kernel path is held against.
 
-A JAX checkpoint's optimizer state is an optax object, which the numpy-only
-unpickler turns into stubs, so :meth:`load_checkpoint` takes the params, the
-mixer and the LR scale and restarts AdamW's moments from zero; resuming the
-moments belongs with the checkpoint save/resume contract (ROADMAP.md Queue 1).
+:meth:`load_checkpoint` resumes a JAX checkpoint as the JAX package's does:
+params, mixer, LR scale and the AdamW state. The optax chain's
+``ScaleByAdamState(count, mu, nu)`` comes out of the numpy-only unpickler's
+stubs (``utils/checkpoint.py:find_state``); ``mu``/``nu`` follow the params'
+key mapping into ``exp_avg``/``exp_avg_sq`` and ``count`` becomes every
+parameter's ``step``.
 """
 
 import copy
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from uav_bs_ctrl_tpu_torch.algos.buffer import SequenceReplayBuffer, tree_map
+from uav_bs_ctrl_tpu_torch.config import check_training_args
 from uav_bs_ctrl_tpu_torch.utils import checkpoint as ckpt_io
 from uav_bs_ctrl_tpu_torch.utils.convert import learner_params_from_jax
 
@@ -45,6 +48,7 @@ class RecurrentQLearner:
     """Shared core for the recurrent Q-learners (MADRQN with mixer/double-Q)."""
 
     def __init__(self, env_info, args, agent, mixer=None):
+        check_training_args(args)
         self.device = args.device
         self.max_seq_len = (args.max_seq_len if args.max_seq_len is not None
                             else env_info["episode_limit"])
@@ -200,7 +204,7 @@ class RecurrentQLearner:
 
     def load_params(self, tree):
         """Net (and mixer) from a JAX learner tree ``{"net": ..., "mixer": ...}``;
-        targets become copies and AdamW starts afresh."""
+        targets become copies and AdamW starts afresh (as optax's ``init``)."""
         loaded = learner_params_from_jax(tree, self.net, self.mixer)
         self.net.load_state_dict(loaded["net"])
         self.target_net.load_state_dict(loaded["net"])
@@ -209,14 +213,32 @@ class RecurrentQLearner:
             self.target_mixer.load_state_dict(loaded["mixer"])
         self.optimizer = self._make_optimizer()
 
+    def load_adam_state(self, count, mu, nu):
+        """AdamW's state from optax's ``ScaleByAdamState``: ``mu``/``nu`` trees
+        ``{"net": ...[, "mixer": ...]}`` carried by the params' key mapping,
+        ``count`` as every parameter's step."""
+        moments = [learner_params_from_jax(tree, self.net, self.mixer) for tree in (mu, nu)]
+        step = torch.tensor(float(count), dtype=torch.float32)
+        for group in ("net", "mixer"):
+            module = getattr(self, group)
+            if module is None:
+                continue
+            for name, p in module.named_parameters():
+                self.optimizer.state[p] = {
+                    "step": step.clone(),
+                    "exp_avg": moments[0][group][name].to(p.device),
+                    "exp_avg_sq": moments[1][group][name].to(p.device)}
+
     def load_checkpoint(self, path):
-        """The params side of the JAX ``load_checkpoint``: net, mixer, LR
-        scale; returns the ``{epoch, t}`` stamp."""
+        """The JAX ``load_checkpoint``: net, mixer, AdamW state, LR scale;
+        returns the ``{epoch, t}`` stamp."""
         ckpt = ckpt_io.load(path)
         tree = {"net": ckpt["model_state_dict"]}
         if self.mixer is not None:
             tree["mixer"] = ckpt["mixer_state_dict"]
         self.load_params(tree)
+        adam = ckpt_io.find_state(ckpt["optimizer_state_dict"], "ScaleByAdamState")
+        self.load_adam_state(*adam.args)
         if self.anneal_lr and "lr_scheduler_state_dict" in ckpt:
             self._epoch = int(ckpt["lr_scheduler_state_dict"]["epoch"])
             self.lr_scale = float(ckpt["lr_scheduler_state_dict"]["lr_scale"])

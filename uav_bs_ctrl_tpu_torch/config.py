@@ -3,19 +3,22 @@
 
 ``DEFAULT_CONFIG`` holds the JAX package's defaults for the keys the port
 reads, serving and training; a run's saved ``config.json`` args are laid over
-them. JAX backend names are accepted: every GATv2 backend maps to the fused
-kernels and every step backend to the fused step, except
-``gat_backend='pallas'`` (the unfused ``flash_gat`` kernel, not yet ported).
+them. JAX backend names are accepted: ``gat_backend='pallas'`` maps to the
+``flash_gat`` kernel (inference only, as in JAX), every other GATv2 backend
+to the projection-fused kernels, and either step backend of one-round TarMAC
+to the fused step. Serving takes every comm protocol (or none) at any number
+of rounds; training (:func:`check_training_args`) takes one-round TarMAC.
 """
 
 from types import SimpleNamespace
 
 from uav_bs_ctrl_tpu_torch.device import resolve_device
+from uav_bs_ctrl_tpu_torch.models.comm import COMM_PROTOCOLS
 
 DEFAULT_CONFIG = {
     'device': 'cuda',
     'o': 'mlp',            # observation encoder ('mlp' | 'gnn')
-    'c': None,             # comm protocol; the port has 'tarmac' only
+    'c': None,             # comm protocol (models/comm.py), or None for a GRU only
     'share_reward': False,
     'hidden_size': 64,
     'n_heads': 4,
@@ -44,7 +47,7 @@ DEFAULT_CONFIG = {
     'mixer': False,
 }
 
-GAT_BACKENDS = ('dense', 'pallas_fused', 'pallas_fused_mxu', 'graph_parallel')
+GAT_BACKENDS = ('dense', 'pallas', 'pallas_fused', 'pallas_fused_mxu', 'graph_parallel')
 
 
 def make_args(saved_args: dict, device=None) -> SimpleNamespace:
@@ -62,22 +65,25 @@ def check_args_sanity(args):
     args.device = resolve_device(args.device)
     if getattr(args, 'mixer', False) and not getattr(args, 'share_reward', False):
         args.share_reward = True        # QMIX mixes one scalar team reward
-    if args.o != 'gnn' or args.c != 'tarmac' or args.n_rounds != 1:
+    if args.o != 'gnn':
         raise NotImplementedError(
-            f"the port runs the GNN agent with one-round TarMAC only; got "
-            f"o={args.o!r}, c={args.c!r}, n_rounds={args.n_rounds} (ROADMAP.md Queue 1)")
-    if args.gat_backend == 'pallas':
-        raise NotImplementedError(
-            "gat_backend='pallas' (the unfused flash_gat kernel) is still to be "
-            "ported (ROADMAP.md Queue 2, kernel #1)")
+            f"o={args.o!r}: the port runs the GNN observation encoder only; the MLP "
+            "encoder and RnnAgent are still to be ported (ROADMAP.md Queue 1)")
+    if args.c is not None and args.c not in COMM_PROTOCOLS:
+        raise KeyError(f"Unsupported communication scheme {args.c!r}; one of "
+                       f"{COMM_PROTOCOLS} or None")
+    if int(args.n_rounds) < 1:
+        raise ValueError(f"n_rounds must be >= 1, got {args.n_rounds}")
     if args.gat_backend not in GAT_BACKENDS:
-        raise ValueError(f"gat_backend must be one of {GAT_BACKENDS + ('pallas',)}, "
-                         f"got {args.gat_backend!r}")
+        raise ValueError(f"gat_backend must be one of {GAT_BACKENDS}, got {args.gat_backend!r}")
     if args.comm_backend not in ('dense', 'graph_parallel'):
         raise ValueError(f"comm_backend must be 'dense' or 'graph_parallel', "
                          f"got {args.comm_backend!r}")
     if args.step_backend not in ('xla', 'pallas'):
         raise ValueError(f"step_backend must be 'xla' or 'pallas', got {args.step_backend!r}")
+    if args.step_backend == 'pallas' and (args.c != 'tarmac' or args.n_rounds != 1):
+        raise ValueError("step_backend='pallas' requires c='tarmac' and n_rounds=1 (the "
+                         "fused recurrent-step kernel covers the TarMAC+GRU+head step only)")
     if args.compute_dtype != 'float32':
         raise NotImplementedError(f"compute_dtype={args.compute_dtype!r}: the port runs "
                                   "float32 only; bf16 compute is still to be ported "
@@ -86,4 +92,20 @@ def check_args_sanity(args):
         raise NotImplementedError(f"bptt_encoder={args.bptt_encoder!r}: the port runs the "
                                   "'per_step' schedule only; 'hoisted' and 'merged' are "
                                   "still to be ported (ROADMAP.md Queue 1)")
+    return args
+
+
+def check_training_args(args):
+    """What the trainer and learner take beyond :func:`check_args_sanity`:
+    a differentiable GATv2 backend (the JAX package's rule) and, for now,
+    one-round TarMAC."""
+    if args.gat_backend == 'pallas':
+        raise ValueError(
+            "gat_backend='pallas' (unfused flash_gat) is inference/benchmark only — it has "
+            "no custom VJP.  Use 'pallas_fused' or 'pallas_fused_mxu' for training, or call "
+            "models.encoders.gatv2(..., backend='pallas') directly.")
+    if args.c != 'tarmac' or args.n_rounds != 1:
+        raise NotImplementedError(
+            f"the port trains the GNN agent with one-round TarMAC only; got c={args.c!r}, "
+            f"n_rounds={args.n_rounds} (ROADMAP.md Queue 1)")
     return args

@@ -1,22 +1,29 @@
 """Recurrent GNN agent (counterpart of ``models/agents.py:GnnAgent``).
 
-hetero-GATv2 encoder -> one TarMAC round on the talk graph -> GRU -> (dueling)
-Q head. ``encode`` is the h-independent observation encoding, ``step`` the
-recurrent part, and calling the module (``forward``) is ``step . encode``, the
-JAX ``apply``. With ``use_kernels`` (the default) the encoder goes through
-``flash_gat_fused_train`` and the step through ``tarmac_step_train``: one
-forward launch each, and under autograd one backward launch each; the CUDA
-kernels on a card, their plain versions on the CPU. ``use_kernels=False`` takes
-the unfused module path, whose autograd is the independent reference.
+hetero-GATv2 encoder -> comm protocol on the talk graph (or a GRU cell when
+``c`` is None) -> (dueling) Q head. ``encode`` is the h-independent
+observation encoding, ``step`` the recurrent part, and calling the module
+(``forward``) is ``step . encode``, the JAX ``apply``; ``key`` (a
+seed or the noise tensor) reaches the comm, where only DiscreteComm draws
+from it.
+
+With ``use_kernels`` (the default) the encoder goes through the kernel of its
+``gat_backend`` (``flash_gat`` for 'pallas', else ``flash_gat_fused_train``)
+and, for one-round TarMAC, the step through ``tarmac_step_train`` (the
+fused step the JAX package takes under ``step_backend='pallas'``; the port
+takes it under either step backend); the CUDA kernels on a card, their plain
+versions on the CPU. Every other step runs on plain torch modules, as the JAX
+step does under ``step_backend='xla'``. ``use_kernels=False`` takes the
+unfused module path, whose autograd is the independent reference.
 """
 
 import torch
 from torch import nn
 
-from uav_bs_ctrl_tpu_torch.models.comm import TarMAC
+from uav_bs_ctrl_tpu_torch.models.comm import make_comm
 from uav_bs_ctrl_tpu_torch.models.encoders import GraphObservationEncoder
 from uav_bs_ctrl_tpu_torch.models.heads import DuelingLayer
-from uav_bs_ctrl_tpu_torch.models.modules import Linear
+from uav_bs_ctrl_tpu_torch.models.modules import GRUCell, Linear
 from uav_bs_ctrl_tpu_torch.ops.step_kernels import tarmac_step_train
 
 
@@ -26,28 +33,31 @@ class GnnAgent(nn.Module):
         if not isinstance(obs_shape, dict):
             raise NotImplementedError("the dense MLP observation encoder is still "
                                       "to be ported (ROADMAP.md Queue 1)")
-        if args.c != "tarmac" or args.n_rounds != 1:
-            raise NotImplementedError(f"only one-round TarMAC is ported, got "
-                                      f"c={args.c!r}, n_rounds={args.n_rounds}")
         self.hidden = args.hidden_size
         self.key_size = args.key_size
         self.dueling = bool(args.dueling)
-        self.enc = GraphObservationEncoder(obs_shape, args.hidden_size, args.n_heads)
-        self.f_comm = TarMAC(args.hidden_size, args.msg_size, args.key_size, args.n_rounds)
+        self.enc = GraphObservationEncoder(obs_shape, args.hidden_size, args.n_heads,
+                                           args.gat_backend)
+        if args.c is None:
+            self.rnn = GRUCell(args.hidden_size, args.hidden_size)
+            self.f_comm = None
+        else:
+            self.f_comm = make_comm(args)
         self.f_out = (DuelingLayer(args.hidden_size, n_actions) if self.dueling
                       else Linear(args.hidden_size, n_actions))
+        self.fused_step = args.c == "tarmac" and args.n_rounds == 1
 
     def encode(self, obs, use_kernels=True):
         return self.enc(obs, use_kernels)                  # [..., A, hidden]
 
-    def step(self, x, adj, h, use_kernels=True):
-        if use_kernels:
+    def step(self, x, adj, h, use_kernels=True, key=None):
+        if use_kernels and self.fused_step:
             return self._step_fused(x, adj, h)
-        h = self.f_comm(adj, x, h)
+        h = self.rnn(x, h) if self.f_comm is None else self.f_comm(adj, x, h, key)
         return self.f_out(h), h
 
-    def forward(self, obs, h, use_kernels=True):
-        return self.step(self.encode(obs, use_kernels), obs["adj"], h, use_kernels)
+    def forward(self, obs, h, use_kernels=True, key=None):
+        return self.step(self.encode(obs, use_kernels), obs.get("adj"), h, use_kernels, key)
 
     def _step_fused(self, x, adj, h):
         """Flatten [..., A, H] rows world-major, run one fused step, restore the shape."""

@@ -2,6 +2,11 @@
 
 Each agent owns fixed-size neighbourhood slot arrays (``[..., A, M, d]``
 features plus a ``[..., A, M]`` visibility mask), exactly the env's obs layout.
+
+The JAX package's ``gat_backend`` picks the kernel: ``'pallas'`` projects
+``el = fc_src(x_src)`` as a plain product and runs ``flash_gat`` over it (the
+inference-only path: the kernel has no gradient); every other backend runs
+the projection-fused ``flash_gat_fused_train``.
 """
 
 import math
@@ -11,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from uav_bs_ctrl_tpu_torch.models.modules import Linear
-from uav_bs_ctrl_tpu_torch.ops.gat_kernels import flash_gat_fused_train
+from uav_bs_ctrl_tpu_torch.ops.gat_kernels import flash_gat, flash_gat_fused_train
 from uav_bs_ctrl_tpu_torch.ops.masked import masked_softmax
 
 
@@ -21,10 +26,12 @@ class GATv2(nn.Module):
     destination's valid slots, message ``W_src x_j``; no valid slot leaves the
     residual only."""
 
-    def __init__(self, d_src, d_dst, n_heads, feats_per_head, negative_slope=0.2):
+    def __init__(self, d_src, d_dst, n_heads, feats_per_head, negative_slope=0.2,
+                 backend="dense"):
         super().__init__()
         out = n_heads * feats_per_head
         self.n_heads = n_heads
+        self.backend = backend
         self.negative_slope = negative_slope
         self.fc_src = Linear(d_src, out)
         self.fc_dst = Linear(d_dst, out)
@@ -35,9 +42,10 @@ class GATv2(nn.Module):
     def forward(self, x_src, x_dst, mask, use_kernels=True):
         """x_src: [..., M, d_src], x_dst: [..., d_dst], mask: [..., M] bool.
 
-        ``use_kernels`` takes the fused kernels (``flash_gat_fused_train``: one
-        forward launch, and under autograd one backward launch; the CUDA
-        kernels on a card, their plain versions on the CPU); ``False`` takes
+        ``use_kernels`` takes the backend's kernel: ``flash_gat`` (one launch,
+        no gradient) for ``'pallas'``, else ``flash_gat_fused_train`` (one
+        forward launch, and under autograd one backward launch); the CUDA
+        kernels on a card, their plain versions on the CPU. ``False`` takes
         the dense path, whose autograd is the independent reference.
         """
         res = self.res_fc(x_dst) if self.res_fc is not None else x_dst
@@ -49,10 +57,16 @@ class GATv2(nn.Module):
             batch = x_src.shape[:-2]
             m, d = x_src.shape[-2:]
             mask2 = torch.broadcast_to(mask, batch + (m,)).reshape(-1, m)
-            ft = flash_gat_fused_train(
-                x_src.reshape(-1, m, d).contiguous(), self.fc_src.w, self.fc_src.b,
-                er.reshape(-1, hf).contiguous(), self.attn,
-                mask2.to(x_src.dtype).contiguous(), self.n_heads, self.negative_slope)
+            mask2 = mask2.to(x_src.dtype).contiguous()
+            er2 = er.reshape(-1, hf).contiguous()
+            if self.backend == "pallas":
+                el = self.fc_src(x_src).reshape(-1, m, hf)        # a plain product, as in JAX
+                ft = flash_gat(el.contiguous(), er2, self.attn, mask2, self.n_heads,
+                               self.negative_slope)
+            else:
+                ft = flash_gat_fused_train(
+                    x_src.reshape(-1, m, d).contiguous(), self.fc_src.w, self.fc_src.b, er2,
+                    self.attn, mask2, self.n_heads, self.negative_slope)
             rst = ft.reshape(batch + (hf,))
         else:
             feats = hf // self.n_heads
@@ -76,13 +90,13 @@ class GraphObservationEncoder(nn.Module):
     used as the slot mask; columns 1: are the features.
     """
 
-    def __init__(self, obs_shape: dict, hidden, n_heads):
+    def __init__(self, obs_shape: dict, hidden, n_heads, backend="dense"):
         super().__init__()
         if hidden % n_heads:
             raise ValueError(f"hidden_size {hidden} is not a multiple of n_heads {n_heads}")
         f = hidden // n_heads
-        self.seen = GATv2(obs_shape["gt"], obs_shape["agent"], n_heads, f)
-        self.near = GATv2(obs_shape["ubs"], obs_shape["agent"], n_heads, f)
+        self.seen = GATv2(obs_shape["gt"], obs_shape["agent"], n_heads, f, backend=backend)
+        self.near = GATv2(obs_shape["ubs"], obs_shape["agent"], n_heads, f, backend=backend)
         self.aggr = Linear(2 * hidden, hidden)
 
     def forward(self, obs, use_kernels=True):

@@ -1,4 +1,5 @@
-"""Primitive modules: Linear, MLP, GRU cell (counterpart of ``models/modules.py``).
+"""Primitive modules: Linear, MLP, GRU cell and the Gumbel-softmax sample
+(counterpart of ``models/modules.py``).
 
 Weights keep the JAX package's layout, ``[in, out]``, under its names (``w``,
 ``b``; ``wi``, ``wh``, ``bi``, ``bh``), so a JAX parameter tree loads leaf by
@@ -11,6 +12,7 @@ without a checkpoint; served and trained weights come from a checkpoint.
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -68,3 +70,31 @@ class GRUCell(nn.Module):
 
     def forward(self, x, h):
         return gru(x, h, self.wi, self.wh, self.bi, self.bh)
+
+
+def gumbel_noise(shape, seed, device):
+    """Gumbel(0, 1) noise of ``shape`` drawn on ``device`` from a generator of
+    that device seeded with ``seed`` (the card's Philox stream differs from
+    the CPU's Mersenne Twister, so one seed gives other noise on each)."""
+    generator = torch.Generator(device=device).manual_seed(seed)
+    draw = torch.empty(shape, device=device).exponential_(generator=generator)
+    return -draw.clamp_min(torch.finfo(draw.dtype).tiny).log()
+
+
+def gumbel_softmax(logits, tau=1.0, hard=False, seed=None, noise=None):
+    """Gumbel-softmax over the last dim (torch ``F.gumbel_softmax`` semantics).
+
+    The noise is ``noise`` when given (a tensor of ``logits``' shape, e.g. the
+    JAX package's ``jax.random.gumbel`` draw), else ``gumbel_noise`` from
+    ``seed`` on ``logits``' device. ``hard`` gives the one-hot of the argmax
+    forward and the soft sample's gradient (straight-through).
+    """
+    if noise is None:
+        if seed is None:
+            raise ValueError("gumbel_softmax needs a seed or the noise itself")
+        noise = gumbel_noise(logits.shape, seed, logits.device)
+    y_soft = torch.softmax((logits + noise) / tau, dim=-1)
+    if not hard:
+        return y_soft
+    y_hard = F.one_hot(y_soft.argmax(-1), logits.shape[-1]).to(logits.dtype)
+    return y_soft + (y_hard - y_soft).detach()

@@ -1,7 +1,9 @@
-"""Projection-fused GATv2 attention: the CUDA kernels and their plain versions.
+"""GATv2 attention: the CUDA kernels and their plain versions.
 
-Counterpart of ``uav_bs_ctrl_tpu/ops/pallas_kernels.py``: ``flash_gat_fused``
-(forward, ``csrc/flash_gat_fused.cu``), ``flash_gat_fused_bwd`` (the
+Counterpart of ``uav_bs_ctrl_tpu/ops/pallas_kernels.py``: ``flash_gat`` (over a
+pre-projected ``el``, inference only, ``csrc/flash_gat.cu``),
+``flash_gat_fused`` (forward, ``csrc/flash_gat_fused.cu``),
+``flash_gat_fused_bwd`` (the
 recompute backward of ``_fgf_bwd``, ``csrc/flash_gat_fused_bwd.cu``) and
 ``flash_gat_fused_train``, the ``torch.autograd.Function`` that joins them
 (``flash_gat_fused_train``'s custom VJP). One kernel pair serves both of the
@@ -19,6 +21,10 @@ from uav_bs_ctrl_tpu_torch.ops.masked import NEG_BIG
 
 MAX_D = 8                 # source feature width the backward kernel holds in registers
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_FLASH_SIGNATURES = {
+    "flash_gat_forward": (_I, [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P]),
+    "flash_gat_error_string": (ctypes.c_char_p, [_I]),
+}
 _SIGNATURES = {
     "flash_gat_fused_forward": (_I, [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]),
     "flash_gat_fused_error_string": (ctypes.c_char_p, [_I]),
@@ -27,6 +33,74 @@ _BWD_SIGNATURES = {
     "flash_gat_fused_backward": (_I, [_P] * 16 + [_I] * 5 + [ctypes.c_float, _P]),
     "flash_gat_fused_bwd_error_string": (ctypes.c_char_p, [_I]),
 }
+
+
+def flash_gat_plain(el, er, attn, mask, n_heads, negative_slope=0.2):
+    """Plain PyTorch version of :func:`flash_gat` (the contract of the JAX
+    package's ``flash_gat_reference``): materialized scores, a masked
+    softmax over M with the all-masked rule, then ``sum alpha * el``."""
+    n, m, hf = el.shape
+    f = hf // n_heads
+    el_h = el.reshape(n, m, n_heads, f)
+    e = F.leaky_relu(el_h + er.reshape(n, 1, n_heads, f), negative_slope)
+    valid = (mask > 0)[:, :, None]
+    scores = torch.where(valid, (e * attn).sum(-1), NEG_BIG)      # [N, M, H]
+    smax = scores.amax(1, keepdim=True)
+    smax = torch.where(smax <= NEG_BIG / 2, 0.0, smax)
+    p = torch.where(valid, torch.exp(scores - smax), 0.0)
+    denom = torch.clamp_min(p.sum(1), 1e-30)
+    return (torch.einsum("nmh,nmhf->nhf", p, el_h) / denom[..., None]).reshape(n, hf)
+
+
+def flash_gat(el, er, attn, mask, n_heads, negative_slope=0.2):
+    """Masked GATv2 attention + aggregation over pre-projected sources.
+
+    el: [N, M, H*F] projected source features per destination slot; er:
+    [N, H*F] projected destination features; attn: [H, F]; mask: [N, M],
+    > 0 (or True) where a slot is valid. Returns [N, H*F] =
+    ``sum_m softmax_m(attn . LeakyReLU(el + er)) * el`` per head; rows with
+    no valid slot give exactly 0.
+
+    The JAX kernel has no VJP, so neither has this: it raises when autograd
+    would need its gradient. A CPU tensor runs the plain version; a CUDA
+    tensor always launches the kernel (float32, contiguous, H * ceil(F/32) *
+    32 <= 1024) or raises.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (el, er, attn)):
+        raise NotImplementedError(
+            "flash_gat (gat_backend='pallas') is inference only: it has no gradient, as "
+            "the JAX kernel has no VJP; train with the fused backends")
+    if el.device.type == "cpu":
+        return flash_gat_plain(el, er, attn, mask, n_heads, negative_slope)
+    if el.device.type != "cuda":
+        raise ValueError(f"flash_gat runs on cpu or cuda, not {el.device}")
+    n, m, hf = el.shape
+    if hf % n_heads:
+        raise ValueError(f"H*F = {hf} is not a multiple of H = {n_heads}")
+    f = hf // n_heads
+    expected = {"er": (n, hf), "attn": (n_heads, f), "mask": (n, m)}
+    for name, t in (("er", er), ("attn", attn), ("mask", mask)):
+        if tuple(t.shape) != expected[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {expected[name]}")
+    f_pad = -(-f // 32) * 32
+    if n_heads * f_pad > 1024:
+        raise ValueError(f"the kernel runs one thread per column with each head padded to "
+                         f"whole warps: H * ceil(F/32) * 32 = {n_heads * f_pad} > 1024")
+    out = torch.empty((n, hf), dtype=torch.float32, device=el.device)
+    if n == 0:
+        return out
+    mask = mask.to(torch.float32)          # held until the launch is queued
+    ptrs = build.pointers(el.device, {"el": el, "er": er, "attn": attn, "mask": mask,
+                                      "out": out})
+    lib = build.load("flash_gat", _FLASH_SIGNATURES)
+    err = lib.flash_gat_forward(*ptrs, n, m, hf, n_heads, float(negative_slope),
+                                build.stream_of(el.device))
+    build.check_launch(lib, "flash_gat_error_string", err, "flash_gat")
+    flash_gat.launches += 1
+    return out
+
+
+flash_gat.launches = 0
 
 
 def flash_gat_fused_plain(x, w, b, er, attn, mask, n_heads, negative_slope=0.2):

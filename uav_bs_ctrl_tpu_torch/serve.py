@@ -3,10 +3,16 @@
 The port's counterpart of the load-and-evaluate step in ``test_policies.py`` /
 ``algos/madrqn/run.py:load_and_run_policy``, run on the on-device env:
 
-    python -m uav_bs_ctrl_tpu_torch.serve --run-dir <run dir> --episodes 40
+    python -m uav_bs_ctrl_tpu_torch.serve --run-dir <run dir> --episodes 40 \
+        [--gat-backend pallas]
 
-Runs on ``cuda`` unless ``--device cpu`` is given; the GATv2 encoder and the
-recurrent step then go through the hand-written CUDA kernels.
+Any GNN agent the port has (every comm protocol, or a GRU only) loads from
+its ``config.json``. ``--gat-backend`` overrides the run's GATv2 backend (the
+JAX package reaches its ``flash_gat`` kernel only through ``gat_backend``):
+``pallas`` runs ``flash_gat``, every other backend the projection-fused
+kernels. Runs on ``cuda`` unless ``--device cpu`` is given; the GATv2
+encoder and the one-round TarMAC step then go through the hand-written CUDA
+kernels.
 """
 
 import argparse
@@ -38,11 +44,14 @@ def latest_checkpoint(run_dir) -> Path:
     return found[-1]
 
 
-def load_policy(run_dir, device=None, checkpoint_path=None):
-    """``(agent, config)`` for a run directory: its ``config.json`` and its
-    newest (or the given) checkpoint, on ``device`` (default ``cuda``). The
-    agent is frozen (no parameter requires grad): it only serves."""
+def load_policy(run_dir, device=None, checkpoint_path=None, gat_backend=None):
+    """``(agent, config)`` for a run directory: its ``config.json`` (with
+    ``gat_backend`` over the run's own when given) and its newest (or the
+    given) checkpoint, on ``device`` (default ``cuda``). The agent is frozen
+    (no parameter requires grad): it only serves."""
     config = json.loads((Path(run_dir) / "config.json").read_text())
+    if gat_backend is not None:
+        config["args"] = dict(config["args"], gat_backend=gat_backend)
     args = make_args(config["args"], device)
     env_params = torch_env.make_params(config["map_id"])
     agent = GnnAgent(OBS_SHAPE, env_params.n_actions, args)
@@ -56,10 +65,11 @@ def test_pool(map_id, seed):
 
 
 @torch.no_grad()
-def evaluate(run_dir, n_episodes, eps=0.05, seed=0, device=None, checkpoint_path=None):
+def evaluate(run_dir, n_episodes, eps=0.05, seed=0, device=None, checkpoint_path=None,
+             gat_backend=None):
     """Episode statistics ([n_episodes] tensors) of the run's policy playing
     ``n_episodes`` worlds, one episode each, in parallel."""
-    agent, config = load_policy(run_dir, device, checkpoint_path)
+    agent, config = load_policy(run_dir, device, checkpoint_path, gat_backend)
     env_params = torch_env.make_params(config["map_id"])
     generator = torch.Generator().manual_seed(seed)
     return collect.evaluate_policy(env_params, agent, test_pool(config["map_id"], seed),
@@ -75,8 +85,11 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     parser.add_argument("--checkpoint", default=None)
+    parser.add_argument("--gat-backend", default=None,
+                        help="override the run's gat_backend (pallas: the flash_gat kernel)")
     cli = parser.parse_args(argv)
-    stats = evaluate(cli.run_dir, cli.episodes, cli.eps, cli.seed, cli.device, cli.checkpoint)
+    stats = evaluate(cli.run_dir, cli.episodes, cli.eps, cli.seed, cli.device, cli.checkpoint,
+                     cli.gat_backend)
     print(json.dumps({k: float(v.mean()) for k, v in stats.items()}))
 
 

@@ -3,15 +3,15 @@ fused iterations (the counterpart of ``run_fast.py --exp exp3 --resume``,
 without logging, checkpoint writing or the epsilon schedule):
 
     python -m uav_bs_ctrl_tpu_torch.train --run-dir <run dir> [--iterations N] [--eps E]
+        [--n-layouts P]
 
-It reads the run's ``config.json`` and newest checkpoint (net, mixer, LR
-scale), builds the fused trainer at the run's own settings, runs one warm-up
-iteration (collection only) and N training iterations, evaluates, and prints
-one JSON line of mean metrics. AdamW starts with fresh moments: the
-checkpoint's optimizer state is an optax object the port does not read
-(ROADMAP.md Queue 1). Runs on ``cuda`` unless ``--device cpu`` is given;
-``--tiny`` shrinks the run to a few seconds at full width for a check on the
-CPU.
+It reads the run's ``config.json`` and newest checkpoint (net, mixer, AdamW
+state, LR scale), builds the fused trainer at the run's own settings with a
+pool of ``--n-layouts`` layouts (default 256, as ``run_fast.py``), runs two
+warm-up iterations (collection only, as ``run_fast.py:_maybe_resume``) and N
+training iterations, evaluates, and prints one JSON line of mean metrics.
+Runs on ``cuda`` unless ``--device cpu`` is given; ``--tiny`` shrinks the run
+to a few seconds at full width for a check on the CPU.
 """
 
 import argparse
@@ -23,9 +23,9 @@ import numpy as np
 from uav_bs_ctrl_tpu_torch.algos.madrqn.fused import FusedMadrqnTrainer
 from uav_bs_ctrl_tpu_torch.serve import latest_checkpoint
 
-N_LAYOUTS = 64            # the fused trainer's default layout pool
-TINY = dict(n_worlds=2, interleave=1, updates_per_iter=1, batch_size=2, capacity_chunks=4,
-            n_layouts=4)
+N_LAYOUTS = 256           # run_fast.py --n-layouts default
+N_WARMUPS = 2             # run_fast.py:_maybe_resume refills the ring with two collections
+TINY = dict(n_worlds=2, interleave=1, updates_per_iter=1, batch_size=2, capacity_chunks=4)
 
 
 def build_trainer(run_dir, device=None, n_layouts=N_LAYOUTS, n_worlds=None, interleave=None,
@@ -49,8 +49,9 @@ def build_trainer(run_dir, device=None, n_layouts=N_LAYOUTS, n_worlds=None, inte
 
 
 def train(trainer, iterations, eps, eval_episodes):
-    """Warm-up, ``iterations`` training iterations, evaluation; mean metrics."""
-    trainer.run_iteration(eps, warmup=True)
+    """Two warm-ups, ``iterations`` training iterations, evaluation; mean metrics."""
+    for _ in range(N_WARMUPS):
+        trainer.run_iteration(eps, warmup=True)
     history = [trainer.run_iteration(eps) for _ in range(iterations)]
     out = {k: float(np.mean([m[k] for m in history])) for k in history[0]} if history else {}
     out.update({k: float(np.mean(v))
@@ -64,11 +65,14 @@ def main(argv=None):
     parser.add_argument("--iterations", type=int, default=1)
     parser.add_argument("--eps", type=float, default=0.05,
                         help="exploration epsilon (run_fast's floor, where the run ended)")
+    parser.add_argument("--n-layouts", type=int, default=N_LAYOUTS,
+                        help="layouts in the training and test pools")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     parser.add_argument("--tiny", action="store_true",
                         help=f"a quick check: {TINY} and 2 test episodes")
     cli = parser.parse_args(argv)
-    trainer = build_trainer(cli.run_dir, cli.device, **(TINY if cli.tiny else {}))
+    trainer = build_trainer(cli.run_dir, cli.device, cli.n_layouts,
+                            **(TINY if cli.tiny else {}))
     eval_episodes = 2 if cli.tiny else trainer.n_worlds
     print(json.dumps(train(trainer, cli.iterations, cli.eps, eval_episodes)))
 
