@@ -21,6 +21,7 @@ import contextlib
 import faulthandler
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -129,12 +130,15 @@ def flash_gat_case(gen, n, m, hf, heads, masked_rows, scale=1.0):
     return scale * normal(n, m, hf), scale * normal(n, hf), normal(heads, f) / f ** 0.5, mask
 
 
-def step_case(rng, w, a, hidden, msg, key, n_act):
+def step_case(rng, w, a, hidden, msg, key, n_act, empty_world=False):
+    """Random step inputs; with ``empty_world``, world 1 has no edge at all."""
     arr = lambda t: torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(DEVICE)
     lin = lambda i, o: rng.normal(size=(i, o)) / np.sqrt(i)
     adjf = (rng.random((w * a, a)) > 0.4).astype(np.float32)
     adjf[np.arange(w * a), np.arange(w * a) % a] = 1.0      # self-loops ...
     adjf[0:a, 1] = 0.0                                       # ... but world 0, agent 1 hears no one
+    if empty_world:
+        adjf[a:2 * a] = 0.0
     return dict(
         x=arr(np.maximum(rng.normal(size=(w * a, hidden)), 0.0)),
         h=arr(np.tanh(rng.normal(size=(w * a, hidden)))),
@@ -379,11 +383,26 @@ def capture_backward_calls(learner, batch, step):
             ("tarmac_step_bwd", (grads["step_args"], grads["gq"], grads["gh2"]))]
 
 
-def profile_updates(learner, batch, n, ms_per_update):
+def launch_split(events, n_calls):
+    """Mean device ms of each launch position within one call, from the
+    ``(start_us, duration_us, name)`` of ``n_calls`` calls' launches in
+    order; None unless every call made the same number of launches."""
+    events = sorted(events)
+    if not n_calls or len(events) % n_calls:
+        return None
+    per_call = len(events) // n_calls
+    return [(events[p][2], sum(e[1] for e in events[p::per_call]) / n_calls / 1e3)
+            for p in range(per_call)]
+
+
+def profile_updates(learner, batch, n, ms_per_update, bwd_calls_per_update):
     """Device time of ``n`` kernel-path updates by kernel, from
     ``torch.profiler`` (device-side events only, so no kernel is counted twice
     through the operator that launched it), against ``ms_per_update``, the
-    wall time of an update measured without the profiler."""
+    wall time of an update measured without the profiler. Prints the top 8,
+    every kernel of ``tarmac_step_bwd`` and the split of one of its calls
+    over its launches; returns its launches per update (None when the
+    profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with torch.enable_grad():
@@ -399,7 +418,7 @@ def profile_updates(learner, batch, n, ms_per_update):
                   reverse=True)
     if not rows:
         print("  profiler: no device time recorded; the busy share is not measured", flush=True)
-        return
+        return None
     busy = sum(r[0] for r in rows)
     print(f"  profiler, {n} updates through the kernels: device busy {busy:.2f} ms per update, "
           f"{100 * busy / ms_per_update:.1f} % of the {ms_per_update:.2f} ms an update takes "
@@ -407,6 +426,21 @@ def profile_updates(learner, batch, n, ms_per_update):
           flush=True)
     for ms, count, key in rows[:8]:
         print(f"    {ms:8.3f} ms/update  {count:6d} launches/update  {key[:80]}", flush=True)
+    bwd = [r for r in rows if "tarmac_step_bwd" in r[2]]
+    print(f"  tarmac_step_bwd's kernels: {sum(r[0] for r in bwd):.3f} ms/update over "
+          f"{sum(r[1] for r in bwd)} launches/update", flush=True)
+    for ms, count, key in bwd:
+        print(f"    {ms:8.3f} ms/update  {count:6d} launches/update  {key[:80]}", flush=True)
+    split = launch_split([(e.time_range.start, e.time_range.elapsed_us(), e.name)
+                          for e in prof.events() if e.device_type == DeviceType.CUDA
+                          and "tarmac_step_bwd" in e.name], n * bwd_calls_per_update)
+    if split is None:
+        print("  tarmac_step_bwd's calls made unequal numbers of launches", flush=True)
+    else:
+        label = lambda name: re.search(r"tarmac_step_bwd\w*", name).group(0)
+        print("  one tarmac_step_bwd call, launch by launch (mean device ms): " + ", ".join(
+            f"{label(name)} {ms:.4f}" for name, ms in split), flush=True)
+    return sum(r[1] for r in bwd)
 
 
 def training_log_test_stats(run_dir, epoch):
@@ -551,6 +585,17 @@ def main():
                 print(f"  {what} (world 0, agent 1 hears no one): max rel err {err:.3e}",
                       flush=True)
                 worst["tarmac_step_bwd"] = max(worst["tarmac_step_bwd"], err)
+        # The 4-UBS width (A = 4), and a world with no edge at all (every alpha 0, c = 0).
+        for w, a, dueling, empty_world in ((32, 4, False, False), (512, 4, True, False),
+                                           (32, 8, True, True)):
+            c = step_case(rng, w, a, 256, 64, 16, 9, empty_world)
+            gq = torch.randn((w * a, 9), device=device)
+            gh2 = torch.randn((w * a, 256), device=device)
+            args = tuple(c.values()) + (gq, gh2, a, 16, dueling)
+            what = f"tarmac_step_bwd W={w} A={a} dueling={dueling} empty world={empty_world}"
+            err = rel_err(tarmac_step_bwd(*args), tarmac_step_bwd_plain(*args), what)
+            print(f"  {what}: max rel err {err:.3e}", flush=True)
+            worst["tarmac_step_bwd"] = max(worst["tarmac_step_bwd"], err)
 
     with phase(f"serve {RUN_DIR.name}: {N_WORLDS} worlds, one episode, eps={EPS}"):
         reset_counts()
@@ -853,6 +898,16 @@ def main():
                       f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
                       f"{cost[0]:.3e} ops, {cost[1]:.3e} bytes)", flush=True)
                 timed[kname].append((ms, plain_ms, bound_ms, bound_by))
+        # tarmac_step_bwd at 512 worlds (R = 4096), random inputs of the training width.
+        c = step_case(rng, 512, A, 256, 64, 16, 9)
+        big = tuple(c.values()) + (torch.randn((512 * A, 9), device=device),
+                                   torch.randn((512 * A, 256), device=device), A, 16, False)
+        cost = step_bwd_cost(big)
+        big_ms, big_plain_ms = time_cuda(lambda: tarmac_step_bwd(*big)), \
+            time_cuda(lambda: tarmac_step_bwd_plain(*big))
+        print(f"  tarmac_step_bwd (4096, 256), 512 worlds: {big_ms:.4f} ms, plain "
+              f"{big_plain_ms:.4f} ms, bound {bound(*cost)[0]:.5f} ms ({bound(*cost)[1]}: "
+              f"{cost[0]:.3e} ops, {cost[1]:.3e} bytes)", flush=True)
         # Each kernel's launches on its main path: flash_gat's the 4-UBS 'pallas'
         # serving, the others' the training path.
         path_launches = dict(train_launches, flash_gat=disc_launches["flash_gat"])
@@ -888,7 +943,12 @@ def main():
             print(f"  one update ({label}): {ms:.2f} ms (runs {upd[use_kernels]}), "
                   f"{1e3 / ms:.2f} updates/s, {edges * 1e3 / ms:.4g} message-passing edges/s "
                   f"({edges} edges per update = B(2T+1)A(M+K+A))", flush=True)
-        profile_updates(learner, batch, 2, statistics.mean(upd[True]))
+        bwd_launches = profile_updates(learner, batch, 2, statistics.mean(upd[True]),
+                                       per_update["tarmac_step_bwd"])
+        for entry in record:
+            if entry["name"] == "tarmac_step_bwd":
+                entry["cuda_launches_per_call"] = (None if bwd_launches is None else
+                                                   bwd_launches / per_update["tarmac_step_bwd"])
         learner.load_state_dict(snap)
         obs, h = first
         fwd_ms = time_cuda(lambda: agent(obs, h))

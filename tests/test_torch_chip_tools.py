@@ -1,0 +1,44 @@
+"""The GPU scripts' CPU-side pieces: ``chip_ab.py`` imports nothing of JAX and
+refuses to run without a card, and ``chip_smoke.launch_split`` splits a
+kernel's profiled launches by their position within one call."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+
+
+def test_chip_ab_imports_nothing_of_jax():
+    tree = ast.parse((ROOT / "chip_ab.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "optax", "flax")
+           or n.split(".")[0] == "uav_bs_ctrl_tpu"]
+    assert not bad, bad
+
+
+def test_chip_ab_exits_nonzero_without_a_card():
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), "missing.cu"],
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert "ms" not in proc.stdout
+
+
+def test_launch_split_averages_each_launch_position_over_the_calls():
+    names = ["ns::tarmac_step_bwd_products(Jobs)", "ns::tarmac_step_bwd_attend(float const*)",
+             "ns::tarmac_step_bwd_products(Jobs)"]
+    events = [(100 * (3 * call + p), 10.0 * (p + 1) + call, names[p])
+              for call in range(4) for p in range(3)]
+    split = chip_smoke.launch_split(events[::-1], 4)       # any order in, time order out
+    assert [name for name, _ in split] == names
+    assert [ms for _, ms in split] == pytest.approx([0.0115, 0.0215, 0.0315])
+    assert chip_smoke.launch_split(events[:-1], 4) is None   # a call short of one launch

@@ -44,12 +44,15 @@ def _gat_case(device, rng, n, m, d, heads, f):
     return {k: _on(device, v) for k, v in case.items()}
 
 
-def _step_case(device, rng, w, a, hidden, msg, key, n_act):
+def _step_case(device, rng, w, a, hidden, msg, key, n_act, empty_world=False):
     """Random talk graph with self-loops, except one destination (world 0,
-    agent 1) that has no in-edge at all."""
+    agent 1) that has no in-edge at all; with ``empty_world``, world 1 has no
+    edge at all (no self-loops either)."""
     adjf = (rng.random((w * a, a)) > 0.4).astype(np.float32)
     adjf[np.arange(w * a), np.arange(w * a) % a] = 1.0
     adjf[0:a, 1] = 0.0
+    if empty_world:
+        adjf[a:2 * a] = 0.0
     lin = lambda i, o: rng.normal(size=(i, o)) / np.sqrt(i)
     vec = lambda o: 0.1 * rng.normal(size=o)
     case = dict(x=np.maximum(rng.normal(size=(w * a, hidden)), 0.0),
@@ -114,17 +117,23 @@ def test_flash_gat_kernel_matches_plain(cuda_device, n, m, heads, f):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("empty_world", [False, True])
 @pytest.mark.parametrize("dueling", [False, True])
-@pytest.mark.parametrize("w", [32, 5])
-def test_tarmac_step_bwd_kernel_matches_plain(cuda_device, w, dueling):
-    c = _step_case(cuda_device, np.random.default_rng(w), w, 8, 256, 64, 16, 9)
+@pytest.mark.parametrize("a", [8, 4])
+@pytest.mark.parametrize("w", [32, 5, 512])
+def test_tarmac_step_bwd_kernel_matches_plain(cuda_device, w, a, dueling, empty_world):
+    """Training's A = 8 and the 4-UBS A = 4; W = 5 leaves R = W*A ragged
+    against the kernel's 32-row tiles, W = 32 is the training batch, W = 512
+    fills the card many times over."""
+    c = _step_case(cuda_device, np.random.default_rng(w + a), w, a, 256, 64, 16, 9,
+                   empty_world)
     args = [c[k] for k in ("x", "h", "adjf", *STEP_ORDER, "gq", "gh2")]
     before = step_kernels.tarmac_step_bwd.launches
-    got = step_kernels.tarmac_step_bwd(*args, 8, 16, dueling)
+    got = step_kernels.tarmac_step_bwd(*args, a, 16, dueling)
     assert step_kernels.tarmac_step_bwd.launches == before + 1
-    _assert_close_to_scale(got, step_kernels.tarmac_step_bwd_plain(*args, 8, 16, dueling),
+    _assert_close_to_scale(got, step_kernels.tarmac_step_bwd_plain(*args, a, 16, dueling),
                            "tarmac_step_bwd")
-    again = step_kernels.tarmac_step_bwd(*args, 8, 16, dueling)
+    again = step_kernels.tarmac_step_bwd(*args, a, 16, dueling)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

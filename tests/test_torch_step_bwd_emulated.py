@@ -1,0 +1,160 @@
+"""``csrc/tarmac_step_bwd.cu`` run on the CPU, through an emulation of its CUDA threads,
+against ``tarmac_step_bwd_plain``.
+
+Without nvcc a CUDA source cannot be compiled here. These tests compile it
+with g++ as C++ instead, under a small header that emulates the pieces the
+source uses: each CTA's threads run as ``std::thread``s that meet at a
+``std::barrier`` for ``__syncthreads``, CTAs run one after another (so a
+``__shared__`` array is a function-level static), and a launch ``k<<<g, b,
+smem, s>>>(...)`` becomes a call of the emulated launcher. The tests call the
+C entry point ``tarmac_step_backward`` on CPU tensors through ``ctypes``. They
+check the arithmetic, the job tables, the scratch layout and the ragged
+edges; not the card's compiler, timing or memory model (the card tests in
+``test_torch_cuda_kernels.py`` do that). Without g++ they skip. Tolerance:
+1e-5 of max(1, max |plain|) per output (f32 sums in another order, small
+widths).
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from uav_bs_ctrl_tpu_torch.ops import step_kernels
+
+SOURCE = Path(step_kernels.__file__).resolve().parent / "csrc" / "tarmac_step_bwd.cu"
+ORDER = ("x", "h", "adjf", "wv", "bv", "ws", "bs", "wq", "bq", "wi", "wh", "bi", "bh",
+         "wo", "bo", "wvh", "bvh", "gq", "gh2")
+EMULATION_HEADER = r"""
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <thread>
+#include <vector>
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+struct emu_dim3 { unsigned x = 0, y = 0, z = 0; };
+namespace emu {
+inline thread_local emu_dim3 thread_idx, block_idx, block_dim;
+inline thread_local std::barrier<>* block_barrier = nullptr;
+inline thread_local float* dynamic_smem = nullptr;
+struct Cfg { unsigned grid; int block; size_t smem; cudaStream_t stream; };
+template <class F, class... Args>
+void launch(Cfg c, F kernel, Args... args) {
+  for (unsigned b = 0; b < c.grid; ++b) {
+    std::vector<float> smem(c.smem / sizeof(float) + 1);
+    std::barrier<> barrier(c.block);
+    std::vector<std::thread> threads;
+    for (int t = 0; t < c.block; ++t)
+      threads.emplace_back([&, t] {
+        thread_idx.x = t; block_idx.x = b; block_dim.x = c.block;
+        block_barrier = &barrier; dynamic_smem = smem.data();
+        kernel(args...);
+        barrier.arrive_and_drop();
+      });
+    for (auto& t : threads) t.join();
+  }
+}
+}  // namespace emu
+#define threadIdx emu::thread_idx
+#define blockIdx emu::block_idx
+#define blockDim emu::block_dim
+#define __syncthreads() emu::block_barrier->arrive_and_wait()
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __grid_constant__
+#define __launch_bounds__(x)
+#define __shared__ static
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The source built with g++ under the emulation header, loaded with ctypes."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the emulated kernel source")
+    out = tmp_path_factory.mktemp("emulated")
+    (out / "cuda_runtime.h").write_text(EMULATION_HEADER)
+    src = SOURCE.read_text().replace("extern __shared__ float smem[];",
+                                     "float* smem = emu::dynamic_smem;")
+    src = re.sub(r"(\w+)<<<([^>]*)>>>\(", r"emu::launch(emu::Cfg{\2}, \1, ", src)
+    (out / "tarmac_step_bwd.cpp").write_text(src)
+    so = out / "tarmac_step_bwd.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-w",
+                    f"-I{out}", "-o", str(so), str(out / "tarmac_step_bwd.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    restype, argtypes = step_kernels._BWD_SIGNATURES["tarmac_step_backward"]
+    lib.tarmac_step_backward.restype = restype
+    lib.tarmac_step_backward.argtypes = argtypes
+    return lib
+
+
+def _case(rng, w, a, hidden, msg, key, n_act, empty_world):
+    """Random inputs; world 0's agent 1 hears no one, and with ``empty_world``
+    world 1 has no edge at all."""
+    adjf = (rng.random((w * a, a)) > 0.4).astype(np.float32)
+    adjf[np.arange(w * a), np.arange(w * a) % a] = 1.0
+    adjf[0:a, 1] = 0.0
+    if empty_world:
+        adjf[a:2 * a] = 0.0
+    lin = lambda i, o: rng.normal(size=(i, o)) / np.sqrt(i)
+    vec = lambda o: 0.1 * rng.normal(size=o)
+    case = dict(x=np.maximum(rng.normal(size=(w * a, hidden)), 0.0),
+                h=np.tanh(rng.normal(size=(w * a, hidden))), adjf=adjf,
+                wv=lin(2 * hidden, msg), bv=vec(msg), ws=lin(2 * hidden, key), bs=vec(key),
+                wq=lin(2 * hidden, key), bq=vec(key), wi=lin(hidden + msg, 3 * hidden),
+                wh=lin(hidden, 3 * hidden), bi=vec(3 * hidden), bh=vec(3 * hidden),
+                wo=lin(hidden, n_act), bo=vec(n_act), wvh=lin(hidden, 1), bvh=vec(1),
+                gq=rng.normal(size=(w * a, n_act)), gh2=rng.normal(size=(w * a, hidden)))
+    return [torch.from_numpy(np.ascontiguousarray(case[k], np.float32)) for k in ORDER]
+
+
+def _run(lib, args, w, a, key_size, dueling):
+    """The emulated call; outputs and scratch start as NaN, so a value the
+    kernel fails to write shows."""
+    x, h = args[0], args[1]
+    hidden, msg, key, n_act = x.shape[1], args[3].shape[1], args[5].shape[1], args[13].shape[1]
+    outs = [torch.full_like(t, float("nan")) for t in (x, h, *args[3:17])]
+    scratch = torch.full((max(1, step_kernels.bwd_scratch_floats(w * a, hidden, msg, key,
+                                                                 n_act)),), float("nan"))
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in [*args, *outs, scratch]]
+    assert lib.tarmac_step_backward(*ptrs, w, a, hidden, msg, key, n_act, int(dueling),
+                                    float(key_size), None) == 0
+    return outs
+
+
+@pytest.mark.parametrize("w,a,hidden,msg,key,n_act,dueling,empty_world", [
+    (5, 4, 32, 8, 4, 5, False, False),       # R = 20: one ragged row tile
+    (3, 8, 40, 12, 6, 9, True, False),       # widths that are no multiple of a tile or slab
+    (9, 8, 32, 64, 16, 9, False, True),      # R = 72 over three row tiles; a world with no edge
+    (2, 3, 70, 20, 5, 3, True, True),        # A = 3
+])
+def test_emulated_kernel_matches_plain(emulated, w, a, hidden, msg, key, n_act, dueling,
+                                       empty_world):
+    args = _case(np.random.default_rng(w * a + hidden), w, a, hidden, msg, key, n_act,
+                 empty_world)
+    got = _run(emulated, args, w, a, 4.0, dueling)
+    want = step_kernels.tarmac_step_bwd_plain(*args, a, 4.0, dueling)
+    for i, (g, r) in enumerate(zip(got, want)):
+        err = (g - r).abs().max().item() / max(1.0, r.abs().max().item())
+        assert err <= 1e-5, f"output {i}: {err:.3e}"
+
+
+def test_emulated_kernel_with_no_rows_gives_zero_weight_gradients(emulated):
+    args = _case(np.random.default_rng(0), 0, 4, 32, 8, 4, 5, False)
+    got = _run(emulated, args, 0, 4, 4.0, True)
+    assert all(torch.equal(g, torch.zeros_like(g)) for g in got[2:])

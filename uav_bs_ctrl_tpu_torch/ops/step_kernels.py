@@ -175,9 +175,10 @@ def tarmac_step_bwd_plain(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh,
 
 
 def bwd_scratch_floats(rows, hidden, msg, key, n_act):
-    """Floats of the scratch buffer ``tarmac_step_bwd`` hands its second pass:
-    per row dpre_r|dpre_z|dpre_n|dhn, c, h2, dv, ds, dq, dadv, dvh."""
-    return rows * (5 * hidden + 2 * msg + 2 * key + n_act + 1)
+    """Floats of the scratch buffer ``tarmac_step_bwd``'s launches hand on to
+    each other: per row dpre_r|dpre_z|dpre_n|dhn, c, h2, dv, ds, dq, dadv,
+    dvh, v|s|q, the GRU's two pre-activations gi and gh, and dc."""
+    return rows * (11 * hidden + 4 * msg + 4 * key + n_act + 1)
 
 
 def tarmac_step_bwd(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
