@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Time ``tarmac_step_bwd`` against another version of its source, in turns, on one GPU.
+"""Time a step kernel against another version of its source, in turns, on one GPU.
 
-    python3 chip_ab.py OLD.cu
+    python3 chip_ab.py NAME OLD.cu
 
-``OLD.cu`` is an earlier ``uav_bs_ctrl_tpu_torch/ops/csrc/tarmac_step_bwd.cu``
-(for example from ``git show <commit>:<path>``) with the same C entry point
-and a scratch buffer no larger than the repo's. The script builds it with
-``ops/build.py``'s flags beside the repo's own build, then at 32 and 512
-worlds draws random inputs at the 8-UBS training width (A = 8, hidden 256,
-msg 64, key 16, 9 actions), calls the port's wrapper with either library
-loaded, and prints the largest difference of the outputs relative to
-max(1, max |old|) and the ms per call of each, timed with
-``chip_smoke.time_cuda`` in turns: old, new, new, old.
+``NAME`` is ``tarmac_step`` (the forward) or ``tarmac_step_bwd`` (its
+backward). ``OLD.cu`` is another version of
+``uav_bs_ctrl_tpu_torch/ops/csrc/NAME.cu`` (for example from ``git show
+<commit>:<path>``) with the same C entry point and a scratch buffer no larger
+than the repo's; its ``#include "..."`` lines resolve beside it. A forward
+source whose ``tarmac_step_forward`` takes no scratch buffer (the one CTA per
+world design, up to commit 92dda40) is called with that signature. The script
+builds it with ``ops/build.py``'s flags beside the repo's own build, then at 32
+and 512 worlds (the forward also at 40, the serving batch) draws random inputs
+at the 8-UBS width (A = 8, hidden 256, msg 64, key 16, 9 actions), calls both
+versions on them, and prints the largest difference of the outputs relative to
+max(1, max |old|), whether they are bit-identical, and the ms per call of each,
+timed with ``chip_smoke.time_cuda`` in turns: old, new, new, old.
 """
 
 import ctypes
+import hashlib
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -28,52 +34,88 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from uav_bs_ctrl_tpu_torch.ops import build, step_kernels  # noqa: E402
 
-NAME = "tarmac_step_bwd"
-WORLDS = (32, 512)          # the training batch, and a batch that fills the card
+KERNELS = {  # name: (wrapper, ctypes signatures, worlds)
+    "tarmac_step": (step_kernels.tarmac_step, step_kernels._SIGNATURES, (32, 40, 512)),
+    "tarmac_step_bwd": (step_kernels.tarmac_step_bwd, step_kernels._BWD_SIGNATURES, (32, 512)),
+}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+UNSCRATCHED_FORWARD = (_I, [_P] * 19 + [_I] * 7 + [ctypes.c_float, _P])
+
+
+def unscratched_forward(source: str) -> bool:
+    """True for a forward source whose entry point takes no scratch buffer."""
+    found = re.search(r'extern "C" int tarmac_step_forward\(([^)]*)\)', source)
+    return found is not None and "scratch" not in found.group(1)
+
+
+def call_unscratched(lib, args):
+    """The forward through ``lib``'s scratch-less entry point, as the wrapper
+    called it before the forward took a scratch buffer."""
+    x, a, key_size, dueling = args[0], args[17], args[18], args[19]
+    rows, hidden = x.shape
+    msg, ks, n_act = args[3].shape[1], args[5].shape[1], args[13].shape[1]
+    q = torch.empty((rows, n_act), dtype=torch.float32, device=x.device)
+    h2 = torch.empty_like(x)
+    ptrs = build.pointers(x.device, dict(zip([f"in{i}" for i in range(17)], args[:17]),
+                                         q=q, h2=h2))
+    err = lib.tarmac_step_forward(*ptrs, rows // a, a, hidden, msg, ks, n_act,
+                                  int(bool(dueling)), float(key_size), build.stream_of(x.device))
+    build.check_launch(lib, "tarmac_step_error_string", err, "tarmac_step (old)")
+    return q, h2
 
 
 def main():
-    if len(sys.argv) != 2:
+    if len(sys.argv) != 3 or sys.argv[1] not in KERNELS:
         print(__doc__, file=sys.stderr)
         return 2
-    old_source = Path(sys.argv[1]).resolve()
+    name, old_source = sys.argv[1], Path(sys.argv[2]).resolve()
     if not torch.cuda.is_available():
         print("chip_ab: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    signatures = step_kernels._BWD_SIGNATURES
-    new = build.load(NAME, signatures)
-    old_so = build.BUILD_DIR / f"{NAME}-old.so"
+    wrapper, signatures, worlds = KERNELS[name]
+    new = build.load(name, signatures)
+    text = old_source.read_text()
+    unscratched = name == "tarmac_step" and unscratched_forward(text)
+    old_so = build.BUILD_DIR / f"{name}-ab-{hashlib.sha256(text.encode()).hexdigest()[:12]}.so"
     subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(old_so), str(old_source)],
                    check=True, timeout=build.NVCC_TIMEOUT_S)
     old = ctypes.CDLL(str(old_so))
     for fn, (restype, argtypes) in signatures.items():
         getattr(old, fn).restype = restype
         getattr(old, fn).argtypes = argtypes
+    if unscratched:
+        old.tarmac_step_forward.restype, old.tarmac_step_forward.argtypes = UNSCRATCHED_FORWARD
     print(chip_smoke.card_line(), flush=True)
 
     rng = np.random.default_rng(0)
-    for w in WORLDS:
-        args = tuple(chip_smoke.step_case(rng, w, 8, 256, 64, 16, 9).values()) + (
-            torch.randn((w * 8, 9), device="cuda"), torch.randn((w * 8, 256), device="cuda"),
-            8, 16, False)
+    for w in worlds:
+        args = tuple(chip_smoke.step_case(rng, w, 8, 256, 64, 16, 9).values())
+        if name == "tarmac_step_bwd":
+            args += (torch.randn((w * 8, 9), device="cuda"),
+                     torch.randn((w * 8, 256), device="cuda"))
+        args += (8, 16, False)
 
         def call(lib):
-            build._loaded[NAME] = lib           # the wrapper launches whichever is loaded
-            return step_kernels.tarmac_step_bwd(*args)
+            if lib is old and unscratched:
+                return call_unscratched(lib, args)
+            build._loaded[name] = lib           # the wrapper launches whichever is loaded
+            return wrapper(*args)
 
         with torch.no_grad():
             got, want = call(new), call(old)
             diff = max((g - r).abs().max().item() / max(1.0, r.abs().max().item())
                        for g, r in zip(got, want))
+            same = all(torch.equal(g, r) for g, r in zip(got, want))
             times = {"old": [], "new": []}
             for which in ("old", "new", "new", "old"):
                 lib = old if which == "old" else new
                 times[which].append(chip_smoke.time_cuda(lambda: call(lib)))
-        build._loaded[NAME] = new
-        print(f"{NAME} R={w * 8}: {old_source.name} {times['old']} ms, this tree "
-              f"{times['new']} ms; max |new - old| / max(1, max |old|) {diff:.2e}", flush=True)
+        build._loaded[name] = new
+        print(f"{name} R={w * 8}: {sys.argv[2]} {times['old']} ms, this tree "
+              f"{times['new']} ms; max |new - old| / max(1, max |old|) {diff:.2e}, "
+              f"bit-identical {same}", flush=True)
     return 0
 
 

@@ -21,7 +21,6 @@ import contextlib
 import faulthandler
 import json
 import math
-import re
 import statistics
 import subprocess
 import sys
@@ -395,14 +394,24 @@ def launch_split(events, n_calls):
             for p in range(per_call)]
 
 
-def profile_updates(learner, batch, n, ms_per_update, bwd_calls_per_update):
+LIBRARY_TAGS = {"tarmac_step": "tarmac_step_fwd",      # a word in every kernel name of
+                "tarmac_step_bwd": "tarmac_step_bwd"}  # the library, and in no other
+
+
+def kernel_label(name):
+    """A profiled kernel's function name with its template tag, no namespaces."""
+    return name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+
+
+def profile_updates(learner, batch, n, ms_per_update, calls_per_update):
     """Device time of ``n`` kernel-path updates by kernel, from
     ``torch.profiler`` (device-side events only, so no kernel is counted twice
     through the operator that launched it), against ``ms_per_update``, the
     wall time of an update measured without the profiler. Prints the top 8,
-    every kernel of ``tarmac_step_bwd`` and the split of one of its calls
-    over its launches; returns its launches per update (None when the
-    profiler saw no device time)."""
+    and for each step kernel of ``calls_per_update`` (``{name: wrapper calls
+    per update}``, names in ``LIBRARY_TAGS``) its CUDA kernels and the split of
+    one call over its launches; returns ``{name: CUDA launches per update}``
+    (None when the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with torch.enable_grad():
@@ -426,21 +435,25 @@ def profile_updates(learner, batch, n, ms_per_update, bwd_calls_per_update):
           flush=True)
     for ms, count, key in rows[:8]:
         print(f"    {ms:8.3f} ms/update  {count:6d} launches/update  {key[:80]}", flush=True)
-    bwd = [r for r in rows if "tarmac_step_bwd" in r[2]]
-    print(f"  tarmac_step_bwd's kernels: {sum(r[0] for r in bwd):.3f} ms/update over "
-          f"{sum(r[1] for r in bwd)} launches/update", flush=True)
-    for ms, count, key in bwd:
-        print(f"    {ms:8.3f} ms/update  {count:6d} launches/update  {key[:80]}", flush=True)
-    split = launch_split([(e.time_range.start, e.time_range.elapsed_us(), e.name)
-                          for e in prof.events() if e.device_type == DeviceType.CUDA
-                          and "tarmac_step_bwd" in e.name], n * bwd_calls_per_update)
-    if split is None:
-        print("  tarmac_step_bwd's calls made unequal numbers of launches", flush=True)
-    else:
-        label = lambda name: re.search(r"tarmac_step_bwd\w*", name).group(0)
-        print("  one tarmac_step_bwd call, launch by launch (mean device ms): " + ", ".join(
-            f"{label(name)} {ms:.4f}" for name, ms in split), flush=True)
-    return sum(r[1] for r in bwd)
+    launches = {}
+    for name, calls in calls_per_update.items():
+        tag = LIBRARY_TAGS[name]
+        mine = [r for r in rows if tag in r[2]]
+        print(f"  {name}'s kernels: {sum(r[0] for r in mine):.3f} ms/update over "
+              f"{sum(r[1] for r in mine)} launches/update ({calls} calls)", flush=True)
+        for ms, count, key in mine:
+            print(f"    {ms:8.3f} ms/update  {count:6d} launches/update  {kernel_label(key)}",
+                  flush=True)
+        split = launch_split([(e.time_range.start, e.time_range.elapsed_us(), e.name)
+                              for e in prof.events() if e.device_type == DeviceType.CUDA
+                              and tag in e.name], n * calls)
+        if split is None:
+            print(f"  {name}'s calls made unequal numbers of launches", flush=True)
+        else:
+            print(f"  one {name} call, launch by launch (mean device ms): " + ", ".join(
+                f"{kernel_label(k)} {ms:.4f}" for k, ms in split), flush=True)
+        launches[name] = sum(r[1] for r in mine)
+    return launches
 
 
 def training_log_test_stats(run_dir, epoch):
@@ -556,6 +569,15 @@ def main():
                 print(f"  tarmac_step W={w} dueling={dueling}: max abs err {err:.3e} "
                       f"(isolated destination {iso.abs().max().item():.1e})", flush=True)
                 worst["tarmac_step"] = max(worst["tarmac_step"], err)
+        # The 4-UBS width (A = 4), and a world with no edge at all (every alpha 0, c = 0).
+        for w, a, dueling, empty_world in ((40, 4, False, False), (512, 4, True, False),
+                                           (40, 8, True, True)):
+            args = tuple(step_case(rng, w, a, 256, 64, 16, 9, empty_world).values()) + \
+                (a, 16, dueling)
+            what = f"tarmac_step W={w} A={a} dueling={dueling} empty world={empty_world}"
+            err = max_err(tarmac_step(*args), tarmac_step_plain(*args), what)
+            print(f"  {what}: max abs err {err:.3e}", flush=True)
+            worst["tarmac_step"] = max(worst["tarmac_step"], err)
 
     with phase("backward kernels against plain versions"):
         for n in (256, 4096):
@@ -854,8 +876,13 @@ def main():
         print(f"  card: {card}", flush=True)
         for cname, args in calls:
             fn, plain = kernels[cname]
-            print(f"  serving {cname} {tuple(args[0].shape)}: {time_cuda(lambda: fn(*args)):.4f}"
-                  f" ms, plain {time_cuda(lambda: plain(*args)):.4f} ms", flush=True)
+            ms, plain_ms = time_cuda(lambda: fn(*args)), time_cuda(lambda: plain(*args))
+            cost = step_cost(args) if cname == "tarmac_step" else \
+                gat_cost(args[0], args[5], args[1].shape[1], args[6])
+            bound_ms, bound_by = bound(*cost)
+            print(f"  serving {cname} {tuple(args[0].shape)}: {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, bound {bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.2f} % of "
+                  f"the bound's speed", flush=True)
         with torch.enable_grad():
             bwd_calls = capture_backward_calls(learner, batch, T // 2)
         learner.load_state_dict(snap)
@@ -896,7 +923,8 @@ def main():
                 bound_ms, bound_by = bound(*cost)
                 print(f"  training {kname} {tuple(kargs[0].shape)}: {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-                      f"{cost[0]:.3e} ops, {cost[1]:.3e} bytes)", flush=True)
+                      f"{cost[0]:.3e} ops, {cost[1]:.3e} bytes), {100 * bound_ms / ms:.2f} % "
+                      f"of the bound's speed", flush=True)
                 timed[kname].append((ms, plain_ms, bound_ms, bound_by))
         # tarmac_step_bwd at 512 worlds (R = 4096), random inputs of the training width.
         c = step_case(rng, 512, A, 256, 64, 16, 9)
@@ -908,6 +936,14 @@ def main():
         print(f"  tarmac_step_bwd (4096, 256), 512 worlds: {big_ms:.4f} ms, plain "
               f"{big_plain_ms:.4f} ms, bound {bound(*cost)[0]:.5f} ms ({bound(*cost)[1]}: "
               f"{cost[0]:.3e} ops, {cost[1]:.3e} bytes)", flush=True)
+        big_fwd = big[:17] + big[19:]
+        cost = step_cost(big_fwd)
+        big_ms, big_plain_ms = time_cuda(lambda: tarmac_step(*big_fwd)), \
+            time_cuda(lambda: tarmac_step_plain(*big_fwd))
+        print(f"  tarmac_step (4096, 256), 512 worlds: {big_ms:.4f} ms, plain {big_plain_ms:.4f} "
+              f"ms, bound {bound(*cost)[0]:.5f} ms ({bound(*cost)[1]}: {cost[0]:.3e} ops, "
+              f"{cost[1]:.3e} bytes), {100 * bound(*cost)[0] / big_ms:.2f} % of the bound's "
+              f"speed", flush=True)
         # Each kernel's launches on its main path: flash_gat's the 4-UBS 'pallas'
         # serving, the others' the training path.
         path_launches = dict(train_launches, flash_gat=disc_launches["flash_gat"])
@@ -943,12 +979,13 @@ def main():
             print(f"  one update ({label}): {ms:.2f} ms (runs {upd[use_kernels]}), "
                   f"{1e3 / ms:.2f} updates/s, {edges * 1e3 / ms:.4g} message-passing edges/s "
                   f"({edges} edges per update = B(2T+1)A(M+K+A))", flush=True)
-        bwd_launches = profile_updates(learner, batch, 2, statistics.mean(upd[True]),
-                                       per_update["tarmac_step_bwd"])
+        step_calls = {name: per_update[name] for name in LIBRARY_TAGS}
+        step_launches = profile_updates(learner, batch, 2, statistics.mean(upd[True]), step_calls)
         for entry in record:
-            if entry["name"] == "tarmac_step_bwd":
-                entry["cuda_launches_per_call"] = (None if bwd_launches is None else
-                                                   bwd_launches / per_update["tarmac_step_bwd"])
+            if entry["name"] in step_calls:
+                entry["cuda_launches_per_call"] = (
+                    None if step_launches is None
+                    else step_launches[entry["name"]] / step_calls[entry["name"]])
         learner.load_state_dict(snap)
         obs, h = first
         fwd_ms = time_cuda(lambda: agent(obs, h))

@@ -1,6 +1,7 @@
-"""The GPU scripts' CPU-side pieces: ``chip_ab.py`` imports nothing of JAX and
-refuses to run without a card, and ``chip_smoke.launch_split`` splits a
-kernel's profiled launches by their position within one call."""
+"""The GPU scripts' CPU-side pieces: ``chip_ab.py`` imports nothing of JAX,
+refuses to run without a card and tells the scratch-less forward source apart,
+and ``chip_smoke.launch_split`` splits a kernel's profiled launches by their
+position within one call."""
 
 import ast
 import os
@@ -13,6 +14,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+import chip_ab  # noqa: E402
 import chip_smoke  # noqa: E402
 
 
@@ -26,11 +28,19 @@ def test_chip_ab_imports_nothing_of_jax():
 
 
 def test_chip_ab_exits_nonzero_without_a_card():
-    proc = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), "missing.cu"],
-                          capture_output=True, text=True, timeout=300,
-                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
-    assert proc.returncode != 0
-    assert "ms" not in proc.stdout
+    for name in ("tarmac_step", "tarmac_step_bwd"):
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), name, "missing.cu"],
+                              capture_output=True, text=True, timeout=300,
+                              env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        assert proc.returncode != 0
+        assert "ms" not in proc.stdout
+
+
+def test_chip_ab_tells_the_scratch_less_forward_apart():
+    source = (ROOT / "uav_bs_ctrl_tpu_torch" / "ops" / "csrc" / "tarmac_step.cu").read_text()
+    assert not chip_ab.unscratched_forward(source)
+    old = source.replace("float* h2_out, float* scratch,", "float* h2_out,")
+    assert old != source and chip_ab.unscratched_forward(old)
 
 
 def test_launch_split_averages_each_launch_position_over_the_calls():
@@ -42,3 +52,12 @@ def test_launch_split_averages_each_launch_position_over_the_calls():
     assert [name for name, _ in split] == names
     assert [ms for _, ms in split] == pytest.approx([0.0115, 0.0215, 0.0315])
     assert chip_smoke.launch_split(events[:-1], 4) is None   # a call short of one launch
+
+
+def test_kernel_label_keeps_the_function_and_its_library_tag():
+    ns = "(anonymous namespace)::"
+    fwd = f"void {ns}step_products<{ns}tarmac_step_fwd>({ns}Jobs)"
+    assert chip_smoke.kernel_label(fwd) == "step_products<tarmac_step_fwd>"
+    assert chip_smoke.kernel_label(f"{ns}tarmac_step_fwd_head(float const*, int)") == \
+        "tarmac_step_fwd_head"
+    assert "tarmac_step_bwd" not in fwd and chip_smoke.LIBRARY_TAGS["tarmac_step"] in fwd

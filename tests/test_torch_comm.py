@@ -74,17 +74,32 @@ def test_masked_reductions_match_jax(fn):
     assert np.all(got[2] == 0.0)
 
 
-def test_gumbel_softmax_with_jax_noise_matches_jax():
+@pytest.mark.parametrize("hard", [False, True])
+def test_gumbel_softmax_with_jax_noise_matches_jax(hard):
+    """The soft sample, and the hard one (bits exactly 0 or 1), on JAX's own
+    Gumbel draw; the smallest margin |z0 - z1| of these logits is 9e-3, far
+    from a roundoff tie."""
     key = jax.random.PRNGKey(3)
     logits = np.random.default_rng(3).normal(size=(5, 7, 2)).astype(np.float32)
     noise = torch.from_numpy(np.array(jax.random.gumbel(key, logits.shape)))
-    for hard in (False, True):
-        want = jmod.gumbel_softmax(key, jnp.asarray(logits), tau=0.5, hard=hard)
-        got = gumbel_softmax(torch.from_numpy(logits), tau=0.5, hard=hard, noise=noise)
-        _close(got, want)
-    assert set(np.unique(got.numpy())) <= {0.0, 1.0}
-    # A seeded draw: the same noise from the same seed, Gumbel(0, 1) moments.
+    want = jmod.gumbel_softmax(key, jnp.asarray(logits), tau=0.5, hard=hard)
+    got = gumbel_softmax(torch.from_numpy(logits), tau=0.5, hard=hard, noise=noise)
+    _close(got, want)
+    if hard:
+        assert set(np.unique(got.numpy())) <= {0.0, 1.0}
+
+
+def test_gumbel_noise_repeats_from_its_seed_with_gumbel_moments():
+    """A seeded draw: float32 whatever the default dtype, the same noise from
+    the same seed, Gumbel(0, 1) moments."""
+    default = torch.get_default_dtype()
+    try:
+        torch.set_default_dtype(torch.float64)
+        assert gumbel_noise((4,), 1, torch.device("cpu")).dtype == torch.float32
+    finally:
+        torch.set_default_dtype(default)
     draw = gumbel_noise((20000,), 1, torch.device("cpu"))
+    assert draw.dtype == torch.float32
     assert torch.equal(draw, gumbel_noise((20000,), 1, torch.device("cpu")))
     assert abs(draw.mean().item() - 0.5772) < 0.03 and abs(draw.var().item() - 1.6449) < 0.08
 

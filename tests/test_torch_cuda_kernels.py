@@ -1,4 +1,5 @@
-"""The backward CUDA kernels and ``flash_gat`` against their plain versions, on the card.
+"""The backward CUDA kernels, ``flash_gat`` and ``tarmac_step`` against their plain
+versions, on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a GPU
 machine that has no JAX: ``python -m pytest --noconftest
@@ -134,6 +135,28 @@ def test_tarmac_step_bwd_kernel_matches_plain(cuda_device, w, a, dueling, empty_
     _assert_close_to_scale(got, step_kernels.tarmac_step_bwd_plain(*args, a, 16, dueling),
                            "tarmac_step_bwd")
     again = step_kernels.tarmac_step_bwd(*args, a, 16, dueling)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("empty_world", [False, True])
+@pytest.mark.parametrize("dueling", [False, True])
+@pytest.mark.parametrize("a", [8, 4])
+@pytest.mark.parametrize("w", [40, 5, 512])
+def test_tarmac_step_kernel_matches_plain(cuda_device, w, a, dueling, empty_world):
+    """The forward at training's A = 8 and the 4-UBS A = 4; W = 5 leaves R
+    ragged against the 32-row product tiles and the 4-row head blocks, W = 40
+    is the serving batch, W = 512 fills the card. World 0's agent 1 has no
+    in-edge (c = 0 there); with ``empty_world`` world 1 has no edge at all."""
+    c = _step_case(cuda_device, np.random.default_rng(w + a + 1), w, a, 256, 64, 16, 9,
+                   empty_world)
+    args = [c[k] for k in ("x", "h", "adjf", *STEP_ORDER)]
+    before = step_kernels.tarmac_step.launches
+    got = step_kernels.tarmac_step(*args, a, 16, dueling)
+    assert step_kernels.tarmac_step.launches == before + 1
+    _assert_close_to_scale(got, step_kernels.tarmac_step_plain(*args, a, 16, dueling),
+                           "tarmac_step")
+    again = step_kernels.tarmac_step(*args, a, 16, dueling)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

@@ -1,16 +1,18 @@
-"""``csrc/tarmac_step_bwd.cu`` run on the CPU, through an emulation of its CUDA threads,
-against ``tarmac_step_bwd_plain``.
+"""``csrc/tarmac_step_bwd.cu`` and ``csrc/tarmac_step.cu`` run on the CPU, through an
+emulation of their CUDA threads, against ``tarmac_step_bwd_plain`` and ``tarmac_step_plain``.
 
 Without nvcc a CUDA source cannot be compiled here. These tests compile it
 with g++ as C++ instead, under a small header that emulates the pieces the
 source uses: each CTA's threads run as ``std::thread``s that meet at a
 ``std::barrier`` for ``__syncthreads``, CTAs run one after another (so a
 ``__shared__`` array is a function-level static), and a launch ``k<<<g, b,
-smem, s>>>(...)`` becomes a call of the emulated launcher. The tests call the
-C entry point ``tarmac_step_backward`` on CPU tensors through ``ctypes``. They
-check the arithmetic, the job tables, the scratch layout and the ragged
-edges; not the card's compiler, timing or memory model (the card tests in
-``test_torch_cuda_kernels.py`` do that). Without g++ they skip. Tolerance:
+smem, s>>>(...)`` (or ``k<Tag><<<...>>>``) becomes a call of the emulated
+launcher. The shared header ``tarmac_step_common.cuh`` is put through the same
+substitutions and written beside the source. The tests call the C entry points
+``tarmac_step_backward`` and ``tarmac_step_forward`` on CPU tensors through
+``ctypes``. They check the arithmetic, the job tables, the scratch layout and
+the ragged edges; not the card's compiler, timing or memory model (the card
+tests in ``test_torch_cuda_kernels.py`` do that). Without g++ they skip. Tolerance:
 1e-5 of max(1, max |plain|) per output (f32 sums in another order, small
 widths).
 """
@@ -27,11 +29,12 @@ import torch
 
 from uav_bs_ctrl_tpu_torch.ops import step_kernels
 
-SOURCE = Path(step_kernels.__file__).resolve().parent / "csrc" / "tarmac_step_bwd.cu"
+CSRC = Path(step_kernels.__file__).resolve().parent / "csrc"
 ORDER = ("x", "h", "adjf", "wv", "bv", "ws", "bs", "wq", "bq", "wi", "wh", "bi", "bh",
          "wo", "bo", "wvh", "bvh", "gq", "gh2")
 EMULATION_HEADER = r"""
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -45,6 +48,7 @@ inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 struct emu_dim3 { unsigned x = 0, y = 0, z = 0; };
+using std::min;
 namespace emu {
 inline thread_local emu_dim3 thread_idx, block_idx, block_dim;
 inline thread_local std::barrier<>* block_barrier = nullptr;
@@ -80,27 +84,46 @@ void launch(Cfg c, F kernel, Args... args) {
 """
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """The source built with g++ under the emulation header, loaded with ctypes."""
+def _emulate(source):
+    """A CUDA source's text made C++ for the emulation header."""
+    source = source.replace("extern __shared__ float smem[];",
+                            "float* smem = emu::dynamic_smem;")
+    return re.sub(r"(\w+(?:<\w+>)?)<<<([^>]*)>>>\(", r"emu::launch(emu::Cfg{\2}, \1, ", source)
+
+
+def _build(out, name, signatures):
+    """``csrc/<name>.cu`` built with g++ under the emulation header into
+    ``out``, loaded with ctypes and ``signatures`` declared."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the emulated kernel source")
-    out = tmp_path_factory.mktemp("emulated")
     (out / "cuda_runtime.h").write_text(EMULATION_HEADER)
-    src = SOURCE.read_text().replace("extern __shared__ float smem[];",
-                                     "float* smem = emu::dynamic_smem;")
-    src = re.sub(r"(\w+)<<<([^>]*)>>>\(", r"emu::launch(emu::Cfg{\2}, \1, ", src)
-    (out / "tarmac_step_bwd.cpp").write_text(src)
-    so = out / "tarmac_step_bwd.so"
+    for header in CSRC.glob("*.cuh"):
+        (out / header.name).write_text(_emulate(header.read_text()))
+    (out / f"{name}.cpp").write_text(_emulate((CSRC / f"{name}.cu").read_text()))
+    so = out / f"{name}.so"
     subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-w",
-                    f"-I{out}", "-o", str(so), str(out / "tarmac_step_bwd.cpp")],
+                    f"-I{out}", "-o", str(so), str(out / f"{name}.cpp")],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
-    restype, argtypes = step_kernels._BWD_SIGNATURES["tarmac_step_backward"]
-    lib.tarmac_step_backward.restype = restype
-    lib.tarmac_step_backward.argtypes = argtypes
+    for fn, (restype, argtypes) in signatures.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
     return lib
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """``tarmac_step_bwd.cu`` built with g++ under the emulation header."""
+    return _build(tmp_path_factory.mktemp("emulated"), "tarmac_step_bwd",
+                  step_kernels._BWD_SIGNATURES)
+
+
+@pytest.fixture(scope="module")
+def emulated_fwd(tmp_path_factory):
+    """``tarmac_step.cu`` built with g++ under the emulation header."""
+    return _build(tmp_path_factory.mktemp("emulated_fwd"), "tarmac_step",
+                  step_kernels._SIGNATURES)
 
 
 def _case(rng, w, a, hidden, msg, key, n_act, empty_world):
@@ -158,3 +181,43 @@ def test_emulated_kernel_with_no_rows_gives_zero_weight_gradients(emulated):
     args = _case(np.random.default_rng(0), 0, 4, 32, 8, 4, 5, False)
     got = _run(emulated, args, 0, 4, 4.0, True)
     assert all(torch.equal(g, torch.zeros_like(g)) for g in got[2:])
+
+
+def _run_fwd(lib, args, w, a, key_size, dueling):
+    """The emulated forward; q, h2 and the scratch start as NaN."""
+    x, hidden = args[0], args[0].shape[1]
+    msg, key, n_act = args[3].shape[1], args[5].shape[1], args[13].shape[1]
+    q = torch.full((w * a, n_act), float("nan"))
+    h2 = torch.full_like(x, float("nan"))
+    scratch = torch.full((max(1, step_kernels.fwd_scratch_floats(w * a, hidden, msg, key)),),
+                         float("nan"))
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in [*args, q, h2, scratch]]
+    assert lib.tarmac_step_forward(*ptrs, w, a, hidden, msg, key, n_act, int(dueling),
+                                   float(key_size), None) == 0
+    return q, h2
+
+
+@pytest.mark.parametrize("w,a,hidden,msg,key,n_act,dueling,empty_world", [
+    (5, 4, 32, 8, 4, 5, False, False),       # R = 20: one ragged row tile
+    (3, 8, 40, 12, 6, 9, True, False),       # widths that are no multiple of a tile or slab
+    (9, 8, 32, 64, 16, 9, False, True),      # R = 72 over three row tiles; a world with no edge
+    (7, 4, 70, 20, 5, 3, True, True),        # A = 4, R = 28; H = 70 splits the head unevenly
+    (2, 3, 70, 20, 5, 3, False, True),       # A = 3: the last head block holds 2 rows
+])
+def test_emulated_forward_matches_plain(emulated_fwd, w, a, hidden, msg, key, n_act, dueling,
+                                        empty_world):
+    """World 0's agent 1 hears no one (c = 0 there); with ``empty_world``
+    world 1 has no edge at all."""
+    args = _case(np.random.default_rng(w * a + hidden + 1), w, a, hidden, msg, key, n_act,
+                 empty_world)[:17]
+    got = _run_fwd(emulated_fwd, args, w, a, 4.0, dueling)
+    want = step_kernels.tarmac_step_plain(*args, a, 4.0, dueling)
+    for name, g, r in zip(("q", "h2"), got, want):
+        err = (g - r).abs().max().item() / max(1.0, r.abs().max().item())
+        assert err <= 1e-5, f"{name}: {err:.3e}"
+
+
+def test_emulated_forward_with_no_rows_returns_success(emulated_fwd):
+    """W = 0 launches nothing (a grid of no blocks is a launch error on the card)."""
+    args = _case(np.random.default_rng(0), 0, 4, 32, 8, 4, 5, False)[:17]
+    _run_fwd(emulated_fwd, args, 0, 4, 4.0, True)

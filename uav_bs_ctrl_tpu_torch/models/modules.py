@@ -73,11 +73,13 @@ class GRUCell(nn.Module):
 
 
 def gumbel_noise(shape, seed, device):
-    """Gumbel(0, 1) noise of ``shape`` drawn on ``device`` from a generator of
-    that device seeded with ``seed`` (the card's Philox stream differs from
-    the CPU's Mersenne Twister, so one seed gives other noise on each)."""
+    """Float32 Gumbel(0, 1) noise of ``shape`` drawn on ``device`` from a
+    generator of that device seeded with ``seed`` (the card's Philox stream
+    differs from the CPU's Mersenne Twister, so one seed gives other noise on
+    each), whatever the process's default dtype."""
     generator = torch.Generator(device=device).manual_seed(seed)
-    draw = torch.empty(shape, device=device).exponential_(generator=generator)
+    draw = torch.empty(shape, dtype=torch.float32, device=device).exponential_(
+        generator=generator)
     return -draw.clamp_min(torch.finfo(draw.dtype).tiny).log()
 
 

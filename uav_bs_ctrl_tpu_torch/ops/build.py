@@ -4,8 +4,8 @@ Each ``ops/csrc/<name>.cu`` exports ``extern "C"`` launchers that take raw
 device pointers, sizes and a ``cudaStream_t`` and return the launch's
 ``cudaError_t``; no source includes PyTorch's headers, so a file compiles in
 seconds and needs neither ninja nor pybind11. The shared object goes to
-``ops/_build/<name>-<hash>.so``, keyed by the source, the flags and
-``nvcc --version``, and is built on first use.
+``ops/_build/<name>-<hash>.so``, keyed by the source, every ``csrc/*.cuh``
+header, the flags and ``nvcc --version``, and is built on first use.
 """
 
 import ctypes
@@ -45,6 +45,8 @@ def _target(name: str, nvcc: str) -> Path:
                              text=True, check=True, timeout=60).stdout
     digest = hashlib.sha256()
     digest.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # any header a source may include
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     digest.update(version.encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"

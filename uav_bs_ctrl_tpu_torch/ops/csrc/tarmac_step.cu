@@ -1,7 +1,8 @@
 // Fused recurrent step for Hopper (sm_90a): TarMAC attention + GRU cell + Q head.
 //
-// Replaces the TPU kernel uav_bs_ctrl_tpu/ops/step_kernels.py:tarmac_step
-// (body _step_fwd_kernel). Rows are (world, agent) pairs, world-major. For world w:
+// Replaces the TPU kernel uav_bs_ctrl_tpu/ops/step_kernels.py:tarmac_step (:314; body
+// _step_fwd_kernel, :122, with _attention_fwd and _gru_fwd, :103). Rows are (world, agent)
+// pairs, world-major, R = W*A. For world w:
 //
 //   [v | s | q] = [x | h] @ [wv | ws | wq] + b         (h is only read, never updated here)
 //   alpha[s, d] = softmax over sources s of (s_s . q_d) / key_size, where adjf[w*A+s, d] > 0
@@ -9,226 +10,124 @@
 //   h2          = GRUCell([x | c], h)                   gate order r, z, n; h2 = (1-z) n + z h
 //   q           = h2 @ wo + bo, or with dueling  (h2 @ wvh + bvh) + adv - mean(adv)
 //
-// Design. One CTA per world, 256 threads. The world's x and h rows sit in shared memory;
-// v/s/q, the A x A scores and the aggregation are computed directly per (row, column)
-// pair: the TPU's block-diagonal R x R trick is a device for its matrix unit and is not
-// needed here. The GRU gives each thread one hidden column for up to 8 rows at once, so
-// every weight element read from L2 serves 8 rows. Weights stay in global memory (about
-// 2 MB at the serving width, L2-resident across CTAs).
-// What bounds it: f32 arithmetic outside the tensor cores, dominated by the GRU's
-// (H+MSG)*3H + H*3H multiply-adds per row; with one CTA per world only W of the 132 SMs
-// work at the serving batch (W=40). wgmma and a row-tiled grid are later work.
+// What bounds it: f32 arithmetic outside the tensor cores, about 0.99 MFLOP a row at the
+// 8-UBS width (hidden 256, msg 64, key 16, 9 actions), nearly all of it the v/s/q and GRU
+// products: 0.00379 ms at R = 256 (training), 0.0047 ms at R = 320 (serving 40 worlds) and
+// 0.061 ms at R = 4096 (512 worlds) on an H100 at 67 TFLOP/s.
+//
+// What the first design lost: one CTA of 256 threads per world, so 32 CTAs on the 132 SMs
+// at training's W = 32 (40 when serving); each CTA streamed about 2 MB of weights from L2
+// for its 8 rows, one strided (row, column) dot product of depth 2H per thread for v/s/q
+// and three dependent L2 loads per k-step for the GRU, with 8 warps on an SM to hide them.
+// It took 0.319 ms at R = 256, 84x its bound and 2.1x its plain version.
+//
+// Design. Four launches per call, in dependency order, all on the caller's stream:
+//   (a)-(c) tarmac_step_common.cuh's launch_up_to_gates, shared with the backward: the
+//           v|s|q and gi/gh products tiled by rows and columns across the whole card,
+//           and the per-world masked softmax and c = alpha^T v, into the caller's scratch
+//   (d) gates and head: a CTA takes kHeadRows rows, computes the gates and h2 (written out
+//       and kept in shared memory), then the head's sums, each split into kHeadSplit
+//       chunks of k whose partials are added in a fixed order (no atomics, no warp
+//       shuffles), so a repeated call is bit-identical.
+// Any A and any R work; R = 0 launches nothing.
 
-#include <cuda_runtime.h>
+#include "tarmac_step_common.cuh"
 
 namespace {
 
-constexpr float kNegBig = -1e30f;
-constexpr int kRows = 8;            // rows per register group in the GRU
-constexpr int kThreads = 256;
+struct tarmac_step_fwd {};          // tags this library's kernels (see the header)
+constexpr int kHeadRows = 4;        // rows per CTA in (d): 64 CTAs at R = 256
+constexpr int kHeadSplit = 8;       // chunks of k per head output
+constexpr int kHeadThreads = 256;
 
-__device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
-
-__global__ void __launch_bounds__(kThreads) tarmac_step_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ h, const float* __restrict__ adjf,
-    const float* __restrict__ wv, const float* __restrict__ bv,
-    const float* __restrict__ ws, const float* __restrict__ bs,
-    const float* __restrict__ wq, const float* __restrict__ bq,
-    const float* __restrict__ wi, const float* __restrict__ wh,
-    const float* __restrict__ bi, const float* __restrict__ bh,
+// (d) h2 = GRU gates of (gi, gh, h), and q from h2, for the CTA's rows.
+__global__ void __launch_bounds__(kHeadThreads) tarmac_step_fwd_head(
+    const float* __restrict__ h, const float* __restrict__ gi, const float* __restrict__ gh,
     const float* __restrict__ wo, const float* __restrict__ bo,
     const float* __restrict__ wvh, const float* __restrict__ bvh,
-    float* __restrict__ q_out, float* __restrict__ h2_out,
-    int A, int H, int MSG, int K, int NACT, int dueling, float key_size) {
+    float* __restrict__ q_out, float* __restrict__ h2_out, int R, int H, int NACT,
+    int dueling) {
   extern __shared__ float smem[];
-  const int H2 = 2 * H, H3 = 3 * H;
-  float* s_in = smem;                 // [A, 2H]   row a = [x_a | h_a]
-  float* s_v = s_in + A * H2;         // [A, MSG]
-  float* s_s = s_v + A * MSG;         // [A, K]    signatures
-  float* s_q = s_s + A * K;           // [A, K]    queries
-  float* s_alpha = s_q + A * K;       // [A(src), A(dst)]
-  float* s_c = s_alpha + A * A;       // [A, MSG]
-  float* s_h2 = s_c + A * MSG;        // [A, H]
-  float* s_adv = s_h2 + A * H;        // [A, NACT]
-  float* s_val = s_adv + A * NACT;    // [A]
+  const int O = NACT + (dueling ? 1 : 0);               // the advantages, then the value
+  float* s_h2 = smem;                                    // [rows, H]
+  float* s_part = s_h2 + kHeadRows * H;                  // [rows, O, kHeadSplit]
+  float* s_out = s_part + kHeadRows * O * kHeadSplit;    // [rows, O]
+  const int row0 = blockIdx.x * kHeadRows;
+  const int rows = min(kHeadRows, R - row0);
 
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)blockIdx.x * A;
-
-  for (int i = tid; i < A * H; i += blockDim.x) {
-    const int a = i / H, k = i % H;
-    s_in[a * H2 + k] = x[(row0 + a) * H + k];
-    s_in[a * H2 + H + k] = h[(row0 + a) * H + k];
+  for (int i = threadIdx.x; i < rows * H; i += blockDim.x) {
+    const int j = i % H;
+    const size_t row = (size_t)row0 + i / H;
+    const Gates g = gru_gates(gi + row * 3 * H, gh + row * 3 * H, j, H);
+    const float h2 = (1.f - g.z) * g.n + g.z * h[row * H + j];
+    s_h2[i] = h2;
+    h2_out[row * H + j] = h2;
   }
   __syncthreads();
 
-  // v, s, q: one (row, output column) pair per thread iteration.
-  const int P = MSG + 2 * K;
-  for (int i = tid; i < A * P; i += blockDim.x) {
-    const int a = i / P, c = i % P;
-    const float* W;
-    const float* B;
-    float* dst;
-    int ld, col;
-    if (c < MSG) {
-      W = wv; B = bv; ld = MSG; col = c; dst = s_v + a * MSG + col;
-    } else if (c < MSG + K) {
-      W = ws; B = bs; ld = K; col = c - MSG; dst = s_s + a * K + col;
-    } else {
-      W = wq; B = bq; ld = K; col = c - MSG - K; dst = s_q + a * K + col;
-    }
-    const float* in = s_in + a * H2;
+  const int chunk = (H + kHeadSplit - 1) / kHeadSplit;
+  for (int i = threadIdx.x; i < rows * O * kHeadSplit; i += blockDim.x) {
+    const int s = i % kHeadSplit, o = (i / kHeadSplit) % O, r = i / (kHeadSplit * O);
+    const float* hr = s_h2 + r * H;
+    const int k1 = min(H, (s + 1) * chunk);
     float acc = 0.f;
-    for (int k = 0; k < H2; ++k) acc = fmaf(in[k], W[(size_t)k * ld + col], acc);
-    *dst = acc + B[col];
+    if (o < NACT)
+      for (int k = s * chunk; k < k1; ++k) acc = fmaf(hr[k], wo[(size_t)k * NACT + o], acc);
+    else
+      for (int k = s * chunk; k < k1; ++k) acc = fmaf(hr[k], wvh[k], acc);
+    s_part[i] = acc;
   }
   __syncthreads();
 
-  // Masked softmax over SOURCES for each destination d (column of adjf).
-  for (int d = tid; d < A; d += blockDim.x) {
-    float mx = kNegBig;
-    for (int s = 0; s < A; ++s) {
-      float sc = 0.f;
-      for (int k = 0; k < K; ++k) sc = fmaf(s_s[s * K + k], s_q[d * K + k], sc);
-      sc = sc / key_size;
-      sc = adjf[(row0 + s) * A + d] > 0.f ? sc : kNegBig;
-      s_alpha[s * A + d] = sc;
-      mx = fmaxf(mx, sc);
-    }
-    const float shift = mx <= kNegBig / 2 ? 0.f : mx;
-    float den = 0.f;
-    for (int s = 0; s < A; ++s) {
-      const float p = adjf[(row0 + s) * A + d] > 0.f ? expf(s_alpha[s * A + d] - shift) : 0.f;
-      s_alpha[s * A + d] = p;
-      den += p;
-    }
-    den = fmaxf(den, 1e-30f);
-    for (int s = 0; s < A; ++s) s_alpha[s * A + d] = s_alpha[s * A + d] / den;
-  }
-  __syncthreads();
-
-  for (int i = tid; i < A * MSG; i += blockDim.x) {
-    const int d = i / MSG, m = i % MSG;
+  for (int i = threadIdx.x; i < rows * O; i += blockDim.x) {
+    const int o = i % O;
     float acc = 0.f;
-    for (int s = 0; s < A; ++s) acc = fmaf(s_alpha[s * A + d], s_v[s * MSG + m], acc);
-    s_c[i] = acc;
+    for (int s = 0; s < kHeadSplit; ++s) acc += s_part[i * kHeadSplit + s];
+    s_out[i] = acc + (o < NACT ? bo[o] : bvh[0]);
   }
   __syncthreads();
 
-  // GRU: thread owns hidden column j; rows in groups of kRows share each weight load.
-  for (int j = tid; j < H; j += blockDim.x) {
-    for (int a0 = 0; a0 < A; a0 += kRows) {
-      float ir[kRows], iz[kRows], in_[kRows], hr[kRows], hz[kRows], hn[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        ir[r] = iz[r] = in_[r] = hr[r] = hz[r] = hn[r] = 0.f;
-      }
-      for (int k = 0; k < H; ++k) {           // x part of wi
-        const float* wrow = wi + (size_t)k * H3;
-        const float w_r = wrow[j], w_z = wrow[H + j], w_n = wrow[2 * H + j];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (a0 + r < A) {
-            const float v = s_in[(a0 + r) * H2 + k];
-            ir[r] = fmaf(v, w_r, ir[r]);
-            iz[r] = fmaf(v, w_z, iz[r]);
-            in_[r] = fmaf(v, w_n, in_[r]);
-          }
-        }
-      }
-      for (int k = 0; k < MSG; ++k) {         // c part of wi
-        const float* wrow = wi + (size_t)(H + k) * H3;
-        const float w_r = wrow[j], w_z = wrow[H + j], w_n = wrow[2 * H + j];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (a0 + r < A) {
-            const float v = s_c[(a0 + r) * MSG + k];
-            ir[r] = fmaf(v, w_r, ir[r]);
-            iz[r] = fmaf(v, w_z, iz[r]);
-            in_[r] = fmaf(v, w_n, in_[r]);
-          }
-        }
-      }
-      for (int k = 0; k < H; ++k) {           // h part: wh
-        const float* wrow = wh + (size_t)k * H3;
-        const float w_r = wrow[j], w_z = wrow[H + j], w_n = wrow[2 * H + j];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (a0 + r < A) {
-            const float v = s_in[(a0 + r) * H2 + H + k];
-            hr[r] = fmaf(v, w_r, hr[r]);
-            hz[r] = fmaf(v, w_z, hz[r]);
-            hn[r] = fmaf(v, w_n, hn[r]);
-          }
-        }
-      }
-      const float bir = bi[j], biz = bi[H + j], bin = bi[2 * H + j];
-      const float bhr = bh[j], bhz = bh[H + j], bhn = bh[2 * H + j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (a0 + r < A) {
-          const float rg = sigmoidf_((ir[r] + bir) + (hr[r] + bhr));
-          const float zg = sigmoidf_((iz[r] + biz) + (hz[r] + bhz));
-          const float ng = tanhf((in_[r] + bin) + rg * (hn[r] + bhn));
-          const float hp = s_in[(a0 + r) * H2 + H + j];
-          const float h2 = (1.f - zg) * ng + zg * hp;
-          s_h2[(a0 + r) * H + j] = h2;
-          h2_out[(row0 + a0 + r) * H + j] = h2;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < A * NACT; i += blockDim.x) {
-    const int a = i / NACT, o = i % NACT;
-    float acc = 0.f;
-    for (int k = 0; k < H; ++k) acc = fmaf(s_h2[a * H + k], wo[(size_t)k * NACT + o], acc);
-    s_adv[i] = acc + bo[o];
-  }
-  if (dueling) {
-    for (int a = tid; a < A; a += blockDim.x) {
-      float acc = 0.f;
-      for (int k = 0; k < H; ++k) acc = fmaf(s_h2[a * H + k], wvh[k], acc);
-      s_val[a] = acc + bvh[0];
-    }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < A * NACT; i += blockDim.x) {
-    const int a = i / NACT;
-    float qv = s_adv[i];
+  for (int i = threadIdx.x; i < rows * NACT; i += blockDim.x) {
+    const int r = i / NACT, o = i % NACT;
+    const float* out = s_out + r * O;
+    float qv = out[o];
     if (dueling) {
       float mean = 0.f;
-      for (int o = 0; o < NACT; ++o) mean += s_adv[a * NACT + o];
-      mean = mean / NACT;
-      qv = s_val[a] + (qv - mean);
+      for (int p = 0; p < NACT; ++p) mean += out[p];
+      qv = out[NACT] + (qv - mean / NACT);
     }
-    q_out[(row0 + a) * NACT + (i % NACT)] = qv;
+    q_out[(size_t)(row0 + r) * NACT + o] = qv;
   }
 }
 
 }  // namespace
 
+// scratch: R * (MSG + 2K + MSG + 6H) floats (v|s|q, c, gi, gh).
 extern "C" int tarmac_step_forward(
     const float* x, const float* h, const float* adjf,
     const float* wv, const float* bv, const float* ws, const float* bs,
     const float* wq, const float* bq, const float* wi, const float* wh,
     const float* bi, const float* bh, const float* wo, const float* bo,
-    const float* wvh, const float* bvh, float* q_out, float* h2_out,
+    const float* wvh, const float* bvh, float* q_out, float* h2_out, float* scratch,
     int W, int A, int H, int MSG, int K, int NACT, int dueling, float key_size,
     cudaStream_t stream) {
-  if (W == 0) return cudaSuccess;
-  const size_t smem = sizeof(float) * (size_t)A *
-                      (2 * H + MSG + 2 * K + A + MSG + H + NACT + 1);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(tarmac_step_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  tarmac_step_fwd_kernel<<<W, kThreads, smem, stream>>>(
-      x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo, wvh, bvh, q_out, h2_out,
-      A, H, MSG, K, NACT, dueling, key_size);
+  const int R = W * A;
+  if (R == 0) return cudaSuccess;
+  float* vsq = scratch;
+  float* c = vsq + (size_t)R * (MSG + 2 * K);
+  float* gi = c + (size_t)R * MSG;
+  float* gh = gi + (size_t)R * 3 * H;
+  cudaError_t e = launch_up_to_gates<tarmac_step_fwd>(x, h, adjf, wv, bv, ws, bs, wq, bq, wi,
+                                                      wh, bi, bh, vsq, c, gi, gh, W, A, H, MSG,
+                                                      K, key_size, stream);
+  if (e != cudaSuccess) return e;
+  const int O = NACT + (dueling ? 1 : 0);
+  const size_t smem = sizeof(float) * (size_t)kHeadRows * (H + O * (kHeadSplit + 1));
+  if ((e = allow_smem((const void*)tarmac_step_fwd_head, smem)) != cudaSuccess) return e;
+  const unsigned blocks = (unsigned)((R + kHeadRows - 1) / kHeadRows);
+  tarmac_step_fwd_head<<<blocks, kHeadThreads, smem, stream>>>(h, gi, gh, wo, bo, wvh, bvh,
+                                                               q_out, h2_out, R, H, NACT,
+                                                               dueling);
   return cudaGetLastError();
 }
 

@@ -18,242 +18,28 @@
 // cotangents are 0.
 //
 // Design. Seven launches per call, in dependency order, all on the caller's stream:
-//   (a) products   [v|s|q] = [x|h] [wv|ws|wq] + b                      -> scratch
-//   (b) per world  scores, masked softmax over sources, c = alpha^T v  -> scratch
-//   (c) products   gi = [x|c] wi + bi, gh = h wh + bh                  -> scratch
+//   (a)-(c) the forward up to the GRU's pre-activations, launched by tarmac_step_common.cuh's
+//           launch_up_to_gates (v|s|q products, per-world alpha and c, gi/gh products)
 //   (d) per (row, hidden column): gates, h2, the head backward, the GRU backward -> dg, dh = dh2 z
 //   (e) products   dx = dgi wi[:H]^T, dc = dgi wi[H:]^T, dh += dgh wh^T
-//   (f) per world  alpha again (same code as (b)), dalpha, dscore, dv, ds, dq
+//   (f) per world  alpha again (world_alpha, as in (b)), dalpha, dscore, dv, ds, dq
 //   (g) products   dx += [dv|ds|dq] [wv|ws|wq][:H]^T, and the 14 weight gradients X^T G
 //                  (a bias gradient is a ones column times G)
-// Only the A x A attention is tied to a world. Everything else is a dense product over
-// all R = W*A rows, so it is tiled by rows and columns across the whole card: at the
-// training batch (R = 256) one CTA per world would keep 32 of the 132 SMs busy and
-// stream every weight from L2 for 8 rows. One generic kernel runs every product from a
-// job table (a job is C = sum over up to 3 segments of A_s B_s, + bias, + C), each
-// launch holding the independent products of its step so that their tiles fill the card
-// together. A CTA computes a 32 x 64 tile, 4 x 4 outputs a thread; the A and B slabs
-// (32 deep) are staged in shared memory, double-buffered, the next slab's loads in
-// flight in registers while the current one is summed. A transposed operand (G W^T,
-// X^T G) differs only in how a slab is loaded. Every output element is summed by one
-// thread in a fixed k order: no atomics and no split of a sum across CTAs, so a repeated
-// call is bit-identical. Any A and any R work (ragged tiles are masked).
+// Every dense product goes through the header's row-tiled product kernel and job table,
+// tiled by rows and columns across the whole card: at the training batch (R = 256) one
+// CTA per world would keep 32 of the 132 SMs busy and stream every weight from L2 for 8
+// rows. Each output is summed by one thread in a fixed order, with no atomics and no
+// split-K, so a repeated call is bit-identical. Any A and any R work.
 // What bounds it: f32 arithmetic outside the tensor cores, about 0.0112 ms at R = 256
 // (the 8-UBS training inputs) on an H100 at 67 TFLOP/s. Split-precision 3xTF32 mma.sync
 // products are the route to the tensor cores at f32 accuracy, and later work.
 
-#include <cuda_runtime.h>
+#include "tarmac_step_common.cuh"
 
 namespace {
 
-constexpr float kNegBig = -1e30f;
-constexpr int kWorldThreads = 128;
+struct tarmac_step_bwd {};          // tags this library's kernels (see the header)
 constexpr int kGateThreads = 256;
-
-__device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
-
-// ---- the tiled product: C[M, N] = sum_s A_s B_s (+ bias) (+ C) ----
-
-constexpr int kBM = 32, kBN = 64, kBK = 32;
-constexpr int kProdThreads = kBM * kBN / 16;           // 4 x 4 outputs a thread
-constexpr int kLoadA = kBM * kBK / kProdThreads;       // slab values a thread loads
-constexpr int kLoadB = kBK * kBN / kProdThreads;
-constexpr int kMaxSeg = 3;
-constexpr int kMaxJobs = 22;
-
-struct Seg {
-  const float* a;    // A(m, k) = a[m*lda + k], or a[k*lda + m] with trans_a; nullptr: all ones
-  const float* b;    // B(k, n) = b[k*ldb + n], or b[n*ldb + k] with trans_b
-  int lda, ldb, k;
-};
-
-struct Job {
-  Seg seg[kMaxSeg];
-  float* c;              // [M, ldc]
-  const float* bias;     // [N], or nullptr
-  int n_seg, trans_a, trans_b, ldc, accumulate, M, N, tile0, tiles_n;
-};
-
-struct Jobs {
-  Job job[kMaxJobs];
-  int n_jobs;
-};
-static_assert(sizeof(Jobs) <= 4096, "a job table must fit in the kernel's parameters");
-
-// The slab of segment `sg` at depth k0 into registers; ragged edges read as 0. Each
-// operand is walked along its contiguous dimension, so a warp's loads coalesce.
-__device__ __forceinline__ void load_slab(const Job& J, int sg, int k0, int m0, int n0,
-                                          float (&ra)[kLoadA], float (&rb)[kLoadB]) {
-  const Seg& S = J.seg[sg];
-#pragma unroll
-  for (int i = 0; i < kLoadA; ++i) {
-    const int e = threadIdx.x + i * kProdThreads;
-    const int m = J.trans_a ? e % kBM : e / kBK, k = J.trans_a ? e / kBM : e % kBK;
-    const int gm = m0 + m, gk = k0 + k;
-    float v = 0.f;
-    if (gm < J.M && gk < S.k) {
-      if (S.a == nullptr) v = 1.f;
-      else v = J.trans_a ? S.a[(size_t)gk * S.lda + gm] : S.a[(size_t)gm * S.lda + gk];
-    }
-    ra[i] = v;
-  }
-#pragma unroll
-  for (int i = 0; i < kLoadB; ++i) {
-    const int e = threadIdx.x + i * kProdThreads;
-    const int n = J.trans_b ? e / kBK : e % kBN, k = J.trans_b ? e % kBK : e / kBN;
-    const int gn = n0 + n, gk = k0 + k;
-    float v = 0.f;
-    if (gn < J.N && gk < S.k)
-      v = J.trans_b ? S.b[(size_t)gn * S.ldb + gk] : S.b[(size_t)gk * S.ldb + gn];
-    rb[i] = v;
-  }
-}
-
-__device__ __forceinline__ void store_slab(const Job& J, const float (&ra)[kLoadA],
-                                           const float (&rb)[kLoadB],
-                                           float (*s_a)[kBM + 1], float (*s_b)[kBN + 1]) {
-#pragma unroll
-  for (int i = 0; i < kLoadA; ++i) {
-    const int e = threadIdx.x + i * kProdThreads;
-    const int m = J.trans_a ? e % kBM : e / kBK, k = J.trans_a ? e / kBM : e % kBK;
-    s_a[k][m] = ra[i];
-  }
-#pragma unroll
-  for (int i = 0; i < kLoadB; ++i) {
-    const int e = threadIdx.x + i * kProdThreads;
-    const int n = J.trans_b ? e / kBK : e % kBN, k = J.trans_b ? e % kBK : e / kBN;
-    s_b[k][n] = rb[i];
-  }
-}
-
-__global__ void __launch_bounds__(kProdThreads) tarmac_step_bwd_products(
-    const __grid_constant__ Jobs jobs) {
-  // +1 columns: a slab stored along k (row-major A, transposed B) hits 32 banks.
-  __shared__ float s_a[2][kBK][kBM + 1];
-  __shared__ float s_b[2][kBK][kBN + 1];
-  int jb = 0;
-  while (jb + 1 < jobs.n_jobs && (int)blockIdx.x >= jobs.job[jb + 1].tile0) ++jb;
-  const Job& J = jobs.job[jb];
-  const int local = blockIdx.x - J.tile0;
-  const int m0 = (local / J.tiles_n) * kBM, n0 = (local % J.tiles_n) * kBN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  int n_slabs = 0;
-  for (int s = 0; s < J.n_seg; ++s) n_slabs += (J.seg[s].k + kBK - 1) / kBK;
-  int sg = 0, k0 = 0;                     // the next slab to load
-  auto skip_done = [&]() {
-    while (sg < J.n_seg && k0 >= J.seg[sg].k) {
-      k0 = 0;
-      ++sg;
-    }
-  };
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float ra[kLoadA], rb[kLoadB];
-
-  skip_done();
-  if (n_slabs > 0) {
-    load_slab(J, sg, k0, m0, n0, ra, rb);
-    k0 += kBK;
-    skip_done();
-    store_slab(J, ra, rb, s_a[0], s_b[0]);
-  }
-  __syncthreads();
-  for (int t = 0; t < n_slabs; ++t) {
-    const int buf = t & 1;
-    const bool more = t + 1 < n_slabs;
-    if (more) {
-      load_slab(J, sg, k0, m0, n0, ra, rb);
-      k0 += kBK;
-      skip_done();
-    }
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = s_a[buf][kk][ty + 8 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = s_b[buf][kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (more) store_slab(J, ra, rb, s_a[buf ^ 1], s_b[buf ^ 1]);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 8 * i;
-    if (m >= J.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= J.N) continue;
-      float v = acc[i][j];
-      if (J.bias != nullptr) v += J.bias[n];
-      float* out = J.c + (size_t)m * J.ldc + n;
-      if (J.accumulate) v = *out + v;
-      *out = v;
-    }
-  }
-}
-
-// ---- per world: the A x A attention ----
-
-// alpha[s*A + d] of one world: the masked softmax over sources s of (s_s . q_d) / key,
-// from the world's [v|s|q] rows in s_vsq [A, P]; adj is the world's [A(src), A(dst)] block.
-__device__ void world_alpha(const float* s_vsq, const float* __restrict__ adj, int A, int MSG,
-                            int K, float key_size, float* s_alpha) {
-  const int P = MSG + 2 * K;
-  for (int d = threadIdx.x; d < A; d += blockDim.x) {
-    const float* qd = s_vsq + d * P + MSG + K;
-    float mx = kNegBig;
-    for (int s = 0; s < A; ++s) {
-      const float* ss = s_vsq + s * P + MSG;
-      float sc = 0.f;
-      for (int k = 0; k < K; ++k) sc = fmaf(ss[k], qd[k], sc);
-      sc = sc / key_size;
-      sc = adj[s * A + d] > 0.f ? sc : kNegBig;
-      s_alpha[s * A + d] = sc;
-      mx = fmaxf(mx, sc);
-    }
-    const float shift = mx <= kNegBig / 2 ? 0.f : mx;
-    float den = 0.f;
-    for (int s = 0; s < A; ++s) {
-      const float p = adj[s * A + d] > 0.f ? expf(s_alpha[s * A + d] - shift) : 0.f;
-      s_alpha[s * A + d] = p;
-      den += p;
-    }
-    den = fmaxf(den, 1e-30f);
-    for (int s = 0; s < A; ++s) s_alpha[s * A + d] = s_alpha[s * A + d] / den;
-  }
-}
-
-// (b) c = alpha^T v for one world, written to c2 [R, MSG].
-__global__ void __launch_bounds__(kWorldThreads) tarmac_step_bwd_attend(
-    const float* __restrict__ adjf, const float* __restrict__ vsq, float* __restrict__ c2,
-    int A, int MSG, int K, float key_size) {
-  extern __shared__ float smem[];
-  const int P = MSG + 2 * K;
-  float* s_vsq = smem;                // [A, P]
-  float* s_alpha = s_vsq + A * P;     // [A(src), A(dst)]
-  const size_t row0 = (size_t)blockIdx.x * A;
-  for (int i = threadIdx.x; i < A * P; i += blockDim.x) s_vsq[i] = vsq[row0 * P + i];
-  __syncthreads();
-  world_alpha(s_vsq, adjf + row0 * A, A, MSG, K, key_size, s_alpha);
-  __syncthreads();
-  for (int i = threadIdx.x; i < A * MSG; i += blockDim.x) {
-    const int d = i / MSG, m = i % MSG;
-    float acc = 0.f;
-    for (int s = 0; s < A; ++s) acc = fmaf(s_alpha[s * A + d], s_vsq[s * P + m], acc);
-    c2[row0 * MSG + i] = acc;
-  }
-}
 
 // (f) the attention backward of one world, from dc: dv, ds, dq.
 __global__ void __launch_bounds__(kWorldThreads) tarmac_step_bwd_attend_bwd(
@@ -328,12 +114,8 @@ __global__ void __launch_bounds__(kGateThreads) tarmac_step_bwd_gates(
   if (i >= (size_t)R * H) return;
   const size_t row = i / H;
   const int j = (int)(i % H);
-  const float* gi = sc.gi + row * 3 * H;
-  const float* gh = sc.gh + row * 3 * H;
-  const float rg = sigmoidf_(gi[j] + gh[j]);
-  const float zg = sigmoidf_(gi[H + j] + gh[H + j]);
-  const float hnb = gh[2 * H + j];
-  const float ng = tanhf(gi[2 * H + j] + rg * hnb);
+  const Gates gt = gru_gates(sc.gi + row * 3 * H, sc.gh + row * 3 * H, j, H);
+  const float rg = gt.r, zg = gt.z, hnb = gt.hn, ng = gt.n;
   const float hp = h[i];
   sc.h2[i] = (1.f - zg) * ng + zg * hp;
 
@@ -362,44 +144,6 @@ __global__ void __launch_bounds__(kGateThreads) tarmac_step_bwd_gates(
   out[2 * H + j] = dpre_n;
   out[3 * H + j] = dpre_n * rg;
   dh[i] = dh2 * zg;
-}
-
-// ---- host side ----
-
-Job& add_job(Jobs& jobs, float* c, int ldc, int M, int N, int trans_a, int trans_b,
-             const float* bias, int accumulate) {
-  Job& j = jobs.job[jobs.n_jobs++];
-  j = Job{};
-  j.c = c;
-  j.ldc = ldc;
-  j.M = M;
-  j.N = N;
-  j.trans_a = trans_a;
-  j.trans_b = trans_b;
-  j.bias = bias;
-  j.accumulate = accumulate;
-  return j;
-}
-
-void add_seg(Job& j, const float* a, int lda, const float* b, int ldb, int k) {
-  j.seg[j.n_seg++] = Seg{a, b, lda, ldb, k};
-}
-
-cudaError_t launch_products(Jobs& jobs, cudaStream_t stream) {
-  int tiles = 0;
-  for (int i = 0; i < jobs.n_jobs; ++i) {
-    Job& j = jobs.job[i];
-    j.tile0 = tiles;
-    j.tiles_n = (j.N + kBN - 1) / kBN;
-    tiles += ((j.M + kBM - 1) / kBM) * j.tiles_n;
-  }
-  if (tiles > 0) tarmac_step_bwd_products<<<tiles, kProdThreads, 0, stream>>>(jobs);
-  return cudaGetLastError();
-}
-
-cudaError_t allow_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
@@ -434,34 +178,10 @@ extern "C" int tarmac_step_backward(
   cudaError_t e;
 
   if (R > 0) {
-    {  // (a) [v|s|q] = [x|h] [wv|ws|wq] + [bv|bs|bq]
-      Jobs jobs{};
-      const float* w[3] = {wv, ws, wq};
-      const float* b[3] = {bv, bs, bq};
-      const int n[3] = {MSG, K, K}, col[3] = {0, MSG, MSG + K};
-      for (int t = 0; t < 3; ++t) {
-        Job& j = add_job(jobs, sc.vsq + col[t], P, R, n[t], 0, 0, b[t], 0);
-        add_seg(j, x, H, w[t], n[t], H);
-        add_seg(j, h, H, w[t] + (size_t)H * n[t], n[t], H);
-      }
-      if ((e = launch_products(jobs, stream)) != cudaSuccess) return e;
-    }
-    {  // (b) alpha and c, per world
-      const size_t smem = sizeof(float) * (size_t)A * (P + A);
-      if ((e = allow_smem((const void*)tarmac_step_bwd_attend, smem)) != cudaSuccess) return e;
-      tarmac_step_bwd_attend<<<W, kWorldThreads, smem, stream>>>(adjf, sc.vsq, sc.c2, A, MSG,
-                                                                 K, key_size);
-      if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    }
-    {  // (c) gi = [x|c] wi + bi, gh = h wh + bh
-      Jobs jobs{};
-      Job& gi = add_job(jobs, sc.gi, H3, R, H3, 0, 0, bi, 0);
-      add_seg(gi, x, H, wi, H3, H);
-      add_seg(gi, sc.c2, MSG, wi + (size_t)H * H3, H3, MSG);
-      Job& gh = add_job(jobs, sc.gh, H3, R, H3, 0, 0, bh, 0);
-      add_seg(gh, h, H, wh, H3, H);
-      if ((e = launch_products(jobs, stream)) != cudaSuccess) return e;
-    }
+    if ((e = launch_up_to_gates<tarmac_step_bwd>(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh,
+                                                 bi, bh, sc.vsq, sc.c2, sc.gi, sc.gh, W, A,
+                                                 H, MSG, K, key_size, stream)) != cudaSuccess)
+      return e;
     {  // (d) gates, head and GRU backward; dh = dh2 z
       const size_t n = (size_t)R * H;
       const unsigned blocks = (unsigned)((n + kGateThreads - 1) / kGateThreads);
@@ -478,7 +198,7 @@ extern "C" int tarmac_step_backward(
       Job& jdh = add_job(jobs, dh, H, R, H, 0, 1, nullptr, 1);
       add_seg(jdh, sc.dg, H4, wh, H3, 2 * H);
       add_seg(jdh, sc.dg + H3, H4, wh + 2 * H, H3, H);
-      if ((e = launch_products(jobs, stream)) != cudaSuccess) return e;
+      if ((e = launch_products<tarmac_step_bwd>(jobs, stream)) != cudaSuccess) return e;
     }
     {  // (f) dv, ds, dq, per world
       const size_t smem = sizeof(float) * (size_t)A * (P + 2 * A + MSG);
@@ -526,7 +246,7 @@ extern "C" int tarmac_step_backward(
   xtg(nullptr, 0, 1, sc.dg + H3, H4, H, dbh + 2 * H, H3);
   xtg(nullptr, 0, 1, sc.dadv, NACT, NACT, dbo, NACT);
   xtg(nullptr, 0, 1, sc.dvh, 1, 1, dbvh, 1);
-  return launch_products(jobs, stream);
+  return launch_products<tarmac_step_bwd>(jobs, stream);
 }
 
 extern "C" const char* tarmac_step_bwd_error_string(int err) {

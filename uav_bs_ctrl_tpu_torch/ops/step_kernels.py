@@ -17,7 +17,7 @@ from uav_bs_ctrl_tpu_torch.ops.masked import masked_softmax
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "tarmac_step_forward": (_I, [_P] * 19 + [_I] * 7 + [ctypes.c_float, _P]),
+    "tarmac_step_forward": (_I, [_P] * 20 + [_I] * 7 + [ctypes.c_float, _P]),
     "tarmac_step_error_string": (ctypes.c_char_p, [_I]),
 }
 _BWD_SIGNATURES = {
@@ -93,8 +93,10 @@ def tarmac_step(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
     msg, ks = wv.shape[1], ws.shape[1]
     q = torch.empty((rows, n_act), dtype=torch.float32, device=x.device)
     h2 = torch.empty((rows, hidden), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(max(1, fwd_scratch_floats(rows, hidden, msg, ks)),
+                          dtype=torch.float32, device=x.device)
     ptrs = build.pointers(x.device, {"x": x, "h": h, "adjf": adjf, **weights,
-                                     "q": q, "h2": h2})
+                                     "q": q, "h2": h2, "scratch": scratch})
     lib = build.load("tarmac_step", _SIGNATURES)
     err = lib.tarmac_step_forward(*ptrs, rows // a, a, hidden, msg, ks, n_act,
                                   int(bool(dueling)), float(key_size),
@@ -172,6 +174,12 @@ def tarmac_step_bwd_plain(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh,
               flat(dgh).sum(0), flat(h2).T @ flat(dadv), flat(dadv).sum(0),
               flat(h2).T @ flat(dvh), flat(dvh).sum(0)]
     return (dx.reshape(n_rows, hid), dh.reshape(n_rows, hid), *grads)
+
+
+def fwd_scratch_floats(rows, hidden, msg, key):
+    """Floats of the scratch buffer ``tarmac_step``'s launches hand on to each
+    other: per row v|s|q, c, and the GRU's two pre-activations gi and gh."""
+    return rows * (2 * msg + 2 * key + 6 * hidden)
 
 
 def bwd_scratch_floats(rows, hidden, msg, key, n_act):
