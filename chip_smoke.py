@@ -104,10 +104,11 @@ def time_cuda(fn, n_iter=20, reps=5):
     return statistics.median(times)
 
 
-def gat_case(rng, n, m, d, hf, heads, masked_rows):
+def gat_case(rng, n, m, d, hf, heads, masked_rows, valid=0.7):
+    """flash_gat_fused's inputs, each slot valid with probability ``valid``."""
     f = hf // heads
     arr = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)
-    mask = (rng.random((n, m)) > 0.3).astype(np.float32)
+    mask = (rng.random((n, m)) < valid).astype(np.float32)
     mask[masked_rows] = 0.0
     return dict(
         x=arr(rng.normal(size=(n, m, d))),
@@ -339,11 +340,14 @@ def capture_backward_calls(learner, batch, step):
     """Run one kernel-path backward of ``learner`` on ``batch`` and return the
     inputs the two backward kernels got at policy step ``step``:
     ``[("flash_gat_fused_bwd", (fwd_args, g)) x2, ("tarmac_step_bwd",
-    (fwd_args, gq, gh2))]``, the cotangents caught by hooks on the outputs."""
+    (fwd_args, gq, gh2))]``, the cotangents caught by hooks on the outputs;
+    and the valid share of the masks of every ``flash_gat_fused`` call of the
+    update, ``[seen, near]`` (the policy and the target unroll)."""
     from uav_bs_ctrl_tpu_torch.models import agents, encoders
     orig_gat, orig_step = encoders.flash_gat_fused_train, agents.tarmac_step_train
-    seen = {"gat": 0, "step": 0}
+    seen = {"gat": 0, "step": 0, "any": 0}
     grads = {}
+    valid = [[0.0, 0], [0.0, 0]]           # 'seen', 'near': valid slots, slots
 
     def hook(key):
         def store(g):
@@ -352,6 +356,10 @@ def capture_backward_calls(learner, batch, step):
 
     def rec_gat(*args):
         out = orig_gat(*args)
+        which = valid[seen["any"] % 2]           # each policy step calls 'seen', then 'near'
+        which[0] += float((args[5] > 0).sum())
+        which[1] += args[5].numel()
+        seen["any"] += 1
         if torch.is_grad_enabled():
             if seen["gat"] // 2 == step:
                 key = ("gat", seen["gat"] % 2)
@@ -379,7 +387,8 @@ def capture_backward_calls(learner, batch, step):
         encoders.flash_gat_fused_train, agents.tarmac_step_train = orig_gat, orig_step
     return [("flash_gat_fused_bwd", (grads[("gat", 0, "args")], grads[("gat", 0)])),
             ("flash_gat_fused_bwd", (grads[("gat", 1, "args")], grads[("gat", 1)])),
-            ("tarmac_step_bwd", (grads["step_args"], grads["gq"], grads["gh2"]))]
+            ("tarmac_step_bwd", (grads["step_args"], grads["gq"], grads["gh2"]))], \
+        [v / total for v, total in valid]
 
 
 def launch_split(events, n_calls):
@@ -395,7 +404,9 @@ def launch_split(events, n_calls):
 
 
 LIBRARY_TAGS = {"tarmac_step": "tarmac_step_fwd",      # a word in every kernel name of
-                "tarmac_step_bwd": "tarmac_step_bwd"}  # the library, and in no other
+                "tarmac_step_bwd": "tarmac_step_bwd",  # the library, and in no other
+                "flash_gat_fused": "flash_gat_fused_fwd",
+                "flash_gat_fused_bwd": "flash_gat_fused_bwd"}
 
 
 def kernel_label(name):
@@ -408,10 +419,10 @@ def profile_updates(learner, batch, n, ms_per_update, calls_per_update):
     ``torch.profiler`` (device-side events only, so no kernel is counted twice
     through the operator that launched it), against ``ms_per_update``, the
     wall time of an update measured without the profiler. Prints the top 8,
-    and for each step kernel of ``calls_per_update`` (``{name: wrapper calls
-    per update}``, names in ``LIBRARY_TAGS``) its CUDA kernels and the split of
-    one call over its launches; returns ``{name: CUDA launches per update}``
-    (None when the profiler saw no device time)."""
+    and for each kernel of ``calls_per_update`` (``{name: wrapper calls per
+    update}``, names in ``LIBRARY_TAGS``) its CUDA kernels and the split of one
+    call over its launches; returns ``{name: CUDA launches per update}`` (None
+    when the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with torch.enable_grad():
@@ -884,8 +895,13 @@ def main():
                   f"ms, bound {bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.2f} % of "
                   f"the bound's speed", flush=True)
         with torch.enable_grad():
-            bwd_calls = capture_backward_calls(learner, batch, T // 2)
+            bwd_calls, update_valid = capture_backward_calls(learner, batch, T // 2)
         learner.load_state_dict(snap)
+        step_valid = [float((c[0][5] > 0).float().mean()) for _, c in bwd_calls[:2]]
+        print(f"  valid-slot share of the update's flash_gat_fused inputs: 'seen' "
+              f"{update_valid[0]:.4f}, 'near' {update_valid[1]:.4f} over every call of "
+              f"one update; {step_valid[0]:.4f} and {step_valid[1]:.4f} at policy step "
+              f"{T // 2}, the inputs timed below", flush=True)
         timed = {name: [] for name in all_kernels}
         for args in (a for _, a in dcalls):
             ms = time_cuda(lambda: flash_gat(*args))
@@ -979,13 +995,14 @@ def main():
             print(f"  one update ({label}): {ms:.2f} ms (runs {upd[use_kernels]}), "
                   f"{1e3 / ms:.2f} updates/s, {edges * 1e3 / ms:.4g} message-passing edges/s "
                   f"({edges} edges per update = B(2T+1)A(M+K+A))", flush=True)
-        step_calls = {name: per_update[name] for name in LIBRARY_TAGS}
-        step_launches = profile_updates(learner, batch, 2, statistics.mean(upd[True]), step_calls)
+        split_calls = {name: per_update[name] for name in LIBRARY_TAGS}
+        cuda_launches = profile_updates(learner, batch, 2, statistics.mean(upd[True]),
+                                        split_calls)
         for entry in record:
-            if entry["name"] in step_calls:
+            if entry["name"] in split_calls:
                 entry["cuda_launches_per_call"] = (
-                    None if step_launches is None
-                    else step_launches[entry["name"]] / step_calls[entry["name"]])
+                    None if cuda_launches is None
+                    else cuda_launches[entry["name"]] / split_calls[entry["name"]])
         learner.load_state_dict(snap)
         obs, h = first
         fwd_ms = time_cuda(lambda: agent(obs, h))

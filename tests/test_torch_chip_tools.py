@@ -1,6 +1,7 @@
 """The GPU scripts' CPU-side pieces: ``chip_ab.py`` imports nothing of JAX,
-refuses to run without a card and tells the scratch-less forward source apart,
-and ``chip_smoke.launch_split`` splits a kernel's profiled launches by their
+takes the four redesigned kernels, refuses to run without a card, scales its
+differences without the -1e30 sentinel and tells the scratch-less forward
+source apart, and ``chip_smoke.launch_split`` splits a kernel's profiled launches by their
 position within one call."""
 
 import ast
@@ -27,8 +28,22 @@ def test_chip_ab_imports_nothing_of_jax():
     assert not bad, bad
 
 
+def test_chip_ab_takes_the_four_redesigned_kernels():
+    assert set(chip_ab.KERNELS) == {"tarmac_step", "tarmac_step_bwd", "flash_gat_fused",
+                                    "flash_gat_fused_bwd"}
+    assert set(chip_ab.KERNELS) - set(chip_ab.STEP_WORLDS) == {"flash_gat_fused",
+                                                                "flash_gat_fused_bwd"}
+
+
+def test_chip_ab_scale_leaves_out_the_masked_rows_sentinel():
+    import torch
+    assert chip_ab.scale(torch.tensor([-1e30, 3.0, -2.0])) == 3.0
+    assert chip_ab.scale(torch.tensor([-1e30, 0.5])) == 1.0
+    assert chip_ab.scale(torch.tensor([-1e30])) == 1.0
+
+
 def test_chip_ab_exits_nonzero_without_a_card():
-    for name in ("tarmac_step", "tarmac_step_bwd"):
+    for name in chip_ab.KERNELS:
         proc = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), name, "missing.cu"],
                               capture_output=True, text=True, timeout=300,
                               env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))

@@ -1,5 +1,5 @@
-"""The backward CUDA kernels, ``flash_gat`` and ``tarmac_step`` against their plain
-versions, on the card.
+"""The CUDA kernels against their plain versions, on the card: both backwards,
+``flash_gat``, ``flash_gat_fused`` and ``tarmac_step``.
 
 This file imports neither JAX nor the JAX package, so it also runs on a GPU
 machine that has no JAX: ``python -m pytest --noconftest
@@ -34,10 +34,11 @@ def _on(device, a):
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
 
-def _gat_case(device, rng, n, m, d, heads, f):
+def _gat_case(device, rng, n, m, d, heads, f, cut=0.4):
+    """Slots valid where a uniform draw exceeds ``cut`` (1 - cut of them)."""
     hf = heads * f
-    mask = rng.random((n, m)) > 0.4
-    mask[1] = False                     # a fully masked destination
+    mask = rng.random((n, m)) > cut
+    mask[1:2] = False                   # a fully masked destination
     case = dict(x=rng.normal(size=(n, m, d)), w=rng.normal(size=(d, hf)) / np.sqrt(d),
                 b=0.3 * rng.normal(size=hf), er=rng.normal(size=(n, hf)),
                 attn=rng.normal(size=(heads, f)) / np.sqrt(f), mask=mask,
@@ -76,21 +77,51 @@ def _assert_close_to_scale(got, want, what):
         assert err <= 1e-4 * scale, f"{what} output {i}: {err:.3e} beyond 1e-4 x {scale:.3e}"
 
 
+# n, m, d, heads, f, cut: the update's shapes ("seen" M = 50, D = 4; "near" M = 7, D = 2)
+# at 60 % and about 38 % valid slots (the update's share), the 2x128 width, N = 1 and
+# N = 37, every slot valid (row 1 aside) and every slot masked.
+FUSED_CASES = [(256, 50, 4, 4, 64, 0.4), (256, 7, 2, 4, 64, 0.4), (37, 50, 4, 4, 64, 0.4),
+               (256, 50, 4, 4, 64, 0.62), (256, 7, 2, 4, 64, 0.62), (37, 50, 4, 2, 128, 0.62),
+               (1, 50, 4, 4, 64, 0.62), (37, 33, 2, 2, 128, -1.0), (1, 7, 2, 2, 128, -1.0),
+               (37, 50, 4, 4, 64, 1.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d,heads,f,cut", FUSED_CASES)
+def test_flash_gat_fused_forward_kernel_matches_plain_and_repeats(cuda_device, n, m, d, heads,
+                                                                  f, cut):
+    """Tolerance 1e-4 (atol and rtol, f32 sums in another order); rows with no valid
+    slot give out 0, m -1e30 and l 0 exactly."""
+    c = _gat_case(cuda_device, np.random.default_rng(m), n, m, d, heads, f, cut)
+    args = [c[k] for k in GAT_ORDER]
+    got = gat_kernels.flash_gat_fused(*args, heads)
+    for g, w in zip(got, gat_kernels.flash_gat_fused_plain(*args, heads)):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    empty = args[5].sum(1) == 0
+    assert torch.all(got[0][empty] == 0) and torch.all(got[1][empty] == -1e30)
+    assert torch.all(got[2][empty] == 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, gat_kernels.flash_gat_fused(*args, heads)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("need_dx", [False, True])
-@pytest.mark.parametrize("n,m,d", [(256, 50, 4), (256, 7, 2), (37, 50, 4)])
-def test_flash_gat_fused_bwd_kernel_matches_plain(cuda_device, n, m, d, need_dx):
-    c = _gat_case(cuda_device, np.random.default_rng(m + need_dx), n, m, d, 4, 64)
+@pytest.mark.parametrize("n,m,d,heads,f,cut", FUSED_CASES)
+def test_flash_gat_fused_bwd_kernel_matches_plain(cuda_device, n, m, d, heads, f, cut,
+                                                  need_dx):
+    c = _gat_case(cuda_device, np.random.default_rng(m + need_dx), n, m, d, heads, f, cut)
     args = [c[k] for k in GAT_ORDER]
-    out, mstat, lstat = gat_kernels.flash_gat_fused(*args, 4)
+    out, mstat, lstat = gat_kernels.flash_gat_fused(*args, heads)
     before = gat_kernels.flash_gat_fused_bwd.launches
-    got = gat_kernels.flash_gat_fused_bwd(*args, out, mstat, lstat, c["g"], 4, need_dx=need_dx)
+    got = gat_kernels.flash_gat_fused_bwd(*args, out, mstat, lstat, c["g"], heads,
+                                          need_dx=need_dx)
     assert gat_kernels.flash_gat_fused_bwd.launches == before + 1
-    want = gat_kernels.flash_gat_fused_bwd_plain(*args, out, mstat, lstat, c["g"], 4,
+    want = gat_kernels.flash_gat_fused_bwd_plain(*args, out, mstat, lstat, c["g"], heads,
                                                  need_dx=need_dx)
     _assert_close_to_scale(got, want, "flash_gat_fused_bwd")
-    assert torch.all(got[3][1] == 0)                 # the fully masked row adds nothing
-    again = gat_kernels.flash_gat_fused_bwd(*args, out, mstat, lstat, c["g"], 4,
+    empty = args[5].sum(1) == 0                      # fully masked rows add nothing
+    assert torch.all(got[3][empty] == 0)
+    assert not need_dx or torch.all(got[0][empty] == 0)
+    again = gat_kernels.flash_gat_fused_bwd(*args, out, mstat, lstat, c["g"], heads,
                                             need_dx=need_dx)
     assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
 

@@ -15,7 +15,7 @@ from uav_bs_ctrl_tpu.ops import pallas_kernels as jpk
 from uav_bs_ctrl_tpu.ops import step_kernels as jsk
 from uav_bs_ctrl_tpu_torch.device import resolve_device
 from uav_bs_ctrl_tpu_torch.ops import gat_kernels, step_kernels
-from uav_bs_ctrl_tpu_torch.ops.masked import masked_softmax
+from uav_bs_ctrl_tpu_torch.ops.masked import NEG_BIG, masked_softmax
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 STEP_ORDER = ("wv", "bv", "ws", "bs", "wq", "bq", "wi", "wh", "bi", "bh",
@@ -40,10 +40,11 @@ def test_masked_softmax_matches_jax(dim):
     assert np.all(got[tuple(index)] == 0.0)
 
 
-def _gat_case(rng, n, m, d, heads, f):
+def _gat_case(rng, n, m, d, heads, f, cut=0.4):
+    """Slots valid where a uniform draw exceeds ``cut`` (1 - cut of them)."""
     hf = heads * f
-    mask = rng.random((n, m)) > 0.4
-    mask[1] = False                     # a fully masked destination
+    mask = rng.random((n, m)) > cut
+    mask[1:2] = False                   # a fully masked destination
     return dict(x=rng.normal(size=(n, m, d)).astype(np.float32),
                 w=(rng.normal(size=(d, hf)) / np.sqrt(d)).astype(np.float32),
                 b=rng.normal(size=hf).astype(np.float32),
@@ -146,16 +147,26 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m,d", [(320, 7, 2), (13, 50, 4)])
-def test_flash_gat_fused_kernel_matches_plain(cuda_device, n, m, d):
-    c = _gat_case(np.random.default_rng(m), n, m, d, 4, 32)
+@pytest.mark.parametrize("n,m,d,heads,f,cut", [
+    (320, 7, 2, 4, 32, 0.4), (13, 50, 4, 4, 32, 0.4),
+    (256, 50, 4, 4, 64, 0.62), (256, 7, 2, 4, 64, 0.62),   # the update's shapes, ~38 % valid
+    (37, 50, 4, 2, 128, 0.62), (1, 50, 4, 4, 64, 0.62),
+    (37, 33, 2, 2, 128, -1.0), (1, 7, 2, 2, 128, -1.0),    # every slot valid (row 1 aside)
+    (37, 50, 4, 4, 64, 1.0)])                              # every slot masked
+def test_flash_gat_fused_kernel_matches_plain(cuda_device, n, m, d, heads, f, cut):
+    """Also: rows with no valid slot give out 0, m -1e30 and l 0, and a repeat is
+    bit-identical."""
+    c = _gat_case(np.random.default_rng(m), n, m, d, heads, f, cut)
     args = [_t(c[k]).to(cuda_device) for k in ("x", "w", "b", "er", "attn", "mask")]
     before = gat_kernels.flash_gat_fused.launches
-    got = gat_kernels.flash_gat_fused(*args, 4)
+    got = gat_kernels.flash_gat_fused(*args, heads)
     assert gat_kernels.flash_gat_fused.launches == before + 1
-    for g, w in zip(got, gat_kernels.flash_gat_fused_plain(*args, 4)):
+    for g, w in zip(got, gat_kernels.flash_gat_fused_plain(*args, heads)):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
-    assert torch.all(got[0][1] == 0)
+    empty = args[5].sum(1) == 0
+    assert torch.all(got[0][empty] == 0) and torch.all(got[1][empty] == NEG_BIG)
+    assert torch.all(got[2][empty] == 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, gat_kernels.flash_gat_fused(*args, heads)))
 
 
 @pytest.mark.cuda

@@ -4,17 +4,20 @@ emulation of their CUDA threads, against ``tarmac_step_bwd_plain`` and ``tarmac_
 Without nvcc a CUDA source cannot be compiled here. These tests compile it
 with g++ as C++ instead, under a small header that emulates the pieces the
 source uses: each CTA's threads run as ``std::thread``s that meet at a
-``std::barrier`` for ``__syncthreads``, CTAs run one after another (so a
-``__shared__`` array is a function-level static), and a launch ``k<<<g, b,
-smem, s>>>(...)`` (or ``k<Tag><<<...>>>``) becomes a call of the emulated
-launcher. The shared header ``tarmac_step_common.cuh`` is put through the same
-substitutions and written beside the source. The tests call the C entry points
-``tarmac_step_backward`` and ``tarmac_step_forward`` on CPU tensors through
-``ctypes``. They check the arithmetic, the job tables, the scratch layout and
-the ragged edges; not the card's compiler, timing or memory model (the card
-tests in ``test_torch_cuda_kernels.py`` do that). Without g++ they skip. Tolerance:
-1e-5 of max(1, max |plain|) per output (f32 sums in another order, small
-widths).
+``std::barrier`` for ``__syncthreads``; the 32 lanes of each warp meet at a
+``std::barrier`` of their own for ``__shfl_xor_sync``, ``__ballot_sync`` and
+``__syncwarp`` (which a kernel calls only where its warp is converged);
+CTAs run one after another (so a ``__shared__`` array is a function-level
+static); and a launch ``k<<<g, b, smem, s>>>(...)`` (or ``k<Tag><<<...>>>``)
+becomes a call of the emulated launcher. Every ``csrc/*.cuh`` header is put
+through the same substitutions and written beside the source. The tests call
+the C entry points ``tarmac_step_backward`` and ``tarmac_step_forward`` on CPU
+tensors through ``ctypes`` (``test_torch_gat_emulated.py`` builds the GATv2
+kernels the same way). They check the arithmetic, the job tables, the scratch
+layout and the ragged edges; not the card's compiler, timing or memory model
+(the card tests in ``test_torch_cuda_kernels.py`` do that). Without g++ they
+skip. Tolerance: 1e-5 of max(1, max |plain|) per output (f32 sums in another
+order, small widths).
 """
 
 import ctypes
@@ -38,11 +41,13 @@ EMULATION_HEADER = r"""
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) { return 0; }
@@ -50,36 +55,71 @@ inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 struct emu_dim3 { unsigned x = 0, y = 0, z = 0; };
 using std::min;
 namespace emu {
-inline thread_local emu_dim3 thread_idx, block_idx, block_dim;
+inline thread_local emu_dim3 thread_idx, block_idx, block_dim, grid_dim;
 inline thread_local std::barrier<>* block_barrier = nullptr;
 inline thread_local float* dynamic_smem = nullptr;
+struct Warp {                      // a warp's lanes meet here for a shuffle or a ballot
+  explicit Warp(std::ptrdiff_t lanes) : barrier(lanes) {}
+  std::barrier<> barrier;
+  unsigned long long slot[32];
+};
+inline thread_local Warp* warp = nullptr;
+inline thread_local int lane = 0;
+template <class T>
+T exchange(T v, int src) {         // every lane posts v, then reads lane src's
+  std::memcpy(&warp->slot[lane], &v, sizeof(T));
+  warp->barrier.arrive_and_wait();
+  T r;
+  std::memcpy(&r, &warp->slot[src], sizeof(T));
+  warp->barrier.arrive_and_wait();
+  return r;
+}
 struct Cfg { unsigned grid; int block; size_t smem; cudaStream_t stream; };
 template <class F, class... Args>
 void launch(Cfg c, F kernel, Args... args) {
   for (unsigned b = 0; b < c.grid; ++b) {
     std::vector<float> smem(c.smem / sizeof(float) + 1);
     std::barrier<> barrier(c.block);
+    std::vector<std::unique_ptr<Warp>> warps;
+    for (int w = 0; 32 * w < c.block; ++w)
+      warps.push_back(std::make_unique<Warp>(std::min(32, c.block - 32 * w)));
     std::vector<std::thread> threads;
     for (int t = 0; t < c.block; ++t)
       threads.emplace_back([&, t] {
-        thread_idx.x = t; block_idx.x = b; block_dim.x = c.block;
+        thread_idx.x = t; block_idx.x = b; block_dim.x = c.block; grid_dim.x = c.grid;
         block_barrier = &barrier; dynamic_smem = smem.data();
+        warp = warps[t / 32].get(); lane = t % 32;
         kernel(args...);
         barrier.arrive_and_drop();
+        warp->barrier.arrive_and_drop();
       });
     for (auto& t : threads) t.join();
   }
 }
 }  // namespace emu
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int off) { return emu::exchange(v, emu::lane ^ off); }
+inline unsigned __ballot_sync(unsigned, int pred) {
+  emu::warp->slot[emu::lane] = pred != 0;
+  emu::warp->barrier.arrive_and_wait();
+  unsigned bits = 0;
+  for (int l = 0; l < 32; ++l)
+    if (emu::warp->slot[l]) bits |= 1u << l;
+  emu::warp->barrier.arrive_and_wait();
+  return bits;
+}
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu::warp->barrier.arrive_and_wait(); }
 #define threadIdx emu::thread_idx
 #define blockIdx emu::block_idx
 #define blockDim emu::block_dim
+#define gridDim emu::grid_dim
 #define __syncthreads() emu::block_barrier->arrive_and_wait()
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __grid_constant__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 """
 
