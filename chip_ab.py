@@ -4,7 +4,8 @@
     python3 chip_ab.py NAME OLD.cu
 
 ``NAME`` is ``tarmac_step`` (the step forward), ``tarmac_step_bwd`` (its
-backward), ``flash_gat_fused`` (the projection-fused GATv2 forward) or
+backward), ``flash_gat`` (the GATv2 attention over a pre-projected ``el``),
+``flash_gat_fused`` (the projection-fused GATv2 forward) or
 ``flash_gat_fused_bwd`` (its backward). ``OLD.cu`` is another version of
 ``uav_bs_ctrl_tpu_torch/ops/csrc/NAME.cu`` (for example from ``git show
 <commit>:<path>``) with the same C entry point and a scratch buffer no larger
@@ -24,7 +25,11 @@ GATv2 kernels run at the 8-UBS width (4 heads of 64) for the 'seen' GT slots
 update), 320 (serving 40 worlds) and 4096, each with slots valid at the share
 ``chip_smoke.py`` measures in the update's inputs (``UPDATE_VALID``) and at
 70 % (its kernel cases); the backward gets the plain forward's statistics and
-a random cotangent, without ``dx`` (as in training).
+a random cotangent, without ``dx`` (as in training). ``flash_gat`` runs at the
+4-UBS DiscreteComm width (4 heads of 64) at N = 160 rows (serving 40 worlds),
+320, 2048 and 4096, for the 'seen' GT slots (M = 50) at the valid shares
+serving sees at step 0 and step 25 of an episode (``SERVING_VALID``) and at
+70 %, and for the 'near' UBS slots (M = 3), all valid.
 """
 
 import ctypes
@@ -44,6 +49,7 @@ import chip_smoke  # noqa: E402
 from uav_bs_ctrl_tpu_torch.ops import build, gat_kernels, step_kernels  # noqa: E402
 
 KERNELS = {  # name: (wrapper, ctypes signatures)
+    "flash_gat": (gat_kernels.flash_gat, gat_kernels._FLASH_SIGNATURES),
     "tarmac_step": (step_kernels.tarmac_step, step_kernels._SIGNATURES),
     "tarmac_step_bwd": (step_kernels.tarmac_step_bwd, step_kernels._BWD_SIGNATURES),
     "flash_gat_fused": (gat_kernels.flash_gat_fused, gat_kernels._SIGNATURES),
@@ -53,6 +59,8 @@ STEP_WORLDS = {"tarmac_step": (32, 40, 512), "tarmac_step_bwd": (32, 512)}
 GAT_ROWS = (256, 320, 4096)
 GAT_SLOTS = {"seen": (50, 4), "near": (7, 2)}        # M, D
 UPDATE_VALID = {"seen": 0.32, "near": 1.0}           # valid share of the update's masks
+FLASH_ROWS = (160, 320, 2048, 4096)
+SERVING_VALID = (0.013, 0.38)      # 4-UBS serving's 'seen' valid share at steps 0 and 25
 _P, _I = ctypes.c_void_p, ctypes.c_int
 UNSCRATCHED_FORWARD = (_I, [_P] * 19 + [_I] * 7 + [ctypes.c_float, _P])
 
@@ -110,6 +118,16 @@ def gat_cases(name, rng):
                 yield f"N={n} {slots} (M={m}, D={d}) valid {share:.3f}", args + (4,)
 
 
+def flash_cases():
+    """(label, wrapper arguments) of ``flash_gat``, drawn on the device."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n in FLASH_ROWS:
+        for m, valid in [(50, v) for v in SERVING_VALID + (0.7,)] + [(3, 1.0)]:
+            args = chip_smoke.flash_gat_case(gen, n, m, 256, 4, [1, 5, n - 1], cut=1.0 - valid)
+            share = (args[3] > 0).float().mean().item()
+            yield f"N={n} {'seen' if m == 50 else 'near'} (M={m}) valid {share:.3f}", args + (4,)
+
+
 def main():
     if len(sys.argv) != 3 or sys.argv[1] not in KERNELS:
         print(__doc__, file=sys.stderr)
@@ -137,13 +155,17 @@ def main():
     print(chip_smoke.card_line(), flush=True)
 
     rng = np.random.default_rng(0)
-    cases = step_cases(name, rng) if name in STEP_WORLDS else gat_cases(name, rng)
+    if name in STEP_WORLDS:
+        cases = step_cases(name, rng)
+    else:
+        cases = flash_cases() if name == "flash_gat" else gat_cases(name, rng)
     for label, args in cases:
         def call(lib):
             if lib is old and unscratched:
                 return call_unscratched(lib, args)
             build._loaded[name] = lib           # the wrapper launches whichever is loaded
-            return [o for o in wrapper(*args) if o is not None]
+            outs = wrapper(*args)
+            return [outs] if torch.is_tensor(outs) else [o for o in outs if o is not None]
 
         with torch.no_grad():
             got, want = call(new), call(old)

@@ -8,7 +8,9 @@ card; serving the committed exp3 8-UBS TarMAC policy (40 worlds, one 50-step
 episode) through the kernels, with every step's Q checked against the plain
 path; serving the committed exp3 4-UBS DiscreteComm policy with
 ``gat_backend='pallas'`` (``flash_gat``), every step's Q checked against the
-plain path fed the same Gumbel noise; the 8-UBS policy served through
+plain path fed the same Gumbel noise, and ``flash_gat`` checked and timed on
+the inputs of steps 0 and 25 (the 'seen' mask is about 1 % valid at the
+first, 38 % at the second); the 8-UBS policy served through
 ``flash_gat`` against its fused-kernel serving; training the 8-UBS run through
 ``uav_bs_ctrl_tpu_torch.train``'s code path (resumed with its AdamW state, two
 warm-ups and one full iteration of 40 updates, then evaluation); one update
@@ -56,6 +58,8 @@ RESOLVED_RTOL = 1e-5      # |raw grad| above this share of the group's largest e
 FLASH_RTOL = 1e-5         # flash_gat vs plain: of max(1, the output's largest entry)
 DISC_Q_RTOL = 1e-4        # 4-UBS DiscreteComm Q vs the plain path: of max(1, max |Q|); Q is
                           # 150-190 there, where one f32 ulp is 1.5e-5
+CAPTURE_STEPS = (0, 25)   # 4-UBS serving steps whose flash_gat inputs are checked and timed:
+                          # the 'seen' mask is about 1 % valid at step 0, 38 % at step 25
 TIE = 1e-4                # a Gumbel margin |z0 - z1| this small rounds either way: a roundoff
                           # tie, where the plain path's bit may follow the kernel path's
 
@@ -119,13 +123,13 @@ def gat_case(rng, n, m, d, hf, heads, masked_rows, valid=0.7):
         mask=arr(mask))
 
 
-def flash_gat_case(gen, n, m, hf, heads, masked_rows, scale=1.0):
+def flash_gat_case(gen, n, m, hf, heads, masked_rows, scale=1.0, cut=0.3):
     """(el, er, attn, mask) for flash_gat, drawn on the device from the
     device generator ``gen`` (N = 4096, M = 256 is 268 M values); ``scale``
-    multiplies el and er."""
+    multiplies el and er; a slot is valid where a uniform draw exceeds ``cut``."""
     f = hf // heads
     normal = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE)
-    mask = (torch.rand((n, m), generator=gen, device=DEVICE) > 0.3).to(torch.float32)
+    mask = (torch.rand((n, m), generator=gen, device=DEVICE) > cut).to(torch.float32)
     mask[masked_rows] = 0.0
     return scale * normal(n, m, hf), scale * normal(n, hf), normal(heads, f) / f ** 0.5, mask
 
@@ -706,13 +710,13 @@ def main():
                "on the same Gumbel noise"):
         dagent, dconfig = serve.load_policy(DISC_DIR, DEVICE, gat_backend="pallas")
         denv = torch_env.make_params(dconfig["map_id"])
-        derrs, dcalls = [], []
+        derrs, dcalls = [], {}               # dcalls: {step: the step's kernel calls}
         ties = {"bits": 0, "min_margin": float("inf")}
 
         def dchecked(obs, h, key):
             seed = int(key)                  # one seed, so the same noise, for every call
-            if not dcalls:
-                dcalls.extend(capture_kernel_calls(dagent, obs, h, seed))
+            if len(derrs) in CAPTURE_STEPS:
+                dcalls[len(derrs)] = capture_kernel_calls(dagent, obs, h, seed)
             with same_bits_at_ties(ties):
                 q, h2 = dagent(obs, h, key=seed)
                 q_ref, h_ref = dagent(obs, h, use_kernels=False, key=seed)
@@ -733,11 +737,21 @@ def main():
         if len(derrs) != disc_steps or worst_q > DISC_Q_RTOL or worst_h > ATOL:
             raise AssertionError(f"per-step Q/h' beyond {DISC_Q_RTOL}/{ATOL}: "
                                  f"{worst_q:.3e} / {worst_h:.3e}")
-        if [name for name, _ in dcalls] != ["flash_gat", "flash_gat"]:
-            raise AssertionError(f"a 4-UBS policy step called {[n for n, _ in dcalls]}")
-        for name, args in dcalls:
-            worst[name] = max(worst[name], rel_err([flash_gat(*args)], [flash_gat_plain(*args)],
-                                                   "flash_gat on serving inputs", FLASH_RTOL))
+        for step in CAPTURE_STEPS:
+            names = [name for name, _ in dcalls[step]]
+            if names != ["flash_gat", "flash_gat"]:
+                raise AssertionError(f"4-UBS policy step {step} called {names}")
+            for rel, (name, args) in zip(("seen", "near"), dcalls[step]):
+                got, what = flash_gat(*args), f"flash_gat on step {step}'s '{rel}' inputs"
+                err = rel_err([got], [flash_gat_plain(*args)], what, FLASH_RTOL)
+                empty = args[3].sum(1) == 0
+                zero = got[empty].abs().max().item() if empty.any() else 0.0
+                if zero != 0.0:
+                    raise AssertionError(f"{what}: fully masked rows gave {zero}")
+                print(f"  {what} {tuple(args[0].shape)}: valid share "
+                      f"{(args[3] > 0).float().mean().item():.4f}, {int(empty.sum())} fully "
+                      f"masked rows; max |k - p| / max(1, max|p|) {err:.3e}", flush=True)
+                worst[name] = max(worst[name], err)
 
     with phase(f"serve {RUN_DIR.name} with gat_backend='pallas': {N_WORLDS} worlds, one "
                f"episode, every step's Q against the fused-kernel serving path"):
@@ -903,16 +917,23 @@ def main():
               f"one update; {step_valid[0]:.4f} and {step_valid[1]:.4f} at policy step "
               f"{T // 2}, the inputs timed below", flush=True)
         timed = {name: [] for name in all_kernels}
-        for args in (a for _, a in dcalls):
-            ms = time_cuda(lambda: flash_gat(*args))
-            plain_ms = time_cuda(lambda: flash_gat_plain(*args))
-            cost = flash_gat_cost(args[0], args[3], args[4])
-            bound_ms, bound_by = bound(*cost)
-            print(f"  4-UBS serving flash_gat {tuple(args[0].shape)}: {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: {cost[0]:.3e} ops, "
-                  f"{cost[1]:.3e} bytes); {disc_launches['flash_gat'] // disc_steps} launches "
-                  f"per env step", flush=True)
-            timed["flash_gat"].append((ms, plain_ms, bound_ms, bound_by))
+        flash_cases = []
+        for step in CAPTURE_STEPS:
+            for rel, (_, args) in zip(("seen", "near"), dcalls[step]):
+                ms = time_cuda(lambda: flash_gat(*args))
+                plain_ms = time_cuda(lambda: flash_gat_plain(*args))
+                cost = flash_gat_cost(args[0], args[3], args[4])
+                bound_ms, bound_by = bound(*cost)
+                share = (args[3] > 0).float().mean().item()
+                print(f"  4-UBS serving flash_gat, step {step} '{rel}' {tuple(args[0].shape)}, "
+                      f"valid share {share:.4f}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{bound_ms:.5f} ms ({bound_by}: {cost[0]:.3e} ops, {cost[1]:.3e} "
+                      f"bytes); {disc_launches['flash_gat'] // disc_steps} launches per env "
+                      f"step", flush=True)
+                timed["flash_gat"].append((ms, plain_ms, bound_ms, bound_by))
+                flash_cases.append({"inputs": f"step {step} {rel}", "valid_share": share,
+                                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                    "bound_by": bound_by})
         for name, captured in bwd_calls:
             fwd_args = captured[0]
             if name == "flash_gat_fused_bwd":
@@ -973,6 +994,8 @@ def main():
                 "plain_ms": statistics.mean(r[1] for r in rows),
                 "bound_ms": statistics.mean(r[2] for r in rows),
                 "bound_by": rows[0][3], "library_ms": None})
+            if name == "flash_gat":
+                record[-1]["cases"] = flash_cases
 
         def ms_per_update(use_kernels, n=5):
             learner.load_state_dict(snap)

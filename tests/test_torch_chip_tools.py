@@ -1,5 +1,5 @@
 """The GPU scripts' CPU-side pieces: ``chip_ab.py`` imports nothing of JAX,
-takes the four redesigned kernels, refuses to run without a card, scales its
+takes the five redesigned kernels, refuses to run without a card, scales its
 differences without the -1e30 sentinel and tells the scratch-less forward
 source apart, and ``chip_smoke.launch_split`` splits a kernel's profiled launches by their
 position within one call."""
@@ -29,10 +29,37 @@ def test_chip_ab_imports_nothing_of_jax():
 
 
 def test_chip_ab_takes_the_four_redesigned_kernels():
-    assert set(chip_ab.KERNELS) == {"tarmac_step", "tarmac_step_bwd", "flash_gat_fused",
-                                    "flash_gat_fused_bwd"}
-    assert set(chip_ab.KERNELS) - set(chip_ab.STEP_WORLDS) == {"flash_gat_fused",
-                                                                "flash_gat_fused_bwd"}
+    four = {"tarmac_step", "tarmac_step_bwd", "flash_gat_fused", "flash_gat_fused_bwd"}
+    assert four <= set(chip_ab.KERNELS)
+    assert four - set(chip_ab.STEP_WORLDS) == {"flash_gat_fused", "flash_gat_fused_bwd"}
+
+
+def test_chip_ab_takes_flash_gat_as_the_fifth():
+    from uav_bs_ctrl_tpu_torch.ops import gat_kernels
+    assert set(chip_ab.KERNELS) == {"flash_gat", "tarmac_step", "tarmac_step_bwd",
+                                    "flash_gat_fused", "flash_gat_fused_bwd"}
+    assert "flash_gat" not in chip_ab.STEP_WORLDS
+    assert chip_ab.KERNELS["flash_gat"] == (gat_kernels.flash_gat,
+                                            gat_kernels._FLASH_SIGNATURES)
+
+
+def test_chip_ab_times_flash_gat_at_serving_shares():
+    """Rows of 40 and 512 worlds and more; 'seen' at steps 0 and 25's valid shares."""
+    assert {160, 2048, 4096} <= set(chip_ab.FLASH_ROWS)
+    assert chip_ab.SERVING_VALID == (0.013, 0.38)
+
+
+def test_flash_gat_case_draws_slots_valid_above_the_cut():
+    import torch
+    gen = torch.Generator().manual_seed(0)
+    old_device, chip_smoke.DEVICE = chip_smoke.DEVICE, "cpu"
+    try:
+        el, er, attn, mask = chip_smoke.flash_gat_case(gen, 64, 50, 256, 4, [1], cut=0.62)
+    finally:
+        chip_smoke.DEVICE = old_device
+    assert el.shape == (64, 50, 256) and er.shape == (64, 256) and attn.shape == (4, 64)
+    assert mask[1].sum() == 0
+    assert 0.33 < mask.mean().item() < 0.43
 
 
 def test_chip_ab_scale_leaves_out_the_masked_rows_sentinel():

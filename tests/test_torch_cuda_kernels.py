@@ -127,13 +127,15 @@ def test_flash_gat_fused_bwd_kernel_matches_plain(cuda_device, n, m, d, heads, f
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m,heads,f", [(160, 50, 4, 64), (160, 3, 4, 64), (37, 256, 2, 128),
-                                         (9, 20, 4, 8)])
-def test_flash_gat_kernel_matches_plain(cuda_device, n, m, heads, f):
-    """Serving shapes (4-UBS: 50 GT slots, 3 UBS slots), several slot chunks,
-    and F = 8 (heads padded to whole warps); an all-masked row gives 0."""
+@pytest.mark.parametrize("n,m,heads,f,cut", [(160, 50, 4, 64, 0.4), (160, 50, 4, 64, 0.62),
+                                             (160, 3, 4, 64, 0.4), (37, 256, 2, 128, 0.4),
+                                             (9, 20, 4, 8, 0.4), (37, 50, 2, 96, 0.4)])
+def test_flash_gat_kernel_matches_plain(cuda_device, n, m, heads, f, cut):
+    """Serving shapes (4-UBS: 50 GT slots, 60 % and mid-episode's 38 % valid; 3 UBS
+    slots), eight mask words (M = 256), and F = 8 and 96 (lanes beyond F guarded); an
+    all-masked row gives 0."""
     rng = np.random.default_rng(n + m)
-    mask = rng.random((n, m)) > 0.4
+    mask = rng.random((n, m)) > cut
     mask[1] = False
     el = _on(cuda_device, rng.normal(size=(n, m, heads * f)))
     er = _on(cuda_device, rng.normal(size=(n, heads * f)))

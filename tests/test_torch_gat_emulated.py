@@ -1,16 +1,20 @@
-"""``csrc/flash_gat_fused.cu`` (#2) and ``csrc/flash_gat_fused_bwd.cu`` (#3) run on the
-CPU, through the thread emulation of ``test_torch_step_bwd_emulated.py`` (each warp's
-lanes meet at a barrier of their own for the shuffles and ballots), against
-``flash_gat_fused_plain`` and ``flash_gat_fused_bwd_plain``.
+"""``csrc/flash_gat.cu`` (#1), ``csrc/flash_gat_fused.cu`` (#2) and
+``csrc/flash_gat_fused_bwd.cu`` (#3) run on the CPU, through the thread emulation of
+``test_torch_step_bwd_emulated.py`` (each warp's lanes meet at a barrier of their own for
+the shuffles and ballots), against ``flash_gat_plain``, ``flash_gat_fused_plain`` and
+``flash_gat_fused_bwd_plain``.
 
-The cases cover ragged row counts, no slot, one and two mask words (M = 7, 33, 50), a
-row of more than 256 slots (the forward's two sweeps), D = 1 to 8 (the kernels pad to
-2, 4 or 8 features), 1 to 32 columns a lane (F = 32 to 1024), H = 1 to 10 (CTAs of one
-warp a head, up to 320 threads), more rows than the backward's grid (a CTA takes
-several and its partial row sums them), a fully masked row and a fully valid one, and
-``need_dx``. Without g++ they skip. Tolerance: 1e-5 of max(1, max |plain|) per
-output (f32 sums in another order, small widths); the fully masked row's out, m, l,
-der and dx must be exact.
+#2 and #3: the cases cover ragged row counts, no slot, one and two mask words (M = 7, 33,
+50), a row of more than 256 slots (the forward's two sweeps), D = 1 to 8 (the kernels pad
+to 2, 4 or 8 features), 1 to 32 columns a lane (F = 32 to 1024), H = 1 to 10 (CTAs of one
+warp a head, up to 320 threads), more rows than the backward's grid (a CTA takes several
+and its partial row sums them), a fully masked row and a fully valid one, and
+``need_dx``. #1: the 4-UBS serving shapes ('seen' M = 50, 'near' M = 3), a mask word of
+one slot, two list chunks (M = 300), no slot, F = 8 and 96 (lanes beyond F guarded),
+F = 1024 (32 columns a lane), H = 32 (1024 threads) and scores at 50x (the online
+rescale), each with a fully masked row and a fully valid one. Without g++ they skip.
+Tolerance: 1e-5 of max(1, max |plain|) per output (f32 sums in another order, small
+widths); the fully masked row's out, m, l, der and dx must be exact.
 """
 
 import ctypes
@@ -145,3 +149,46 @@ def test_emulated_backward_with_no_rows_gives_zero_weight_gradients(bwd_lib):
     got, want = _backward(bwd_lib, c, 4, False)
     for g in got[1:]:
         assert torch.equal(g, torch.zeros_like(g))
+
+
+FLASH_CASES = [  # n, m, heads, f, scale
+    (5, 50, 4, 64, 1.0),      # 4-UBS 'seen': the served shape, two mask words
+    (5, 3, 4, 64, 1.0),       # 'near'
+    (4, 33, 4, 64, 1.0),      # a mask word of one slot
+    (3, 300, 2, 64, 1.0),     # two list chunks
+    (3, 0, 4, 64, 1.0),       # no slot
+    (4, 20, 4, 8, 1.0),       # F = 8: 24 guarded lanes a warp
+    (4, 40, 2, 96, 1.0),      # F = 96: 3 columns a lane, one guarded
+    (3, 20, 1, 1024, 1.0),    # F = 1024: 32 columns a lane
+    (3, 20, 32, 32, 1.0),     # H = 32: CTAs of 1024 threads
+    (4, 50, 4, 64, 50.0),     # el and er at 50x: scores in the hundreds, the online rescale
+]
+
+
+@pytest.fixture(scope="module")
+def flash_lib(tmp_path_factory):
+    return _build(tmp_path_factory.mktemp("flash_gat"), "flash_gat",
+                  gat_kernels._FLASH_SIGNATURES)
+
+
+def _flash_case(n, m, heads, f, scale):
+    """Random (el, er, attn, mask); row 0 has every slot valid, row 1 none, the rest about
+    half."""
+    rng = np.random.default_rng(n * m + heads * f)
+    hf = heads * f
+    mask = rng.random((n, m)) > 0.5
+    mask[0], mask[1] = True, False
+    arrays = (scale * rng.normal(size=(n, m, hf)), scale * rng.normal(size=(n, hf)),
+              rng.normal(size=(heads, f)) / np.sqrt(f), mask)
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)) for a in arrays]
+
+
+@pytest.mark.parametrize("n,m,heads,f,scale", FLASH_CASES)
+def test_emulated_flash_gat_matches_plain(flash_lib, n, m, heads, f, scale):
+    el, er, attn, mask = _flash_case(n, m, heads, f, scale)
+    out = torch.full((n, heads * f), float("nan"))      # a value left unwritten shows
+    assert flash_lib.flash_gat_forward(*_ptrs(el, er, attn, mask, out), n, m, heads * f,
+                                       heads, SLOPE, None) == 0
+    want = gat_kernels.flash_gat_plain(el, er, attn, mask, heads, SLOPE)
+    assert _rel_err(out, want) <= 1e-5, f"out: {_rel_err(out, want):.3e}"
+    assert torch.all(out[mask.sum(1) == 0] == 0)

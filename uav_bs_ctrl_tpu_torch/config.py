@@ -72,6 +72,10 @@ def check_args_sanity(args):
     if args.c is not None and args.c not in COMM_PROTOCOLS:
         raise KeyError(f"Unsupported communication scheme {args.c!r}; one of "
                        f"{COMM_PROTOCOLS} or None")
+    mm_prec = getattr(args, 'matmul_precision', None)
+    if mm_prec not in (None, 'default', 'high', 'highest'):
+        raise ValueError(f"matmul_precision must be None|'default'|'high'|'highest', "
+                         f"got {mm_prec!r}")
     if int(args.n_rounds) < 1:
         raise ValueError(f"n_rounds must be >= 1, got {args.n_rounds}")
     if args.gat_backend not in GAT_BACKENDS:
@@ -84,6 +88,10 @@ def check_args_sanity(args):
     if args.step_backend == 'pallas' and (args.c != 'tarmac' or args.n_rounds != 1):
         raise ValueError("step_backend='pallas' requires c='tarmac' and n_rounds=1 (the "
                          "fused recurrent-step kernel covers the TarMAC+GRU+head step only)")
+    if args.step_backend == 'pallas' and args.comm_backend != 'dense':
+        raise ValueError("step_backend='pallas' and comm_backend='graph_parallel' are mutually "
+                         "exclusive (the fused step kernel is single-device; shard the batch "
+                         "axis instead)")
     if args.compute_dtype != 'float32':
         raise NotImplementedError(f"compute_dtype={args.compute_dtype!r}: the port runs "
                                   "float32 only; bf16 compute is still to be ported "

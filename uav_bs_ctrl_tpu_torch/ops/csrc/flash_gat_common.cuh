@@ -1,4 +1,4 @@
-// What the projection-fused GATv2 kernels flash_gat_fused.cu (#2) and
+// What the GATv2 kernels flash_gat.cu (#1), flash_gat_fused.cu (#2) and
 // flash_gat_fused_bwd.cu (#3) share: one warp a (destination row, head).
 //
 // A CTA has one warp per head (H warps) and takes a destination row; warp h computes
@@ -79,6 +79,34 @@ struct HeadSlice {
   }
 };
 
+// The lane's mask entries of slots [j0, j0 + len), len <= kMaxChunk: word w holds slot
+// w * 32 + lane (0 beyond len).
+__device__ __forceinline__ void load_mask_words(const float* __restrict__ mask_row, int j0,
+                                                int len, int lane, float (&mv)[kMaxChunk / 32]) {
+#pragma unroll
+  for (int w = 0; w < kMaxChunk / 32; ++w) {
+    const int j = w * 32 + lane;
+    mv[w] = j < len ? mask_row[j0 + j] : 0.f;
+  }
+}
+
+// The chunk positions of the valid slots (mask > 0), in order, into the warp's s_list
+// (__ballot_sync/__popc a mask word); returns their count (the same in every lane). The
+// caller __syncwarp()s before the list is read.
+__device__ __forceinline__ int list_valid(const float (&mv)[kMaxChunk / 32], int len,
+                                          int* s_list, int lane) {
+  int cnt = 0;
+#pragma unroll
+  for (int w = 0; w < kMaxChunk / 32; ++w) {
+    if (w * 32 >= len) break;                      // uniform over the warp
+    const bool valid = mv[w] > 0.f;
+    const unsigned bits = __ballot_sync(kFull, valid);
+    if (valid) s_list[cnt + __popc(bits & ((1u << lane) - 1u))] = w * 32 + lane;
+    cnt += __popc(bits);
+  }
+  return cnt;
+}
+
 // The warp stages slots [j0, j0 + len) of its row: x into s_x [len, DM] (zero-padded
 // beyond D) and the valid slots' chunk positions, in order, into s_list. Returns their
 // count (the same in every lane).
@@ -87,11 +115,7 @@ __device__ __forceinline__ int stage_chunk(const float* __restrict__ x_row,
                                            const float* __restrict__ mask_row, int j0, int len,
                                            int D, float* s_x, int* s_list, int lane) {
   float mv[kMaxChunk / 32];
-#pragma unroll
-  for (int w = 0; w < kMaxChunk / 32; ++w) {
-    const int j = w * 32 + lane;
-    mv[w] = j < len ? mask_row[j0 + j] : 0.f;
-  }
+  load_mask_words(mask_row, j0, len, lane, mv);
   __syncwarp();                                    // the warp is done with the last chunk
   for (int i0 = 0; i0 < len * DM; i0 += 32 * kStageBatch) {
     float v[kStageBatch];
@@ -106,15 +130,7 @@ __device__ __forceinline__ int stage_chunk(const float* __restrict__ x_row,
       if (i < len * DM) s_x[i] = v[k];
     }
   }
-  int cnt = 0;
-#pragma unroll
-  for (int w = 0; w < kMaxChunk / 32; ++w) {
-    if (w * 32 >= len) break;                      // uniform over the warp
-    const bool valid = mv[w] > 0.f;
-    const unsigned bits = __ballot_sync(kFull, valid);
-    if (valid) s_list[cnt + __popc(bits & ((1u << lane) - 1u))] = w * 32 + lane;
-    cnt += __popc(bits);
-  }
+  const int cnt = list_valid(mv, len, s_list, lane);
   __syncwarp();
   return cnt;
 }

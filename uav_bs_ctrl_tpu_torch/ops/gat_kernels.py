@@ -40,6 +40,8 @@ def flash_gat_plain(el, er, attn, mask, n_heads, negative_slope=0.2):
     package's ``flash_gat_reference``): materialized scores, a masked
     softmax over M with the all-masked rule, then ``sum alpha * el``."""
     n, m, hf = el.shape
+    if not m:                               # no slot: every row is fully masked
+        return el.new_zeros((n, hf))
     f = hf // n_heads
     el_h = el.reshape(n, m, n_heads, f)
     e = F.leaky_relu(el_h + er.reshape(n, 1, n_heads, f), negative_slope)
@@ -84,8 +86,8 @@ def flash_gat(el, er, attn, mask, n_heads, negative_slope=0.2):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {expected[name]}")
     f_pad = -(-f // 32) * 32
     if n_heads * f_pad > 1024:
-        raise ValueError(f"the kernel runs one thread per column with each head padded to "
-                         f"whole warps: H * ceil(F/32) * 32 = {n_heads * f_pad} > 1024")
+        raise ValueError(f"the kernel takes H * ceil(F/32) * 32 <= 1024 (a CTA of one warp a "
+                         f"head, a lane holding ceil(F/32) columns), got {n_heads * f_pad}")
     out = torch.empty((n, hf), dtype=torch.float32, device=el.device)
     if n == 0:
         return out
