@@ -13,19 +13,26 @@ the inputs of steps 0 and 25 (the 'seen' mask is about 1 % valid at the
 first, 38 % at the second); the 8-UBS policy served through
 ``flash_gat`` against its fused-kernel serving; training the 8-UBS run through
 ``uav_bs_ctrl_tpu_torch.train``'s code path (resumed with its AdamW state, two
-warm-ups and one full iteration of 40 updates, then evaluation); one update
-through the kernels against the same update on the plain path, and repeated
-bit for bit; and timings. Any failed phase exits non-zero with no result line.
-The last line is the JSON device record.
+warm-ups and one full iteration of 40 updates, then evaluation);
+``uav_bs_ctrl_tpu_torch.run_fast.train_fast`` on the same configuration, first a fresh start of two 2000-step epochs (one warm-up
+iteration, one of 40 updates; ``progress.txt``, checkpoints and launches
+checked), then a resume of the committed run's epoch-200 checkpoint for one
+epoch more (AdamW step, LR scale, the appended row, and the written
+checkpoint read back bit for bit); one update through the kernels against
+the same update on the plain path, and repeated bit for bit; and timings.
+Any failed phase exits non-zero with no result line. The last line is the
+JSON device record.
 """
 
 import contextlib
 import faulthandler
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -471,17 +478,30 @@ def profile_updates(learner, batch, n, ms_per_update, calls_per_update):
     return launches
 
 
-def training_log_test_stats(run_dir, epoch):
-    lines = (run_dir / "progress.txt").read_text().splitlines()
+def progress_rows(run_dir):
+    """``(header, rows)`` of a run's ``progress.txt``, each row a dict of strings."""
+    lines = (Path(run_dir) / "progress.txt").read_text().splitlines()
     head = lines[0].split("\t")
-    for line in lines[1:]:
-        row = dict(zip(head, line.split("\t")))
+    return head, [dict(zip(head, line.split("\t"))) for line in lines[1:]]
+
+
+def training_log_test_stats(run_dir, epoch):
+    for row in progress_rows(run_dir)[1]:
         if int(float(row["Epoch"])) == epoch:
             return {k: float(v) for k, v in row.items()
                     if k in ("AverageTestEpRet", "StdTestEpRet", "TestFairIdx",
                              "TestAvgGlobalUtility",
                              "TestTotalThroughput", "TestProbCollision")}
     return {}
+
+
+def learner_bits_equal(a, b):
+    """Whether two learners hold the same params and AdamW state, bit for bit."""
+    pairs = list(zip(a.parameters(), b.parameters()))
+    return len(a.parameters()) == len(b.parameters()) and all(
+        torch.equal(p, q) and a.optimizer.state[p].keys() == b.optimizer.state[q].keys()
+        and all(torch.equal(a.optimizer.state[p][k], b.optimizer.state[q][k])
+                for k in a.optimizer.state[p]) for p, q in pairs)
 
 
 def main():
@@ -497,8 +517,11 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from uav_bs_ctrl_tpu_torch import serve, train
+    from uav_bs_ctrl_tpu_torch import run_fast, serve, train
     from uav_bs_ctrl_tpu_torch.algos import collect
+    from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
+    from uav_bs_ctrl_tpu_torch.config import make_args
+    from uav_bs_ctrl_tpu_torch.utils import checkpoint
     from uav_bs_ctrl_tpu_torch.envs import torch_env
     from uav_bs_ctrl_tpu_torch.models.modules import gumbel_noise
     from uav_bs_ctrl_tpu_torch.ops import build
@@ -835,6 +858,116 @@ def main():
         if train_launches != want:
             raise AssertionError(f"expected {want} launches, got {train_launches}")
 
+    run_config = json.loads((RUN_DIR / "config.json").read_text())
+    columns, jax_rows = progress_rows(RUN_DIR)       # run_fast.py's columns, in its order
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_run_fast_"))
+    run_fast_launches = {}
+
+    def driven_launches(n_updates, policy_steps):
+        want = {k: n_updates * v for k, v in per_update.items()}
+        want["flash_gat_fused"] += 2 * policy_steps
+        want["tarmac_step"] += policy_steps
+        return want
+
+    with phase(f"run_fast: a fresh start of the {run_config['map_id']} TarMAC+QMIX run, 2 epochs "
+               f"of 2000 steps, {N_WORLDS} worlds, interleave {run_config['interleave']}"):
+        fresh_dir = scratch / "fresh"
+        with torch.enable_grad():
+            reset_counts()
+            t0 = time.perf_counter()
+            fresh = run_fast.train_fast(
+                "exp3", run_config["map_id"], seed=0, n_worlds=N_WORLDS,
+                interleave=run_config["interleave"],
+                train_overrides=dict(c="tarmac", mixer=True, epochs=2, steps_per_epoch=2000,
+                                     update_after=2000, save_freq=1, device=DEVICE),
+                logger_kwargs=dict(output_dir=str(fresh_dir), exp_name="chip_smoke_fresh"))
+            torch.cuda.synchronize()
+            fresh_s = time.perf_counter() - t0
+            run_fast_launches["fresh"] = counts()
+        head, rows = progress_rows(fresh_dir)
+        losses = [float(r["LossQ"]) for r in rows]
+        print(f"  {fresh_s:.2f} s; rows (Epoch, TotalEnvInteracts, LossQ, AverageEpRet, "
+              f"AverageTestEpRet): {[(r['Epoch'], r['TotalEnvInteracts'], r['LossQ'], r['AverageEpRet'], r['AverageTestEpRet']) for r in rows]}",
+              flush=True)
+        print(f"  launches: {run_fast_launches['fresh']}", flush=True)
+        ckpts = sorted(p.name for p in fresh_dir.glob("checkpoint_epoch*.pt"))
+        if head != columns or [r["Epoch"] for r in rows] != ["1", "2"] \
+                or [r["TotalEnvInteracts"] for r in rows] != ["2000", "4000"]:
+            raise AssertionError(f"progress.txt: header {head}, rows {rows}")
+        if not (math.isnan(losses[0]) and math.isfinite(losses[1])):
+            raise AssertionError(f"LossQ per epoch {losses}: epoch 1 must be all warm-up "
+                                 "(nan), epoch 2 finite")
+        if ckpts != ["checkpoint_epoch1.pt", "checkpoint_epoch2.pt"]:
+            raise AssertionError(f"checkpoints {ckpts}")
+        fresh_steps = fresh.learner.optimizer.state[fresh.learner.parameters()[0]]["step"]
+        if fresh_steps.item() != fresh.updates_per_iter:
+            raise AssertionError(f"the fresh run took {fresh_steps.item()} updates, not "
+                                 f"{fresh.updates_per_iter}")
+        # a warm-up, a test, the sub-iterations, a test
+        want = driven_launches(fresh.updates_per_iter, (1 + 1 + fresh.interleave + 1) * T)
+        if run_fast_launches["fresh"] != want:
+            raise AssertionError(f"expected {want} launches, got {run_fast_launches['fresh']}")
+        del fresh
+
+    with phase(f"run_fast: resume {RUN_DIR.name} from checkpoint_epoch200.pt for one 2000-step "
+               f"epoch at its own settings"):
+        resume_dir = scratch / "resume"
+        resume_dir.mkdir()
+        shutil.copy(RUN_DIR / "checkpoint_epoch200.pt", resume_dir)
+        saved = checkpoint.load(RUN_DIR / "checkpoint_epoch200.pt")
+        count0 = int(checkpoint.find_state(saved["optimizer_state_dict"],
+                                           "ScaleByAdamState").args[0])
+        with torch.enable_grad():
+            reset_counts()
+            t0 = time.perf_counter()
+            resumed = run_fast.train_fast(
+                run_config["exp"], run_config["map_id"], seed=run_config["seed"],
+                n_worlds=run_config["n_worlds"], interleave=run_config["interleave"],
+                train_overrides=dict(run_config["args"], epochs=201, steps_per_epoch=2000,
+                                     device=DEVICE),
+                logger_kwargs=dict(output_dir=str(resume_dir), exp_name=run_config["exp_name"]),
+                resume=True)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            run_fast_launches["resume"] = counts()
+        rl = resumed.learner
+        step = rl.optimizer.state[rl.parameters()[0]]["step"].item()
+        head, rows = progress_rows(resume_dir)
+        jax_201 = next(r for r in jax_rows if r["Epoch"] == "201")
+        print(f"  {resume_s:.2f} s; AdamW step {count0} -> {step:.0f}, lr_scale {rl.lr_scale}, "
+              f"scheduler epoch {rl._epoch}; row: Epoch {rows[0]['Epoch']}, TotalEnvInteracts "
+              f"{rows[0]['TotalEnvInteracts']}, LossQ {rows[0]['LossQ']}, AverageEpRet "
+              f"{rows[0]['AverageEpRet']}, AverageTestEpRet {rows[0]['AverageTestEpRet']} (the "
+              f"JAX run's epoch 201, 30,000 steps: LossQ {jax_201['LossQ']}, AverageEpRet "
+              f"{jax_201['AverageEpRet']})", flush=True)
+        print(f"  launches: {run_fast_launches['resume']}", flush=True)
+        if (count0, step, rl.lr_scale, rl._epoch) != (119_600, 119_600 + resumed.updates_per_iter,
+                                                       0.4, 201):
+            raise AssertionError(f"AdamW step {count0} -> {step}, lr_scale {rl.lr_scale}, "
+                                 f"epoch {rl._epoch}")
+        if head != columns or len(rows) != 1 or rows[0]["Epoch"] != "201" \
+                or int(rows[0]["TotalEnvInteracts"]) != int(saved["t"]) + 2000 \
+                or not math.isfinite(float(rows[0]["LossQ"])):
+            raise AssertionError(f"progress.txt: header {head}, rows {rows}")
+        written = resume_dir / "checkpoint_epoch201.pt"
+        args = make_args(run_config["args"], DEVICE)
+        env_info = dict(obs_shape=serve.OBS_SHAPE, n_actions=resumed.env_params.n_actions,
+                        n_agents=resumed.env_params.n_ubs, episode_limit=T,
+                        state_shape=2 * resumed.env_params.n_ubs + 4 * resumed.env_params.n_gts)
+        reloaded = MultiAgentQLearner(env_info, args, seed=1)
+        stamp = reloaded.load_checkpoint(written)
+        same = learner_bits_equal(rl, reloaded)
+        print(f"  {written.name}: stamp {stamp}; a fresh learner loading it holds the "
+              f"trainer's params and AdamW state bit for bit: {same}", flush=True)
+        if not same or stamp != {"epoch": 201, "t": int(saved["t"]) + 2000}:
+            raise AssertionError(f"{written.name} does not hold the trainer's state")
+        # two warm-ups, the sub-iterations, a test
+        want = driven_launches(resumed.updates_per_iter, (2 + resumed.interleave + 1) * T)
+        if run_fast_launches["resume"] != want:
+            raise AssertionError(f"expected {want} launches, got {run_fast_launches['resume']}")
+        del resumed, reloaded
+    shutil.rmtree(scratch)
+
     with phase("one update through the kernels against the plain path, then again bit for bit"):
         batch = trainer.sample_batch()
         snap = learner.state_dict()
@@ -993,7 +1126,8 @@ def main():
                 "ms": statistics.mean(r[0] for r in rows),
                 "plain_ms": statistics.mean(r[1] for r in rows),
                 "bound_ms": statistics.mean(r[2] for r in rows),
-                "bound_by": rows[0][3], "library_ms": None})
+                "bound_by": rows[0][3], "library_ms": None,
+                "run_fast_launches": {k: v[name] for k, v in run_fast_launches.items()}})
             if name == "flash_gat":
                 record[-1]["cases"] = flash_cases
 

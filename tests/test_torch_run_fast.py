@@ -1,0 +1,313 @@
+"""The port's ``run_fast`` (``uav_bs_ctrl_tpu_torch/run_fast.py``) against
+the JAX package's ``run_fast.py``.
+
+- The schedules, on a grid of run shapes, as one parametrised test: both
+  ``train_fast`` loops run a recording stand-in trainer whose learner steps its LR
+  scale with each package's own ``step_lr_scheduler``; the epsilon and warm-up
+  of every iteration, the LR scale at every iteration and save, the saved
+  epochs and their stamps, the test episodes, and the ``progress.txt`` files
+  (all but the two wall-clock columns) are equal, fresh and resumed.
+- Both ``train_fast``s on the real trainers at a tiny shape on the CPU: the same
+  header, ``Epoch`` and ``TotalEnvInteracts`` per row, the same warm-up rows
+  (nan ``LossQ``) and the same checkpoint names, fresh and resumed. The
+  values differ: the two packages draw from different generators.
+- The loggers: the same stored values give byte-identical ``progress.txt``
+  files, appended on resume without a second header.
+- The CLI under a subprocess with an injected crash and ``--retries 2``
+  resumes to the full budget, as ``tests/test_retry.py`` holds ``run_fast.py``.
+- ``run_fast`` imports and runs where jax, optax, pandas, matplotlib and
+  cloudpickle are missing; options the port does not run raise ``ValueError``
+  naming their ROADMAP.md Queue 1 item.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace as SN
+
+import numpy as np
+import pytest
+
+import run_fast as jax_run_fast
+from uav_bs_ctrl_tpu.algos.core import RecurrentQLearner as JaxCore
+from uav_bs_ctrl_tpu.algos.madrqn.config import DEFAULT_CONFIG as JAX_DEFAULTS
+from uav_bs_ctrl_tpu.utils.logx import EpochLogger as JaxLogger
+from uav_bs_ctrl_tpu.utils.run_utils import setup_logger_kwargs as jax_setup_logger_kwargs
+from uav_bs_ctrl_tpu_torch import run_fast
+from uav_bs_ctrl_tpu_torch.algos.core import RecurrentQLearner as PortCore
+from uav_bs_ctrl_tpu_torch.algos.madrqn import fused
+from uav_bs_ctrl_tpu_torch.config import DEFAULT_CONFIG
+from uav_bs_ctrl_tpu_torch.utils.logx import EpochLogger as PortLogger
+from uav_bs_ctrl_tpu_torch.utils.run_utils import setup_logger_kwargs
+
+ROOT = Path(__file__).resolve().parents[1]
+WALL_CLOCK = ("StepsPerSec", "Time")
+BLOCKED = ["cloudpickle", "flax", "jax", "jaxlib", "matplotlib", "optax", "orbax", "pandas",
+           "uav_bs_ctrl_tpu"]
+
+
+def _table(path):
+    lines = Path(path).read_text().splitlines()
+    head = lines[0].split("\t")
+    return head, [dict(zip(head, line.split("\t"))) for line in lines[1:]]
+
+
+# ---------------------------------------------------------------- schedules
+
+def _fake_trainer_class(T, record, core, defaults):
+    """A trainer with the fused trainer's interface that records what
+    ``train_fast`` asks of it; its learner steps the LR scale with ``core``'s own
+    ``step_lr_scheduler`` and saves to a JSON file."""
+
+    class Learner:
+        step_lr_scheduler = core.step_lr_scheduler
+
+        def __init__(self, anneal_lr):
+            self.anneal_lr, self.lr_scale, self._epoch = anneal_lr, 1.0, 0
+
+        def save_checkpoint(self, path, stamp):
+            stamp = {k: int(v) for k, v in stamp.items()}
+            record.append(("save", Path(path).name, stamp, self.lr_scale, self._epoch))
+            Path(path).write_text(json.dumps(dict(stamp, epoch_lr=self._epoch,
+                                                  lr_scale=self.lr_scale)))
+
+        def load_checkpoint(self, path):
+            saved = json.loads(Path(path).read_text())
+            self._epoch, self.lr_scale = saved["epoch_lr"], saved["lr_scale"]
+            record.append(("load", Path(path).name))
+            return dict(epoch=saved["epoch"], t=saved["t"])
+
+    class Trainer:
+        def __init__(self, map_id, train_kwargs, n_worlds, capacity_chunks, n_layouts, seed,
+                     interleave):
+            self.args = SN(**{**defaults, **train_kwargs})
+            self.T = T
+            self.learner = Learner(self.args.anneal_lr)
+            self.n = 0
+            record.append(("trainer", capacity_chunks, n_worlds, interleave))
+
+        def run_iteration(self, eps, warmup=False):
+            self.n += 1
+            record.append(("iteration", eps, warmup, self.learner.lr_scale))
+            out = dict(EpRet=0.5 * self.n, FairIdx=1.0 / self.n, AvgGlobalUtility=0.25 * self.n)
+            if not warmup:
+                out["LossQ"] = 2.0 / self.n
+            return out
+
+        def evaluate(self, n_episodes=8, eps=0.05):
+            record.append(("evaluate", n_episodes))
+            x = np.arange(n_episodes, dtype=np.float32) + self.n
+            return dict(TestEpRet=x, TestFairIdx=x / 7, TestAvgGlobalUtility=x / 3,
+                        TestTotalThroughput=x * 2, TestProbCollision=x / 100)
+
+    return Trainer
+
+
+# (n_worlds, T, steps_per_epoch, epochs, resumed epochs, overrides)
+SHAPES = {
+    "exp3-flagship": (40, 50, 30000, 4, 6, {}),
+    "epoch-not-a-multiple": (4, 40, 2000, 2, 3, dict(update_after=500, save_freq=1)),
+    "epoch-under-an-iteration": (40, 50, 1000, 3, 5, dict(update_after=2000)),
+    "no-anneal-sparse-saves": (8, 40, 640, 7, 9, dict(anneal_lr=False, save_freq=3,
+                                                      decay_steps=1000, update_after=320)),
+    "past-the-lr-and-eps-floors": (16, 50, 800, 104, 110, dict(save_freq=25, decay_steps=20000,
+                                                              update_after=1600)),
+}
+
+
+def _drive(monkeypatch, tmp_path, package, shape):
+    n_worlds, T, spe, epochs, resumed, extra = SHAPES[shape]
+    record = []
+    if package == "jax":
+        module, logger_cls, core = jax_run_fast, JaxLogger, JaxCore
+        defaults = JAX_DEFAULTS
+    else:
+        module, logger_cls, core = run_fast, PortLogger, PortCore
+        defaults = DEFAULT_CONFIG
+    trainer = _fake_trainer_class(T, record, core, defaults)
+    monkeypatch.setattr(jax_run_fast if package == "jax" else fused, "FusedMadrqnTrainer",
+                        trainer)
+    assert module.EpochLogger is logger_cls
+    out = tmp_path / package
+    overrides = dict(c="tarmac", mixer=True, steps_per_epoch=spe, **extra)
+    for epochs_now, resume in ((epochs, False), (resumed, True)):
+        module.train_fast("exp3", "8ubs", train_overrides=dict(overrides, epochs=epochs_now),
+                          logger_kwargs=dict(output_dir=str(out), exp_name=shape),
+                          n_worlds=n_worlds, resume=resume, interleave=2)
+    monkeypatch.undo()
+    head, rows = _table(out / "progress.txt")
+    rows = [{k: v for k, v in row.items() if k not in WALL_CLOCK} for row in rows]
+    return record, head, rows, sorted(p.name for p in out.glob("checkpoint_epoch*.pt"))
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_schedules_saves_and_rows_match_jax_run_fast(monkeypatch, tmp_path, shape):
+    want = _drive(monkeypatch, tmp_path, "jax", shape)
+    got = _drive(monkeypatch, tmp_path, "port", shape)
+    assert got[0] == want[0]
+    assert got[1:] == want[1:]
+    record, head, rows, names = got
+    epochs = [int(r["Epoch"]) for r in rows]
+    assert epochs == list(range(1, len(epochs) + 1)) and len(epochs) > 1
+    assert head[0] == "Epoch" and head[-2:] == list(WALL_CLOCK)
+    assert [r[0] for r in record].count("load") == 1
+    assert f"checkpoint_epoch{epochs[-1]}.pt" in names
+
+
+@pytest.mark.parametrize("n_iters,iters_per_epoch,save_freq",
+                         [(1041, 10, 10), (1500, 15, 10), (1, 1, 10), (25, 12, 1), (63, 9, 4)])
+def test_should_save_matches_jax(n_iters, iters_per_epoch, save_freq):
+    for it in range(n_iters):
+        if (it + 1) % iters_per_epoch == 0:
+            epoch = (it + 1) // iters_per_epoch
+            assert run_fast.should_save(epoch, it, iters_per_epoch, n_iters, save_freq) == \
+                jax_run_fast.should_save(epoch, it, iters_per_epoch, n_iters, save_freq)
+
+
+def test_setup_logger_kwargs_matches_jax_under_data_torch(tmp_path):
+    for seed in (0, None, 3):
+        assert setup_logger_kwargs("exp3_fast_8ubs", seed, data_dir=str(tmp_path)) == \
+            jax_setup_logger_kwargs("exp3_fast_8ubs", seed, data_dir=str(tmp_path))
+    default = setup_logger_kwargs("x", 1)["output_dir"]
+    assert default == str(ROOT / "data_torch" / "x" / "x_s1")
+    assert "data_torch/" in (ROOT / ".gitignore").read_text().splitlines()
+
+
+def test_loggers_write_the_same_progress_txt_and_append_on_resume(tmp_path):
+    rng = np.random.default_rng(0)
+    rows = [dict(EpRet=rng.normal(size=5).astype(np.float32), LossQ=float(rng.normal()),
+                 Step=int(rng.integers(100))) for _ in range(4)]
+    for cls, name in ((JaxLogger, "jax"), (PortLogger, "port")):
+        for part, append in ((rows[:2], False), (rows[2:], True)):
+            logger = cls(output_dir=str(tmp_path / name), append=append)
+            for row in part:
+                logger.store(EpRet=row["EpRet"], LossQ=row["LossQ"])
+                logger.log_tabular("EpRet", with_min_and_max=True)
+                logger.log_tabular("LossQ", average_only=True)
+                logger.log_tabular("Step", row["Step"])
+                logger.log_tabular("Nan", float("nan"))
+                logger.dump_tabular()
+            logger.output_file.close()
+    got = (tmp_path / "port" / "progress.txt").read_text()
+    assert got == (tmp_path / "jax" / "progress.txt").read_text()
+    assert got.count("AverageEpRet") == 1 and len(got.splitlines()) == 5
+
+
+# ---------------------------------------------------------------- real trainers
+
+TINY = dict(c="tarmac", mixer=True, device="cpu", hidden_size=16, msg_size=8, n_heads=2,
+            key_size=4, steps_per_epoch=160, update_after=160, replay_size=8, batch_size=2,
+            save_freq=1)
+
+
+def _tiny_run(train_fast, out, epochs, resume):
+    train_fast("exp3", "debug", seed=0, train_overrides=dict(TINY, epochs=epochs),
+               logger_kwargs=dict(output_dir=str(out), exp_name="tiny"), n_worlds=2,
+               n_layouts=4, resume=resume)
+    head, rows = _table(out / "progress.txt")
+    return head, [(r["Epoch"], r["TotalEnvInteracts"], math.isnan(float(r["LossQ"])))
+                  for r in rows], sorted(p.name for p in out.glob("checkpoint_epoch*.pt"))
+
+
+def test_train_fast_writes_what_jax_train_fast_writes(tmp_path):
+    """2 worlds x 10 steps an iteration, 8 iterations an epoch; the first
+    epoch is all warm-up, the second takes 16 updates at B = 2. Two epochs in
+    both packages; then the port resumes for a third (the schedule test holds
+    resuming to JAX's)."""
+    got = _tiny_run(run_fast.train_fast, tmp_path / "port", 2, False)
+    assert got == _tiny_run(jax_run_fast.train_fast, tmp_path / "jax", 2, False)
+    head, rows, names = _tiny_run(run_fast.train_fast, tmp_path / "port", 3, True)
+    assert head == got[0]
+    assert rows == [("1", "160", True), ("2", "320", False), ("3", "480", False)]
+    assert names == [f"checkpoint_epoch{e}.pt" for e in (1, 2, 3)]
+    config = json.loads((tmp_path / "port" / "config.json").read_text())
+    assert config["args"]["device"] == "cpu" and config["exp_name"] == "tiny"
+
+
+CLI = ["--exp", "exp3", "--map", "debug", "--c", "tarmac", "--mixer", "--seed", "0",
+       "--epochs", "2", "--steps-per-epoch", "160", "--replay-size", "8", "--n-worlds", "2",
+       "--n-layouts", "4", "--device", "cpu", "--save-freq", "1"]
+
+
+def _clean_env():
+    """The test's environment for a child run: the repo importable, no crash
+    or supervisor marker, and one torch thread (the suite's workers share
+    the cores)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    for key in ("UAVBS_SUPERVISED", "UAVBS_TEST_CRASH_AT_ITER"):
+        env.pop(key, None)
+    return env
+
+
+def test_cli_crash_with_retries_resumes_to_the_full_budget(tmp_path):
+    """16 iterations of 2 worlds x 10 steps at full width, all warm-up (B = 32
+    needs 320 steps first); epoch 1's checkpoint is written at iteration 7, the
+    crash comes at iteration 10, and the relaunched child resumes from epoch 1."""
+    env = _clean_env()
+    env["UAVBS_TEST_CRASH_AT_ITER"] = "10"
+    out = subprocess.run([sys.executable, "-m", "uav_bs_ctrl_tpu_torch.run_fast", *CLI,
+                          "--retries", "2", "--data-dir", str(tmp_path)],
+                         env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("relaunching with --resume") == 1
+    assert "injected crash at iteration 10" in out.stderr
+    run_dir = tmp_path / "exp3_fast_debug_tarmac_qmix" / "exp3_fast_debug_tarmac_qmix_s0"
+    head, rows = _table(run_dir / "progress.txt")
+    assert [r["Epoch"] for r in rows] == ["1", "2"] and head.count("Epoch") == 1
+    assert [r["TotalEnvInteracts"] for r in rows] == ["160", "320"]
+    assert sorted(p.name for p in run_dir.glob("*.pt")) == ["checkpoint_epoch1.pt",
+                                                           "checkpoint_epoch2.pt"]
+
+
+def test_supervised_child_does_not_recurse(tmp_path):
+    env = _clean_env()
+    env.update(UAVBS_SUPERVISED="1", UAVBS_TEST_CRASH_AT_ITER="0")
+    out = subprocess.run([sys.executable, "-m", "uav_bs_ctrl_tpu_torch.run_fast", *CLI,
+                          "--retries", "2", "--data-dir", str(tmp_path)],
+                         env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "relaunching" not in out.stdout and "injected crash at iteration 0" in out.stderr
+
+
+def test_run_fast_runs_where_jax_optax_pandas_are_missing(tmp_path):
+    """``run_fast``'s modules import without torch; the CLI then runs two
+    epochs and resumes for a third, all warm-up at full width (B = 32 needs
+    320 steps first), with every module the GPU machine lacks blocked."""
+    code = (
+        "import sys, runpy\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import uav_bs_ctrl_tpu_torch.run_fast\n"
+        "assert 'torch' not in sys.modules\n"
+        f"base = ['run_fast', *{CLI!r}, '--data-dir', {str(tmp_path)!r}]\n"
+        "for extra in ([], ['--resume', '--epochs', '3']):\n"
+        "    sys.argv = base + extra\n"
+        "    runpy.run_module('uav_bs_ctrl_tpu_torch.run_fast', run_name='__main__')\n"
+        f"assert not any(sys.modules.get(n) for n in {BLOCKED!r})\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_clean_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    run_dir = tmp_path / "exp3_fast_debug_tarmac_qmix" / "exp3_fast_debug_tarmac_qmix_s0"
+    _, rows = _table(run_dir / "progress.txt")
+    assert [(r["Epoch"], r["TotalEnvInteracts"], r["LossQ"]) for r in rows] == \
+        [("1", "160", "nan"), ("2", "320", "nan"), ("3", "480", "nan")]
+    assert sorted(p.name for p in run_dir.glob("*.pt")) == [f"checkpoint_epoch{e}.pt"
+                                                           for e in (1, 2, 3)]
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--exp", "exp1"], "item 7"),
+    (["--exp", "exp2"], "item 6"),
+    (["--o", "mlp"], "item 6"),
+    (["--compute-dtype", "bfloat16"], "item 5"),
+    (["--c", "disc"], "item 6"),
+    (["--c", "none"], "item 6"),
+])
+def test_options_the_port_does_not_run_raise_naming_their_queue_item(tmp_path, extra, item):
+    argv = ["--exp", "exp3", "--c", "tarmac", "--device", "cpu", "--data-dir", str(tmp_path)]
+    with pytest.raises(ValueError, match=item):
+        run_fast.main(argv + extra)
+    assert not list(tmp_path.iterdir())

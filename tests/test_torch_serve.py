@@ -32,7 +32,7 @@ RUN_DIR = (ROOT / "data" / "exp3_fast_8ubs_tarmac_qmix_il10_lay64k"
 DISC_DIR = ROOT / "data" / "exp3_fast_4ubs_disc_lay64k" / "exp3_fast_4ubs_disc_lay64k_s0"
 TOL = dict(atol=1e-4, rtol=1e-4)
 FORBIDDEN = {"jax", "jaxlib", "optax", "orbax", "flax", "pandas", "matplotlib",
-             "uav_bs_ctrl_tpu"}
+             "cloudpickle", "uav_bs_ctrl_tpu"}
 
 
 def _jax_policy(run_dir=RUN_DIR):

@@ -7,6 +7,7 @@ Tolerance 1e-5 (f32, sums taken in another order).
 """
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -238,8 +239,10 @@ def test_train_entry_point_runs_where_jax_optax_pandas_are_missing():
         " '--iterations', '1', '--tiny']\n"
         "runpy.run_module('uav_bs_ctrl_tpu_torch.train', run_name='__main__')\n"
         f"assert not any(sys.modules.get(n) for n in {BLOCKED!r})\n")
+    # One torch thread: the suite's workers share the cores, and a child with
+    # a thread per core slows by an order of magnitude among them.
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=240)
+                         text=True, timeout=240, env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr
     metrics = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"LossQ", "EpRet", "TestEpRet"} <= set(metrics)

@@ -3,13 +3,14 @@
 The first update at small width (exp3's config, QMIX + double-Q, non-dueling,
 and a dueling config without the mixer, through the kernels' Functions and
 the unfused path), AdamW + value clip + Polyak against optax for three steps,
-a 20-update loss trajectory, and the first update at full width from the
+a 60-update loss trajectory, and the first update at full width from the
 committed exp3 8-UBS checkpoint. Inputs are made with numpy from a seed and
 handed to both packages.
 
 Tolerances: 1e-5 at small width; at full width 1e-4 of the gradients' scale
-(see ``_check_first_update``); the loss trajectory within the 0.2 % that
-``test_update_dynamics_parity.py`` allows over 20 updates.
+(see ``_check_first_update``); the loss trajectory within what
+``test_update_dynamics_parity.py`` allows: 0.2 % over the first 20 updates,
+5 % over all 60.
 """
 
 import json
@@ -223,6 +224,8 @@ def test_adamw_clip_polyak_match_optax_for_three_steps():
 
 
 def test_loss_trajectory_tracks_jax_over_20_updates():
+    """60 updates (``test_update_dynamics_parity.py``'s horizon): the first 20
+    within 0.2 %, all within 5 %."""
     T, B = 5, 4
     jl, tl = _learners(_kw(True, False), _env_info(t=T), seed=1)
     rng = np.random.default_rng(5)
@@ -230,7 +233,7 @@ def test_loss_trajectory_tracks_jax_over_20_updates():
     params, targets, opt_state = jl.params, jl.target_params, jl.opt_state
     key = jax.random.PRNGKey(0)
     rel = []
-    for step in range(20):
+    for step in range(60):
         batch = batches[step % len(batches)]
         params, targets, opt_state, m = jl._update_jit(
             params, targets, opt_state, jax.tree_util.tree_map(jnp.asarray, batch), key,
@@ -238,7 +241,8 @@ def test_loss_trajectory_tracks_jax_over_20_updates():
         got = float(tl.update_on_batch(_torch_tree(batch))["LossQ"])
         rel.append(abs(got - float(m["LossQ"])) / max(float(m["LossQ"]), 1e-6))
     assert rel[0] < 1e-5, rel[0]
-    assert max(rel) < 2e-3, max(rel)
+    assert max(rel[:20]) < 2e-3, max(rel[:20])
+    assert max(rel) < 0.05, (int(np.argmax(rel)), max(rel))
 
 
 def test_first_update_at_full_width_from_the_checkpoint():

@@ -27,7 +27,8 @@ params, mixer, LR scale and the AdamW state. The optax chain's
 ``ScaleByAdamState(count, mu, nu)`` comes out of the numpy-only unpickler's
 stubs (``utils/checkpoint.py:find_state``); ``mu``/``nu`` follow the params'
 key mapping into ``exp_avg``/``exp_avg_sq`` and ``count`` becomes every
-parameter's ``step``.
+parameter's ``step``. :meth:`save_checkpoint` writes the same file the other
+way round, so either package resumes it.
 """
 
 import copy
@@ -38,7 +39,7 @@ import torch
 from uav_bs_ctrl_tpu_torch.algos.buffer import SequenceReplayBuffer, tree_map
 from uav_bs_ctrl_tpu_torch.config import check_training_args
 from uav_bs_ctrl_tpu_torch.utils import checkpoint as ckpt_io
-from uav_bs_ctrl_tpu_torch.utils.convert import learner_params_from_jax
+from uav_bs_ctrl_tpu_torch.utils.convert import learner_params_from_jax, learner_params_to_jax
 
 CLIP_VALUE = 1.0
 BETAS, ADAM_EPS, WEIGHT_DECAY = (0.9, 0.999), 1e-8, 0.01
@@ -219,15 +220,56 @@ class RecurrentQLearner:
         ``count`` as every parameter's step."""
         moments = [learner_params_from_jax(tree, self.net, self.mixer) for tree in (mu, nu)]
         step = torch.tensor(float(count), dtype=torch.float32)
-        for group in ("net", "mixer"):
-            module = getattr(self, group)
-            if module is None:
-                continue
-            for name, p in module.named_parameters():
+        for group, params in self._by_group(lambda p: p).items():
+            for name, p in params.items():
                 self.optimizer.state[p] = {
                     "step": step.clone(),
                     "exp_avg": moments[0][group][name].to(p.device),
                     "exp_avg_sq": moments[1][group][name].to(p.device)}
+
+    def _by_group(self, leaf):
+        """``{"net": {name: leaf(p)}[, "mixer": ...]}`` over the parameters."""
+        groups = {"net": self.net, "mixer": self.mixer}
+        return {group: {name: leaf(p) for name, p in module.named_parameters()}
+                for group, module in groups.items() if module is not None}
+
+    def adam_state(self):
+        """optax's ``inject_hyperparams(adamw)`` state from AdamW's, the inverse
+        of :meth:`load_adam_state`: one ``count`` (int32) in both places, ``mu``
+        and ``nu`` trees keyed as the params, the hyperparams as float32 0-d
+        arrays with the learning rate of the next update."""
+        state = self.optimizer.state
+        steps = {float(state[p]["step"]) if p in state else 0.0 for p in self.parameters()}
+        if len(steps) != 1:
+            raise ValueError(f"AdamW's parameters are at different steps {sorted(steps)}; "
+                             "optax keeps one count")
+        count = np.int32(steps.pop())
+        moment = lambda key: learner_params_to_jax(self._by_group(
+            lambda p: state[p][key] if p in state else torch.zeros_like(p)))
+        group = self.optimizer.param_groups[0]
+        (b1, b2), f32 = group["betas"], lambda x: np.asarray(x, np.float32)
+        hyperparams = dict(b1=f32(b1), b2=f32(b2), eps=f32(group["eps"]), eps_root=f32(0.0),
+                           learning_rate=f32(self.lr) * f32(self.lr_scale),  # f32, as JAX
+                           weight_decay=f32(group["weight_decay"]))
+        adam = ckpt_io.ScaleByAdamState(count, moment("exp_avg"), moment("exp_avg_sq"))
+        return ckpt_io.InjectStatefulHyperparamsState(
+            count, hyperparams, {}, (adam, ckpt_io.EmptyState(), ckpt_io.EmptyState()))
+
+    def save_checkpoint(self, path, stamp):
+        """The JAX ``save_checkpoint``: ``stamp`` (``epoch``, ``t``), net,
+        mixer, optax's AdamW state and, with ``anneal_lr``, the LR scheduler's
+        ``{epoch, lr_scale}``, as numpy leaves in the JAX layout."""
+        params = learner_params_to_jax(self._by_group(lambda p: p))
+        checkpoint = dict(stamp)
+        checkpoint["model_state_dict"] = params["net"]
+        checkpoint["optimizer_state_dict"] = self.adam_state()
+        if self.mixer is not None:
+            checkpoint["mixer_state_dict"] = params["mixer"]
+        if self.anneal_lr:
+            checkpoint["lr_scheduler_state_dict"] = dict(epoch=self._epoch,
+                                                         lr_scale=self.lr_scale)
+        ckpt_io.save(path, checkpoint)
+        print(f"Save checkpoint to {path}.")
 
     def load_checkpoint(self, path):
         """The JAX ``load_checkpoint``: net, mixer, AdamW state, LR scale;
@@ -242,4 +284,5 @@ class RecurrentQLearner:
         if self.anneal_lr and "lr_scheduler_state_dict" in ckpt:
             self._epoch = int(ckpt["lr_scheduler_state_dict"]["epoch"])
             self.lr_scale = float(ckpt["lr_scheduler_state_dict"]["lr_scale"])
+        print(f"Load checkpoint from {path}.")
         return dict(epoch=int(ckpt["epoch"]), t=int(ckpt["t"]))

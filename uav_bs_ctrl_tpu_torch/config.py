@@ -12,6 +12,8 @@ of rounds; training (:func:`check_training_args`) takes one-round TarMAC.
 
 from types import SimpleNamespace
 
+import torch
+
 from uav_bs_ctrl_tpu_torch.device import resolve_device
 from uav_bs_ctrl_tpu_torch.models.comm import COMM_PROTOCOLS
 
@@ -30,6 +32,7 @@ DEFAULT_CONFIG = {
     'comm_backend': 'dense',
     'step_backend': 'xla',
     'compute_dtype': 'float32',
+    'matmul_precision': None,  # None|'default'|'high'|'highest': torch's f32 matmul switches
     'bptt_encoder': 'per_step',
     'dueling': False,
     # training
@@ -41,7 +44,10 @@ DEFAULT_CONFIG = {
     'decay_steps': int(5e4),
     'max_seq_len': None,   # None -> episode_limit
     'steps_per_epoch': 4000,
+    'epochs': 50,
     'update_after': 2000,
+    'num_test_episodes': 5,
+    'save_freq': 10,
     'anneal_lr': True,
     'double_q': False,
     'mixer': False,
@@ -76,6 +82,8 @@ def check_args_sanity(args):
     if mm_prec not in (None, 'default', 'high', 'highest'):
         raise ValueError(f"matmul_precision must be None|'default'|'high'|'highest', "
                          f"got {mm_prec!r}")
+    set_matmul_precision(mm_prec)
+    # bptt_unroll (JAX core.py:87) is accepted and ignored: eager BPTT has no unroll.
     if int(args.n_rounds) < 1:
         raise ValueError(f"n_rounds must be >= 1, got {args.n_rounds}")
     if args.gat_backend not in GAT_BACKENDS:
@@ -101,6 +109,18 @@ def check_args_sanity(args):
                                   "'per_step' schedule only; 'hoisted' and 'merged' are "
                                   "still to be ported (ROADMAP.md Queue 1)")
     return args
+
+
+def set_matmul_precision(mm_prec):
+    """Map ``matmul_precision`` onto the process as JAX's ``check_args_sanity``
+    does onto ``jax_default_matmul_precision``: 'highest' turns TF32 off (true
+    f32 products), 'high' lets torch use TF32; None and 'default' leave the
+    process as it is."""
+    if mm_prec == 'highest':
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision('highest')
+    elif mm_prec == 'high':
+        torch.set_float32_matmul_precision('high')
 
 
 def check_training_args(args):

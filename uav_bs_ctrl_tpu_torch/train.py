@@ -1,6 +1,7 @@
-"""Train a run's policy on the device: resume from its checkpoint and run
-fused iterations (the counterpart of ``run_fast.py --exp exp3 --resume``,
-without logging, checkpoint writing or the epsilon schedule):
+"""Resume a run's policy from its checkpoint and take N fused iterations on
+the device, a short check of the training path (a full run, with logging,
+checkpoints, the epsilon and LR schedules, ``--resume`` and ``--retries``,
+is :mod:`uav_bs_ctrl_tpu_torch.run_fast`):
 
     python -m uav_bs_ctrl_tpu_torch.train --run-dir <run dir> [--iterations N] [--eps E]
         [--n-layouts P]

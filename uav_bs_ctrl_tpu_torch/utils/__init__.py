@@ -1,1 +1,1 @@
-"""Checkpoint loading and JAX-to-torch parameter conversion."""
+"""Checkpoint reading and writing, JAX/torch parameter conversion, run logging."""

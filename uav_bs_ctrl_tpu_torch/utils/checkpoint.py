@@ -1,4 +1,5 @@
-"""Read the JAX package's ``checkpoint_epoch{N}.pt`` pickles without JAX or optax.
+"""Read and write the JAX package's ``checkpoint_epoch{N}.pt`` pickles without
+JAX or optax.
 
 A checkpoint pickles the parameter trees as nested dicts of numpy arrays, beside
 optimizer state whose classes live in optax. The restricted unpickler resolves
@@ -7,10 +8,18 @@ stub that keeps its constructor arguments (``args``, ``kwargs``) and pickled
 ``state``, so the checkpoint loads where optax is not installed, the optimizer
 state can still be read (:func:`find_state`), and nothing in the file can name
 a callable to run.
+
+:func:`save` writes the same format. The three optax state classes of
+``inject_hyperparams(adamw)`` are stood in for by tuple placeholders that the
+writer names by optax's module and class, so the JAX package's loader rebuilds
+optax's own NamedTuples from them while this package never imports optax.
 """
 
 import importlib
+import os
 import pickle
+
+import numpy as np
 
 _NUMPY_GLOBALS = {"_reconstruct", "scalar", "ndarray", "dtype", "_frombuffer"}
 
@@ -65,3 +74,69 @@ def find_state(tree, class_name):
         elif isinstance(node, dict):
             stack.extend(reversed(list(node.values())))
     raise KeyError(f"no {class_name} in the checkpoint's optimizer state")
+
+
+class _OptaxState(tuple):
+    """A tuple of fields that pickles as the optax NamedTuple of the same class
+    name in module ``OPTAX_MODULE``, rebuilt from the fields as ``cls(*fields)``."""
+
+    OPTAX_MODULE = None
+
+    def __new__(cls, *fields):
+        return super().__new__(cls, fields)
+
+    def __reduce__(self):
+        return type(self), tuple(self)
+
+
+class InjectStatefulHyperparamsState(_OptaxState):
+    """``(count, hyperparams, hyperparams_states, inner_state)``."""
+    OPTAX_MODULE = "optax.schedules._inject"
+
+
+class ScaleByAdamState(_OptaxState):
+    """``(count, mu, nu)``."""
+    OPTAX_MODULE = "optax._src.transform"
+
+
+class EmptyState(_OptaxState):
+    OPTAX_MODULE = "optax._src.base"
+
+
+class _Writer(pickle._Pickler):
+    """The pure-Python pickler (the C one cannot be told how to name a class)
+    writing each placeholder class as a ``GLOBAL`` of its optax name."""
+
+    def save_global(self, obj, name=None):
+        if isinstance(obj, type) and issubclass(obj, _OptaxState):
+            self.write(pickle.GLOBAL + f"{obj.OPTAX_MODULE}\n{obj.__name__}\n".encode())
+            self.memoize(obj)
+            return
+        super().save_global(obj, name)
+
+
+def _to_numpy(tree):
+    """Dicts, lists and tuples (placeholders keep their class) with every leaf
+    as a numpy array, as the JAX writer's ``tree_map(np.asarray, ...)``."""
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, _OptaxState):
+        return type(tree)(*map(_to_numpy, tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map(_to_numpy, tree))
+    return np.asarray(tree)
+
+
+def save(path, checkpoint: dict):
+    """Write ``checkpoint`` (scalars, trees of arrays, optax placeholders) at
+    ``path``, atomically through a temp file and ``os.replace``: the retry
+    supervisor resumes from the newest checkpoint, so a crash mid-write must
+    not leave a truncated one."""
+    path = os.fspath(path)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        _Writer(f, pickle.DEFAULT_PROTOCOL).dump(_to_numpy(checkpoint))
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return path

@@ -1,4 +1,4 @@
-"""Carry a JAX parameter tree into a port module, leaf by leaf.
+"""Carry a JAX parameter tree into a port module and back, leaf by leaf.
 
 The port keeps the JAX layout (``[in, out]`` weights under the same names), so
 a tree's dotted paths are the module's ``state_dict`` keys and no leaf is
@@ -56,3 +56,38 @@ def learner_params_from_jax(tree, net: torch.nn.Module, mixer=None) -> dict:
     if mixer is not None:
         out["mixer"] = params_from_jax(tree["mixer"], mixer)
     return out
+
+
+def unflatten(flat: dict):
+    """The inverse of :func:`flatten`: nested dicts from dotted keys, with a
+    level whose keys are ``0 .. n-1`` as a list (an MLP's ``layers``)."""
+    tree = {}
+    for key, leaf in flat.items():
+        node = tree
+        *path, last = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and set(node) == {str(i) for i in range(len(node))}:
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return listify(tree)
+
+
+def params_to_jax(state_dict: dict):
+    """A JAX parameter tree of float32 numpy arrays from a ``state_dict`` (or
+    any ``{dotted name: tensor}``): the inverse of :func:`params_from_jax`."""
+    return unflatten({k: v.detach().cpu().numpy().astype(np.float32, copy=True)
+                      for k, v in state_dict.items()})
+
+
+def learner_params_to_jax(state: dict) -> dict:
+    """A JAX learner tree ``{"net": ...[, "mixer": ...]}`` from
+    ``{"net": state_dict[, "mixer": state_dict]}``: the inverse of
+    :func:`learner_params_from_jax`."""
+    return {group: params_to_jax(sd) for group, sd in state.items()}
