@@ -19,11 +19,18 @@ iteration, one of 40 updates; ``progress.txt``, checkpoints and launches
 checked), then a resume of the committed run's epoch-200 checkpoint for one
 epoch more (AdamW step, LR scale, the appended row, and the written
 checkpoint read back bit for bit); one update through the kernels against
-the same update on the plain path, and repeated bit for bit; and timings.
-Any failed phase exits non-zero with no result line. The last line is the
-JSON device record.
+the same update on the plain path, and repeated bit for bit; training the
+committed exp3 4-UBS DiscreteComm+QMIX run (resumed, two warm-ups and one
+40-update iteration through #2 and #3, its kernel update held against the
+plain path on the same per-step Gumbel noise) and the committed exp2 r400
+TarMAC run (the MLP encoder, the fused step #4 and #5 on a talk graph with
+missing edges) the same way; ``run_fast.train_fast`` on exp2 r400
+DiscreteComm from a fresh start for one epoch with updates (its checkpoint
+read back bit for bit); and timings. Any failed phase exits non-zero with no
+result line. The last line is the JSON device record.
 """
 
+import collections
 import contextlib
 import faulthandler
 import json
@@ -47,6 +54,9 @@ HBM_BYTES_PER_S = 3.35e12
 RUN_DIR = ROOT / "data" / "exp3_fast_8ubs_tarmac_qmix_il10_lay64k" / \
     "exp3_fast_8ubs_tarmac_qmix_il10_lay64k_s0"
 DISC_DIR = ROOT / "data" / "exp3_fast_4ubs_disc_lay64k" / "exp3_fast_4ubs_disc_lay64k_s0"
+DISC_QMIX_DIR = ROOT / "data" / "exp3_fast_4ubs_disc_qmix_lay64k" / \
+    "exp3_fast_4ubs_disc_qmix_lay64k_s0"
+EXP2_DIR = ROOT / "data" / "exp2_fast_r400_tarmac" / "exp2_fast_r400_tarmac_s0"
 N_WORLDS = 40             # the run's n_worlds
 EPS = 0.05                # evaluate_policy's test epsilon
 DEVICE = "cuda"
@@ -311,15 +321,19 @@ def capture_kernel_calls(agent, obs, h, key=None):
 
 @contextlib.contextmanager
 def same_bits_at_ties(ties):
-    """DiscreteComm's sample, for a policy called twice per step on the same
-    noise (kernel path, then plain path): where the two paths' hard bits
-    differ, the plain path's Gumbel margin |z0 - z1| must be within ``TIE``
-    (logits an f32 roundoff apart round the sample either way) and the plain
-    path then takes the kernel path's bit; a wider difference raises.
-    ``ties`` counts such bits and keeps the smallest margin seen."""
+    """DiscreteComm's sample, for two paths on the same noise (kernel path,
+    then plain path): where the two paths' hard bits differ, the plain path's
+    Gumbel margin |z0 - z1| must be within ``TIE`` (logits an f32 roundoff
+    apart round the sample either way) and the plain path then takes the
+    kernel path's bit (with its own straight-through gradient); a wider
+    difference raises. The kernel path's samples queue up in call order and
+    the plain path's take them in turn: a sample follows when ``ties["follow"]``
+    is set, or, without that key, when a kernel sample waits (a policy called
+    twice per step). ``ties`` counts such bits and keeps the smallest margin
+    seen."""
     from uav_bs_ctrl_tpu_torch.models import comm
     from uav_bs_ctrl_tpu_torch.models.modules import gumbel_noise, gumbel_softmax
-    first = []
+    first = collections.deque()
 
     def sample(logits, tau=1.0, hard=False, seed=None, noise=None):
         if noise is None:
@@ -328,17 +342,20 @@ def same_bits_at_ties(ties):
         bits = gumbel_softmax(logits, tau, hard, noise=noise)
         margin = (z[..., 0] - z[..., 1]).abs()
         ties["min_margin"] = min(ties["min_margin"], margin.min().item())
-        if not first:
-            first.append(bits)
+        if not ties.get("follow", bool(first)):
+            first.append(bits.detach())
             return bits
-        bits_k = first.pop()
+        bits_k = first.popleft()
         differ = (bits != bits_k).any(-1)
         wide = (differ & (margin > TIE)).sum().item()
         if wide:
             raise AssertionError(f"{wide} DiscreteComm bits differ between the kernel and "
                                  f"the plain path at Gumbel margins beyond {TIE}")
         ties["bits"] += int(differ.sum())
-        return torch.where(differ[..., None], bits_k, bits)
+        if not bits.requires_grad:
+            return torch.where(differ[..., None], bits_k, bits)
+        return bits + torch.where(differ[..., None], bits_k - bits.detach(),
+                                  torch.zeros_like(bits))
 
     comm.gumbel_softmax = sample
     try:
@@ -504,21 +521,117 @@ def learner_bits_equal(a, b):
                 for k in a.optimizer.state[p]) for p, q in pairs)
 
 
+def check_update(learner, batch, per_update, counts, noise=None):
+    """One update of ``learner`` on ``batch`` through the kernels, held against
+    the same update on the plain path, then again through the kernels, bit
+    for bit; ``per_update``, the launches one update must make (``counts()``
+    reads them). With ``noise`` (DiscreteComm's per-step Gumbel noise) both
+    paths get the same draws, and a hard bit the two paths round apart at a
+    roundoff tie is the kernel path's (``same_bits_at_ties``). The gates:
+    LossQ ``UPDATE_LOSS_RTOL`` relative, clipped gradients ``UPDATE_GRAD_RTOL``
+    of the group's largest raw gradient, params and targets
+    ``UPDATE_PARAM_ATOL`` where the gradient is resolved. The learner is left
+    as it was."""
+    snap = learner.state_dict()
+    groups = ("net",) if learner.mixer is None else ("net", "mixer")
+    names = [f"{g}.{k}" for g in groups for k, _ in getattr(learner, g).named_parameters()]
+    mods = groups + tuple(f"target_{g}" for g in groups)
+
+    def one_update(use_kernels):
+        learner.load_state_dict(snap)
+        with torch.enable_grad():
+            m = learner.backward(batch, use_kernels, noise)
+            raw = [p.grad.detach().clone() for p in learner.parameters()]
+            learner.apply_grads()
+        clipped = [p.grad.detach().clone() for p in learner.parameters()]
+        return float(m["LossQ"]), raw, clipped, learner.state_dict()
+
+    ties = {"bits": 0, "min_margin": float("inf")}
+    with same_bits_at_ties(ties) if noise is not None else contextlib.nullcontext():
+        ties["follow"] = False
+        before = counts()
+        kern = one_update(True)
+        launched = {k: v - before[k] for k, v in counts().items()}
+        ties["follow"] = True
+        plain_upd = one_update(False)
+    again = one_update(True)
+    learner.load_state_dict(snap)
+    print(f"  launches in one update: {launched}", flush=True)
+    if launched != per_update:
+        raise AssertionError(f"expected {per_update} launches per update, got {launched}")
+    if noise is not None:
+        samples = noise["pol"][..., 0].numel() + noise["targ"][..., 0].numel()
+        print(f"  DiscreteComm bits taken from the kernel path at roundoff ties: {ties['bits']} "
+              f"of {samples} (smallest Gumbel margin {ties['min_margin']:.2e}, tie bound "
+              f"{TIE})", flush=True)
+    loss_err = abs(kern[0] - plain_upd[0]) / abs(plain_upd[0])
+    scale = {g: max(r.abs().max().item() for n, r in zip(names, plain_upd[1])
+                    if n.startswith(g + ".")) for g in groups}
+    grad_err = max((k - q).abs().max().item() / scale[n.split(".")[0]]
+                   for n, k, q in zip(names, kern[2], plain_upd[2]))
+    resolved = {n: r.abs() > RESOLVED_RTOL * scale[n.split(".")[0]]
+                for n, r in zip(names, plain_upd[1])}
+    param_err, loose, loose_err, n_entries = 0.0, 0, 0.0, 0
+    for mod in mods:
+        for k, v in kern[3][mod].items():
+            name = f"{mod.replace('target_', '')}.{k}"
+            diff = (v - plain_upd[3][mod][k]).abs()
+            param_err = max(param_err, diff[resolved[name]].max().item()
+                            if resolved[name].any() else 0.0)
+            n_entries += diff.numel()
+            if not resolved[name].all():
+                loose += int((~resolved[name]).sum())
+                loose_err = max(loose_err, diff[~resolved[name]].max().item())
+    bitwise = kern[0] == again[0] and all(
+        torch.equal(a, b) for a, b in zip(kern[2] + kern[1], again[2] + again[1])) and all(
+        torch.equal(v, again[3][mod][k]) for mod in mods for k, v in kern[3][mod].items())
+    largest = ", ".join(f"{g} {scale[g]:.4g}" for g in groups)
+    print(f"  LossQ kernels {kern[0]:.6f}, plain {plain_upd[0]:.6f} (rel diff {loss_err:.2e},"
+          f" limit {UPDATE_LOSS_RTOL}); clipped grads max |diff| / largest raw gradient "
+          f"of the group {grad_err:.2e} (limit {UPDATE_GRAD_RTOL}; largest raw gradient "
+          f"{largest}); params and targets max |diff| {param_err:.2e} where the gradient "
+          f"is resolved (limit {UPDATE_PARAM_ATOL}); repeated kernel update bit-identical: "
+          f"{bitwise}", flush=True)
+    print(f"  {loose} of {n_entries} param and target entries have a raw gradient below "
+          f"{RESOLVED_RTOL} of their group's largest (roundoff level); there the two "
+          f"updates differ by up to {loose_err:.2e}", flush=True)
+    if not (math.isfinite(kern[0]) and loss_err <= UPDATE_LOSS_RTOL
+            and grad_err <= UPDATE_GRAD_RTOL and param_err <= UPDATE_PARAM_ATOL and bitwise):
+        raise AssertionError("the kernel update disagrees with the plain path or does "
+                             "not repeat bit for bit")
+
+
+def ms_per_update(learner, batch, use_kernels=True, noise=None, n=5):
+    """Wall ms of one update on ``batch`` (after one untimed), the learner
+    restored after."""
+    snap = learner.state_dict()
+    with torch.enable_grad():
+        learner.update_on_batch(batch, use_kernels, noise)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            learner.update_on_batch(batch, use_kernels, noise)
+        torch.cuda.synchronize()
+    learner.load_state_dict(snap)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
-    if not (ROOT / "uav_bs_ctrl_tpu_torch").is_dir() or not RUN_DIR.is_dir() \
-            or not DISC_DIR.is_dir():
-        print(f"chip_smoke: the uav_bs_ctrl_tpu_torch package, {RUN_DIR.relative_to(ROOT)} and "
-              f"{DISC_DIR.relative_to(ROOT)} must sit beside {Path(__file__).name}",
-              file=sys.stderr)
+    run_dirs = (RUN_DIR, DISC_DIR, DISC_QMIX_DIR, EXP2_DIR)
+    if not (ROOT / "uav_bs_ctrl_tpu_torch").is_dir() or not all(d.is_dir() for d in run_dirs):
+        print(f"chip_smoke: the uav_bs_ctrl_tpu_torch package and "
+              f"{', '.join(str(d.relative_to(ROOT)) for d in run_dirs)} must sit beside "
+              f"{Path(__file__).name}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     from uav_bs_ctrl_tpu_torch import run_fast, serve, train
     from uav_bs_ctrl_tpu_torch.algos import collect
+    from uav_bs_ctrl_tpu_torch.algos.madrqn import fused
     from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
     from uav_bs_ctrl_tpu_torch.config import make_args
     from uav_bs_ctrl_tpu_torch.utils import checkpoint
@@ -861,7 +974,7 @@ def main():
     run_config = json.loads((RUN_DIR / "config.json").read_text())
     columns, jax_rows = progress_rows(RUN_DIR)       # run_fast.py's columns, in its order
     scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_run_fast_"))
-    run_fast_launches = {}
+    phase_launches = {}
 
     def driven_launches(n_updates, policy_steps):
         want = {k: n_updates * v for k, v in per_update.items()}
@@ -883,13 +996,13 @@ def main():
                 logger_kwargs=dict(output_dir=str(fresh_dir), exp_name="chip_smoke_fresh"))
             torch.cuda.synchronize()
             fresh_s = time.perf_counter() - t0
-            run_fast_launches["fresh"] = counts()
+            phase_launches["fresh"] = counts()
         head, rows = progress_rows(fresh_dir)
         losses = [float(r["LossQ"]) for r in rows]
         print(f"  {fresh_s:.2f} s; rows (Epoch, TotalEnvInteracts, LossQ, AverageEpRet, "
               f"AverageTestEpRet): {[(r['Epoch'], r['TotalEnvInteracts'], r['LossQ'], r['AverageEpRet'], r['AverageTestEpRet']) for r in rows]}",
               flush=True)
-        print(f"  launches: {run_fast_launches['fresh']}", flush=True)
+        print(f"  launches: {phase_launches['fresh']}", flush=True)
         ckpts = sorted(p.name for p in fresh_dir.glob("checkpoint_epoch*.pt"))
         if head != columns or [r["Epoch"] for r in rows] != ["1", "2"] \
                 or [r["TotalEnvInteracts"] for r in rows] != ["2000", "4000"]:
@@ -905,8 +1018,8 @@ def main():
                                  f"{fresh.updates_per_iter}")
         # a warm-up, a test, the sub-iterations, a test
         want = driven_launches(fresh.updates_per_iter, (1 + 1 + fresh.interleave + 1) * T)
-        if run_fast_launches["fresh"] != want:
-            raise AssertionError(f"expected {want} launches, got {run_fast_launches['fresh']}")
+        if phase_launches["fresh"] != want:
+            raise AssertionError(f"expected {want} launches, got {phase_launches['fresh']}")
         del fresh
 
     with phase(f"run_fast: resume {RUN_DIR.name} from checkpoint_epoch200.pt for one 2000-step "
@@ -929,7 +1042,7 @@ def main():
                 resume=True)
             torch.cuda.synchronize()
             resume_s = time.perf_counter() - t0
-            run_fast_launches["resume"] = counts()
+            phase_launches["resume"] = counts()
         rl = resumed.learner
         step = rl.optimizer.state[rl.parameters()[0]]["step"].item()
         head, rows = progress_rows(resume_dir)
@@ -940,7 +1053,7 @@ def main():
               f"{rows[0]['AverageEpRet']}, AverageTestEpRet {rows[0]['AverageTestEpRet']} (the "
               f"JAX run's epoch 201, 30,000 steps: LossQ {jax_201['LossQ']}, AverageEpRet "
               f"{jax_201['AverageEpRet']})", flush=True)
-        print(f"  launches: {run_fast_launches['resume']}", flush=True)
+        print(f"  launches: {phase_launches['resume']}", flush=True)
         if (count0, step, rl.lr_scale, rl._epoch) != (119_600, 119_600 + resumed.updates_per_iter,
                                                        0.4, 201):
             raise AssertionError(f"AdamW step {count0} -> {step}, lr_scale {rl.lr_scale}, "
@@ -951,9 +1064,10 @@ def main():
             raise AssertionError(f"progress.txt: header {head}, rows {rows}")
         written = resume_dir / "checkpoint_epoch201.pt"
         args = make_args(run_config["args"], DEVICE)
-        env_info = dict(obs_shape=serve.OBS_SHAPE, n_actions=resumed.env_params.n_actions,
+        env_info = dict(obs_shape=fused.obs_shape(resumed.env_params, "gnn"),
+                        n_actions=resumed.env_params.n_actions,
                         n_agents=resumed.env_params.n_ubs, episode_limit=T,
-                        state_shape=2 * resumed.env_params.n_ubs + 4 * resumed.env_params.n_gts)
+                        state_shape=fused.state_shape(resumed.env_params))
         reloaded = MultiAgentQLearner(env_info, args, seed=1)
         stamp = reloaded.load_checkpoint(written)
         same = learner_bits_equal(rl, reloaded)
@@ -963,71 +1077,155 @@ def main():
             raise AssertionError(f"{written.name} does not hold the trainer's state")
         # two warm-ups, the sub-iterations, a test
         want = driven_launches(resumed.updates_per_iter, (2 + resumed.interleave + 1) * T)
-        if run_fast_launches["resume"] != want:
-            raise AssertionError(f"expected {want} launches, got {run_fast_launches['resume']}")
+        if phase_launches["resume"] != want:
+            raise AssertionError(f"expected {want} launches, got {phase_launches['resume']}")
         del resumed, reloaded
     shutil.rmtree(scratch)
 
     with phase("one update through the kernels against the plain path, then again bit for bit"):
         batch = trainer.sample_batch()
         snap = learner.state_dict()
-        names = [f"net.{k}" for k, _ in learner.net.named_parameters()] + \
-            [f"mixer.{k}" for k, _ in learner.mixer.named_parameters()]
+        check_update(learner, batch, per_update, counts)
 
-        def one_update(use_kernels):
-            learner.load_state_dict(snap)
+    def resumed_training(run_dir, per_update_of, label):
+        """``train.py``'s path on a committed run: resumed with its AdamW state,
+        two warm-ups and one iteration, then ``N_WORLDS`` test episodes; the
+        launches checked against ``per_update_of(T)`` per update and one
+        forward per policy step; then the update gates on a sampled batch.
+        Returns the trainer and the batch."""
+        print(f"  {card_line()}", flush=True)
+        with torch.enable_grad():
+            t0 = time.perf_counter()
+            tr = train.build_trainer(run_dir, DEVICE)
+            lr = tr.learner
+            reset_counts()
+            t1 = time.perf_counter()
+            for _ in range(train.N_WARMUPS):
+                tr.run_iteration(EPS, warmup=True)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            metrics = tr.run_iteration(EPS)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            test = tr.evaluate(N_WORLDS, eps=EPS)
+            launches = counts()
+        phase_launches[label] = launches
+        losses = tr.last_losses.tolist()
+        print(f"  {type(lr.net).__name__}, {tr.n_worlds} worlds, interleave {tr.interleave}, "
+              f"{tr.updates_per_iter} updates at B={lr.batch_size}, T={tr.T}; ring of "
+              f"{tr.capacity} chunks; lr {lr.lr} x {lr.lr_scale}; AdamW resumed at step "
+              f"{lr.optimizer.state[lr.parameters()[0]]['step'].item() - tr.updates_per_iter:.0f}",
+              flush=True)
+        print(f"  load {t1 - t0:.2f} s, {train.N_WARMUPS} warm-ups {t2 - t1:.2f} s, iteration "
+              f"{t3 - t2:.2f} s (eps {EPS})", flush=True)
+        print(f"  LossQ per update: {json.dumps([round(v, 4) for v in losses])}")
+        print(f"  iteration: {json.dumps(metrics)}")
+        print(f"  test episodes: {json.dumps({k: float(v.mean()) for k, v in test.items()})}")
+        print(f"  launches: {launches}", flush=True)
+        if len(losses) != tr.updates_per_iter or not all(np.isfinite(losses)):
+            raise AssertionError(f"expected {tr.updates_per_iter} finite LossQ values, "
+                                 f"got {losses}")
+        per_upd = per_update_of(tr.T)
+        policy_steps = (train.N_WARMUPS + tr.interleave + 1) * tr.T
+        want = {k: tr.updates_per_iter * v for k, v in per_upd.items()}
+        for k, n in (("flash_gat_fused", 2), ("tarmac_step", 1)):   # per policy step
+            if per_upd[k]:
+                want[k] += n * policy_steps
+        if launches != want:
+            raise AssertionError(f"expected {want} launches, got {launches}")
+        batch = tr.sample_batch()
+        noise = lr.draw_noise(batch)
+        check_update(lr, batch, per_upd, counts, noise)
+        ms = ms_per_update(lr, batch, True, noise, n=3)
+        print(f"  one update (kernels): {ms:.2f} ms, {1e3 / ms:.2f} updates/s; the iteration "
+              f"{t3 - t2:.2f} s", flush=True)
+        return tr, batch
+
+    with phase(f"train {DISC_QMIX_DIR.name}: resume with the AdamW state, {train.N_WARMUPS} "
+               f"warm-ups and one iteration; the update on the same Gumbel noise"):
+        disc_trainer, _ = resumed_training(
+            DISC_QMIX_DIR, lambda T: dict(dict.fromkeys(all_kernels, 0),
+                                          flash_gat_fused=2 * (2 * T + 1),
+                                          flash_gat_fused_bwd=2 * T), "disc_train")
+        del disc_trainer
+
+    with phase(f"train {EXP2_DIR.name} (the MLP encoder, TarMAC on r400): resume, "
+               f"{train.N_WARMUPS} warm-ups and one iteration"):
+        exp2_trainer, exp2_batch = resumed_training(
+            EXP2_DIR, lambda T: dict(dict.fromkeys(all_kernels, 0), tarmac_step=2 * T + 1,
+                                     tarmac_step_bwd=T), "exp2_train")
+        adj_share = exp2_batch["obs"]["adj"].float().mean().item()
+        print(f"  the talk graph's valid share in the sampled batch: {adj_share:.4f} "
+              f"(r_comm {exp2_trainer.env_params.r_comm:g} m)", flush=True)
+        if not adj_share < 1.0:
+            raise AssertionError("the sampled batch's talk graph is complete: the phase does "
+                                 "not exercise #4/#5 on missing edges")
+        del exp2_trainer, exp2_batch
+
+    with phase(f"run_fast: a fresh start of exp2 r400 DiscreteComm, one epoch of two "
+               f"iterations, {N_WORLDS} worlds, the second with updates"):
+        print(f"  {card_line()}", flush=True)
+        exp2_scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_exp2_"))
+        it_steps = N_WORLDS * torch_env.make_params("r400").episode_limit   # an iteration's
+        iteration_s = []
+        run_iteration = fused.FusedMadrqnTrainer.run_iteration
+
+        def timed_iteration(self, eps, warmup=False):
+            t0 = time.perf_counter()
+            out = run_iteration(self, eps, warmup)
+            torch.cuda.synchronize()
+            iteration_s.append((warmup, time.perf_counter() - t0))
+            return out
+
+        fused.FusedMadrqnTrainer.run_iteration = timed_iteration
+        try:
             with torch.enable_grad():
-                m = learner.backward(batch, use_kernels)
-                raw = [p.grad.detach().clone() for p in learner.parameters()]
-                learner.apply_grads()
-            clipped = [p.grad.detach().clone() for p in learner.parameters()]
-            return float(m["LossQ"]), raw, clipped, learner.state_dict()
-
-        before = counts()
-        kern = one_update(True)
-        launched = {k: v - before[k] for k, v in counts().items()}
-        plain_upd = one_update(False)
-        again = one_update(True)
-        learner.load_state_dict(snap)
-        print(f"  launches in one update: {launched}", flush=True)
-        if launched != per_update:
-            raise AssertionError(f"expected {per_update} launches per update, got {launched}")
-        loss_err = abs(kern[0] - plain_upd[0]) / abs(plain_upd[0])
-        scale = {g: max(r.abs().max().item() for n, r in zip(names, plain_upd[1])
-                        if n.startswith(g)) for g in ("net", "mixer")}
-        grad_err = max((k - q).abs().max().item() / scale[n.split(".")[0]]
-                       for n, k, q in zip(names, kern[2], plain_upd[2]))
-        resolved = {n: r.abs() > RESOLVED_RTOL * scale[n.split(".")[0]]
-                    for n, r in zip(names, plain_upd[1])}
-        param_err, loose, loose_err, n_entries = 0.0, 0, 0.0, 0
-        for mod in ("net", "mixer", "target_net", "target_mixer"):
-            for k, v in kern[3][mod].items():
-                name = f"{mod.replace('target_', '')}.{k}"
-                diff = (v - plain_upd[3][mod][k]).abs()
-                param_err = max(param_err, diff[resolved[name]].max().item()
-                                if resolved[name].any() else 0.0)
-                n_entries += diff.numel()
-                if not resolved[name].all():
-                    loose += int((~resolved[name]).sum())
-                    loose_err = max(loose_err, diff[~resolved[name]].max().item())
-        bitwise = kern[0] == again[0] and all(
-            torch.equal(a, b) for a, b in zip(kern[2] + kern[1], again[2] + again[1])) and all(
-            torch.equal(v, again[3][mod][k]) for mod in ("net", "mixer", "target_net",
-                                                         "target_mixer")
-            for k, v in kern[3][mod].items())
-        print(f"  LossQ kernels {kern[0]:.6f}, plain {plain_upd[0]:.6f} (rel diff {loss_err:.2e},"
-              f" limit {UPDATE_LOSS_RTOL}); clipped grads max |diff| / largest raw gradient "
-              f"of the group {grad_err:.2e} (limit {UPDATE_GRAD_RTOL}; largest raw gradient "
-              f"net {scale['net']:.4g}, mixer {scale['mixer']:.4g}); params and targets max "
-              f"|diff| {param_err:.2e} where the gradient is resolved (limit {UPDATE_PARAM_ATOL})"
-              f"; repeated kernel update bit-identical: {bitwise}", flush=True)
-        print(f"  {loose} of {n_entries} param and target entries have a raw gradient below "
-              f"{RESOLVED_RTOL} of their group's largest (roundoff level); there the two "
-              f"updates differ by up to {loose_err:.2e}", flush=True)
-        if not (loss_err <= UPDATE_LOSS_RTOL and grad_err <= UPDATE_GRAD_RTOL
-                and param_err <= UPDATE_PARAM_ATOL and bitwise):
-            raise AssertionError("the kernel update disagrees with the plain path or does "
-                                 "not repeat bit for bit")
+                reset_counts()
+                t0 = time.perf_counter()
+                exp2 = run_fast.train_fast(
+                    "exp2", "r400", seed=0, n_worlds=N_WORLDS,
+                    train_overrides=dict(c="disc", epochs=1, steps_per_epoch=2 * it_steps,
+                                         update_after=it_steps, save_freq=1, device=DEVICE),
+                    logger_kwargs=dict(output_dir=str(exp2_scratch / "run"),
+                                       exp_name="chip_smoke_exp2"))
+                torch.cuda.synchronize()
+                exp2_s = time.perf_counter() - t0
+                phase_launches["exp2_run_fast"] = counts()
+        finally:
+            fused.FusedMadrqnTrainer.run_iteration = run_iteration
+        head, rows = progress_rows(exp2_scratch / "run")
+        el = exp2.learner
+        n_taken = el.optimizer.state[el.parameters()[0]]["step"].item()
+        cols = ("Epoch", "TotalEnvInteracts", "LossQ", "AverageEpRet", "AverageTestEpRet")
+        print(f"  {exp2_s:.2f} s; {type(el.net).__name__} with DiscreteComm; iterations "
+              f"(warm-up, s): {[(w, round(t, 2)) for w, t in iteration_s]}; rows {cols}: "
+              f"{[tuple(r[c] for c in cols) for r in rows]}", flush=True)
+        print(f"  launches: {phase_launches['exp2_run_fast']} (the MLP encoder and "
+              f"DiscreteComm have no kernel)", flush=True)
+        if head != columns or [(r["Epoch"], r["TotalEnvInteracts"]) for r in rows] != \
+                [("1", str(2 * it_steps))] or not math.isfinite(float(rows[0]["LossQ"])):
+            raise AssertionError(f"progress.txt: header {head}, rows {rows}")
+        if n_taken != exp2.updates_per_iter or [w for w, _ in iteration_s] != [True, False]:
+            raise AssertionError(f"{n_taken} updates in iterations {iteration_s}")
+        reloaded = MultiAgentQLearner(
+            dict(obs_shape=fused.obs_shape(exp2.env_params, "mlp"),
+                 state_shape=fused.state_shape(exp2.env_params),
+                 n_actions=exp2.env_params.n_actions, n_agents=exp2.env_params.n_ubs,
+                 episode_limit=exp2.T), exp2.args, seed=1)
+        stamp = reloaded.load_checkpoint(exp2_scratch / "run" / "checkpoint_epoch1.pt")
+        same = learner_bits_equal(el, reloaded)
+        print(f"  checkpoint_epoch1.pt: stamp {stamp}; a fresh learner loading it holds the "
+              f"trainer's params and AdamW state bit for bit: {same}", flush=True)
+        if not same or stamp != {"epoch": 1, "t": 2 * it_steps}:
+            raise AssertionError("checkpoint_epoch1.pt does not hold the trainer's state")
+        batch2 = exp2.sample_batch()
+        ms = ms_per_update(el, batch2, True, el.draw_noise(batch2), n=3)
+        print(f"  one update: {ms:.2f} ms, {1e3 / ms:.2f} updates/s; the iteration with "
+              f"updates {iteration_s[1][1]:.2f} s", flush=True)
+        if any(phase_launches["exp2_run_fast"].values()):
+            raise AssertionError(f"a kernel launched: {phase_launches['exp2_run_fast']}")
+        del exp2, reloaded
+        shutil.rmtree(exp2_scratch)
 
     record = []
     with phase("times"):
@@ -1127,25 +1325,14 @@ def main():
                 "plain_ms": statistics.mean(r[1] for r in rows),
                 "bound_ms": statistics.mean(r[2] for r in rows),
                 "bound_by": rows[0][3], "library_ms": None,
-                "run_fast_launches": {k: v[name] for k, v in run_fast_launches.items()}})
+                "phase_launches": {k: v[name] for k, v in phase_launches.items()}})
             if name == "flash_gat":
                 record[-1]["cases"] = flash_cases
 
-        def ms_per_update(use_kernels, n=5):
-            learner.load_state_dict(snap)
-            with torch.enable_grad():
-                learner.update_on_batch(batch, use_kernels)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(n):
-                    learner.update_on_batch(batch, use_kernels)
-                torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3 / n
-
+        learner.load_state_dict(snap)
         upd = {True: [], False: []}
         for use_kernels in (False, True, True, False):
-            upd[use_kernels].append(ms_per_update(use_kernels))
-        learner.load_state_dict(snap)
+            upd[use_kernels].append(ms_per_update(learner, batch, use_kernels))
         edges = B * (2 * T + 1) * A * (trainer.env_params.n_gts + (A - 1) + A)
         for use_kernels, label in ((True, "kernels"), (False, "plain path")):
             ms = statistics.mean(upd[use_kernels])

@@ -1,7 +1,10 @@
 """The port's batched torch env against ``uav_bs_ctrl_tpu.envs.jax_env``.
 
 Same layouts (both packages' NumPy layout pools, which must agree), the same
-GT priority permutation, then 10 steps of the same random actions. Floats
+GT priority permutation, then 10 steps of the same random actions, on the
+debug map, exp3's 4- and 8-UBS maps and exp2's ``inf`` and ``r400`` HotSpot
+maps (4 UBSs, 4 GTs, one RB; ``r400``'s finite talk radius leaves edges out
+of the talk graph). Floats
 match to 1e-5; bools and integers exactly, with one exception: XLA's CPU
 ``exp``/``arctan`` and PyTorch's differ in the last bit, so two GTs whose
 average rates tie exactly in one package can differ by an ulp in the other and
@@ -56,7 +59,7 @@ def _assert_obs_equal(got: dict, want: dict):
     np.testing.assert_array_equal(got["adj"].numpy(), np.asarray(want["adj"]))
 
 
-@pytest.mark.parametrize("map_id", ["debug", "4ubs", "8ubs"])
+@pytest.mark.parametrize("map_id", ["debug", "4ubs", "8ubs", "inf", "r400"])
 def test_torch_env_matches_jax_env(map_id):
     pool_t = collect.make_layout_pool(map_id, N_WORLDS, seed=7)
     pool_j = jcollect.make_layout_pool(map_id, N_WORLDS, seed=7)
@@ -67,8 +70,13 @@ def test_torch_env_matches_jax_env(map_id):
     tp = torch_env.make_params(map_id)
     # Random hotspot layouts rarely put a UBS within r_cov of a GT; start each
     # UBS near a different GT so that the scheduler serves, interferes and
-    # reorders priorities from the first step.
-    pool_t = (pool_t[1][:, ::max(1, jp.n_gts // jp.n_ubs)][:, :jp.n_ubs] + 20.0, pool_t[1])
+    # reorders priorities from the first step. Under a finite r_comm (exp2's
+    # r400) half the UBSs keep their layout positions, so that the talk graph
+    # has missing edges.
+    near = pool_t[1][:, ::max(1, jp.n_gts // jp.n_ubs)][:, :jp.n_ubs] + 20.0
+    if np.isfinite(jp.r_comm):
+        near[:, jp.n_ubs // 2:] = pool_t[0][:, jp.n_ubs // 2:]
+    pool_t = (near, pool_t[1])
     keys = jax.random.split(jax.random.PRNGKey(3), N_WORLDS)
     prior = np.stack([np.asarray(jax.random.permutation(k, jp.n_gts)) for k in keys])
     js = jax.vmap(lambda u, g, k: jax_env.reset_from_positions(jp, u, g, k))(
@@ -80,6 +88,7 @@ def test_torch_env_matches_jax_env(map_id):
 
     rng = np.random.default_rng(11)
     jstep = jax.jit(jax.vmap(lambda s, a: jax_env.step(jp, s, a)))
+    missing_edges = 0
     for _ in range(N_STEPS):
         acts = rng.integers(0, jp.n_actions, size=(N_WORLDS, jp.n_ubs))
         js, jobs, _, jrew, jdone = jstep(js, jnp.asarray(acts, jnp.int32))
@@ -89,4 +98,6 @@ def test_torch_env_matches_jax_env(map_id):
         ts = ts._replace(prior_gts=torch.from_numpy(np.asarray(js.prior_gts, np.int64)))
         np.testing.assert_allclose(trew.numpy(), np.asarray(jrew), **TOL)
         np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
+        missing_edges += int((~tobs["adj"]).sum())
     assert float(ts.total_throughput.sum()) > 0.0      # the schedule served someone
+    assert (missing_edges > 0) == bool(np.isfinite(jp.r_comm))

@@ -162,10 +162,11 @@ def test_params_from_jax_uses_every_leaf_and_fills_every_parameter():
 
 
 def test_config_accepts_jax_backend_names_but_not_unported_ones():
-    """Serving takes every GATv2 backend ('pallas': the flash_gat kernel) and
-    every comm protocol; training rejects 'pallas' as JAX does (no gradient)
-    and, for now, any protocol but one-round TarMAC; the MLP encoder is not
-    ported."""
+    """Serving and training take both encoders and every comm protocol,
+    serving every GATv2 backend ('pallas': the flash_gat kernel); training
+    rejects 'pallas' as JAX does (no gradient); bf16 compute and the
+    'hoisted'/'merged' BPTT schedules are not ported (ROADMAP.md Queue 1
+    item 5)."""
     for gat in ("dense", "pallas", "pallas_fused", "pallas_fused_mxu", "graph_parallel"):
         make_args(_agent_args(False, gat_backend=gat, step_backend="pallas"), device="cpu")
     for c in (None, "base", "disc", "commnet", "tarmac", "econv"):
@@ -175,13 +176,17 @@ def test_config_accepts_jax_backend_names_but_not_unported_ones():
     with pytest.raises(ValueError, match="no custom VJP"):
         MultiAgentQLearner(env_info, make_args(_agent_args(False, gat_backend="pallas"),
                                                device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiAgentQLearner(env_info, make_args(dict(_agent_args(False), c="disc"), device="cpu"))
+    for o, c in (("gnn", "disc"), ("gnn", None), ("mlp", None), ("mlp", "econv")):
+        info = dict(env_info, obs_shape=OBS_SHAPE if o == "gnn" else 31)
+        MultiAgentQLearner(info, make_args(dict(_agent_args(False), o=o, c=c), device="cpu"))
     with pytest.raises(ValueError):
         make_args(_agent_args(False, gat_backend="flash"), device="cpu")
     with pytest.raises(ValueError, match="requires c='tarmac'"):
         make_args(dict(_agent_args(False), c="disc", step_backend="pallas"), device="cpu")
     with pytest.raises(KeyError):
         make_args(dict(_agent_args(False), c="gossip"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_args(dict(_agent_args(False), o="mlp"), device="cpu")
+    for unported in (dict(compute_dtype="bfloat16"), dict(bptt_encoder="hoisted")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+            make_args(dict(_agent_args(False), **unported), device="cpu")
+    with pytest.raises(ValueError, match="o must be"):
+        make_args(dict(_agent_args(False), o="cnn"), device="cpu")

@@ -17,9 +17,15 @@ the JAX package's ``run_fast.py``.
   resumes to the full budget, as ``tests/test_retry.py`` holds ``run_fast.py``.
 - ``run_fast`` imports and runs where jax, optax, pandas, matplotlib and
   cloudpickle are missing; options the port does not run raise ``ValueError``
-  naming their ROADMAP.md Queue 1 item.
+  naming their ROADMAP.md Queue 1 item; the CLI runs exp2, the exp3 MLP
+  ablation and every protocol, and its defaults are JAX's.
+- exp2 and exp3 DiscreteComm on both packages' real trainers at a tiny width,
+  and a port-written exp2 DiscreteComm checkpoint resumed by the JAX learner,
+  whose next update matches the port's.
 """
 
+import ast
+import functools
 import json
 import math
 import os
@@ -28,10 +34,16 @@ import sys
 from pathlib import Path
 from types import SimpleNamespace as SN
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import run_fast as jax_run_fast
+from test_torch_update import TOL, _check_first_update, _jax_first_update
+from test_torch_update_protocols import _jax_noise
+from uav_bs_ctrl_tpu.algos.common import check_args_sanity as jax_check_args
+from uav_bs_ctrl_tpu.algos.madrqn.learner import MultiAgentQLearner as JaxLearner
 from uav_bs_ctrl_tpu.algos.core import RecurrentQLearner as JaxCore
 from uav_bs_ctrl_tpu.algos.madrqn.config import DEFAULT_CONFIG as JAX_DEFAULTS
 from uav_bs_ctrl_tpu.utils.logx import EpochLogger as JaxLogger
@@ -39,7 +51,8 @@ from uav_bs_ctrl_tpu.utils.run_utils import setup_logger_kwargs as jax_setup_log
 from uav_bs_ctrl_tpu_torch import run_fast
 from uav_bs_ctrl_tpu_torch.algos.core import RecurrentQLearner as PortCore
 from uav_bs_ctrl_tpu_torch.algos.madrqn import fused
-from uav_bs_ctrl_tpu_torch.config import DEFAULT_CONFIG
+from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
+from uav_bs_ctrl_tpu_torch.config import DEFAULT_CONFIG, make_args
 from uav_bs_ctrl_tpu_torch.utils.logx import EpochLogger as PortLogger
 from uav_bs_ctrl_tpu_torch.utils.run_utils import setup_logger_kwargs
 
@@ -115,6 +128,10 @@ SHAPES = {
                                                       decay_steps=1000, update_after=320)),
     "past-the-lr-and-eps-floors": (16, 50, 800, 104, 110, dict(save_freq=25, decay_steps=20000,
                                                               update_after=1600)),
+    # exp2 (run as exp2 on r400): 40-step episodes, 12 iterations an epoch of
+    # 20,000 steps, 37 iterations in 3 epochs; the preset saves every 10.
+    "exp2-disc-preset": (40, 40, 20000, 3, 5, dict(c="disc", mixer=False)),
+    "exp2-iql-qmix": (8, 40, 960, 4, 7, dict(c=None, save_freq=2, update_after=1600)),
 }
 
 
@@ -132,9 +149,10 @@ def _drive(monkeypatch, tmp_path, package, shape):
                         trainer)
     assert module.EpochLogger is logger_cls
     out = tmp_path / package
-    overrides = dict(c="tarmac", mixer=True, steps_per_epoch=spe, **extra)
+    overrides = {**dict(c="tarmac", mixer=True, steps_per_epoch=spe), **extra}
+    exp, map_id = ("exp2", "r400") if shape.startswith("exp2") else ("exp3", "8ubs")
     for epochs_now, resume in ((epochs, False), (resumed, True)):
-        module.train_fast("exp3", "8ubs", train_overrides=dict(overrides, epochs=epochs_now),
+        module.train_fast(exp, map_id, train_overrides=dict(overrides, epochs=epochs_now),
                           logger_kwargs=dict(output_dir=str(out), exp_name=shape),
                           n_worlds=n_worlds, resume=resume, interleave=2)
     monkeypatch.undo()
@@ -227,6 +245,77 @@ def test_train_fast_writes_what_jax_train_fast_writes(tmp_path):
     assert config["args"]["device"] == "cpu" and config["exp_name"] == "tiny"
 
 
+# (exp, map, protocol, QMIX): exp2's MLP-encoder agents on r400 (RnnAgent for
+# iql) and exp3's 4-UBS DiscreteComm+QMIX run
+PROTOCOL_RUNS = [("exp2", "r400", "disc", False), ("exp2", "r400", None, True),
+                 ("exp2", "r400", "tarmac", False), ("exp3", "4ubs", "disc", True)]
+
+
+def _tiny_protocol_run(train_fast, out, exp, map_id, c, mixer):
+    """2 worlds, two iterations an epoch, two epochs; the first iteration is
+    warm-up (B x T steps), every later one takes 2 updates at B = 2."""
+    T = 40 if exp == "exp2" else 50
+    overrides = dict(TINY, c=c, mixer=mixer, epochs=2, steps_per_epoch=4 * T,
+                     update_after=2 * T)
+    trainer = train_fast(exp, map_id, seed=0, train_overrides=overrides,
+                         logger_kwargs=dict(output_dir=str(out), exp_name="tiny"), n_worlds=2,
+                         n_layouts=4)
+    head, rows = _table(out / "progress.txt")
+    return trainer, (head, [(r["Epoch"], r["TotalEnvInteracts"], math.isnan(float(r["LossQ"])))
+                            for r in rows],
+                     sorted(p.name for p in out.glob("checkpoint_epoch*.pt")))
+
+
+@pytest.mark.parametrize("exp,map_id,c,mixer", PROTOCOL_RUNS)
+def test_train_fast_of_every_protocol_writes_what_jax_writes(tmp_path, exp, map_id, c, mixer):
+    """exp2 and the exp3 DiscreteComm run at a tiny width on both packages'
+    real trainers: the same header, epochs, steps and checkpoints, finite
+    LossQ from the first iteration past warm-up, and the config the JAX
+    driver writes."""
+    trainer, got = _tiny_protocol_run(run_fast.train_fast, tmp_path / "port", exp, map_id, c,
+                                      mixer)
+    _, want = _tiny_protocol_run(jax_run_fast.train_fast, tmp_path / "jax", exp, map_id, c,
+                                 mixer)
+    assert got == want
+    T = trainer.T
+    assert got[1] == [("1", str(4 * T), False), ("2", str(8 * T), False)]
+    assert type(trainer.learner.net).__name__ == ("RnnAgent" if c is None else "GnnAgent")
+    assert trainer.replay["obs"].keys() == ({"agent", "adj"} if exp == "exp2"
+                                            else {"agent", "gt", "ubs", "adj"})
+    assert trainer.learner.optimizer.state[trainer.learner.parameters()[0]]["step"] == 6
+    for name in ("port", "jax"):
+        config = json.loads((tmp_path / name / "config.json").read_text())
+        assert (config["exp"], config["map_id"], config["args"]["o"], config["args"]["c"]) == \
+            (exp, map_id, "mlp" if exp == "exp2" else "gnn", c)
+
+
+def test_jax_learner_resumes_a_port_exp2_disc_checkpoint_and_takes_the_same_update(tmp_path):
+    """The port's exp2 DiscreteComm run (MLP encoder, 6 updates) writes its
+    epoch-2 checkpoint; the JAX learner loads it (AdamW count 6) and its next
+    update, on a batch from the port's ring and JAX's Gumbel noise of the
+    update's key, matches the port's from the same file, under
+    ``test_torch_update.py``'s rules."""
+    trainer, _ = _tiny_protocol_run(run_fast.train_fast, tmp_path, "exp2", "r400", "disc", False)
+    config = json.loads((tmp_path / "config.json").read_text())
+    tp = trainer.env_params
+    env_info = dict(obs_shape=fused.obs_shape(tp, "mlp"), state_shape=fused.state_shape(tp),
+                    n_actions=tp.n_actions, n_agents=tp.n_ubs, episode_limit=tp.episode_limit)
+    kw = dict(config["args"], max_seq_len=None)
+    jl = JaxLearner(env_info, jax_check_args(SN(**{**JAX_DEFAULTS, **kw})))
+    stamp = jl.load_checkpoint(str(tmp_path / "checkpoint_epoch2.pt"))
+    assert (int(stamp["epoch"]), int(stamp["t"])) == (2, 8 * tp.episode_limit)
+    assert int(jl.opt_state.inner_state[0].count) == 6
+    port = MultiAgentQLearner(env_info, make_args(kw, device="cpu"), seed=3)
+    port.load_checkpoint(tmp_path / "checkpoint_epoch2.pt")
+    batch = {k: v.numpy() if not isinstance(v, dict) else {kk: vv.numpy() for kk, vv in v.items()}
+             for k, v in trainer.sample_batch().items()}
+    noise = _jax_noise(jax.random.PRNGKey(0), port.net.noise_shape((2,), tp.n_ubs),
+                       tp.episode_limit)
+    port.update_on_batch = functools.partial(port.update_on_batch, noise=noise)
+    want = _jax_first_update(jl, jax.tree_util.tree_map(jnp.asarray, batch))
+    _check_first_update(port, want, batch, True, TOL, scaled=True)
+
+
 CLI = ["--exp", "exp3", "--map", "debug", "--c", "tarmac", "--mixer", "--seed", "0",
        "--epochs", "2", "--steps-per-epoch", "160", "--replay-size", "8", "--n-worlds", "2",
        "--n-layouts", "4", "--device", "cpu", "--save-freq", "1"]
@@ -300,14 +389,66 @@ def test_run_fast_runs_where_jax_optax_pandas_are_missing(tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     (["--exp", "exp1"], "item 7"),
-    (["--exp", "exp2"], "item 6"),
-    (["--o", "mlp"], "item 6"),
     (["--compute-dtype", "bfloat16"], "item 5"),
-    (["--c", "disc"], "item 6"),
-    (["--c", "none"], "item 6"),
+    (["--exp", "exp2", "--c", "disc", "--compute-dtype", "bfloat16"], "item 5"),
 ])
 def test_options_the_port_does_not_run_raise_naming_their_queue_item(tmp_path, extra, item):
     argv = ["--exp", "exp3", "--c", "tarmac", "--device", "cpu", "--data-dir", str(tmp_path)]
     with pytest.raises(ValueError, match=item):
         run_fast.main(argv + extra)
     assert not list(tmp_path.iterdir())
+
+
+# exp2 (the MLP encoder), the exp3 MLP ablation, and exp3 with DiscreteComm
+# and without comm.
+@pytest.mark.parametrize("extra,run", [
+    (["--exp", "exp2", "--c", "tarmac"], "exp2_fast_r400_tarmac"),
+    (["--exp", "exp3", "--c", "tarmac", "--o", "mlp"], "exp3_fast_4ubs_tarmac_mlp"),
+    (["--exp", "exp3", "--c", "disc", "--mixer"], "exp3_fast_4ubs_disc_qmix"),
+    (["--exp", "exp3", "--c", "none"], "exp3_fast_4ubs_iql"),
+])
+def test_cli_runs_exp2_the_mlp_ablation_and_every_protocol(tmp_path, extra, run):
+    """One epoch of one all-warm-up iteration (2 worlds) at full width on the
+    CPU: the run's directory, ``config.json``, ``progress.txt`` and the
+    checkpoint the JAX learner reads."""
+    T = 40 if "exp2" in extra else 50
+    run_fast.main(extra + ["--device", "cpu", "--data-dir", str(tmp_path), "--epochs", "1",
+                           "--steps-per-epoch", str(2 * T), "--n-worlds", "2",
+                           "--n-layouts", "4", "--replay-size", "8", "--save-freq", "1"])
+    run_dir = tmp_path / run / f"{run}_s0"
+    _, rows = _table(run_dir / "progress.txt")
+    assert [(r["Epoch"], r["TotalEnvInteracts"], r["LossQ"]) for r in rows] == \
+        [("1", str(2 * T), "nan")]
+    assert sorted(p.name for p in run_dir.glob("*.pt")) == ["checkpoint_epoch1.pt"]
+    args = json.loads((run_dir / "config.json").read_text())["args"]
+    assert args["o"] == ("mlp" if "exp2" in extra or "mlp" in extra else "gnn")
+    assert args["c"] == (None if "none" in extra else extra[extra.index("--c") + 1])
+
+
+def _jax_cli_defaults(exp):
+    """``run_fast.py``'s ``--exp`` default and its map for ``exp``, read from
+    its source (the parser lives under ``__main__``)."""
+    tree = ast.parse((ROOT / "run_fast.py").read_text())
+    default_exp = map_expr = None
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument" \
+                and node.args and getattr(node.args[0], "value", None) == "--exp":
+            default_exp = next(k.value.value for k in node.keywords if k.arg == "default")
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", "") == "map_id":
+            map_expr = ast.Expression(node.value)
+    cli = SN(map_id=None, exp=exp or default_exp)
+    return cli.exp, eval(compile(map_expr, "run_fast.py", "eval"), {"cli": cli})
+
+
+@pytest.mark.parametrize("exp", [None, "exp2", "exp3"])
+def test_cli_defaults_equal_jax_run_fast(monkeypatch, tmp_path, exp):
+    """No ``--exp`` trains exp2; the map defaults to r400 for exp2 and 4ubs
+    otherwise, as ``run_fast.py:283`` and ``:346``."""
+    seen = []
+    monkeypatch.setattr(run_fast, "train_fast", lambda exp, map_id, **kw: seen.append(
+        (exp, map_id, kw["logger_kwargs"]["exp_name"])))
+    run_fast.main(([] if exp is None else ["--exp", exp]) + ["--device", "cpu", "--data-dir",
+                                                             str(tmp_path)])
+    want_exp, want_map = _jax_cli_defaults(exp)
+    assert seen == [(want_exp, want_map, f"{want_exp}_fast_{want_map}_iql")]
+    assert seen[0][:2] == (("exp2", "r400") if exp in (None, "exp2") else ("exp3", "4ubs"))

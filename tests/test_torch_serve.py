@@ -1,9 +1,11 @@
 """Serving the committed exp3 checkpoints: the 8-UBS TarMAC run (hidden 256, 4
 heads of 64, msg 64, key 16) through the fused GATv2 kernels and through
 'pallas' (``flash_gat``), and the 4-UBS DiscreteComm run (msg 64, no mixer)
-fed JAX's own Gumbel noise; the port against JAX at full width, tolerance
-1e-4. Also the serving entry point with JAX, optax, pandas and matplotlib
-absent, and no import of them anywhere in the port or in ``chip_smoke.py``.
+fed JAX's own Gumbel noise; and the committed exp2 runs (the MLP encoder on
+the flat observation: the iql ``RnnAgent``, DiscreteComm and TarMAC); the
+port against JAX at full width, tolerance 1e-4. Also the serving entry point
+with JAX, optax, pandas and matplotlib absent, and no import of them anywhere
+in the port or in ``chip_smoke.py``.
 """
 
 import ast
@@ -14,6 +16,7 @@ from pathlib import Path
 from types import SimpleNamespace as SN
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -22,7 +25,9 @@ import jax.numpy as jnp
 from uav_bs_ctrl_tpu.algos.madrqn.config import DEFAULT_CONFIG as JAX_DEFAULTS
 from uav_bs_ctrl_tpu.envs import jax_env
 from uav_bs_ctrl_tpu.models.agents import GnnAgent as JaxGnnAgent
+from uav_bs_ctrl_tpu.models.agents import build_agent as jax_build_agent
 from uav_bs_ctrl_tpu_torch import serve
+from uav_bs_ctrl_tpu_torch.algos import collect
 from uav_bs_ctrl_tpu_torch.envs import torch_env
 from uav_bs_ctrl_tpu_torch.utils import checkpoint
 
@@ -30,6 +35,8 @@ ROOT = Path(__file__).resolve().parents[1]
 RUN_DIR = (ROOT / "data" / "exp3_fast_8ubs_tarmac_qmix_il10_lay64k"
            / "exp3_fast_8ubs_tarmac_qmix_il10_lay64k_s0")
 DISC_DIR = ROOT / "data" / "exp3_fast_4ubs_disc_lay64k" / "exp3_fast_4ubs_disc_lay64k_s0"
+EXP2_DIRS = {c: ROOT / "data" / f"exp2_fast_r400_{c}" / f"exp2_fast_r400_{c}_s0"
+             for c in ("iql_qmix", "disc", "tarmac")}
 TOL = dict(atol=1e-4, rtol=1e-4)
 FORBIDDEN = {"jax", "jaxlib", "optax", "orbax", "flax", "pandas", "matplotlib",
              "cloudpickle", "uav_bs_ctrl_tpu"}
@@ -205,3 +212,77 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+@pytest.mark.parametrize("run", sorted(EXP2_DIRS))
+def test_exp2_checkpoint_teacher_forced_rollout_matches_jax(run):
+    """A committed exp2 r400 run (hidden 256, two MLP layers over the flat
+    observation of width 31), three greedy steps of both envs from the same
+    layouts: the JAX agent on ``fused.py:_agent_apply``'s flat observation
+    (DiscreteComm with a fresh key a step, the port with its noise), the
+    port's served policy on the env's obs, through the kernels (the fused
+    TarMAC step's plain version on the CPU) and the unfused path."""
+    run_dir = EXP2_DIRS[run]
+    config = json.loads((run_dir / "config.json").read_text())
+    jp = jax_env.make_params("r400")
+    jagent = jax_build_agent(31, jp.n_actions, SN(**{**JAX_DEFAULTS, **config["args"]}))
+    params = checkpoint.load(serve.latest_checkpoint(run_dir))["model_state_dict"]
+    agent, _ = serve.load_policy(run_dir, device="cpu")
+    assert type(agent).__name__ == type(jagent).__name__
+    policy = collect.make_policy(agent, "mlp")
+    tp = torch_env.make_params("r400")
+    ubs, gts, keys, prior = _worlds(jp, seed=4, map_id="r400")
+    js = jax.vmap(lambda u, g, k: jax_env.reset_from_positions(jp, u, g, k))(
+        jnp.asarray(ubs), jnp.asarray(gts), keys)
+    ts = torch_env.reset_from_positions(tp, torch.from_numpy(ubs), torch.from_numpy(gts),
+                                        torch.from_numpy(prior))
+
+    def flat(obs):
+        lead = obs["agent"].shape[:-1]
+        return {"agent": jnp.concatenate([obs["agent"], obs["gt"].reshape(lead + (-1,)),
+                                          obs["ubs"].reshape(lead + (-1,))], -1),
+                "adj": obs["adj"]}
+    japply = jax.jit(jagent.apply)
+    jstep = jax.jit(jax.vmap(lambda s, a: jax_env.step(jp, s, a)))
+    jh, th = jnp.zeros((2, jp.n_ubs, 256)), torch.zeros((2, jp.n_ubs, 256))
+    key = jax.random.PRNGKey(4)
+    with torch.no_grad():
+        for _ in range(3):
+            key, k_pol = jax.random.split(key)
+            jq, jh_next = japply(params, flat(jax.vmap(lambda s: jax_env.get_obs(jp, s))(js)),
+                                 jh, k_pol)
+            noise = torch.from_numpy(np.array(jax.random.gumbel(
+                k_pol, (2, jp.n_ubs, jp.n_ubs, 64, 2), jnp.float32)))
+            obs = torch_env.get_obs(tp, ts)
+            for use_kernels in (True, False):
+                tq, th_next = policy(obs, th, use_kernels, noise)
+                np.testing.assert_allclose(tq.numpy(), np.asarray(jq), **TOL)
+                np.testing.assert_allclose(th_next.numpy(), np.asarray(jh_next), **TOL)
+            jh, th = jh_next, th_next
+            acts = np.array(jnp.argmax(jq, axis=-1))
+            js, _, _, jrew, _ = jstep(js, jnp.asarray(acts))
+            ts, _, trew, _ = torch_env.step(tp, ts, torch.from_numpy(acts))
+            np.testing.assert_allclose(trew.numpy(), np.asarray(jrew), **TOL)
+            ts = ts._replace(prior_gts=torch.from_numpy(np.asarray(js.prior_gts, np.int64)))
+
+
+def test_exp2_runs_are_served_where_jax_optax_pandas_are_missing():
+    """``serve`` on the committed exp2 iql+QMIX (``RnnAgent``) and TarMAC runs,
+    in a subprocess with every module the GPU machine lacks blocked."""
+    blocked = sorted(FORBIDDEN | {"jaxlib"})
+    code = (
+        "import sys, runpy\n"
+        f"for name in {blocked!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for run_dir in ({str(EXP2_DIRS['iql_qmix'])!r}, {str(EXP2_DIRS['tarmac'])!r}):\n"
+        "    sys.argv = ['serve', '--run-dir', run_dir, '--episodes', '3', '--device', 'cpu']\n"
+        "    runpy.run_module('uav_bs_ctrl_tpu_torch.serve', run_name='__main__')\n"
+        f"assert not any(sys.modules.get(n) for n in {blocked!r})\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    for line in out.stdout.strip().splitlines()[-2:]:
+        stats = json.loads(line)
+        assert set(stats) == {"TestEpRet", "TestFairIdx", "TestAvgGlobalUtility",
+                              "TestTotalThroughput", "TestProbCollision"}
+        assert all(np.isfinite(v) for v in stats.values())

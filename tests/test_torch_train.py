@@ -228,6 +228,50 @@ def test_fused_trainer_runs_and_moves_the_ring_as_jax():
     assert all(v.shape == (3,) and np.isfinite(v).all() for v in stats.values())
 
 
+@pytest.mark.parametrize("c,mixer", [(None, True), ("disc", False)])
+def test_mlp_fused_trainer_fills_the_ring_with_the_flat_obs_as_jax(c, mixer):
+    """``o='mlp'`` on exp2's r400 map (the ``RnnAgent`` under QMIX, and
+    DiscreteComm): the ring holds the flat observation and the talk graph at
+    JAX's shapes, and an iteration updates the net."""
+    kw = dict(device="cpu", o="mlp", c=c, hidden_size=16, msg_size=8, n_layers=2,
+              batch_size=2, mixer=mixer, double_q=True)
+    sizes = dict(n_worlds=2, capacity_chunks=4, updates_per_iter=2, n_layouts=4, seed=0)
+    port, ref = FusedMadrqnTrainer("r400", kw, **sizes), JaxTrainer("r400", kw, **sizes)
+    p0 = {k: v.clone() for k, v in port.learner.net.state_dict().items()}
+    for warmup in (True, False):
+        mp = port.run_iteration(eps=0.5, warmup=warmup)
+        ref.run_iteration(eps=0.5, warmup=warmup)
+        assert all(np.isfinite(v) for v in mp.values())
+    assert set(port.replay["obs"]) == set(ref.replay["obs"]) == {"agent", "adj"}
+    for key in ("agent", "adj"):
+        assert tuple(port.replay["obs"][key].shape) == ref.replay["obs"][key].shape
+    assert port.replay["obs"]["agent"].shape[-1] == 2 + 4 * 5 + 3 * 3
+    assert tuple(port.replay["state"].shape) == ref.replay["state"].shape
+    assert type(port.learner.net).__name__ == type(ref.learner.agent).__name__
+    assert any(not torch.equal(p0[k], v) for k, v in port.learner.net.state_dict().items())
+
+
+@pytest.mark.parametrize("run", ["exp2_fast_r400_disc/exp2_fast_r400_disc_s0",
+                                 "exp3_fast_4ubs_disc_qmix_lay64k/"
+                                 "exp3_fast_4ubs_disc_qmix_lay64k_s0"])
+def test_build_trainer_resumes_exp2_and_exp3_disc_runs(tmp_path, run):
+    """``build_trainer`` on a committed exp2 run and the exp3 4-UBS
+    DiscreteComm+QMIX run, with the run's ``config.json`` saying
+    ``"interleave": null`` (taken as 1, as a missing key is: the committed
+    ``exp2_fast_r400_tarmac_s0`` has none): the run's agent, and a tiny
+    iteration."""
+    src = ROOT / "data" / run
+    config = json.loads((src / "config.json").read_text())
+    (tmp_path / "config.json").write_text(json.dumps(dict(config, interleave=None)))
+    ckpt = max(src.glob("checkpoint_epoch*.pt"), key=lambda p: int(p.stem[16:]))
+    os.symlink(ckpt, tmp_path / ckpt.name)
+    trainer = train.build_trainer(tmp_path, "cpu", n_layouts=4, **train.TINY)
+    assert trainer.interleave == 1 and trainer.args.o == config["args"]["o"]
+    assert trainer.learner.net.noise_shape((1,), 4) is not None      # DiscreteComm
+    out = train.train(trainer, 1, 0.05, 2)
+    assert {"LossQ", "EpRet", "TestEpRet"} <= set(out) and all(np.isfinite(list(out.values())))
+
+
 def test_train_entry_point_runs_where_jax_optax_pandas_are_missing():
     """``train --device cpu`` with the modules the GPU machine lacks blocked:
     one tiny iteration from the committed checkpoint at full width."""

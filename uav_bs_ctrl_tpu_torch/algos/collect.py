@@ -43,6 +43,27 @@ def reset_worlds(params, pool, generator, n_worlds, device):
                                           pool_gts[idx].to(device), prior.to(device))
 
 
+def flatten_obs(obs):
+    """The MLP encoder's observation from the env's: ``{"agent": [..., A, 2 +
+    5M + 3(N-1)], "adj"}``, each agent's own position, GT rows and UBS rows
+    laid end to end (JAX ``fused.py:_agent_apply``)."""
+    lead = tuple(obs["agent"].shape[:-1])
+    flat = torch.cat([obs["agent"], obs["gt"].reshape(lead + (-1,)),
+                      obs["ubs"].reshape(lead + (-1,))], -1)
+    return {"agent": flat, "adj": obs["adj"]}
+
+
+def make_policy(net, o):
+    """``net`` as a rollout policy on the env's obs: as it is for ``o='gnn'``,
+    on :func:`flatten_obs` of the obs for ``o='mlp'``."""
+    if o == "gnn":
+        return net
+
+    def policy(obs, h, use_kernels=True, key=None):
+        return net(flatten_obs(obs), h, use_kernels, key)
+    return policy
+
+
 class StepKey:
     """One env step's policy key: ``int(key)`` draws a seed from the rollout's
     generator the first time and returns the same seed after."""

@@ -22,6 +22,14 @@ With ``use_kernels`` (the default) every GATv2 and recurrent step goes through
 the kernels' autograd Functions, forward and backward; ``False`` takes the
 unfused module path, the reference the kernel path is held against.
 
+Each step of both unrolls gets its own key, as JAX's ``_loss_fn`` splits one
+a step: when the agent reads one (DiscreteComm's Gumbel noise; the agent's
+``noise_shape``), an update draws the noise of every step of both unrolls on
+the learner's device from the learner's own generator, seeded with its seed,
+and an agent that reads no key leaves the generator untouched. ``backward``
+and ``update_on_batch`` also take that noise, so that two paths (or the two
+packages) can be given the same draws.
+
 :meth:`load_checkpoint` resumes a JAX checkpoint as the JAX package's does:
 params, mixer, LR scale and the AdamW state. The optax chain's
 ``ScaleByAdamState(count, mu, nu)`` comes out of the numpy-only unpickler's
@@ -38,6 +46,7 @@ import torch
 
 from uav_bs_ctrl_tpu_torch.algos.buffer import SequenceReplayBuffer, tree_map
 from uav_bs_ctrl_tpu_torch.config import check_training_args
+from uav_bs_ctrl_tpu_torch.models.modules import gumbel_draw
 from uav_bs_ctrl_tpu_torch.utils import checkpoint as ckpt_io
 from uav_bs_ctrl_tpu_torch.utils.convert import learner_params_from_jax, learner_params_to_jax
 
@@ -48,9 +57,10 @@ BETAS, ADAM_EPS, WEIGHT_DECAY = (0.9, 0.999), 1e-8, 0.01
 class RecurrentQLearner:
     """Shared core for the recurrent Q-learners (MADRQN with mixer/double-Q)."""
 
-    def __init__(self, env_info, args, agent, mixer=None):
+    def __init__(self, env_info, args, agent, mixer=None, seed=0):
         check_training_args(args)
         self.device = args.device
+        self.noise_generator = torch.Generator(device=self.device).manual_seed(seed)
         self.max_seq_len = (args.max_seq_len if args.max_seq_len is not None
                             else env_info["episode_limit"])
         self.gamma = args.gamma
@@ -71,6 +81,7 @@ class RecurrentQLearner:
         self.lr_scale = 1.0
         self._epoch = 0
         self.optimizer = self._make_optimizer()
+        self._update_lr = np.float32(self.lr)   # the last update's, as optax's state holds it
 
     def _make_optimizer(self):
         return torch.optim.AdamW(self.parameters(), lr=self.lr, betas=BETAS, eps=ADAM_EPS,
@@ -106,23 +117,37 @@ class RecurrentQLearner:
     # ------------------------------------------------------------------ #
     # Update
 
-    def _unroll(self, net, obs, h, t0, n_steps, use_kernels):
+    def _unroll(self, net, obs, h, t0, n_steps, use_kernels, noise):
         qs = []
-        for t in range(t0, t0 + n_steps):
-            q, h = net({k: v[:, t] for k, v in obs.items()}, h, use_kernels)
+        for i, t in enumerate(range(t0, t0 + n_steps)):
+            key = None if noise is None else noise[i]
+            q, h = net({k: v[:, t] for k, v in obs.items()}, h, use_kernels, key)
             qs.append(q)
         return qs
 
-    def _loss(self, batch, use_kernels):
+    def draw_noise(self, batch):
+        """The per-step noise of one update on ``batch``: ``{"pol": [T+1, ...],
+        "targ": [T, ...]}`` drawn from the learner's generator, or None (and
+        nothing drawn) when the agent reads no key."""
+        b, _, a = batch["h"].shape[:3]
+        shape = self.net.noise_shape((b,), a)
+        if shape is None:
+            return None
+        T = self.max_seq_len
+        return {name: gumbel_draw((n,) + shape, self.noise_generator, self.device)
+                for name, n in (("pol", T + 1), ("targ", T))}
+
+    def _loss(self, batch, use_kernels, noise):
         """``(loss, qvals)`` for a batch-major batch (leaves [B, T(+1), ...])."""
         T = self.max_seq_len
         obs = batch["obs"]
+        pol_noise, targ_noise = (None, None) if noise is None else (noise["pol"], noise["targ"])
         # The policy's step T feeds only the detached double-Q argmax, so
         # autograd never reaches it: T backward steps, not T+1.
-        q_pol = self._unroll(self.net, obs, batch["h"][:, 0], 0, T + 1, use_kernels)
+        q_pol = self._unroll(self.net, obs, batch["h"][:, 0], 0, T + 1, use_kernels, pol_noise)
         with torch.no_grad():
-            target_out = torch.stack(
-                self._unroll(self.target_net, obs, batch["h"][:, 1], 1, T, use_kernels), 1)
+            target_out = torch.stack(self._unroll(self.target_net, obs, batch["h"][:, 1], 1, T,
+                                                  use_kernels, targ_noise), 1)
         acts = batch["act"].long()[..., None]                          # [B, T, A, 1]
         qvals = torch.stack(q_pol[:T], 1).gather(-1, acts)[..., 0]     # [B, T, A]
         if self.double_q:
@@ -139,17 +164,20 @@ class RecurrentQLearner:
         loss = torch.mean(torch.square(qvals - target_q.broadcast_to(qvals.shape)))
         return loss, qvals
 
-    def update_on_batch(self, batch, use_kernels=True):
+    def update_on_batch(self, batch, use_kernels=True, noise=None):
         """One update from a batch on the device; returns ``{LossQ, QVals}`` as
-        0-d tensors (no host sync). The clipped gradients stay in ``.grad``."""
-        metrics = self.backward(batch, use_kernels)
+        0-d tensors (no host sync). The clipped gradients stay in ``.grad``.
+        ``noise`` is :meth:`draw_noise`'s, drawn here when not given."""
+        metrics = self.backward(batch, use_kernels, noise)
         self.apply_grads()
         return metrics
 
-    def backward(self, batch, use_kernels=True):
+    def backward(self, batch, use_kernels=True, noise=None):
         """The loss and its raw gradients in ``.grad`` (no clip, no step)."""
+        if noise is None:
+            noise = self.draw_noise(batch)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, qvals = self._loss(batch, use_kernels)
+        loss, qvals = self._loss(batch, use_kernels, noise)
         loss.backward()
         return dict(LossQ=loss.detach(), QVals=qvals.detach().mean())
 
@@ -164,6 +192,7 @@ class RecurrentQLearner:
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr * self.lr_scale
         self.optimizer.step()
+        self._update_lr = np.float32(self.lr) * np.float32(self.lr_scale)  # f32, as JAX
         with torch.no_grad():
             for t, p in zip(self.target_parameters(), params):
                 t.mul_(self.polyak).add_(p, alpha=1.0 - self.polyak)
@@ -192,7 +221,8 @@ class RecurrentQLearner:
             modules.update(mixer=self.mixer, target_mixer=self.target_mixer)
         state = {k: m.state_dict() for k, m in modules.items()}
         state.update(optimizer=self.optimizer.state_dict(), lr_scale=self.lr_scale,
-                     epoch=self._epoch)
+                     epoch=self._epoch, update_lr=self._update_lr,
+                     noise_generator=self.noise_generator.get_state())
         return copy.deepcopy(state)
 
     def load_state_dict(self, state: dict):
@@ -202,6 +232,8 @@ class RecurrentQLearner:
                 getattr(self, name).load_state_dict(state[name])
         self.optimizer.load_state_dict(state["optimizer"])
         self.lr_scale, self._epoch = state["lr_scale"], state["epoch"]
+        self._update_lr = state["update_lr"]
+        self.noise_generator.set_state(state["noise_generator"])
 
     def load_params(self, tree):
         """Net (and mixer) from a JAX learner tree ``{"net": ..., "mixer": ...}``;
@@ -213,6 +245,7 @@ class RecurrentQLearner:
             self.mixer.load_state_dict(loaded["mixer"])
             self.target_mixer.load_state_dict(loaded["mixer"])
         self.optimizer = self._make_optimizer()
+        self._update_lr = np.float32(self.lr)
 
     def load_adam_state(self, count, mu, nu):
         """AdamW's state from optax's ``ScaleByAdamState``: ``mu``/``nu`` trees
@@ -237,7 +270,8 @@ class RecurrentQLearner:
         """optax's ``inject_hyperparams(adamw)`` state from AdamW's, the inverse
         of :meth:`load_adam_state`: one ``count`` (int32) in both places, ``mu``
         and ``nu`` trees keyed as the params, the hyperparams as float32 0-d
-        arrays with the learning rate of the next update."""
+        arrays with the learning rate of the last update (optax writes it into
+        its state at each update; a fresh or loaded state holds its own)."""
         state = self.optimizer.state
         steps = {float(state[p]["step"]) if p in state else 0.0 for p in self.parameters()}
         if len(steps) != 1:
@@ -249,7 +283,7 @@ class RecurrentQLearner:
         group = self.optimizer.param_groups[0]
         (b1, b2), f32 = group["betas"], lambda x: np.asarray(x, np.float32)
         hyperparams = dict(b1=f32(b1), b2=f32(b2), eps=f32(group["eps"]), eps_root=f32(0.0),
-                           learning_rate=f32(self.lr) * f32(self.lr_scale),  # f32, as JAX
+                           learning_rate=f32(self._update_lr),
                            weight_decay=f32(group["weight_decay"]))
         adam = ckpt_io.ScaleByAdamState(count, moment("exp_avg"), moment("exp_avg_sq"))
         return ckpt_io.InjectStatefulHyperparamsState(
@@ -281,6 +315,9 @@ class RecurrentQLearner:
         self.load_params(tree)
         adam = ckpt_io.find_state(ckpt["optimizer_state_dict"], "ScaleByAdamState")
         self.load_adam_state(*adam.args)
+        inject = ckpt_io.find_state(ckpt["optimizer_state_dict"],
+                                    "InjectStatefulHyperparamsState")
+        self._update_lr = np.float32(inject.args[1]["learning_rate"])
         if self.anneal_lr and "lr_scheduler_state_dict" in ckpt:
             self._epoch = int(ckpt["lr_scheduler_state_dict"]["epoch"])
             self.lr_scale = float(ckpt["lr_scheduler_state_dict"]["lr_scale"])

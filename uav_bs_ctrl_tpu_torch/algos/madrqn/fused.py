@@ -9,6 +9,10 @@ indices) moved to the device, so a seed gives the same run on the CPU and on
 the card. The JAX trainer's ``mesh`` (data-parallel sharding) is not ported
 (ROADMAP.md Queue 1).
 
+Under ``o='mlp'`` the policy and the ring see the flat observation
+``[agent | gt | ubs]`` per agent (and the talk graph), as the JAX trainer's
+``_agent_apply`` and ``_collect`` flatten it; the ring is sized from it.
+
 Memory: the ring holds ``capacity_chunks`` episodes; at exp3 8-UBS that is
 about 0.5 MB per chunk, 2.5 GB at 5000 chunks.
 """
@@ -22,6 +26,22 @@ from uav_bs_ctrl_tpu_torch.algos.buffer import tree_leaves, tree_map
 from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
 from uav_bs_ctrl_tpu_torch.config import DEFAULT_CONFIG, check_args_sanity
 from uav_bs_ctrl_tpu_torch.envs import torch_env
+
+
+def obs_shape(env_params, o):
+    """The agent's obs shape on the env's fair-service observations: per-slot
+    feature widths for the GNN encoder (the flag column of a GT or UBS row is
+    its mask), the flat width ``2 + M (1 + 4) + (N - 1)(1 + 2)`` for the MLP
+    one (JAX ``fused.py:69-73``)."""
+    if o == "gnn":
+        return dict(agent=2, gt=4, ubs=2)
+    return 2 + env_params.n_gts * 5 + (env_params.n_ubs - 1) * 3
+
+
+def state_shape(env_params):
+    """The global state's width: UBS positions, and per GT position, rate and
+    average rate (JAX ``fused.py:74-75``)."""
+    return env_params.n_ubs * 2 + env_params.n_gts * 4
 
 
 class FusedMadrqnTrainer:
@@ -48,11 +68,12 @@ class FusedMadrqnTrainer:
             raise ValueError("interleave must divide n_worlds and updates_per_iter")
         self.interleave = interleave
 
-        n_ubs, n_gts = self.env_params.n_ubs, self.env_params.n_gts
-        env_info = dict(                   # the env's fair-service observations and state
-            obs_shape=dict(agent=2, gt=4, ubs=2), state_shape=n_ubs * 2 + n_gts * 4,
-            n_actions=self.env_params.n_actions, n_agents=n_ubs, episode_limit=self.T)
+        env_info = dict(obs_shape=obs_shape(self.env_params, args.o),
+                        state_shape=state_shape(self.env_params),
+                        n_actions=self.env_params.n_actions, n_agents=self.env_params.n_ubs,
+                        episode_limit=self.T)
         self.learner = MultiAgentQLearner(env_info, args, seed=seed)
+        self.policy = collect.make_policy(self.learner.net, args.o)
 
         self.pool = collect.make_layout_pool(map_id, n_layouts, seed=seed)
         self.test_pool = collect.make_layout_pool(map_id, n_layouts, seed=seed + 10_000)
@@ -70,8 +91,10 @@ class FusedMadrqnTrainer:
                                       self.device)
         h0 = torch.zeros((n_worlds, self.env_params.n_ubs, self.args.hidden_size),
                          device=self.device)
-        chunk, _, stats = collect.collect_chunk(self.env_params, self.learner.net, states, h0,
+        chunk, _, stats = collect.collect_chunk(self.env_params, self.policy, states, h0,
                                                 self.T, self.generator, eps)
+        if self.args.o == "mlp":
+            chunk["obs"] = collect.flatten_obs(chunk["obs"])
         if self.learner.share_reward:
             chunk["rew"] = chunk["rew"].mean(-1, keepdim=True)
         return chunk, stats
@@ -100,7 +123,7 @@ class FusedMadrqnTrainer:
     @torch.no_grad()
     def evaluate(self, n_episodes=8, eps=0.05):
         """Test episodes on held-out layouts (the reference's test_agent)."""
-        stats = collect.evaluate_policy(self.env_params, self.learner.net, self.test_pool,
+        stats = collect.evaluate_policy(self.env_params, self.policy, self.test_pool,
                                         self.args.hidden_size, self.generator, n_episodes,
                                         self.device, eps)
         return {k: v.cpu().numpy() for k, v in stats.items()}

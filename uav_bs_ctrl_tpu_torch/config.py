@@ -6,8 +6,10 @@ reads, serving and training; a run's saved ``config.json`` args are laid over
 them. JAX backend names are accepted: ``gat_backend='pallas'`` maps to the
 ``flash_gat`` kernel (inference only, as in JAX), every other GATv2 backend
 to the projection-fused kernels, and either step backend of one-round TarMAC
-to the fused step. Serving takes every comm protocol (or none) at any number
-of rounds; training (:func:`check_training_args`) takes one-round TarMAC.
+to the fused step. Both observation encoders ('gnn', 'mlp') and every comm
+protocol (or none) at any number of rounds are served and trained;
+:func:`check_training_args` adds the JAX package's rule that training needs a
+differentiable GATv2 backend.
 """
 
 from types import SimpleNamespace
@@ -23,6 +25,7 @@ DEFAULT_CONFIG = {
     'c': None,             # comm protocol (models/comm.py), or None for a GRU only
     'share_reward': False,
     'hidden_size': 64,
+    'n_layers': 1,         # MLP encoder depth (o='mlp')
     'n_heads': 4,
     'msg_size': 64,
     'key_size': 16,
@@ -71,10 +74,8 @@ def check_args_sanity(args):
     args.device = resolve_device(args.device)
     if getattr(args, 'mixer', False) and not getattr(args, 'share_reward', False):
         args.share_reward = True        # QMIX mixes one scalar team reward
-    if args.o != 'gnn':
-        raise NotImplementedError(
-            f"o={args.o!r}: the port runs the GNN observation encoder only; the MLP "
-            "encoder and RnnAgent are still to be ported (ROADMAP.md Queue 1)")
+    if args.o not in ('gnn', 'mlp'):
+        raise ValueError(f"o must be 'gnn' or 'mlp', got {args.o!r}")
     if args.c is not None and args.c not in COMM_PROTOCOLS:
         raise KeyError(f"Unsupported communication scheme {args.c!r}; one of "
                        f"{COMM_PROTOCOLS} or None")
@@ -103,11 +104,11 @@ def check_args_sanity(args):
     if args.compute_dtype != 'float32':
         raise NotImplementedError(f"compute_dtype={args.compute_dtype!r}: the port runs "
                                   "float32 only; bf16 compute is still to be ported "
-                                  "(ROADMAP.md Queue 1)")
+                                  "(ROADMAP.md Queue 1 item 5)")
     if getattr(args, 'bptt_encoder', 'per_step') != 'per_step':
         raise NotImplementedError(f"bptt_encoder={args.bptt_encoder!r}: the port runs the "
                                   "'per_step' schedule only; 'hoisted' and 'merged' are "
-                                  "still to be ported (ROADMAP.md Queue 1)")
+                                  "still to be ported (ROADMAP.md Queue 1 item 5)")
     return args
 
 
@@ -124,16 +125,11 @@ def set_matmul_precision(mm_prec):
 
 
 def check_training_args(args):
-    """What the trainer and learner take beyond :func:`check_args_sanity`:
-    a differentiable GATv2 backend (the JAX package's rule) and, for now,
-    one-round TarMAC."""
+    """What the trainer and learner take beyond :func:`check_args_sanity`: a
+    differentiable GATv2 backend (the JAX package's rule)."""
     if args.gat_backend == 'pallas':
         raise ValueError(
             "gat_backend='pallas' (unfused flash_gat) is inference/benchmark only — it has "
             "no custom VJP.  Use 'pallas_fused' or 'pallas_fused_mxu' for training, or call "
             "models.encoders.gatv2(..., backend='pallas') directly.")
-    if args.c != 'tarmac' or args.n_rounds != 1:
-        raise NotImplementedError(
-            f"the port trains the GNN agent with one-round TarMAC only; got c={args.c!r}, "
-            f"n_rounds={args.n_rounds} (ROADMAP.md Queue 1)")
     return args

@@ -1,11 +1,17 @@
-"""Recurrent GNN agent (counterpart of ``models/agents.py:GnnAgent``).
+"""Recurrent agents (counterpart of ``models/agents.py``).
 
-hetero-GATv2 encoder -> comm protocol on the talk graph (or a GRU cell when
-``c`` is None) -> (dueling) Q head. ``encode`` is the h-independent
-observation encoding, ``step`` the recurrent part, and calling the module
-(``forward``) is ``step . encode``, the JAX ``apply``; ``key`` (a
-seed or the noise tensor) reaches the comm, where only DiscreteComm draws
-from it.
+- ``RnnAgent``: MLP(obs) -> GRU cell -> (dueling) Q head, the agent of
+  ``o='mlp'`` without comm.
+- ``GnnAgent``: encoder (the hetero-GATv2 ``GraphObservationEncoder`` for a
+  dict obs shape, the MLP ``DenseObservationEncoder`` for an int one) -> comm
+  protocol on the talk graph (or a GRU cell when ``c`` is None) -> (dueling)
+  Q head.
+
+``build_agent`` picks between them by the JAX package's rule. ``encode`` is
+the h-independent observation encoding, ``step`` the recurrent part, and
+calling the module (``forward``) is ``step . encode``, the JAX ``apply``;
+``key`` (a seed or the noise tensor) reaches the comm, where only
+DiscreteComm draws from it; ``noise_shape`` says what one step draws.
 
 With ``use_kernels`` (the default) the encoder goes through the kernel of its
 ``gat_backend`` (``flash_gat`` for 'pallas', else ``flash_gat_fused_train``)
@@ -20,31 +26,62 @@ unfused module path, whose autograd is the independent reference.
 import torch
 from torch import nn
 
-from uav_bs_ctrl_tpu_torch.models.comm import make_comm
-from uav_bs_ctrl_tpu_torch.models.encoders import GraphObservationEncoder
+from uav_bs_ctrl_tpu_torch.models.comm import DiscreteComm, make_comm
+from uav_bs_ctrl_tpu_torch.models.encoders import (DenseObservationEncoder,
+                                                   GraphObservationEncoder)
 from uav_bs_ctrl_tpu_torch.models.heads import DuelingLayer
 from uav_bs_ctrl_tpu_torch.models.modules import GRUCell, Linear
 from uav_bs_ctrl_tpu_torch.ops.step_kernels import tarmac_step_train
 
 
-class GnnAgent(nn.Module):
-    def __init__(self, obs_shape: dict, n_actions, args):
+def _head(hidden, n_actions, dueling):
+    return DuelingLayer(hidden, n_actions) if dueling else Linear(hidden, n_actions)
+
+
+class RnnAgent(nn.Module):
+    """MLP encoder -> GRU -> (dueling) Q head, used when the obs is flat and
+    there is no comm. It has no kernel and reads no key."""
+
+    def __init__(self, obs_shape: int, n_actions, args):
         super().__init__()
-        if not isinstance(obs_shape, dict):
-            raise NotImplementedError("the dense MLP observation encoder is still "
-                                      "to be ported (ROADMAP.md Queue 1)")
+        self.hidden = args.hidden_size
+        self.enc = DenseObservationEncoder(obs_shape, args.hidden_size, args.n_layers)
+        self.rnn = GRUCell(args.hidden_size, args.hidden_size)
+        self.f_out = _head(args.hidden_size, n_actions, bool(args.dueling))
+
+    def encode(self, obs, use_kernels=True):
+        return self.enc(obs)
+
+    def step(self, x, adj, h, use_kernels=True, key=None):
+        h = self.rnn(x, h)
+        return self.f_out(h), h
+
+    def forward(self, obs, h, use_kernels=True, key=None):
+        return self.step(self.encode(obs), None, h)
+
+    def noise_shape(self, lead, n_agents):
+        return None
+
+
+class GnnAgent(nn.Module):
+    def __init__(self, obs_shape, n_actions, args):
+        super().__init__()
         self.hidden = args.hidden_size
         self.key_size = args.key_size
         self.dueling = bool(args.dueling)
-        self.enc = GraphObservationEncoder(obs_shape, args.hidden_size, args.n_heads,
-                                           args.gat_backend)
+        if isinstance(obs_shape, int):
+            self.enc = DenseObservationEncoder(obs_shape, args.hidden_size, args.n_layers)
+        elif isinstance(obs_shape, dict):
+            self.enc = GraphObservationEncoder(obs_shape, args.hidden_size, args.n_heads,
+                                               args.gat_backend)
+        else:
+            raise TypeError(f"Unsupported obs_shape {obs_shape!r}")
         if args.c is None:
             self.rnn = GRUCell(args.hidden_size, args.hidden_size)
             self.f_comm = None
         else:
             self.f_comm = make_comm(args)
-        self.f_out = (DuelingLayer(args.hidden_size, n_actions) if self.dueling
-                      else Linear(args.hidden_size, n_actions))
+        self.f_out = _head(args.hidden_size, n_actions, self.dueling)
         self.fused_step = args.c == "tarmac" and args.n_rounds == 1
 
     def encode(self, obs, use_kernels=True):
@@ -58,6 +95,14 @@ class GnnAgent(nn.Module):
 
     def forward(self, obs, h, use_kernels=True, key=None):
         return self.step(self.encode(obs, use_kernels), obs.get("adj"), h, use_kernels, key)
+
+    def noise_shape(self, lead, n_agents):
+        """The shape of the Gumbel noise one step reads for ``lead`` batch dims
+        of ``n_agents`` agents (one draw per edge and bit), or None when the
+        step reads no key: only DiscreteComm samples."""
+        if not isinstance(self.f_comm, DiscreteComm):
+            return None
+        return tuple(lead) + (n_agents, n_agents, self.f_comm.msg_size, 2)
 
     def _step_fused(self, x, adj, h):
         """Flatten [..., A, H] rows world-major, run one fused step, restore the shape."""
@@ -79,3 +124,14 @@ class GnnAgent(nn.Module):
             c.f_udt.wi, c.f_udt.wh, c.f_udt.bi, c.f_udt.bh,
             wo, bo, wvh, bvh, a, self.key_size, self.dueling)
         return q.reshape(lead + (a, -1)), h_new.reshape(lead + (a, hidden))
+
+
+def build_agent(obs_shape, n_actions, args):
+    """The madrqn agent rule (reference ``algos/madrqn/learner.py:62-67``):
+    ``RnnAgent`` iff ``o == 'mlp'`` and ``c`` is None, else ``GnnAgent``."""
+    if args.o == "mlp" and args.c is None:
+        return RnnAgent(obs_shape, n_actions, args)
+    return GnnAgent(obs_shape, n_actions, args)
+
+
+REGISTRY = {"rnn": RnnAgent, "gnn": GnnAgent}

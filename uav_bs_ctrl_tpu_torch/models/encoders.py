@@ -1,4 +1,5 @@
-"""Heterograph GATv2 observation encoder (counterpart of ``models/encoders.py``).
+"""Observation encoders (counterpart of ``models/encoders.py``): the
+heterograph GATv2 encoder and the dense MLP encoder over the flat observation.
 
 Each agent owns fixed-size neighbourhood slot arrays (``[..., A, M, d]``
 features plus a ``[..., A, M]`` visibility mask), exactly the env's obs layout.
@@ -15,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from uav_bs_ctrl_tpu_torch.models.modules import Linear
+from uav_bs_ctrl_tpu_torch.models.modules import MLP, Linear
 from uav_bs_ctrl_tpu_torch.ops.gat_kernels import flash_gat, flash_gat_fused_train
 from uav_bs_ctrl_tpu_torch.ops.masked import masked_softmax
 
@@ -104,3 +105,13 @@ class GraphObservationEncoder(nn.Module):
         x_gt = self.seen(gt[..., 1:], obs["agent"], gt[..., 0] > 0, use_kernels)
         x_ubs = self.near(ubs[..., 1:], obs["agent"], ubs[..., 0] > 0, use_kernels)
         return torch.relu(self.aggr(torch.cat([x_gt, x_ubs], dim=-1)))
+
+
+class DenseObservationEncoder(MLP):
+    """MLP on the agent's flat features ``obs["agent"]`` [..., A, d]
+    (reference D1). Its parameters are the MLP's, ``layers.i.{w, b}``, as the
+    JAX tree ``{"layers": [...]}``; there is no kernel, so ``use_kernels``
+    changes nothing."""
+
+    def forward(self, obs, use_kernels=True):
+        return super().forward(obs["agent"])

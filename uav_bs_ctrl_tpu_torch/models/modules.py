@@ -77,7 +77,12 @@ def gumbel_noise(shape, seed, device):
     generator of that device seeded with ``seed`` (the card's Philox stream
     differs from the CPU's Mersenne Twister, so one seed gives other noise on
     each), whatever the process's default dtype."""
-    generator = torch.Generator(device=device).manual_seed(seed)
+    return gumbel_draw(shape, torch.Generator(device=device).manual_seed(seed), device)
+
+
+def gumbel_draw(shape, generator, device):
+    """Float32 Gumbel(0, 1) noise of ``shape`` on ``device`` from ``generator``
+    (a generator of that device), advancing it."""
     draw = torch.empty(shape, dtype=torch.float32, device=device).exponential_(
         generator=generator)
     return -draw.clamp_min(torch.finfo(draw.dtype).tiny).log()

@@ -1,9 +1,15 @@
-r"""Train a policy at full budget: the exp3 path of the JAX package's ``run_fast.py``.
+r"""Train a policy at full budget: the exp2 and exp3 paths of the JAX package's
+``run_fast.py``.
 
-The flagship 8-UBS TarMAC+QMIX configuration on one card:
-
+    python -m uav_bs_ctrl_tpu_torch.run_fast --exp exp2 --map r400 --c disc \
+        [--mixer] [--resume] [--retries N] [--device cpu]
     python -m uav_bs_ctrl_tpu_torch.run_fast --exp exp3 --map 8ubs --c tarmac --mixer \
-        --interleave 10 [--resume] [--retries N] [--device cpu]
+        --interleave 10 [--o mlp]
+
+``--exp`` defaults to exp2 and ``--map`` to r400 for exp2, 4ubs otherwise, as
+in JAX. exp2 runs the MLP encoder (``o='mlp'``; without a protocol the
+``RnnAgent``), exp3 the GNN encoder; ``--o`` overrides it; ``--c`` takes
+every protocol (``none`` for independent Q-learning).
 
 Each iteration runs the fused trainer (``algos/madrqn/fused.py``: on-device
 collection, the device replay ring, ``n_worlds`` updates in ``interleave``
@@ -16,9 +22,8 @@ those of ``run_fast.py:train_fast``; runs go to ``data_torch/`` by default.
 Runs on ``cuda`` unless ``--device cpu`` is given.
 
 What the port does not run yet raises ``ValueError`` naming the ROADMAP.md
-Queue 1 item it waits for: ``--exp exp1`` (item 7), ``--exp exp2`` and
-``--o mlp`` (item 6), ``--compute-dtype bfloat16`` (item 5) and any protocol
-but one-round TarMAC (item 6).
+Queue 1 item it waits for: ``--exp exp1`` (item 7) and ``--compute-dtype
+bfloat16`` (item 5).
 """
 
 import argparse
@@ -36,8 +41,13 @@ from uav_bs_ctrl_tpu_torch.utils.run_utils import setup_logger_kwargs
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 
-# The reference grid's exp3 hyperparameters (run_exp3.py), as run_fast.py's.
+# The reference grid's hyperparameters (run_exp2.py, run_exp3.py), as run_fast.py's.
 EXP_PRESETS = {
+    "exp2": dict(o="mlp", hidden_size=256, n_layers=2, msg_size=64,
+                 lr=2.5e-4, polyak=0.999, decay_steps=int(5e4),
+                 replay_size=int(5e3), max_seq_len=None,
+                 epochs=100, steps_per_epoch=20000, update_after=10000,
+                 norm_r=True, anneal_lr=True, double_q=True, dueling=False),
     "exp3": dict(o="gnn", hidden_size=256, n_layers=2, msg_size=64,
                  lr=2.5e-4, polyak=0.999, decay_steps=int(2e5),
                  replay_size=int(5e3), max_seq_len=None,
@@ -54,19 +64,10 @@ def check_supported(exp, kw):
     if exp == "exp1":
         raise ValueError("--exp exp1 (the single-UBS DRQN slice) waits for ROADMAP.md "
                          "Queue 1 item 7")
-    if exp == "exp2":
-        raise ValueError("--exp exp2 (the MLP encoder and RnnAgent) waits for ROADMAP.md "
-                         "Queue 1 item 6")
     if exp not in EXP_PRESETS:
         raise ValueError(f"--exp must be one of exp1, exp2, exp3, got {exp!r}")
-    if kw.get("o") == "mlp":
-        raise ValueError("--o mlp (the MLP encoder) waits for ROADMAP.md Queue 1 item 6")
     if kw.get("compute_dtype", "float32") == "bfloat16":
         raise ValueError("--compute-dtype bfloat16 waits for ROADMAP.md Queue 1 item 5")
-    if kw.get("c") != "tarmac" or kw.get("n_rounds", 1) != 1:
-        raise ValueError(f"training c={kw.get('c')!r} with n_rounds={kw.get('n_rounds', 1)}: "
-                         "the port trains one-round TarMAC only; other protocols wait "
-                         "for ROADMAP.md Queue 1 item 6")
 
 
 def epsilon(t, decay_steps):
@@ -227,9 +228,11 @@ def train_fast(exp, map_id, seed=0, train_overrides=None, logger_kwargs=None,
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--exp", choices=("exp1", "exp2", "exp3"), default="exp3")
-    parser.add_argument("--map", dest="map_id", default=None, help="default 4ubs")
-    parser.add_argument("--c", default=None, help="comm protocol (the port trains tarmac)")
+    parser.add_argument("--exp", choices=("exp1", "exp2", "exp3"), default="exp2")
+    parser.add_argument("--map", dest="map_id", default=None,
+                        help="default r400 for exp2, 4ubs otherwise")
+    parser.add_argument("--c", default=None,
+                        help="comm protocol (none|base|disc|commnet|tarmac|econv)")
     parser.add_argument("--o", dest="obs_enc", default=None,
                         help="override observation encoder (mlp|gnn)")
     parser.add_argument("--mixer", action="store_true")
@@ -258,7 +261,7 @@ def main(argv=None):
                         help="on crash, relaunch with --resume up to N times")
     cli = parser.parse_args(argv)
 
-    map_id = cli.map_id or "4ubs"
+    map_id = cli.map_id or ("r400" if cli.exp == "exp2" else "4ubs")
     c = None if cli.c in (None, "none") else cli.c
     overrides = dict(c=c, mixer=cli.mixer, compute_dtype=cli.compute_dtype,
                      matmul_precision=cli.matmul_precision)

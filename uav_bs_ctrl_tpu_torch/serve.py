@@ -6,8 +6,11 @@ The port's counterpart of the load-and-evaluate step in ``test_policies.py`` /
     python -m uav_bs_ctrl_tpu_torch.serve --run-dir <run dir> --episodes 40 \
         [--gat-backend pallas]
 
-Any GNN agent the port has (every comm protocol, or a GRU only) loads from
-its ``config.json``. ``--gat-backend`` overrides the run's GATv2 backend (the
+Any agent the port has loads from its ``config.json``, as the JAX learner
+builds it (``build_agent``): the GNN agent with every comm protocol or a GRU
+only, the MLP-encoder agent of exp2 and of the exp3 MLP ablation (with a
+protocol), and ``RnnAgent`` (``o='mlp'`` without one), which play on the flat
+observation. ``--gat-backend`` overrides the run's GATv2 backend (the
 JAX package reaches its ``flash_gat`` kernel only through ``gat_backend``):
 ``pallas`` runs ``flash_gat``, every other backend the projection-fused
 kernels. Runs on ``cuda`` unless ``--device cpu`` is given; the GATv2
@@ -23,17 +26,15 @@ from pathlib import Path
 import torch
 
 from uav_bs_ctrl_tpu_torch.algos import collect
-from uav_bs_ctrl_tpu_torch.config import make_args
+from uav_bs_ctrl_tpu_torch.algos.madrqn.fused import obs_shape
+from uav_bs_ctrl_tpu_torch.config import DEFAULT_CONFIG, make_args
 from uav_bs_ctrl_tpu_torch.envs import torch_env
-from uav_bs_ctrl_tpu_torch.models.agents import GnnAgent
+from uav_bs_ctrl_tpu_torch.models.agents import build_agent
 from uav_bs_ctrl_tpu_torch.utils import checkpoint
 from uav_bs_ctrl_tpu_torch.utils.convert import params_from_jax
 
 N_TEST_LAYOUTS = 256        # held-out layout pool, as the fused trainer's test pool
 TEST_POOL_SEED = 10_000
-# Per-slot feature widths of the env's obs (fair_service): own position; GT
-# relative position, rate, average rate; UBS relative position.
-OBS_SHAPE = {"agent": 2, "gt": 4, "ubs": 2}
 
 
 def latest_checkpoint(run_dir) -> Path:
@@ -54,7 +55,7 @@ def load_policy(run_dir, device=None, checkpoint_path=None, gat_backend=None):
         config["args"] = dict(config["args"], gat_backend=gat_backend)
     args = make_args(config["args"], device)
     env_params = torch_env.make_params(config["map_id"])
-    agent = GnnAgent(OBS_SHAPE, env_params.n_actions, args)
+    agent = build_agent(obs_shape(env_params, args.o), env_params.n_actions, args)
     ckpt = checkpoint.load(checkpoint_path or latest_checkpoint(run_dir))
     agent.load_state_dict(params_from_jax(ckpt["model_state_dict"], agent))
     return agent.to(args.device).eval().requires_grad_(False), config
@@ -72,7 +73,8 @@ def evaluate(run_dir, n_episodes, eps=0.05, seed=0, device=None, checkpoint_path
     agent, config = load_policy(run_dir, device, checkpoint_path, gat_backend)
     env_params = torch_env.make_params(config["map_id"])
     generator = torch.Generator().manual_seed(seed)
-    return collect.evaluate_policy(env_params, agent, test_pool(config["map_id"], seed),
+    policy = collect.make_policy(agent, config["args"].get("o", DEFAULT_CONFIG["o"]))
+    return collect.evaluate_policy(env_params, policy, test_pool(config["map_id"], seed),
                                    agent.hidden, generator, n_episodes,
                                    next(agent.parameters()).device, eps)
 

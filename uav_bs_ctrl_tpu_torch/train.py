@@ -44,7 +44,7 @@ def build_trainer(run_dir, device=None, n_layouts=N_LAYOUTS, n_worlds=None, inte
                                  capacity_chunks=capacity_chunks,
                                  updates_per_iter=updates_per_iter, n_layouts=n_layouts,
                                  seed=config["seed"],
-                                 interleave=interleave or config.get("interleave", 1))
+                                 interleave=interleave or config.get("interleave") or 1)
     trainer.learner.load_checkpoint(latest_checkpoint(run_dir))
     return trainer
 
