@@ -26,8 +26,15 @@ plain path on the same per-step Gumbel noise) and the committed exp2 r400
 TarMAC run (the MLP encoder, the fused step #4 and #5 on a talk graph with
 missing edges) the same way; ``run_fast.train_fast`` on exp2 r400
 DiscreteComm from a fresh start for one epoch with updates (its checkpoint
-read back bit for bit); and timings. Any failed phase exits non-zero with no
-result line. The last line is the JSON device record.
+read back bit for bit); exp1, the single-UBS DRQN (``exp1_phases``): #2 and
+#3 at exp1's shapes (every slot valid), the committed exp1 gnn and rnn runs
+served (40 worlds, one 200-step episode; the gnn run's every step against the
+plain path), the gnn run resumed with two warm-ups and one update gated
+against the plain path, ``run_fast.train_fast_exp1`` resumed from the gnn
+run's epoch 50 for one epoch and started fresh with the rnn agent; and
+timings (``exp1_times`` adds exp1's kernels, updates and collection). Any
+failed phase exits non-zero with no result line. The last line is the JSON
+device record.
 """
 
 import collections
@@ -42,12 +49,13 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-WATCHDOG_S = 600
+WATCHDOG_S = 900
 ATOL = RTOL = 1e-4        # f32 kernel vs plain version, full width
 F32_PEAK_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores (data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -57,6 +65,9 @@ DISC_DIR = ROOT / "data" / "exp3_fast_4ubs_disc_lay64k" / "exp3_fast_4ubs_disc_l
 DISC_QMIX_DIR = ROOT / "data" / "exp3_fast_4ubs_disc_qmix_lay64k" / \
     "exp3_fast_4ubs_disc_qmix_lay64k_s0"
 EXP2_DIR = ROOT / "data" / "exp2_fast_r400_tarmac" / "exp2_fast_r400_tarmac_s0"
+EXP1_GNN_DIR = ROOT / "data" / "exp1_fast_grp4_size5_gnn" / "exp1_fast_grp4_size5_gnn_s0"
+EXP1_RNN_DIR = ROOT / "data" / "exp1_fast_grp4_size5_rnn" / "exp1_fast_grp4_size5_rnn_s0"
+EXP1_EPOCH = 50           # the committed exp1 checkpoints' epoch
 N_WORLDS = 40             # the run's n_worlds
 EPS = 0.05                # evaluate_policy's test epsilon
 DEVICE = "cuda"
@@ -616,13 +627,324 @@ def ms_per_update(learner, batch, use_kernels=True, noise=None, n=5):
     return (time.perf_counter() - t0) * 1e3 / n
 
 
+def exp1_phases(ctx):
+    """The exp1 (single-UBS DRQN) phases: #2 and #3 at exp1's shapes against
+    their plain versions; serving the committed gnn and rnn runs (epoch 50),
+    the gnn run's every step against the plain path; the gnn run resumed by
+    ``train.py``'s path, two warm-ups, one update gated against the plain
+    path; ``run_fast.train_fast_exp1`` resumed (gnn) and fresh (rnn). ``ctx``
+    carries main's ``rng``, ``worst``, ``counts``, ``reset_counts`` and
+    ``phase_launches``; returns what :func:`exp1_times` times."""
+    from uav_bs_ctrl_tpu_torch import run_fast, serve, train
+    from uav_bs_ctrl_tpu_torch.algos import collect_subs
+    from uav_bs_ctrl_tpu_torch.algos.drqn import config as drqn_config
+    from uav_bs_ctrl_tpu_torch.algos.drqn.fused import obs_shape
+    from uav_bs_ctrl_tpu_torch.algos.drqn.learner import QLearner
+    from uav_bs_ctrl_tpu_torch.envs import torch_env_subs
+    from uav_bs_ctrl_tpu_torch.ops.gat_kernels import (
+        flash_gat_fused, flash_gat_fused_bwd, flash_gat_fused_bwd_plain, flash_gat_fused_plain)
+    from uav_bs_ctrl_tpu_torch.utils import checkpoint
+    counts, reset_counts, worst = ctx.counts, ctx.reset_counts, ctx.worst
+    zero = dict.fromkeys(counts(), 0)
+    gnn_config = json.loads((EXP1_GNN_DIR / "config.json").read_text())
+    env_kwargs = gnn_config["env_kwargs"]
+    env_params = torch_env_subs.make_params(**env_kwargs)
+    T, M = env_params.episode_limit, env_params.n_gts
+    B, heads, hidden = drqn_config.DEFAULT_CONFIG["batch_size"], 4, 256
+    out = SimpleNamespace(cases={})
+
+    with phase(f"exp1 kernels: #2 at N = {N_WORLDS} and {B}, #3 at N = {B}; M = {M}, D = 4, "
+               f"H = {heads}, F = {hidden // heads}, every slot valid"):
+        for n in (N_WORLDS, B):
+            c = gat_case(ctx.rng, n, M, 4, hidden, heads, masked_rows=[], valid=1.0)
+            if not bool((c["mask"] > 0).all()):
+                raise AssertionError("the exp1 case's mask is not all valid")
+            args = (c["x"], c["w"], c["b"], c["er"], c["attn"], c["mask"], heads)
+            got = flash_gat_fused(*args)
+            err = max_err(got, flash_gat_fused_plain(*args), f"flash_gat_fused exp1 N={n}")
+            worst["flash_gat_fused"] = max(worst["flash_gat_fused"], err)
+            out.cases[("flash_gat_fused", n)] = args
+            print(f"  flash_gat_fused N={n} M={M} D=4 all valid: max abs err {err:.3e}",
+                  flush=True)
+            if n == B:
+                g = torch.randn(got[0].shape, device=DEVICE)
+                bwd_args = args[:6] + got + (g, heads, 0.2, False)
+                err = rel_err(flash_gat_fused_bwd(*bwd_args), flash_gat_fused_bwd_plain(*bwd_args),
+                              f"flash_gat_fused_bwd exp1 N={n}")
+                worst["flash_gat_fused_bwd"] = max(worst["flash_gat_fused_bwd"], err)
+                out.cases[("flash_gat_fused_bwd", n)] = bwd_args
+                print(f"  flash_gat_fused_bwd N={n} M={M} D=4 all valid, no dx: max rel err "
+                      f"{err:.3e}", flush=True)
+
+    for label, run_dir in (("gnn", EXP1_GNN_DIR), ("rnn", EXP1_RNN_DIR)):
+        with phase(f"serve {run_dir.name} (epoch {EXP1_EPOCH}): {N_WORLDS} worlds, one "
+                   f"{T}-step episode, eps={EPS}"):
+            reset_counts()
+            t0 = time.perf_counter()
+            stats = serve.evaluate(run_dir, N_WORLDS, eps=EPS, seed=0, device=DEVICE)
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+            launches = ctx.phase_launches[f"exp1_serve_{label}"] = counts()
+            want = dict(zero, flash_gat_fused=T) if label == "gnn" else zero
+            print(f"  launches: {launches} over {T} env steps ({serve_s:.2f} s, loading "
+                  f"included)", flush=True)
+            if launches != want:
+                raise AssertionError(f"expected {want} launches, got {launches}")
+            for key, v in stats.items():
+                if tuple(v.shape) != (N_WORLDS,) or not torch.isfinite(v).all():
+                    raise AssertionError(f"{key}: shape {tuple(v.shape)} or non-finite values")
+            means = {k: float(v.mean()) for k, v in stats.items()}
+            logged = training_log_test_stats(run_dir, EXP1_EPOCH)
+            print(f"  episode stats (mean over {N_WORLDS} worlds): {json.dumps(means)}")
+            print(f"  the training log's test stats at epoch {EXP1_EPOCH} (JAX, 5 episodes, "
+                  f"other layouts): {json.dumps(logged)}", flush=True)
+            if not means["TestEpRet"] > 0.5 * logged["AverageTestEpRet"]:
+                raise AssertionError(f"TestEpRet {means['TestEpRet']:.2f} is not above half the "
+                                     f"run's own {logged['AverageTestEpRet']}")
+
+        if label != "gnn":
+            continue
+        with phase(f"serve {run_dir.name} again, every step's Q and h' against the unfused "
+                   f"plain path"):
+            agent, _ = serve.load_policy(run_dir, DEVICE)
+            errs, calls = [], []
+
+            def checked(obs, h, use_kernels=True, key=None):
+                if not calls:
+                    calls.extend(capture_kernel_calls(agent, obs, h))
+                q, h2 = agent(obs, h)
+                q_ref, h_ref = agent(obs, h, use_kernels=False)
+                errs.append(((q - q_ref).abs().max().item(), (h2 - h_ref).abs().max().item()))
+                return q, h2
+
+            stats2 = collect_subs.evaluate_policy_subs(
+                env_params, checked, serve.test_pool_subs(env_kwargs, 0), agent.hidden,
+                torch.Generator().manual_seed(0), N_WORLDS, torch.device(DEVICE), EPS)
+            worst_q, worst_h = max(e[0] for e in errs), max(e[1] for e in errs)
+            print(f"  {len(errs)} steps: max |dQ| {worst_q:.3e}, max |dh'| {worst_h:.3e} (bound "
+                  f"{ATOL}); same episode stats as the first run: "
+                  f"{all(torch.equal(stats[k], stats2[k]) for k in stats)}", flush=True)
+            if len(errs) != T or worst_q > ATOL or worst_h > ATOL:
+                raise AssertionError(f"per-step Q/h' beyond {ATOL}: {worst_q:.3e} / {worst_h:.3e}")
+            if [name for name, _ in calls] != ["flash_gat_fused"]:
+                raise AssertionError(f"an exp1 policy step called {[n for n, _ in calls]}")
+            args = calls[0][1]
+            if tuple(args[0].shape) != (N_WORLDS, M, 4) or not bool((args[5] > 0).all()):
+                raise AssertionError(f"the serving step's #2 inputs: x {tuple(args[0].shape)}, "
+                                     f"valid share {(args[5] > 0).float().mean().item()}")
+            err = max_err(flash_gat_fused(*args), flash_gat_fused_plain(*args),
+                          "flash_gat_fused on exp1 serving inputs")
+            worst["flash_gat_fused"] = max(worst["flash_gat_fused"], err)
+            out.cases[("flash_gat_fused", N_WORLDS)] = args      # real inputs for the times
+
+    with phase(f"train {EXP1_GNN_DIR.name}: resume with the AdamW state, {train.N_WARMUPS} "
+               f"warm-ups and one full iteration, then one update through the kernels "
+               f"against the plain path"):
+        with torch.enable_grad():
+            t0 = time.perf_counter()
+            tr = train.build_trainer(EXP1_GNN_DIR, DEVICE)
+            lr = tr.learner
+            reset_counts()
+            t1 = time.perf_counter()
+            warm = [tr.run_iteration(EPS, warmup=True) for _ in range(train.N_WARMUPS)]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launches = ctx.phase_launches["exp1_train_warmups"] = counts()
+        print(f"  {type(lr.net).__name__}, {tr.n_worlds} worlds, L = {tr.L} ({tr.n_slices} "
+              f"slices an episode), {tr.updates_per_iter} updates an iteration at "
+              f"B={lr.batch_size}; ring of {tr.capacity} chunks; lr {lr.lr} x {lr.lr_scale}; "
+              f"AdamW resumed at step "
+              f"{lr.optimizer.state[lr.parameters()[0]]['step'].item():.0f}", flush=True)
+        print(f"  load {t1 - t0:.2f} s, {train.N_WARMUPS} warm-ups {t2 - t1:.2f} s; warm-up "
+              f"episode stats {json.dumps(warm)}; launches {launches}", flush=True)
+        want = dict(zero, flash_gat_fused=train.N_WARMUPS * T)
+        if launches != want or (tr._size, tr._ptr) != (2 * tr.chunks_per_iter,) * 2:
+            raise AssertionError(f"expected {want} launches and a ring of "
+                                 f"{2 * tr.chunks_per_iter}, got {launches}, "
+                                 f"{tr._size}/{tr._ptr}")
+        # The policy unrolls L + 1 steps and the target L; without double-Q the
+        # policy's last step feeds no loss term, so autograd runs L backward steps.
+        per_update = dict(zero, flash_gat_fused=2 * tr.L + 1, flash_gat_fused_bwd=tr.L)
+        with torch.enable_grad():
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = tr.run_iteration(EPS)
+            torch.cuda.synchronize()
+            out.iteration_s = time.perf_counter() - t0
+            launches = ctx.phase_launches["exp1_train_iteration"] = counts()
+        losses = tr.last_losses.tolist()
+        print(f"  one iteration ({tr.n_worlds} worlds x {T} steps, {tr.updates_per_iter} "
+              f"updates): {out.iteration_s:.2f} s, {json.dumps(metrics)}; LossQ of the first "
+              f"and last 5 updates {[round(v, 5) for v in losses[:5] + losses[-5:]]}; "
+              f"launches {launches}", flush=True)
+        want = {k: tr.updates_per_iter * v for k, v in per_update.items()}
+        want["flash_gat_fused"] += T
+        if launches != want or len(losses) != tr.updates_per_iter \
+                or not all(np.isfinite(losses)):
+            raise AssertionError(f"expected {want} launches and {tr.updates_per_iter} finite "
+                                 f"LossQ values, got {launches}")
+        batch = tr.sample_batch()
+        check_update(lr, batch, per_update, counts)
+        out.gnn_trainer, out.gnn_batch, out.per_update = tr, batch, per_update
+
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_exp1_"))
+    with phase(f"run_fast exp1: resume {EXP1_GNN_DIR.name} from checkpoint_epoch"
+               f"{EXP1_EPOCH}.pt for one epoch of 1600 steps at 8 worlds"):
+        columns = progress_rows(EXP1_GNN_DIR)[0]
+        resume_dir = scratch / "gnn"
+        resume_dir.mkdir()
+        shutil.copy(EXP1_GNN_DIR / f"checkpoint_epoch{EXP1_EPOCH}.pt", resume_dir)
+        saved_t = int(checkpoint.load(EXP1_GNN_DIR / f"checkpoint_epoch{EXP1_EPOCH}.pt")["t"])
+        with torch.enable_grad():
+            reset_counts()
+            t0 = time.perf_counter()
+            resumed = run_fast.train_fast_exp1(
+                env_kwargs, seed=gnn_config["seed"], n_worlds=8,
+                train_overrides=dict(gnn_config["args"], epochs=EXP1_EPOCH + 1,
+                                     steps_per_epoch=1600, device=DEVICE),
+                logger_kwargs=dict(output_dir=str(resume_dir), exp_name=gnn_config["exp_name"]),
+                resume=True)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            launches = ctx.phase_launches["exp1_run_fast_resumed"] = counts()
+        rl = resumed.learner
+        head, rows = progress_rows(resume_dir)
+        n_upd = resumed.updates_per_iter
+        jax_row = next(r for r in progress_rows(EXP1_GNN_DIR)[1]
+                       if r["Epoch"] == str(EXP1_EPOCH + 1))
+        print(f"  the JAX run's epoch {EXP1_EPOCH + 1} (16,000 steps, 1,600 updates): LossQ "
+              f"{jax_row['LossQ']}, AverageEpRet {jax_row['AverageEpRet']}", flush=True)
+        print(f"  {resume_s:.2f} s; {n_upd} updates; AdamW step "
+              f"{rl.optimizer.state[rl.parameters()[0]]['step'].item():.0f}, lr_scale "
+              f"{rl.lr_scale}; row: Epoch {rows[0]['Epoch']}, TotalEnvInteracts "
+              f"{rows[0]['TotalEnvInteracts']}, LossQ {rows[0]['LossQ']}, AverageEpRet "
+              f"{rows[0]['AverageEpRet']}, AverageTestEpRet {rows[0]['AverageTestEpRet']}; "
+              f"launches {launches}", flush=True)
+        if head != columns or len(rows) != 1 or rows[0]["Epoch"] != str(EXP1_EPOCH + 1) \
+                or int(rows[0]["TotalEnvInteracts"]) != saved_t + 1600 \
+                or not math.isfinite(float(rows[0]["LossQ"])) or n_upd != 160:
+            raise AssertionError(f"progress.txt: header {head}, rows {rows}, {n_upd} updates")
+        # two warm-ups, the iteration's collection, the test episodes
+        want = {k: n_upd * v for k, v in per_update.items()}
+        want["flash_gat_fused"] += 4 * T
+        if launches != want:
+            raise AssertionError(f"expected {want} launches, got {launches}")
+        written = resume_dir / f"checkpoint_epoch{EXP1_EPOCH + 1}.pt"
+        env_info = dict(obs_shape=obs_shape(env_params, "gnn"), n_actions=env_params.n_actions,
+                        episode_limit=T)
+        reloaded = QLearner(env_info, resumed.args, seed=1)
+        stamp = reloaded.load_checkpoint(written)
+        same = learner_bits_equal(rl, reloaded)
+        print(f"  {written.name}: stamp {stamp}; a fresh learner loading it holds the trainer's "
+              f"params and AdamW state bit for bit: {same}", flush=True)
+        if not same or stamp != {"epoch": EXP1_EPOCH + 1, "t": saved_t + 1600}:
+            raise AssertionError(f"{written.name} does not hold the trainer's state")
+        del resumed, reloaded
+
+    with phase("run_fast exp1: a fresh --agent rnn start, 2 epochs of 1600 steps at 8 worlds, "
+               "the second with updates"):
+        with torch.enable_grad():
+            reset_counts()
+            t0 = time.perf_counter()
+            fresh = run_fast.train_fast_exp1(
+                env_kwargs, seed=0, n_worlds=8,
+                train_overrides=dict(agent="rnn", epochs=2, steps_per_epoch=1600,
+                                     update_after=1600, save_freq=1, device=DEVICE),
+                logger_kwargs=dict(output_dir=str(scratch / "rnn"), exp_name="chip_smoke_rnn"))
+            torch.cuda.synchronize()
+            fresh_s = time.perf_counter() - t0
+            launches = ctx.phase_launches["exp1_run_fast_rnn"] = counts()
+        head, rows = progress_rows(scratch / "rnn")
+        cols = ("Epoch", "TotalEnvInteracts", "LossQ", "AverageEpRet", "AverageTestEpRet")
+        print(f"  {fresh_s:.2f} s; {type(fresh.learner.net).__name__}; rows {cols}: "
+              f"{[tuple(r[c] for c in cols) for r in rows]}; launches {launches}", flush=True)
+        if head != columns or [(r["Epoch"], r["TotalEnvInteracts"]) for r in rows] != \
+                [("1", "1600"), ("2", "3200")] or not math.isnan(float(rows[0]["LossQ"])) \
+                or not math.isfinite(float(rows[1]["LossQ"])):
+            raise AssertionError(f"progress.txt: header {head}, rows {rows}")
+        if launches != zero:
+            raise AssertionError(f"a kernel launched on the rnn path: {launches}")
+        out.rnn_trainer = fresh
+    shutil.rmtree(scratch)
+    return out
+
+
+def exp1_times(e1):
+    """exp1's times: #2 and #3 at exp1's shapes with their bounds, ms per
+    update (gnn through the kernels and on the plain path, rnn), the
+    profiler's split of a gnn update, env steps/s of a 40-world collection,
+    and from those the projected committed-config iteration and run. Returns
+    ``{kernel: [case, ...]}`` for the record."""
+    from uav_bs_ctrl_tpu_torch.algos import collect_subs
+    from uav_bs_ctrl_tpu_torch.ops.gat_kernels import (
+        flash_gat_fused, flash_gat_fused_bwd, flash_gat_fused_bwd_plain, flash_gat_fused_plain)
+    fns = {"flash_gat_fused": (flash_gat_fused, flash_gat_fused_plain),
+           "flash_gat_fused_bwd": (flash_gat_fused_bwd, flash_gat_fused_bwd_plain)}
+    cases = {name: [] for name in fns}
+    for (name, n), args in sorted(e1.cases.items()):
+        fn, plain = fns[name]
+        ms, plain_ms = time_cuda(lambda: fn(*args)), time_cuda(lambda: plain(*args))
+        x, mask, hf = args[0], args[5], args[1].shape[1]
+        if name == "flash_gat_fused_bwd":
+            cost = gat_bwd_cost(x, mask, hf, args[10], args[12])
+        else:
+            cost = gat_cost(x, mask, hf, args[6])
+        bound_ms, bound_by = bound(*cost)
+        what = "serving inputs" if name == "flash_gat_fused" and n == N_WORLDS else "random"
+        print(f"  exp1 {name} N={n} M={x.shape[1]} all valid ({what}): {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: {cost[0]:.3e} ops, "
+              f"{cost[1]:.3e} bytes), {100 * bound_ms / ms:.2f} % of the bound's speed",
+              flush=True)
+        cases[name].append({"inputs": f"exp1 N={n} M={x.shape[1]} all valid ({what})",
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by})
+    gnn, rnn = e1.gnn_trainer, e1.rnn_trainer
+    upd = {}
+    for label, tr, batch, kernels in (("gnn, kernels", gnn, e1.gnn_batch, True),
+                                      ("gnn, plain path", gnn, e1.gnn_batch, False),
+                                      ("rnn", rnn, rnn.sample_batch(), True)):
+        upd[label] = ms_per_update(tr.learner, batch, kernels, n=10)
+        print(f"  one exp1 update ({label}, B={tr.learner.batch_size}, L={tr.L}): "
+              f"{upd[label]:.2f} ms, {1e3 / upd[label]:.2f} updates/s", flush=True)
+    snap = gnn.learner.state_dict()
+    profile_updates(gnn.learner, e1.gnn_batch, 2, upd["gnn, kernels"],
+                    {name: e1.per_update[name] for name in fns})
+    gnn.learner.load_state_dict(snap)
+    collect_s = {}
+    for label, tr in (("gnn", gnn), ("rnn", rnn)):
+        for _ in range(2):                          # the first untimed
+            gen = torch.Generator().manual_seed(2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states = collect_subs.reset_subs_worlds(tr.env_params, tr.pool, gen, N_WORLDS,
+                                                    torch.device(DEVICE))
+            h0 = torch.zeros((N_WORLDS, 1, tr.args.hidden_size), device=DEVICE)
+            collect_subs.collect_episode_subs(tr.env_params, tr.policy, states, h0, tr.T, tr.L,
+                                              gen, EPS)
+            torch.cuda.synchronize()
+            collect_s[label] = time.perf_counter() - t0
+        print(f"  collect_episode_subs ({label}), {N_WORLDS} worlds x {tr.T} steps: "
+              f"{collect_s[label]:.3f} s, {N_WORLDS * tr.T / collect_s[label]:.1f} env steps/s",
+              flush=True)
+    n_upd = N_WORLDS * gnn.n_slices                 # one update per L env steps
+    for label, key in (("gnn", "gnn, kernels"), ("rnn", "rnn")):
+        it_s = collect_s[label] + n_upd * upd[key] / 1e3
+        print(f"  projected committed-config iteration ({label}): {N_WORLDS} x {gnn.T} steps + "
+              f"{n_upd} updates = {it_s:.2f} s; the run's 125 iterations (2 warm-ups) "
+              f"{(125 * collect_s[label] + 123 * n_upd * upd[key] / 1e3) / 60:.1f} min",
+              flush=True)
+    print(f"  the gnn iteration measured in the train phase: {e1.iteration_s:.2f} s, so the "
+          f"run's 123 training iterations {123 * e1.iteration_s / 60:.1f} min", flush=True)
+    return cases
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
-    run_dirs = (RUN_DIR, DISC_DIR, DISC_QMIX_DIR, EXP2_DIR)
+    run_dirs = (RUN_DIR, DISC_DIR, DISC_QMIX_DIR, EXP2_DIR, EXP1_GNN_DIR, EXP1_RNN_DIR)
     if not (ROOT / "uav_bs_ctrl_tpu_torch").is_dir() or not all(d.is_dir() for d in run_dirs):
         print(f"chip_smoke: the uav_bs_ctrl_tpu_torch package and "
               f"{', '.join(str(d.relative_to(ROOT)) for d in run_dirs)} must sit beside "
@@ -1227,6 +1549,9 @@ def main():
         del exp2, reloaded
         shutil.rmtree(exp2_scratch)
 
+    e1 = exp1_phases(SimpleNamespace(rng=rng, worst=worst, counts=counts,
+                                     reset_counts=reset_counts, phase_launches=phase_launches))
+
     record = []
     with phase("times"):
         print(f"  card: {card}", flush=True)
@@ -1312,6 +1637,7 @@ def main():
               f"ms, bound {bound(*cost)[0]:.5f} ms ({bound(*cost)[1]}: {cost[0]:.3e} ops, "
               f"{cost[1]:.3e} bytes), {100 * bound(*cost)[0] / big_ms:.2f} % of the bound's "
               f"speed", flush=True)
+        exp1_cases = exp1_times(e1)
         # Each kernel's launches on its main path: flash_gat's the 4-UBS 'pallas'
         # serving, the others' the training path.
         path_launches = dict(train_launches, flash_gat=disc_launches["flash_gat"])
@@ -1328,6 +1654,8 @@ def main():
                 "phase_launches": {k: v[name] for k, v in phase_launches.items()}})
             if name == "flash_gat":
                 record[-1]["cases"] = flash_cases
+            if name in exp1_cases:
+                record[-1]["cases"] = exp1_cases[name]
 
         learner.load_state_dict(snap)
         upd = {True: [], False: []}

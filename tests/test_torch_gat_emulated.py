@@ -9,7 +9,9 @@ the shuffles and ballots), against ``flash_gat_plain``, ``flash_gat_fused_plain`
 to 2, 4 or 8 features), 1 to 32 columns a lane (F = 32 to 1024), H = 1 to 10 (CTAs of one
 warp a head, up to 320 threads), more rows than the backward's grid (a CTA takes several
 and its partial row sums them), a fully masked row and a fully valid one, and
-``need_dx``. #1: the 4-UBS serving shapes ('seen' M = 50, 'near' M = 3), a mask word of
+``need_dx``; and exp1's shapes, where every slot of every row is valid (M = 10 and 20 GT
+slots, D = 4, H = 4, F = 64, N = 32 update rows and 40 serving rows). #1: the 4-UBS
+serving shapes ('seen' M = 50, 'near' M = 3), a mask word of
 one slot, two list chunks (M = 300), no slot, F = 8 and 96 (lanes beyond F guarded),
 F = 1024 (32 columns a lane), H = 32 (1024 threads) and scores at 50x (the online
 rescale), each with a fully masked row and a fully valid one. Without g++ they skip.
@@ -55,12 +57,15 @@ def bwd_lib(tmp_path_factory):
                   gat_kernels._BWD_SIGNATURES)
 
 
-def _case(n, m, d, heads, f):
-    """Random inputs; row 0 has every slot valid, row 1 none, the rest about half."""
+def _case(n, m, d, heads, f, all_valid=False):
+    """Random inputs; row 0 has every slot valid, row 1 none, the rest about half
+    (with ``all_valid``, every slot of every row is valid)."""
     rng = np.random.default_rng(n * m + d + heads)
     hf = heads * f
     mask = rng.random((n, m)) > 0.5
     mask[0], mask[1] = True, False
+    if all_valid:
+        mask[:] = True
     case = dict(x=rng.normal(size=(n, m, d)), w=rng.normal(size=(d, hf)) / np.sqrt(d),
                 b=0.3 * rng.normal(size=hf), er=rng.normal(size=(n, hf)),
                 attn=rng.normal(size=(heads, f)) / np.sqrt(f), mask=mask,
@@ -141,6 +146,31 @@ def test_emulated_backward_matches_plain(bwd_lib, n, m, d, heads, f, need_dx):
     if need_dx:
         assert torch.all(got[0][1] == 0)
         assert torch.all(got[0][_case(n, m, d, heads, f)["mask"] == 0] == 0)   # masked slots
+
+
+EXP1_CASES = [(32, 10), (32, 20), (40, 10), (40, 20)]     # n, m; D = 4, H = 4, F = 64
+
+
+@pytest.mark.parametrize("n,m", EXP1_CASES)
+def test_emulated_forward_all_valid_matches_plain(fwd_lib, n, m):
+    """exp1's ``DrqnGnnAgent`` GATv2: the mask is all ones."""
+    c = _case(n, m, 4, 4, 64, all_valid=True)
+    out, mstat, lstat = _forward(fwd_lib, c, 4)
+    want = gat_kernels.flash_gat_fused_plain(*_args(c), 4, SLOPE)
+    for name, got, ref in zip(("out", "m", "l"), (out, mstat, lstat), want):
+        assert _rel_err(got, ref) <= 1e-5, f"{name}: {_rel_err(got, ref):.3e}"
+    assert torch.all(lstat >= 1.0)               # every row's softmax sums over m slots
+
+
+@pytest.mark.parametrize("need_dx", [False, True])
+@pytest.mark.parametrize("n,m", EXP1_CASES)
+def test_emulated_backward_all_valid_matches_plain(bwd_lib, n, m, need_dx):
+    got, want = _backward(bwd_lib, _case(n, m, 4, 4, 64, all_valid=True), 4, need_dx)
+    for name, g, r in zip(("dx", "dw", "db", "der", "dattn"), got, want):
+        if r is None:
+            assert g is None
+            continue
+        assert _rel_err(g, r) <= 1e-5, f"{name}: {_rel_err(g, r):.3e}"
 
 
 def test_emulated_backward_with_no_rows_gives_zero_weight_gradients(bwd_lib):

@@ -22,6 +22,12 @@ the JAX package's ``run_fast.py``.
 - exp2 and exp3 DiscreteComm on both packages' real trainers at a tiny width,
   and a port-written exp2 DiscreteComm checkpoint resumed by the JAX learner,
   whose next update matches the port's.
+- exp1 (``train_fast_exp1``): the schedules against JAX's on the recording
+  stand-in, fresh and resumed, and at the committed config the 62 epochs and
+  the ``TotalEnvInteracts`` column of the committed ``progress.txt``; both
+  packages' real DRQN trainers at a tiny width write the committed header,
+  the same rows and checkpoints, and ``--resume`` appends; the CLI's exp1
+  defaults and run names are JAX's, and it runs both agents at full width.
 """
 
 import ast
@@ -388,7 +394,7 @@ def test_run_fast_runs_where_jax_optax_pandas_are_missing(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--exp", "exp1"], "item 7"),
+    (["--exp", "exp1", "--agent", "gnn", "--compute-dtype", "bfloat16"], "item 5"),
     (["--compute-dtype", "bfloat16"], "item 5"),
     (["--exp", "exp2", "--c", "disc", "--compute-dtype", "bfloat16"], "item 5"),
 ])
@@ -452,3 +458,186 @@ def test_cli_defaults_equal_jax_run_fast(monkeypatch, tmp_path, exp):
     want_exp, want_map = _jax_cli_defaults(exp)
     assert seen == [(want_exp, want_map, f"{want_exp}_fast_{want_map}_iql")]
     assert seen[0][:2] == (("exp2", "r400") if exp in (None, "exp2") else ("exp3", "4ubs"))
+
+
+# ---------------------------------------------------------------- exp1
+
+EXP1_ROWS = ROOT / "data" / "exp1_fast_grp4_size5_gnn" / "exp1_fast_grp4_size5_gnn_s0"
+
+
+def _fake_exp1_trainer_class(T, L, record, core, defaults):
+    """The DRQN trainer's interface over ``_fake_trainer_class``'s recorder."""
+    base = _fake_trainer_class(T, record, core, defaults)
+
+    class Trainer(base):
+        def __init__(self, env_kwargs, train_kwargs, n_worlds, n_layouts, seed):
+            super().__init__(None, train_kwargs, n_worlds, None, n_layouts, seed, None)
+            self.L = L
+            record.append(("exp1", dict(env_kwargs)))
+
+        def evaluate(self, n_episodes=5, eps=0.05):
+            stats = super().evaluate(n_episodes, eps)
+            stats.pop("TestProbCollision")
+            return stats
+
+    return Trainer
+
+
+# (n_worlds, T, L, steps_per_epoch, epochs, resumed epochs, overrides)
+EXP1_SHAPES = {
+    "committed": (40, 200, 10, 20000, 50, None, {}),
+    "small": (4, 40, 10, 320, 3, 5, dict(update_after=100, save_freq=2, batch_size=4)),
+    "epoch-not-a-multiple": (2, 30, 5, 150, 4, 6, dict(update_after=0, decay_steps=500,
+                                                       save_freq=3)),
+}
+
+
+def _drive_exp1(monkeypatch, tmp_path, package, shape):
+    from uav_bs_ctrl_tpu_torch.algos.drqn import fused as drqn_fused
+    from uav_bs_ctrl_tpu.algos.drqn.config import DEFAULT_CONFIG as JAX_DRQN_DEFAULTS
+    from uav_bs_ctrl_tpu_torch.algos.drqn.config import DEFAULT_CONFIG as DRQN_DEFAULTS
+    n_worlds, T, L, spe, epochs, resumed, extra = EXP1_SHAPES[shape]
+    record = []
+    if package == "jax":
+        module, core, defaults, target = jax_run_fast, JaxCore, JAX_DRQN_DEFAULTS, jax_run_fast
+    else:
+        module, core, defaults, target = run_fast, PortCore, DRQN_DEFAULTS, drqn_fused
+    monkeypatch.setattr(target, "FusedDrqnTrainer",
+                        _fake_exp1_trainer_class(T, L, record, core, defaults))
+    out = tmp_path / package
+    runs = [(epochs, False)] + ([(resumed, True)] if resumed else [])
+    for epochs_now, resume in runs:
+        module.train_fast_exp1(dict(n_grps=4, gts_per_grp=5), seed=3,
+                               train_overrides=dict(extra, agent="gnn", steps_per_epoch=spe,
+                                                    epochs=epochs_now),
+                               logger_kwargs=dict(output_dir=str(out), exp_name=shape),
+                               n_worlds=n_worlds, resume=resume)
+    monkeypatch.undo()
+    head, rows = _table(out / "progress.txt")
+    rows = [{k: v for k, v in row.items() if k not in WALL_CLOCK} for row in rows]
+    config = json.loads((out / "config.json").read_text())
+    return record, head, rows, sorted(p.name for p in out.glob("checkpoint_epoch*.pt")), config
+
+
+@pytest.mark.parametrize("shape", sorted(EXP1_SHAPES))
+def test_exp1_schedules_saves_and_rows_match_jax_run_fast(monkeypatch, tmp_path, shape):
+    want = _drive_exp1(monkeypatch, tmp_path, "jax", shape)
+    got = _drive_exp1(monkeypatch, tmp_path, "port", shape)
+    assert got[:4] == want[:4]
+    assert got[4] == want[4] and got[4]["exp"] == "exp1"
+    record, head, rows, names, _ = got
+    committed_head, committed = _table(EXP1_ROWS / "progress.txt")
+    assert head == committed_head
+    warm = [r[2] for r in record if r[0] == "iteration"]
+    assert warm[0] and not warm[-1]
+    if shape == "committed":
+        assert len(rows) == 62 and [r[0] for r in record].count("iteration") == 125
+        assert [r["TotalEnvInteracts"] for r in rows] == \
+            [r["TotalEnvInteracts"] for r in committed] == [str(16000 * e) for e in range(1, 63)]
+        assert [r["Epoch"] for r in rows] == [r["Epoch"] for r in committed]
+        assert names == [f"checkpoint_epoch{e}.pt" for e in (10, 20, 30, 40, 50, 60, 62)]
+        assert sum(warm) == 2                  # update_after 10,000 at 8,000 steps an iteration
+    else:
+        assert [r[0] for r in record].count("load") == 1
+
+
+TINY_EXP1 = dict(device="cpu", hidden_size=16, n_heads=2, n_layers=1, batch_size=2,
+                 replay_size=40, save_freq=1, steps_per_epoch=80, update_after=80)
+
+
+def _tiny_exp1_run(train_fast_exp1, out, agent, epochs, resume=False):
+    """T = 20 (L = 10, two slices), 2 worlds: two iterations an epoch; the
+    first epoch all warm-up, later ones 4 updates an iteration at B = 2."""
+    trainer = train_fast_exp1(dict(n_grps=2, gts_per_grp=3, episode_limit=20), seed=0,
+                              train_overrides=dict(TINY_EXP1, agent=agent, epochs=epochs),
+                              logger_kwargs=dict(output_dir=str(out), exp_name="tiny"),
+                              n_worlds=2, n_layouts=4, resume=resume)
+    head, rows = _table(out / "progress.txt")
+    return trainer, (head, [(r["Epoch"], r["TotalEnvInteracts"], math.isnan(float(r["LossQ"])))
+                            for r in rows], sorted(p.name for p in out.glob("checkpoint_*.pt")))
+
+
+@pytest.mark.parametrize("agent", ["gnn", "rnn"])
+def test_train_fast_exp1_writes_what_jax_writes_and_resumes(tmp_path, agent):
+    trainer, got = _tiny_exp1_run(run_fast.train_fast_exp1, tmp_path / "port", agent, 2)
+    _, want = _tiny_exp1_run(jax_run_fast.train_fast_exp1, tmp_path / "jax", agent, 2)
+    assert got == want
+    assert got[0] == _table(EXP1_ROWS / "progress.txt")[0]
+    assert got[1] == [("1", "80", True), ("2", "160", False)]
+    assert got[2] == ["checkpoint_epoch1.pt", "checkpoint_epoch2.pt"]
+    assert type(trainer.learner.net).__name__ == ("DrqnGnnAgent" if agent == "gnn" else "RnnAgent")
+    assert trainer.learner.optimizer.state[trainer.learner.parameters()[0]]["step"] == 8
+    assert trainer.capacity == 40 and trainer._size == 16
+    _, again = _tiny_exp1_run(run_fast.train_fast_exp1, tmp_path / "port", agent, 3, resume=True)
+    assert again[0] == got[0]
+    assert again[1] == got[1] + [("3", "240", False)]
+    assert again[2] == got[2] + ["checkpoint_epoch3.pt"]
+
+
+def _jax_exp1_cli():
+    """``run_fast.py``'s exp1 CLI, read from its source (the parser lives under
+    ``__main__``): the defaults of its exp1 options and its run-name format."""
+    tree = ast.parse((ROOT / "run_fast.py").read_text())
+    defaults, name_expr = {}, None
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument" \
+                and node.args and getattr(node.args[0], "value", None) in (
+                    "--agent", "--n-grps", "--gts-per-grp", "--n-worlds"):
+            defaults[node.args[0].value] = next(k.value.value for k in node.keywords
+                                                if k.arg == "default")
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", "") == "name" \
+                and isinstance(node.value, ast.JoinedStr) \
+                and "exp1_fast" in ast.unparse(node.value):
+            name_expr = ast.Expression(node.value)
+    return defaults, lambda cli: eval(compile(name_expr, "run_fast.py", "eval"), {"cli": cli})
+
+
+@pytest.mark.parametrize("extra", [[], ["--agent", "gnn", "--n-grps", "4", "--name-suffix", "x"]])
+def test_exp1_cli_defaults_and_run_name_equal_jax(monkeypatch, tmp_path, extra):
+    seen = []
+    monkeypatch.setattr(run_fast, "train_fast_exp1", lambda env_kwargs, **kw: seen.append(
+        (env_kwargs, kw)))
+    run_fast.main(["--exp", "exp1", "--device", "cpu", "--data-dir", str(tmp_path)] + extra)
+    (env_kwargs, kw), = seen
+    defaults, name_of = _jax_exp1_cli()
+    cli = SN(agent=defaults["--agent"], n_grps=defaults["--n-grps"],
+             gts_per_grp=defaults["--gts-per-grp"])
+    for flag, value in zip(extra[::2], extra[1::2]):
+        if flag != "--name-suffix":
+            setattr(cli, flag[2:].replace("-", "_"),
+                    value if flag == "--agent" else int(value))
+    want = name_of(cli) + ("_x" if "x" in extra else "")
+    assert kw["logger_kwargs"]["exp_name"] == want
+    assert want == ("exp1_fast_grp2_size5_rnn" if not extra else "exp1_fast_grp4_size5_gnn_x")
+    assert env_kwargs == dict(n_grps=cli.n_grps, gts_per_grp=cli.gts_per_grp)
+    assert kw["train_overrides"]["agent"] == cli.agent
+    assert kw["n_worlds"] == defaults["--n-worlds"] == 40
+
+
+@pytest.mark.parametrize("agent", ["gnn", "rnn"])
+def test_cli_runs_exp1_at_full_width(tmp_path, agent):
+    """One all-warm-up epoch of one 200-step iteration (2 worlds) at the
+    preset's width on the CPU: the run's directory, ``config.json``,
+    ``progress.txt`` with exp1's columns, and the checkpoint."""
+    run_fast.main(["--exp", "exp1", "--agent", agent, "--n-grps", "4", "--device", "cpu",
+                   "--data-dir", str(tmp_path), "--epochs", "1", "--steps-per-epoch", "400",
+                   "--n-worlds", "2", "--n-layouts", "4", "--save-freq", "1"])
+    run = f"exp1_fast_grp4_size5_{agent}"
+    run_dir = tmp_path / run / f"{run}_s0"
+    head, rows = _table(run_dir / "progress.txt")
+    assert head == _table(EXP1_ROWS / "progress.txt")[0]
+    assert [(r["Epoch"], r["TotalEnvInteracts"], r["LossQ"]) for r in rows] == [("1", "400", "nan")]
+    assert sorted(p.name for p in run_dir.glob("*.pt")) == ["checkpoint_epoch1.pt"]
+    config = json.loads((run_dir / "config.json").read_text())
+    assert (config["exp"], config["env_kwargs"], config["args"]["agent"]) == \
+        ("exp1", dict(n_grps=4, gts_per_grp=5), agent)
+
+
+def test_exp1_cli_without_a_card_raises_unless_device_cpu(monkeypatch, tmp_path):
+    """The default device is CUDA: where ``torch.cuda.is_available()`` is False
+    the exp1 CLI raises instead of running on the CPU."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        run_fast.main(["--exp", "exp1", "--agent", "gnn", "--epochs", "1",
+                       "--data-dir", str(tmp_path)])

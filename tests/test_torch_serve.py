@@ -2,10 +2,11 @@
 heads of 64, msg 64, key 16) through the fused GATv2 kernels and through
 'pallas' (``flash_gat``), and the 4-UBS DiscreteComm run (msg 64, no mixer)
 fed JAX's own Gumbel noise; and the committed exp2 runs (the MLP encoder on
-the flat observation: the iql ``RnnAgent``, DiscreteComm and TarMAC); the
-port against JAX at full width, tolerance 1e-4. Also the serving entry point
-with JAX, optax, pandas and matplotlib absent, and no import of them anywhere
-in the port or in ``chip_smoke.py``.
+the flat observation: the iql ``RnnAgent``, DiscreteComm and TarMAC); and the
+committed exp1 runs (4 groups x 5 GTs, ``DrqnGnnAgent`` and ``RnnAgent``) on
+the single-UBS env; the port against JAX at full width, tolerance 1e-4. Also
+the serving and training entry points with JAX, optax, pandas and matplotlib
+absent, and no import of them anywhere in the port or in ``chip_smoke.py``.
 """
 
 import ast
@@ -201,6 +202,10 @@ def test_serve_runs_where_jax_optax_pandas_are_missing():
 def test_port_and_chip_smoke_import_nothing_of_jax():
     files = sorted((ROOT / "uav_bs_ctrl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    port = ROOT / "uav_bs_ctrl_tpu_torch"
+    assert {port / "envs" / "torch_env_subs.py", port / "algos" / "collect_subs.py",
+            port / "algos" / "drqn" / "fused.py", port / "algos" / "drqn" / "learner.py",
+            port / "algos" / "drqn" / "config.py"} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
             if isinstance(node, ast.Import):
@@ -286,3 +291,98 @@ def test_exp2_runs_are_served_where_jax_optax_pandas_are_missing():
         assert set(stats) == {"TestEpRet", "TestFairIdx", "TestAvgGlobalUtility",
                               "TestTotalThroughput", "TestProbCollision"}
         assert all(np.isfinite(v) for v in stats.values())
+
+
+EXP1_DIRS = {a: ROOT / "data" / f"exp1_fast_grp4_size5_{a}" / f"exp1_fast_grp4_size5_{a}_s0"
+             for a in ("gnn", "rnn")}
+
+
+@pytest.mark.parametrize("agent", sorted(EXP1_DIRS))
+def test_exp1_checkpoint_teacher_forced_rollout_matches_jax(agent):
+    """A committed exp1 run (epoch 50, hidden 256), five greedy steps of both
+    single-UBS envs and both policies from held-out layouts with the UBS
+    beside a GT group; the JAX agent on ``drqn/fused.py:_agent_apply``'s
+    observation, the port's served policy on the env's, through the kernels'
+    plain versions and the unfused path."""
+    from uav_bs_ctrl_tpu.algos.drqn.config import DEFAULT_CONFIG as JAX_DRQN_DEFAULTS
+    from uav_bs_ctrl_tpu.envs import jax_env_subs
+    from uav_bs_ctrl_tpu.models.agents import DRQN_REGISTRY as JAX_DRQN_REGISTRY
+    from uav_bs_ctrl_tpu_torch.algos import collect_subs
+    from uav_bs_ctrl_tpu_torch.envs import torch_env_subs
+    run_dir = EXP1_DIRS[agent]
+    config = json.loads((run_dir / "config.json").read_text())
+    jp = jax_env_subs.make_params(**config["env_kwargs"])
+    tp = torch_env_subs.make_params(**config["env_kwargs"])
+    shape = dict(agent=2, gt=4) if agent == "gnn" else 2 + 4 * jp.n_gts
+    jagent = JAX_DRQN_REGISTRY[agent](shape, jp.n_actions,
+                                      SN(**{**JAX_DRQN_DEFAULTS, **config["args"]}))
+    params = checkpoint.load(serve.latest_checkpoint(run_dir))["model_state_dict"]
+    tagent, _ = serve.load_policy(run_dir, device="cpu")
+    assert type(tagent).__name__ == type(jagent).__name__
+    policy = collect_subs.make_policy(tagent, agent)
+    _, gts = serve.test_pool_subs(config["env_kwargs"], 0)
+    gts = gts[:3].copy()
+    ubs = gts[:, 0] + np.float32(25.0)
+    keys = jax.random.split(jax.random.PRNGKey(9), 3)
+    prior = np.stack([np.asarray(jax.random.permutation(k, jp.n_gts)) for k in keys])
+    js = jax.vmap(lambda u, g, k: jax_env_subs.reset_from_positions(jp, u, g, k))(
+        jnp.asarray(ubs), jnp.asarray(gts), keys)
+    ts = torch_env_subs.reset_from_positions(tp, torch.from_numpy(ubs), torch.from_numpy(gts),
+                                             torch.from_numpy(prior))
+
+    def flat(obs):
+        if agent == "gnn":
+            return obs
+        lead = obs["agent"].shape[:-1]
+        return {"agent": jnp.concatenate([obs["agent"], obs["gt"].reshape(lead + (-1,))], -1)}
+    japply = jax.jit(jagent.apply)
+    jstep = jax.jit(jax.vmap(lambda s, a: jax_env_subs.step(jp, s, a)))
+    jh, th = jnp.zeros((3, 1, 256)), torch.zeros((3, 1, 256))
+    with torch.no_grad():
+        for _ in range(5):
+            jq, jh_next = japply(params, flat(jax.vmap(lambda s: jax_env_subs.get_obs(jp, s))(js)),
+                                 jh)
+            obs = torch_env_subs.get_obs(tp, ts)
+            for use_kernels in (True, False):
+                tq, th_next = policy(obs, th, use_kernels)
+                np.testing.assert_allclose(tq.numpy(), np.asarray(jq), **TOL)
+                np.testing.assert_allclose(th_next.numpy(), np.asarray(jh_next), **TOL)
+            jh, th = jh_next, th_next
+            acts = np.array(jnp.argmax(jq, axis=-1))[:, 0]
+            js, _, jrew, _ = jstep(js, jnp.asarray(acts))
+            ts, _, trew, _ = torch_env_subs.step(tp, ts, torch.from_numpy(acts))
+            np.testing.assert_allclose(trew.numpy(), np.asarray(jrew), **TOL)
+            ts = ts._replace(prior_gts=torch.from_numpy(np.asarray(js.prior_gts, np.int64)))
+    assert float(ts.ep_ret.min()) > 0
+
+
+def test_exp1_runs_are_served_and_trained_where_jax_optax_pandas_are_missing():
+    """``serve`` on both committed exp1 runs and ``train --tiny`` on the gnn
+    run (2 worlds, the ring of two episodes, one update at B = 2), in a
+    subprocess with every module the GPU machine lacks blocked; then an exp1
+    run refuses ``--gat-backend``."""
+    blocked = sorted(FORBIDDEN | {"jaxlib"})
+    code = (
+        "import sys, runpy\n"
+        f"for name in {blocked!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for run_dir in ({str(EXP1_DIRS['gnn'])!r}, {str(EXP1_DIRS['rnn'])!r}):\n"
+        "    sys.argv = ['serve', '--run-dir', run_dir, '--episodes', '3', '--device', 'cpu']\n"
+        "    runpy.run_module('uav_bs_ctrl_tpu_torch.serve', run_name='__main__')\n"
+        f"sys.argv = ['train', '--run-dir', {str(EXP1_DIRS['gnn'])!r}, '--iterations', '1',"
+        " '--device', 'cpu', '--tiny', '--n-layouts', '8']\n"
+        "runpy.run_module('uav_bs_ctrl_tpu_torch.train', run_name='__main__')\n"
+        f"assert not any(sys.modules.get(n) for n in {blocked!r})\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    test_keys = {"TestEpRet", "TestFairIdx", "TestAvgGlobalUtility", "TestTotalThroughput"}
+    lines = [json.loads(line) for line in out.stdout.strip().splitlines() if line.startswith("{")]
+    assert len(lines) == 3
+    for stats in lines[:2]:
+        assert set(stats) == test_keys and all(np.isfinite(v) for v in stats.values())
+        assert stats["TestEpRet"] > 50          # the trained policies (an untrained one: ~8)
+    assert set(lines[2]) == {"LossQ", "EpRet", "FairIdx", "AvgGlobalUtility"} | test_keys
+    assert all(np.isfinite(v) for v in lines[2].values())
+    with pytest.raises(ValueError, match="gat_backend"):
+        serve.load_policy(EXP1_DIRS["gnn"], device="cpu", gat_backend="pallas")

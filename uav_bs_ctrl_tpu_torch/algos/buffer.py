@@ -6,10 +6,11 @@ steps; each completed chunk is written into preallocated ring storage, so a
 sample is one fancy-index gather giving ``[B, T(+1), ...]`` batches. Sequence
 fields (``obs``/``h``/``state``) store T+1 entries, the last being the *next*
 obs/h/state after the final step; ``act``/``rew``/``done`` store T. The fused
-trainer keeps its own ring on the device (``algos/madrqn/fused.py``).
+trainers keep their ring on the device (:class:`DeviceRing`).
 """
 
 import numpy as np
+import torch
 
 SEQ_KEYS = ("obs", "h", "state")  # fields that carry the trailing next-value
 
@@ -86,3 +87,28 @@ class SequenceReplayBuffer:
         rng = rng if rng is not None else np.random
         idx = rng.choice(self._size, size=batch_size, replace=False)
         return tree_map(lambda store: store[idx], self._storage)
+
+
+class DeviceRing:
+    """The fused trainers' replay ring on the device, mixed into a trainer
+    that sets ``capacity``, ``device``, ``generator`` (a CPU generator),
+    ``learner`` and ``replay = None``, ``_ptr = _size = 0``."""
+
+    def _write(self, chunk):
+        """Write ``chunk`` (leaves [n, ...]) into the ring at ``ptr``."""
+        n = tree_leaves(chunk)[0].shape[0]
+        if self.replay is None:
+            self.replay = tree_map(lambda x: torch.zeros((self.capacity,) + tuple(x.shape[1:]),
+                                                         dtype=x.dtype, device=self.device),
+                                   chunk)
+        if self._ptr + n > self.capacity:
+            raise AssertionError("a ring write must not wrap")
+        tree_map(lambda store, x: store[self._ptr:self._ptr + n].copy_(x), self.replay, chunk)
+        self._size = min(self._size + n, self.capacity)
+        self._ptr = (self._ptr + n) % self.capacity
+
+    def sample_batch(self):
+        """B chunks drawn with replacement from the ``size`` written ones."""
+        idx = torch.randint(0, self._size, (self.learner.batch_size,),
+                            generator=self.generator).to(self.device)
+        return tree_map(lambda store: store[idx], self.replay)

@@ -22,7 +22,7 @@ from types import SimpleNamespace as SN
 import torch
 
 from uav_bs_ctrl_tpu_torch.algos import collect
-from uav_bs_ctrl_tpu_torch.algos.buffer import tree_leaves, tree_map
+from uav_bs_ctrl_tpu_torch.algos.buffer import DeviceRing
 from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
 from uav_bs_ctrl_tpu_torch.config import DEFAULT_CONFIG, check_args_sanity
 from uav_bs_ctrl_tpu_torch.envs import torch_env
@@ -44,7 +44,7 @@ def state_shape(env_params):
     return env_params.n_ubs * 2 + env_params.n_gts * 4
 
 
-class FusedMadrqnTrainer:
+class FusedMadrqnTrainer(DeviceRing):
     """Device-resident replay ring + on-device collection and updates."""
 
     def __init__(self, map_id, train_kwargs=None, n_worlds=16, capacity_chunks=256,
@@ -98,25 +98,6 @@ class FusedMadrqnTrainer:
         if self.learner.share_reward:
             chunk["rew"] = chunk["rew"].mean(-1, keepdim=True)
         return chunk, stats
-
-    def _write(self, chunk):
-        """Write ``chunk`` (leaves [n, ...]) into the ring at ``ptr``."""
-        n = tree_leaves(chunk)[0].shape[0]
-        if self.replay is None:
-            self.replay = tree_map(lambda x: torch.zeros((self.capacity,) + tuple(x.shape[1:]),
-                                                         dtype=x.dtype, device=self.device),
-                                   chunk)
-        if self._ptr + n > self.capacity:
-            raise AssertionError("a ring write must not wrap")
-        tree_map(lambda store, x: store[self._ptr:self._ptr + n].copy_(x), self.replay, chunk)
-        self._size = min(self._size + n, self.capacity)
-        self._ptr = (self._ptr + n) % self.capacity
-
-    def sample_batch(self):
-        """B chunks drawn with replacement from the ``size`` written ones."""
-        idx = torch.randint(0, self._size, (self.learner.batch_size,),
-                            generator=self.generator).to(self.device)
-        return tree_map(lambda store: store[idx], self.replay)
 
     # ------------------------------------------------------------------ #
 

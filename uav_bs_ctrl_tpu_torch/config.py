@@ -79,11 +79,7 @@ def check_args_sanity(args):
     if args.c is not None and args.c not in COMM_PROTOCOLS:
         raise KeyError(f"Unsupported communication scheme {args.c!r}; one of "
                        f"{COMM_PROTOCOLS} or None")
-    mm_prec = getattr(args, 'matmul_precision', None)
-    if mm_prec not in (None, 'default', 'high', 'highest'):
-        raise ValueError(f"matmul_precision must be None|'default'|'high'|'highest', "
-                         f"got {mm_prec!r}")
-    set_matmul_precision(mm_prec)
+    check_matmul_precision(args)
     # bptt_unroll (JAX core.py:87) is accepted and ignored: eager BPTT has no unroll.
     if int(args.n_rounds) < 1:
         raise ValueError(f"n_rounds must be >= 1, got {args.n_rounds}")
@@ -101,6 +97,21 @@ def check_args_sanity(args):
         raise ValueError("step_backend='pallas' and comm_backend='graph_parallel' are mutually "
                          "exclusive (the fused step kernel is single-device; shard the batch "
                          "axis instead)")
+    check_compute(args)
+    return args
+
+
+def check_matmul_precision(args):
+    """JAX's ``matmul_precision`` check, then :func:`set_matmul_precision`."""
+    mm_prec = getattr(args, 'matmul_precision', None)
+    if mm_prec not in (None, 'default', 'high', 'highest'):
+        raise ValueError(f"matmul_precision must be None|'default'|'high'|'highest', "
+                         f"got {mm_prec!r}")
+    set_matmul_precision(mm_prec)
+
+
+def check_compute(args):
+    """Raise on the compute dtype and BPTT schedules the port does not run yet."""
     if args.compute_dtype != 'float32':
         raise NotImplementedError(f"compute_dtype={args.compute_dtype!r}: the port runs "
                                   "float32 only; bf16 compute is still to be ported "
@@ -109,7 +120,6 @@ def check_args_sanity(args):
         raise NotImplementedError(f"bptt_encoder={args.bptt_encoder!r}: the port runs the "
                                   "'per_step' schedule only; 'hoisted' and 'merged' are "
                                   "still to be ported (ROADMAP.md Queue 1 item 5)")
-    return args
 
 
 def set_matmul_precision(mm_prec):
@@ -126,8 +136,9 @@ def set_matmul_precision(mm_prec):
 
 def check_training_args(args):
     """What the trainer and learner take beyond :func:`check_args_sanity`: a
-    differentiable GATv2 backend (the JAX package's rule)."""
-    if args.gat_backend == 'pallas':
+    differentiable GATv2 backend (the JAX package's rule). The DRQN config
+    has no ``gat_backend``: its agent has one GATv2 path."""
+    if getattr(args, 'gat_backend', None) == 'pallas':
         raise ValueError(
             "gat_backend='pallas' (unfused flash_gat) is inference/benchmark only — it has "
             "no custom VJP.  Use 'pallas_fused' or 'pallas_fused_mxu' for training, or call "

@@ -6,6 +6,8 @@
   dict obs shape, the MLP ``DenseObservationEncoder`` for an int one) -> comm
   protocol on the talk graph (or a GRU cell when ``c`` is None) -> (dueling)
   Q head.
+- ``DrqnGnnAgent``: the exp1 agent, one GATv2 (GT -> agent) over every GT
+  row -> GRU cell -> Q head.
 
 ``build_agent`` picks between them by the JAX package's rule. ``encode`` is
 the h-independent observation encoding, ``step`` the recurrent part, and
@@ -27,7 +29,7 @@ import torch
 from torch import nn
 
 from uav_bs_ctrl_tpu_torch.models.comm import DiscreteComm, make_comm
-from uav_bs_ctrl_tpu_torch.models.encoders import (DenseObservationEncoder,
+from uav_bs_ctrl_tpu_torch.models.encoders import (DenseObservationEncoder, GATv2,
                                                    GraphObservationEncoder)
 from uav_bs_ctrl_tpu_torch.models.heads import DuelingLayer
 from uav_bs_ctrl_tpu_torch.models.modules import GRUCell, Linear
@@ -126,6 +128,44 @@ class GnnAgent(nn.Module):
         return q.reshape(lead + (a, -1)), h_new.reshape(lead + (a, hidden))
 
 
+class DrqnGnnAgent(nn.Module):
+    """Single-relation GATv2 (GT -> agent) -> GRU -> Linear(Q), the exp1 agent
+    (JAX ``models/agents.py:DrqnGnnAgent``).
+
+    The drqn graph builder attaches every GT row with its full feature vector
+    (no visibility flag), so the neighbourhood mask is all ones. The GATv2 has
+    ``n_heads`` heads of ``hidden / n_heads`` and a residual from the agent's
+    features; with ``use_kernels`` it runs ``flash_gat_fused_train``. It reads
+    no key.
+    """
+
+    def __init__(self, obs_shape: dict, n_actions, args):
+        super().__init__()
+        self.hidden = args.hidden_size
+        if self.hidden % args.n_heads:
+            raise ValueError(f"hidden_size {self.hidden} is not a multiple of n_heads "
+                             f"{args.n_heads}")
+        self.enc = GATv2(obs_shape["gt"], obs_shape["agent"], args.n_heads,
+                         self.hidden // args.n_heads)
+        self.rnn = GRUCell(self.hidden, self.hidden)
+        self.f_out = Linear(self.hidden, n_actions)
+
+    def encode(self, obs, use_kernels=True):
+        gt = obs["gt"]                                     # [..., 1, M, d_gt]
+        mask = torch.ones(gt.shape[:-1], dtype=torch.bool, device=gt.device)
+        return self.enc(gt, obs["agent"], mask, use_kernels)
+
+    def step(self, x, adj, h, use_kernels=True, key=None):
+        h = self.rnn(x, h)
+        return self.f_out(h), h
+
+    def forward(self, obs, h, use_kernels=True, key=None):
+        return self.step(self.encode(obs, use_kernels), None, h)
+
+    def noise_shape(self, lead, n_agents):
+        return None
+
+
 def build_agent(obs_shape, n_actions, args):
     """The madrqn agent rule (reference ``algos/madrqn/learner.py:62-67``):
     ``RnnAgent`` iff ``o == 'mlp'`` and ``c`` is None, else ``GnnAgent``."""
@@ -135,3 +175,4 @@ def build_agent(obs_shape, n_actions, args):
 
 
 REGISTRY = {"rnn": RnnAgent, "gnn": GnnAgent}
+DRQN_REGISTRY = {"rnn": RnnAgent, "gnn": DrqnGnnAgent}

@@ -1,29 +1,34 @@
-r"""Train a policy at full budget: the exp2 and exp3 paths of the JAX package's
-``run_fast.py``.
+r"""Train a policy at full budget: the exp1, exp2 and exp3 paths of the JAX
+package's ``run_fast.py``.
 
     python -m uav_bs_ctrl_tpu_torch.run_fast --exp exp2 --map r400 --c disc \
         [--mixer] [--resume] [--retries N] [--device cpu]
     python -m uav_bs_ctrl_tpu_torch.run_fast --exp exp3 --map 8ubs --c tarmac --mixer \
         --interleave 10 [--o mlp]
+    python -m uav_bs_ctrl_tpu_torch.run_fast --exp exp1 --agent gnn --n-grps 4 \
+        --gts-per-grp 5
 
 ``--exp`` defaults to exp2 and ``--map`` to r400 for exp2, 4ubs otherwise, as
 in JAX. exp2 runs the MLP encoder (``o='mlp'``; without a protocol the
 ``RnnAgent``), exp3 the GNN encoder; ``--o`` overrides it; ``--c`` takes
-every protocol (``none`` for independent Q-learning).
+every protocol (``none`` for independent Q-learning). exp1 is the single-UBS
+DRQN (``--agent`` rnn or gnn, ``--n-grps`` GT groups of ``--gts-per-grp``).
 
-Each iteration runs the fused trainer (``algos/madrqn/fused.py``: on-device
-collection, the device replay ring, ``n_worlds`` updates in ``interleave``
-sub-iterations). The epsilon schedule, the epoch-stepped LR scale, the test
-episodes, ``checkpoint_epoch{N}.pt`` files (which the JAX package's learner
-resumes, AdamW moments included), ``config.json`` and ``progress.txt`` are
-those of ``run_fast.py:train_fast``; runs go to ``data_torch/`` by default.
-``--resume`` continues from the run directory's newest checkpoint and
-``--retries N`` relaunches a crashed run with ``--resume`` up to N times.
-Runs on ``cuda`` unless ``--device cpu`` is given.
+Each iteration runs a fused trainer: ``algos/madrqn/fused.py`` for exp2 and
+exp3 (on-device collection, the device replay ring, ``n_worlds`` updates in
+``interleave`` sub-iterations), ``algos/drqn/fused.py`` for exp1 (one episode
+on ``n_worlds`` worlds sliced into ``max_seq_len`` chunks, one update per
+``max_seq_len`` env steps). The epsilon schedule, the epoch-stepped LR scale,
+the test episodes, ``checkpoint_epoch{N}.pt`` files (which the JAX package's
+learner resumes, AdamW moments included), ``config.json`` and
+``progress.txt`` are those of ``run_fast.py:train_fast`` and
+``train_fast_exp1``; runs go to ``data_torch/`` by default. ``--resume``
+continues from the run directory's newest checkpoint and ``--retries N``
+relaunches a crashed run with ``--resume`` up to N times. Runs on ``cuda``
+unless ``--device cpu`` is given.
 
 What the port does not run yet raises ``ValueError`` naming the ROADMAP.md
-Queue 1 item it waits for: ``--exp exp1`` (item 7) and ``--compute-dtype
-bfloat16`` (item 5).
+Queue 1 item it waits for: ``--compute-dtype bfloat16`` (item 5).
 """
 
 import argparse
@@ -41,7 +46,11 @@ from uav_bs_ctrl_tpu_torch.utils.run_utils import setup_logger_kwargs
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 
-# The reference grid's hyperparameters (run_exp2.py, run_exp3.py), as run_fast.py's.
+# The reference grid's hyperparameters (run_exp1.py, run_exp2.py, run_exp3.py), as
+# run_fast.py's.
+EXP1_PRESET = dict(agent="rnn", lr=5e-4, polyak=0.999, replay_size=int(5e4),
+                   decay_steps=int(2e5), epochs=50, steps_per_epoch=20000,
+                   update_after=10000, anneal_lr=True)
 EXP_PRESETS = {
     "exp2": dict(o="mlp", hidden_size=256, n_layers=2, msg_size=64,
                  lr=2.5e-4, polyak=0.999, decay_steps=int(5e4),
@@ -56,15 +65,13 @@ EXP_PRESETS = {
                  dueling=False),
 }
 EPS_START, EPS_END = 1.0, 0.05
+TEST_COLUMNS = ("TestFairIdx", "TestAvgGlobalUtility", "TestTotalThroughput")
 
 
 def check_supported(exp, kw):
     """Raise ``ValueError`` on what the port cannot train yet, naming the
     ROADMAP.md Queue 1 item it waits for."""
-    if exp == "exp1":
-        raise ValueError("--exp exp1 (the single-UBS DRQN slice) waits for ROADMAP.md "
-                         "Queue 1 item 7")
-    if exp not in EXP_PRESETS:
+    if exp != "exp1" and exp not in EXP_PRESETS:
         raise ValueError(f"--exp must be one of exp1, exp2, exp3, got {exp!r}")
     if kw.get("compute_dtype", "float32") == "bfloat16":
         raise ValueError("--compute-dtype bfloat16 waits for ROADMAP.md Queue 1 item 5")
@@ -171,6 +178,38 @@ def train_fast(exp, map_id, seed=0, train_overrides=None, logger_kwargs=None,
     trainer = FusedMadrqnTrainer(map_id, train_kwargs=kw, n_worlds=n_worlds,
                                  capacity_chunks=capacity, n_layouts=n_layouts,
                                  seed=seed, interleave=interleave)
+    _train_loop(trainer, logger, n_worlds, trainer.T, resume,
+                TEST_COLUMNS + ("TestProbCollision",))
+    return trainer
+
+
+def train_fast_exp1(env_kwargs, seed=0, train_overrides=None, logger_kwargs=None,
+                    n_worlds=8, n_layouts=256, resume=False):
+    """``run_fast.py:train_fast_exp1``: the single-UBS DRQN at full budget on
+    the fused DRQN trainer; returns the trainer."""
+    from uav_bs_ctrl_tpu_torch.algos.drqn.fused import FusedDrqnTrainer
+
+    kw = dict(EXP1_PRESET)
+    kw.update(train_overrides or {})
+    check_supported("exp1", kw)
+
+    logger = EpochLogger(append=resume, **(logger_kwargs or {}))
+    logger.save_config(dict(exp="exp1", env_kwargs=env_kwargs, seed=seed,
+                            n_worlds=n_worlds, args=kw))
+
+    trainer = FusedDrqnTrainer(env_kwargs, train_kwargs=kw, n_worlds=n_worlds,
+                               n_layouts=n_layouts, seed=seed)
+    _train_loop(trainer, logger, n_worlds, trainer.L, resume, TEST_COLUMNS)
+    return trainer
+
+
+def _train_loop(trainer, logger, n_worlds, chunk_len, resume, test_columns):
+    """The iterations of both ``train_fast``s: ``steps_per_epoch x epochs //
+    (n_worlds T)`` iterations, an epoch every ``steps_per_epoch // (n_worlds
+    T)``, warm-up (collection only) until ``max(update_after, B chunk_len)``
+    env steps; at each epoch boundary the test episodes, the LR scheduler
+    step, ``should_save``'s checkpoint and one ``progress.txt`` row (the
+    ``Test*`` columns ``test_columns``)."""
     args, T = trainer.args, trainer.T
     learner = trainer.learner
 
@@ -178,7 +217,7 @@ def train_fast(exp, map_id, seed=0, train_overrides=None, logger_kwargs=None,
     steps_per_iter = n_worlds * T
     n_iters = max(1, total_steps // steps_per_iter)
     iters_per_epoch = max(1, args.steps_per_epoch // steps_per_iter)
-    update_after = max(args.update_after, args.batch_size * T)
+    update_after = max(args.update_after, args.batch_size * chunk_len)
     eps = lambda t: epsilon(t, args.decay_steps)
 
     epoch0, t_global = (0, 0)
@@ -207,10 +246,8 @@ def train_fast(exp, map_id, seed=0, train_overrides=None, logger_kwargs=None,
             logger.log_tabular("AvgGlobalUtility", average_only=True)
             logger.log_tabular("FairIdx", average_only=True)
             logger.log_tabular("TestEpRet", with_min_and_max=True)
-            logger.log_tabular("TestFairIdx", average_only=True)
-            logger.log_tabular("TestAvgGlobalUtility", average_only=True)
-            logger.log_tabular("TestTotalThroughput", average_only=True)
-            logger.log_tabular("TestProbCollision", average_only=True)
+            for column in test_columns:
+                logger.log_tabular(column, average_only=True)
             logger.log_tabular("TotalEnvInteracts", t_global)
             if logger.epoch_dict.get("LossQ"):
                 logger.log_tabular("LossQ", average_only=True)
@@ -222,7 +259,6 @@ def train_fast(exp, map_id, seed=0, train_overrides=None, logger_kwargs=None,
             logger.dump_tabular()
 
     print("Complete.")
-    return trainer
 
 
 def main(argv=None):
@@ -236,6 +272,9 @@ def main(argv=None):
     parser.add_argument("--o", dest="obs_enc", default=None,
                         help="override observation encoder (mlp|gnn)")
     parser.add_argument("--mixer", action="store_true")
+    parser.add_argument("--agent", default="rnn", help="exp1 agent type (rnn|gnn)")
+    parser.add_argument("--n-grps", type=int, default=2, help="exp1 GT groups")
+    parser.add_argument("--gts-per-grp", type=int, default=5, help="exp1 GTs per group")
     parser.add_argument("--seed", "-s", type=int, default=0)
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--steps-per-epoch", type=int, default=None)
@@ -261,34 +300,45 @@ def main(argv=None):
                         help="on crash, relaunch with --resume up to N times")
     cli = parser.parse_args(argv)
 
-    map_id = cli.map_id or ("r400" if cli.exp == "exp2" else "4ubs")
-    c = None if cli.c in (None, "none") else cli.c
-    overrides = dict(c=c, mixer=cli.mixer, compute_dtype=cli.compute_dtype,
-                     matmul_precision=cli.matmul_precision)
-    if cli.obs_enc:
-        overrides["o"] = cli.obs_enc
+    if cli.exp == "exp1":
+        overrides = dict(agent=cli.agent, compute_dtype=cli.compute_dtype,
+                         matmul_precision=cli.matmul_precision)
+        preset = EXP1_PRESET
+        name = f"exp1_fast_grp{cli.n_grps}_size{cli.gts_per_grp}_{cli.agent}"
+    else:
+        map_id = cli.map_id or ("r400" if cli.exp == "exp2" else "4ubs")
+        c = None if cli.c in (None, "none") else cli.c
+        overrides = dict(c=c, mixer=cli.mixer, compute_dtype=cli.compute_dtype,
+                         matmul_precision=cli.matmul_precision)
+        if cli.obs_enc:
+            overrides["o"] = cli.obs_enc
+        preset = EXP_PRESETS.get(cli.exp, {})
+        name = f"{cli.exp}_fast_{map_id}_{c or 'iql'}" + ("_qmix" if cli.mixer else "")
+        if cli.obs_enc:
+            name += f"_{cli.obs_enc}"
+        if cli.interleave > 1:
+            name += f"_il{cli.interleave}"
     for k in ("epochs", "steps_per_epoch", "replay_size", "update_after", "device",
               "save_freq"):
         v = getattr(cli, k)
         if v is not None:
             overrides[k] = v
     # Here too, so that the supervisor does not relaunch a run the port cannot train.
-    check_supported(cli.exp, dict(EXP_PRESETS.get(cli.exp, {}), **overrides))
+    check_supported(cli.exp, dict(preset, **overrides))
     if cli.retries > 0 and os.environ.get("UAVBS_SUPERVISED") != "1":
         _supervise(argv, cli.retries)      # exits; training runs in supervised children
 
-    name = f"{cli.exp}_fast_{map_id}_{c or 'iql'}" + ("_qmix" if cli.mixer else "")
-    if cli.obs_enc:
-        name += f"_{cli.obs_enc}"
-    if cli.interleave > 1:
-        name += f"_il{cli.interleave}"
     if cli.name_suffix:
         name += f"_{cli.name_suffix}"
     logger_kwargs = setup_logger_kwargs(name, cli.seed, data_dir=cli.data_dir)
-    train_fast(cli.exp, map_id, seed=cli.seed, train_overrides=overrides,
-               logger_kwargs=logger_kwargs, n_worlds=cli.n_worlds,
-               n_layouts=cli.n_layouts, resume=cli.resume, interleave=cli.interleave)
-
+    if cli.exp == "exp1":
+        train_fast_exp1(dict(n_grps=cli.n_grps, gts_per_grp=cli.gts_per_grp), seed=cli.seed,
+                        train_overrides=overrides, logger_kwargs=logger_kwargs,
+                        n_worlds=cli.n_worlds, n_layouts=cli.n_layouts, resume=cli.resume)
+    else:
+        train_fast(cli.exp, map_id, seed=cli.seed, train_overrides=overrides,
+                   logger_kwargs=logger_kwargs, n_worlds=cli.n_worlds,
+                   n_layouts=cli.n_layouts, resume=cli.resume, interleave=cli.interleave)
 
 if __name__ == "__main__":
     main()

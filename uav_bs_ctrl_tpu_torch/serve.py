@@ -10,10 +10,14 @@ Any agent the port has loads from its ``config.json``, as the JAX learner
 builds it (``build_agent``): the GNN agent with every comm protocol or a GRU
 only, the MLP-encoder agent of exp2 and of the exp3 MLP ablation (with a
 protocol), and ``RnnAgent`` (``o='mlp'`` without one), which play on the flat
-observation. ``--gat-backend`` overrides the run's GATv2 backend (the
-JAX package reaches its ``flash_gat`` kernel only through ``gat_backend``):
-``pallas`` runs ``flash_gat``, every other backend the projection-fused
-kernels. Runs on ``cuda`` unless ``--device cpu`` is given; the GATv2
+observation. An exp1 run (``"exp": "exp1"`` in its ``config.json``) is the
+single-UBS DRQN: its ``args.agent`` picks ``DrqnGnnAgent`` or ``RnnAgent``
+(on the flat ``[agent | gt]`` observation), and it plays the single-UBS env
+on the run's ``env_kwargs``. ``--gat-backend`` overrides the run's GATv2
+backend (the JAX package reaches its ``flash_gat`` kernel only through
+``gat_backend``): ``pallas`` runs ``flash_gat``, every other backend the
+projection-fused kernels; ``DrqnGnnAgent`` has no backend, so an exp1 run
+refuses it. Runs on ``cuda`` unless ``--device cpu`` is given; the GATv2
 encoder and the one-round TarMAC step then go through the hand-written CUDA
 kernels.
 """
@@ -22,14 +26,17 @@ import argparse
 import json
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
-from uav_bs_ctrl_tpu_torch.algos import collect
+from uav_bs_ctrl_tpu_torch.algos import collect, collect_subs
+from uav_bs_ctrl_tpu_torch.algos.drqn import config as drqn_config
+from uav_bs_ctrl_tpu_torch.algos.drqn import fused as drqn_fused
 from uav_bs_ctrl_tpu_torch.algos.madrqn.fused import obs_shape
 from uav_bs_ctrl_tpu_torch.config import DEFAULT_CONFIG, make_args
-from uav_bs_ctrl_tpu_torch.envs import torch_env
-from uav_bs_ctrl_tpu_torch.models.agents import build_agent
+from uav_bs_ctrl_tpu_torch.envs import torch_env, torch_env_subs
+from uav_bs_ctrl_tpu_torch.models.agents import DRQN_REGISTRY, build_agent
 from uav_bs_ctrl_tpu_torch.utils import checkpoint
 from uav_bs_ctrl_tpu_torch.utils.convert import params_from_jax
 
@@ -51,18 +58,39 @@ def load_policy(run_dir, device=None, checkpoint_path=None, gat_backend=None):
     given) checkpoint, on ``device`` (default ``cuda``). The agent is frozen
     (no parameter requires grad): it only serves."""
     config = json.loads((Path(run_dir) / "config.json").read_text())
-    if gat_backend is not None:
-        config["args"] = dict(config["args"], gat_backend=gat_backend)
-    args = make_args(config["args"], device)
-    env_params = torch_env.make_params(config["map_id"])
-    agent = build_agent(obs_shape(env_params, args.o), env_params.n_actions, args)
+    if is_exp1(config):
+        if gat_backend is not None:
+            raise ValueError("an exp1 run's DrqnGnnAgent has no gat_backend")
+        args = drqn_config.check_args(SimpleNamespace(
+            **dict(drqn_config.DEFAULT_CONFIG, **config["args"],
+                   device=device or drqn_config.DEFAULT_CONFIG["device"])))
+        env_params = torch_env_subs.make_params(**config["env_kwargs"])
+        agent = DRQN_REGISTRY[args.agent](drqn_fused.obs_shape(env_params, args.agent),
+                                          env_params.n_actions, args)
+    else:
+        if gat_backend is not None:
+            config["args"] = dict(config["args"], gat_backend=gat_backend)
+        args = make_args(config["args"], device)
+        env_params = torch_env.make_params(config["map_id"])
+        agent = build_agent(obs_shape(env_params, args.o), env_params.n_actions, args)
     ckpt = checkpoint.load(checkpoint_path or latest_checkpoint(run_dir))
     agent.load_state_dict(params_from_jax(ckpt["model_state_dict"], agent))
     return agent.to(args.device).eval().requires_grad_(False), config
 
 
+def is_exp1(config):
+    """Whether a run's ``config.json`` is an exp1 (single-UBS DRQN) run."""
+    return config.get("exp") == "exp1"
+
+
 def test_pool(map_id, seed):
     return collect.make_layout_pool(map_id, N_TEST_LAYOUTS, seed=seed + TEST_POOL_SEED)
+
+
+def test_pool_subs(env_kwargs, seed):
+    """exp1's held-out pool, as the DRQN trainer's test pool."""
+    return collect_subs.make_subs_layout_pool(N_TEST_LAYOUTS, seed=seed + TEST_POOL_SEED,
+                                              **env_kwargs)
 
 
 @torch.no_grad()
@@ -71,12 +99,19 @@ def evaluate(run_dir, n_episodes, eps=0.05, seed=0, device=None, checkpoint_path
     """Episode statistics ([n_episodes] tensors) of the run's policy playing
     ``n_episodes`` worlds, one episode each, in parallel."""
     agent, config = load_policy(run_dir, device, checkpoint_path, gat_backend)
-    env_params = torch_env.make_params(config["map_id"])
     generator = torch.Generator().manual_seed(seed)
+    device = next(agent.parameters()).device
+    if is_exp1(config):
+        env_params = torch_env_subs.make_params(**config["env_kwargs"])
+        policy = collect_subs.make_policy(agent, config["args"].get(
+            "agent", drqn_config.DEFAULT_CONFIG["agent"]))
+        return collect_subs.evaluate_policy_subs(
+            env_params, policy, test_pool_subs(config["env_kwargs"], seed), agent.hidden,
+            generator, n_episodes, device, eps)
+    env_params = torch_env.make_params(config["map_id"])
     policy = collect.make_policy(agent, config["args"].get("o", DEFAULT_CONFIG["o"]))
     return collect.evaluate_policy(env_params, policy, test_pool(config["map_id"], seed),
-                                   agent.hidden, generator, n_episodes,
-                                   next(agent.parameters()).device, eps)
+                                   agent.hidden, generator, n_episodes, device, eps)
 
 
 def main(argv=None):

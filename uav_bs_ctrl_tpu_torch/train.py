@@ -7,7 +7,8 @@ is :mod:`uav_bs_ctrl_tpu_torch.run_fast`):
         [--n-layouts P]
 
 It reads the run's ``config.json`` and newest checkpoint (net, mixer, AdamW
-state, LR scale), builds the fused trainer at the run's own settings with a
+state, LR scale), builds the fused trainer at the run's own settings (the
+DRQN trainer for an exp1 run, ``"exp": "exp1"``) with a
 pool of ``--n-layouts`` layouts (default 256, as ``run_fast.py``), runs two
 warm-up iterations (collection only, as ``run_fast.py:_maybe_resume``) and N
 training iterations, evaluates, and prints one JSON line of mean metrics.
@@ -21,30 +22,43 @@ from pathlib import Path
 
 import numpy as np
 
+from uav_bs_ctrl_tpu_torch.algos.drqn.fused import FusedDrqnTrainer
 from uav_bs_ctrl_tpu_torch.algos.madrqn.fused import FusedMadrqnTrainer
-from uav_bs_ctrl_tpu_torch.serve import latest_checkpoint
+from uav_bs_ctrl_tpu_torch.serve import is_exp1, latest_checkpoint
 
 N_LAYOUTS = 256           # run_fast.py --n-layouts default
 N_WARMUPS = 2             # run_fast.py:_maybe_resume refills the ring with two collections
 TINY = dict(n_worlds=2, interleave=1, updates_per_iter=1, batch_size=2, capacity_chunks=4)
+TINY_EXP1 = dict(n_worlds=2, updates_per_iter=1, batch_size=2, capacity_chunks=80)  # 2 episodes
 
 
 def build_trainer(run_dir, device=None, n_layouts=N_LAYOUTS, n_worlds=None, interleave=None,
                   updates_per_iter=None, batch_size=None, capacity_chunks=None):
-    """A :class:`FusedMadrqnTrainer` at the run's settings (``None`` keeps the
-    run's value), loaded from the run's newest checkpoint."""
+    """The run's fused trainer (:class:`FusedDrqnTrainer` for an exp1 run,
+    else :class:`FusedMadrqnTrainer`) at the run's settings (``None`` keeps
+    the run's value), loaded from the run's newest checkpoint. An exp1 run
+    takes no ``interleave``."""
     config = json.loads((Path(run_dir) / "config.json").read_text())
     kw = dict(config["args"], device=device or "cuda")
     if batch_size is not None:
         kw["batch_size"] = batch_size
     n_worlds = n_worlds or config["n_worlds"]
-    if capacity_chunks is None:        # run_fast.py: replay_size rounded down to n_worlds
-        capacity_chunks = kw["replay_size"] - kw["replay_size"] % n_worlds
-    trainer = FusedMadrqnTrainer(config["map_id"], train_kwargs=kw, n_worlds=n_worlds,
-                                 capacity_chunks=capacity_chunks,
-                                 updates_per_iter=updates_per_iter, n_layouts=n_layouts,
-                                 seed=config["seed"],
-                                 interleave=interleave or config.get("interleave") or 1)
+    if is_exp1(config):
+        if interleave is not None:
+            raise ValueError("an exp1 run takes no interleave")
+        # capacity_chunks None: replay_size rounded down to an iteration's chunks
+        trainer = FusedDrqnTrainer(config["env_kwargs"], train_kwargs=kw, n_worlds=n_worlds,
+                                   capacity_chunks=capacity_chunks,
+                                   updates_per_iter=updates_per_iter, n_layouts=n_layouts,
+                                   seed=config["seed"])
+    else:
+        if capacity_chunks is None:    # run_fast.py: replay_size rounded down to n_worlds
+            capacity_chunks = kw["replay_size"] - kw["replay_size"] % n_worlds
+        trainer = FusedMadrqnTrainer(config["map_id"], train_kwargs=kw, n_worlds=n_worlds,
+                                     capacity_chunks=capacity_chunks,
+                                     updates_per_iter=updates_per_iter, n_layouts=n_layouts,
+                                     seed=config["seed"],
+                                     interleave=interleave or config.get("interleave") or 1)
     trainer.learner.load_checkpoint(latest_checkpoint(run_dir))
     return trainer
 
@@ -70,10 +84,13 @@ def main(argv=None):
                         help="layouts in the training and test pools")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     parser.add_argument("--tiny", action="store_true",
-                        help=f"a quick check: {TINY} and 2 test episodes")
+                        help=f"a quick check: {TINY} (exp1: {TINY_EXP1}) and 2 test episodes")
     cli = parser.parse_args(argv)
-    trainer = build_trainer(cli.run_dir, cli.device, cli.n_layouts,
-                            **(TINY if cli.tiny else {}))
+    tiny = {}
+    if cli.tiny:
+        config = json.loads((Path(cli.run_dir) / "config.json").read_text())
+        tiny = TINY_EXP1 if is_exp1(config) else TINY
+    trainer = build_trainer(cli.run_dir, cli.device, cli.n_layouts, **tiny)
     eval_episodes = 2 if cli.tiny else trainer.n_worlds
     print(json.dumps(train(trainer, cli.iterations, cli.eps, eval_episodes)))
 
