@@ -31,10 +31,18 @@ read back bit for bit); exp1, the single-UBS DRQN (``exp1_phases``): #2 and
 served (40 worlds, one 200-step episode; the gnn run's every step against the
 plain path), the gnn run resumed with two warm-ups and one update gated
 against the plain path, ``run_fast.train_fast_exp1`` resumed from the gnn
-run's epoch 50 for one epoch and started fresh with the rnn agent; and
-timings (``exp1_times`` adds exp1's kernels, updates and collection). Any
-failed phase exits non-zero with no result line. The last line is the JSON
-device record.
+run's epoch 50 for one epoch and started fresh with the rnn agent; the
+classic host loop (``host_loop_phases``): ``test_policies.test_series`` over
+the committed exp1 2 x 5 gnn run and the 4-UBS TarMAC+QMIX run (4 episodes
+each, ms per host step split into act and env, the launches counted, every
+step's Q and h' held against the plain path, the rows set beside the
+committed summaries), ``run_classic``'s exp3 preset on the 4-UBS TarMAC+QMIX
+configuration for one 2000-step epoch (one update gated against the plain
+path and repeated bit for bit, its checkpoint read back by ``test_series``)
+and a one-variant ``ExperimentGrid`` through the pickled-thunk subprocess;
+and timings (``exp1_times`` adds exp1's kernels, updates and collection).
+Any failed phase exits non-zero with no result line. The last line is the
+JSON device record.
 """
 
 import collections
@@ -68,6 +76,10 @@ EXP2_DIR = ROOT / "data" / "exp2_fast_r400_tarmac" / "exp2_fast_r400_tarmac_s0"
 EXP1_GNN_DIR = ROOT / "data" / "exp1_fast_grp4_size5_gnn" / "exp1_fast_grp4_size5_gnn_s0"
 EXP1_RNN_DIR = ROOT / "data" / "exp1_fast_grp4_size5_rnn" / "exp1_fast_grp4_size5_rnn_s0"
 EXP1_EPOCH = 50           # the committed exp1 checkpoints' epoch
+HOST_EXP1_DIR = ROOT / "data" / "exp1_fast_grp2_size5_gnn" / "exp1_fast_grp2_size5_gnn_s10"
+HOST_4UBS_DIR = ROOT / "data" / "exp3_fast_4ubs_tarmac_qmix" / "exp3_fast_4ubs_tarmac_qmix_s0"
+HOST_EPISODES = 4         # test_policies episodes per run on the card
+CLASSIC_STEPS = 2000      # run_classic's one epoch: updates from B T = 1600 steps, every T
 N_WORLDS = 40             # the run's n_worlds
 EPS = 0.05                # evaluate_policy's test epsilon
 DEVICE = "cuda"
@@ -869,6 +881,198 @@ def exp1_phases(ctx):
     return out
 
 
+def host_loop_phases(ctx):
+    """The classic host loop (slice 11): ``test_policies.test_series`` on the
+    card over the committed exp1 2 x 5 gnn run (epoch 50; #2 at N = 1 a step)
+    and the 4-UBS TarMAC+QMIX run (its newest checkpoint; #2 twice and #4 at
+    W = 1 a step), timed with ``StepTimer`` and then again with every step's
+    Q and h' held against the plain path; ``run_classic``'s exp3 preset on
+    the 4-UBS TarMAC+QMIX configuration at full width for one epoch of
+    ``CLASSIC_STEPS`` steps, one of its updates gated against the plain path
+    and repeated bit for bit, its checkpoint read back by ``test_series``; a
+    one-variant ``ExperimentGrid`` of the exp1 DRQN gnn agent through the
+    pickled-thunk subprocess. ``ctx`` as for :func:`exp1_phases`."""
+    from uav_bs_ctrl_tpu_torch import run_classic, serve, test_policies
+    from uav_bs_ctrl_tpu_torch.algos import core
+    from uav_bs_ctrl_tpu_torch.algos.buffer import tree_map
+    from uav_bs_ctrl_tpu_torch.algos.drqn import run as drqn_run
+    from uav_bs_ctrl_tpu_torch.envs.subs_cov import SingleUbsCoverageEnv
+    from uav_bs_ctrl_tpu_torch.utils.profiling import StepTimer
+    from uav_bs_ctrl_tpu_torch.utils.run_utils import ExperimentGrid
+    counts, reset_counts = ctx.counts, ctx.reset_counts
+    zero = dict.fromkeys(counts(), 0)
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_host_"))
+    out = SimpleNamespace(step_ms={})
+    act_q = core.RecurrentQLearner._act_q
+    errs = []
+
+    def checked(self, obs, h, key):
+        q, h2 = act_q(self, obs, h, key)
+        q_ref, h_ref = self.net(obs, h, False, key)
+        errs.append(((q - q_ref).abs().max().item(), (h2 - h_ref).abs().max().item()))
+        return q, h2
+
+    def committed_rows(path):
+        """``{(metric, exp_name): [value strings]}`` of a committed test_summary.csv."""
+        rows = [line.split(",") for line in Path(path).read_text().splitlines()]
+        return {(m, e): [r[i] for r in rows[2:]]
+                for i, (m, e) in enumerate(zip(rows[0], rows[1])) if i}
+
+    # (label, run, checkpoint, committed summary and the checkpoint it was made
+    # at, steps an episode, launches a step)
+    runs = (("exp1", HOST_EXP1_DIR, f"checkpoint_epoch{EXP1_EPOCH}.pt",
+             ROOT / "data" / "test_exp1_grp2" / "test_summary.csv",
+             f"checkpoint_epoch{EXP1_EPOCH}.pt", 200, dict(zero, flash_gat_fused=1)),
+            ("4ubs", HOST_4UBS_DIR, serve.latest_checkpoint(HOST_4UBS_DIR).name,
+             ROOT / "data" / "test_exp3_4ubs" / "test_summary.csv", "checkpoint_epoch100.pt",
+             50, dict(zero, flash_gat_fused=2, tarmac_step=1)))
+    for label, run_dir, ckpt, committed, committed_ckpt, steps, per_step in runs:
+        with phase(f"test_policies on the card: {run_dir.name} at {ckpt}, {HOST_EPISODES} "
+                   f"episodes of {steps} steps, timed, then every step against the plain path"):
+            print(f"  {card_line()}", flush=True)
+            n_steps = HOST_EPISODES * steps
+            timer = StepTimer()
+            reset_counts()
+            t0 = time.perf_counter()
+            summary = test_policies.test_series(
+                None, test_policies.METRICS, [str(run_dir)], ckpt, HOST_EPISODES,
+                str(scratch / label), device=DEVICE, timer=timer)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ctx.phase_launches[f"host_test_series_{label}"] = counts()
+            times = timer.flush()
+            out.step_ms[label] = times
+            want = {k: v * n_steps for k, v in per_step.items()}
+            print(f"  {wall:.2f} s (loading included); per host step: act {times['TimeActMs']:.3f}"
+                  f" ms, env {times['TimeEnvMs']:.3f} ms; launches {launches} over {n_steps} "
+                  f"steps", flush=True)
+            if launches != want:
+                raise AssertionError(f"expected {want} launches, got {launches}")
+            for key, v in summary.items():
+                if len(v) != HOST_EPISODES or not np.isfinite(np.asarray(v, float)).all():
+                    raise AssertionError(f"{key}: {v}")
+            print("  means: " + json.dumps({m: float(np.mean(v)) for (m, _), v in
+                                            summary.items()}), flush=True)
+            if committed_ckpt != ckpt:          # the committed summary's own checkpoint
+                test_policies.test_series(None, test_policies.METRICS, [str(run_dir)],
+                                          committed_ckpt, HOST_EPISODES,
+                                          str(scratch / f"{label}_committed"), device=DEVICE)
+            want_rows = committed_rows(committed)
+            got_rows = committed_rows(scratch / (label if committed_ckpt == ckpt else
+                                                 f"{label}_committed") / "test_summary.csv")
+            same = [all(k in want_rows and math.isclose(float(got_rows[k][i]),
+                                                        float(want_rows[k][i]), rel_tol=1e-5)
+                        for k in got_rows) for i in range(HOST_EPISODES)]
+            print(f"  at {committed_ckpt}, episodes whose row equals the committed "
+                  f"{committed.relative_to(ROOT)} (the JAX harness, same seed; 1e-5 relative): "
+                  f"{sum(same)} of {HOST_EPISODES} ({same})", flush=True)
+
+            errs.clear()
+            core.RecurrentQLearner._act_q = checked
+            try:
+                reset_counts()
+                again = test_policies.test_series(
+                    None, test_policies.METRICS, [str(run_dir)], ckpt, HOST_EPISODES,
+                    str(scratch / f"{label}_checked"), device=DEVICE)
+                torch.cuda.synchronize()
+            finally:
+                core.RecurrentQLearner._act_q = act_q
+            worst_q, worst_h = max(e[0] for e in errs), max(e[1] for e in errs)
+            print(f"  checked: {len(errs)} steps, max |dQ| {worst_q:.3e}, max |dh'| "
+                  f"{worst_h:.3e} (bound {ATOL}); launches {counts()}; the same summary as "
+                  f"the timed run: {again == summary}", flush=True)
+            if len(errs) != n_steps or worst_q > ATOL or worst_h > ATOL:
+                raise AssertionError(f"per-step Q/h' beyond {ATOL}: {worst_q:.3e} / "
+                                     f"{worst_h:.3e} over {len(errs)} steps")
+            if counts() != want:
+                raise AssertionError(f"expected {want} launches, got {counts()}")
+
+    classic_dir = scratch / "classic"
+    with phase(f"run_classic: exp3 preset, 4ubs TarMAC+QMIX at full width, one epoch of "
+               f"{CLASSIC_STEPS} steps, one update gated against the plain path"):
+        print(f"  {card_line()}", flush=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            learner = run_classic.main(
+                ["--exp", "exp3", "--map", "4ubs", "--c", "tarmac", "--mixer", "--device",
+                 DEVICE, "--epochs", "1", "--steps-per-epoch", str(CLASSIC_STEPS),
+                 "--update-after", "0", "--data-dir", str(classic_dir)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ctx.phase_launches["host_run_classic"] = counts()
+        T, B = learner.max_seq_len, learner.batch_size
+        run_dir = next(classic_dir.glob("*/*_s0"))
+        head, rows = progress_rows(run_dir)
+        n_upd = len(range(B * T, CLASSIC_STEPS, T))
+        per_update = dict(zero, flash_gat_fused=2 * (2 * T + 1), tarmac_step=2 * T + 1,
+                          flash_gat_fused_bwd=2 * T, tarmac_step_bwd=T)
+        saved = next(iter(json.loads((run_dir / "config.json").read_text())["args"].values()))
+        policy_steps = CLASSIC_STEPS + saved["num_test_episodes"] * T   # training, the tests
+        want = {k: n_upd * v for k, v in per_update.items()}
+        want["flash_gat_fused"] += 2 * policy_steps
+        want["tarmac_step"] += policy_steps
+        taken = learner.optimizer.state[learner.parameters()[0]]["step"].item()
+        cols = ("Epoch", "TotalEnvInteracts", "LossQ", "AverageEpRet", "AverageTestEpRet",
+                "TimeActMs", "TimeEnvMs", "TimeUpdateMs", "Time")
+        print(f"  {wall:.2f} s; B={B}, T={T}: {taken:.0f} updates; row "
+              f"{ {c: rows[0][c] for c in cols} }; launches {launches}", flush=True)
+        out.classic = {c: float(rows[0][c]) for c in cols}
+        if len(rows) != 1 or rows[0]["TotalEnvInteracts"] != str(CLASSIC_STEPS) \
+                or not math.isfinite(float(rows[0]["LossQ"])) or taken != n_upd:
+            raise AssertionError(f"progress.txt {rows}, {taken} updates (expected {n_upd})")
+        if launches != want:
+            raise AssertionError(f"expected {want} launches, got {launches}")
+        batch = tree_map(lambda x: torch.as_tensor(x, device=DEVICE),
+                         learner.buffer.sample(B, np.random.RandomState(0)))
+        check_update(learner, batch, per_update, counts)
+        out.classic_update_ms = ms_per_update(learner, batch, n=3)
+        print(f"  one classic update (kernels): {out.classic_update_ms:.2f} ms", flush=True)
+
+    with phase("test_policies reads back the classic run's checkpoint_epoch1.pt"):
+        reset_counts()
+        summary = test_policies.test_series(None, test_policies.METRICS, [str(run_dir)],
+                                            "checkpoint_epoch1.pt", 1, str(scratch / "readback"),
+                                            device=DEVICE)
+        launches = counts()
+        print(f"  {json.dumps({f'{m}/{e}': float(np.mean(v)) for (m, e), v in summary.items()})};"
+              f" launches {launches}", flush=True)
+        if launches != dict(zero, flash_gat_fused=2 * T, tarmac_step=T) or not all(
+                len(v) == 1 and math.isfinite(float(v[0])) for v in summary.values()):
+            raise AssertionError(f"read-back: {summary}, launches {launches}")
+    del learner
+
+    with phase("a one-variant ExperimentGrid of the exp1 DRQN gnn agent through the "
+               "pickled-thunk subprocess on the card"):
+        eg = ExperimentGrid(name="chip_smoke_grid")
+        eg.add("seed", [0])
+        eg.add("env_fn", SingleUbsCoverageEnv)
+        eg.add("env_kwargs:n_grps", [2], "grp", True)
+        eg.add("env_kwargs:gts_per_grp", 5)
+        eg.add("train_kwargs:agent", "gnn", "", True)
+        for k, v in dict(epochs=1, steps_per_epoch=400, update_after=0, num_test_episodes=1,
+                         save_freq=1, device=DEVICE).items():
+            eg.add(f"train_kwargs:{k}", v)
+        t0 = time.perf_counter()
+        failed = eg.run(drqn_run.train, data_dir=str(scratch / "grid"))
+        wall = time.perf_counter() - t0
+        grid_dir = scratch / "grid" / "chip_smoke_grid_grp2_gnn" / "chip_smoke_grid_grp2_gnn_s0"
+        head, rows = progress_rows(grid_dir)
+        config = json.loads((grid_dir / "config.json").read_text())
+        saved = next(iter(config["args"].values()))
+        cols = ("Epoch", "TotalEnvInteracts", "LossQ", "AverageEpRet", "AverageTestEpRet")
+        print(f"  {wall:.2f} s (a fresh interpreter); row "
+              f"{[{c: r[c] for c in cols} for r in rows]}; config: env_fn "
+              f"{config['env_fn']}, device {saved['device']}, hidden {saved['hidden_size']}; "
+              f"files {sorted(p.name for p in grid_dir.iterdir())}", flush=True)
+        if failed or len(rows) != 1 or not math.isfinite(float(rows[0]["LossQ"])) \
+                or saved["device"] != DEVICE or config["env_fn"] != "SingleUbsCoverageEnv" \
+                or not (grid_dir / "checkpoint_epoch1.pt").exists():
+            raise AssertionError(f"the grid's run: failed {failed}, rows {rows}, config {saved}")
+    shutil.rmtree(scratch)
+    return out
+
+
 def exp1_times(e1):
     """exp1's times: #2 and #3 at exp1's shapes with their bounds, ms per
     update (gnn through the kernels and on the plain path, rnn), the
@@ -944,7 +1148,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
-    run_dirs = (RUN_DIR, DISC_DIR, DISC_QMIX_DIR, EXP2_DIR, EXP1_GNN_DIR, EXP1_RNN_DIR)
+    run_dirs = (RUN_DIR, DISC_DIR, DISC_QMIX_DIR, EXP2_DIR, EXP1_GNN_DIR, EXP1_RNN_DIR,
+                HOST_EXP1_DIR, HOST_4UBS_DIR)
     if not (ROOT / "uav_bs_ctrl_tpu_torch").is_dir() or not all(d.is_dir() for d in run_dirs):
         print(f"chip_smoke: the uav_bs_ctrl_tpu_torch package and "
               f"{', '.join(str(d.relative_to(ROOT)) for d in run_dirs)} must sit beside "
@@ -1551,6 +1756,8 @@ def main():
 
     e1 = exp1_phases(SimpleNamespace(rng=rng, worst=worst, counts=counts,
                                      reset_counts=reset_counts, phase_launches=phase_launches))
+    host_loop_phases(SimpleNamespace(counts=counts, reset_counts=reset_counts,
+                                     phase_launches=phase_launches))
 
     record = []
     with phase("times"):

@@ -43,6 +43,8 @@ CASES = [  # n, m, d, heads, f
     (3, 20, 3, 10, 96),       # H = 10, F = 96: 3 columns a lane
     (1030, 7, 2, 1, 64),      # more rows than the backward's 1024 CTAs: a CTA takes two
     (3, 0, 2, 4, 64),         # no slot at all
+    (4, 50, 4, 4, 64),        # the classic host loop's 4-UBS step: N = A = 4, 'seen'
+    (4, 3, 2, 4, 64),         # and 'near' (K = 3)
 ]
 
 
@@ -63,7 +65,7 @@ def _case(n, m, d, heads, f, all_valid=False):
     rng = np.random.default_rng(n * m + d + heads)
     hf = heads * f
     mask = rng.random((n, m)) > 0.5
-    mask[0], mask[1] = True, False
+    mask[0], mask[1:2] = True, False          # (no row 1 when n = 1)
     if all_valid:
         mask[:] = True
     case = dict(x=rng.normal(size=(n, m, d)), w=rng.normal(size=(d, hf)) / np.sqrt(d),
@@ -148,7 +150,8 @@ def test_emulated_backward_matches_plain(bwd_lib, n, m, d, heads, f, need_dx):
         assert torch.all(got[0][_case(n, m, d, heads, f)["mask"] == 0] == 0)   # masked slots
 
 
-EXP1_CASES = [(32, 10), (32, 20), (40, 10), (40, 20)]     # n, m; D = 4, H = 4, F = 64
+# n, m; D = 4, H = 4, F = 64; N = 1 is the classic host loop's exp1 step (one CTA)
+EXP1_CASES = [(32, 10), (32, 20), (40, 10), (40, 20), (1, 10), (1, 20)]
 
 
 @pytest.mark.parametrize("n,m", EXP1_CASES)
@@ -207,7 +210,7 @@ def _flash_case(n, m, heads, f, scale):
     rng = np.random.default_rng(n * m + heads * f)
     hf = heads * f
     mask = rng.random((n, m)) > 0.5
-    mask[0], mask[1] = True, False
+    mask[0], mask[1:2] = True, False          # (no row 1 when n = 1)
     arrays = (scale * rng.normal(size=(n, m, hf)), scale * rng.normal(size=(n, hf)),
               rng.normal(size=(heads, f)) / np.sqrt(f), mask)
     return [torch.from_numpy(np.ascontiguousarray(a, np.float32)) for a in arrays]

@@ -199,6 +199,26 @@ def test_serve_runs_where_jax_optax_pandas_are_missing():
         assert all(np.isfinite(v) for v in stats.values())
 
 
+F6_RUN = ROOT / "data" / "exp3_fast_4ubs_tarmac_mlp" / "exp3_fast_4ubs_tarmac_mlp_s0"
+
+
+def test_load_policy_takes_the_callers_device_not_the_runs(monkeypatch):
+    """F6: the exp3 MLP-ablation run stores ``"device": "cpu"``; serving it with
+    no device must ask for CUDA (and raise where there is none), not follow
+    the stored device onto the CPU. With ``device='cpu'`` it serves."""
+    config = json.loads((F6_RUN / "config.json").read_text())
+    assert config["args"]["device"] == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        serve.load_policy(F6_RUN)
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        serve.evaluate(F6_RUN, 2)
+    agent, _ = serve.load_policy(F6_RUN, device="cpu")
+    assert next(agent.parameters()).device.type == "cpu"
+    stats = serve.evaluate(F6_RUN, 2, device="cpu")
+    assert all(tuple(v.shape) == (2,) and bool(torch.isfinite(v).all()) for v in stats.values())
+
+
 def test_port_and_chip_smoke_import_nothing_of_jax():
     files = sorted((ROOT / "uav_bs_ctrl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
@@ -206,6 +226,15 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     assert {port / "envs" / "torch_env_subs.py", port / "algos" / "collect_subs.py",
             port / "algos" / "drqn" / "fused.py", port / "algos" / "drqn" / "learner.py",
             port / "algos" / "drqn" / "config.py"} <= set(files)
+    host_loop = {port / name for name in (
+        "envs/spaces.py", "envs/multi_agent_env.py", "envs/recorder.py", "envs/subs_cov.py",
+        "envs/mubs_cov.py", "envs/__init__.py", "algos/madrqn/wrappers.py",
+        "algos/drqn/wrappers.py", "algos/madrqn/run.py", "algos/drqn/run.py",
+        "utils/reward_normalizer.py", "utils/profiling.py", "utils/run_utils.py",
+        "utils/run_entrypoint.py", "test_policies.py", "collect_curves.py", "run_exp1.py",
+        "run_exp2.py", "run_exp3.py", "run_classic.py")}
+    assert host_loop <= set(files)
+    assert {"cloudpickle", "pandas", "matplotlib"} <= FORBIDDEN
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
             if isinstance(node, ast.Import):

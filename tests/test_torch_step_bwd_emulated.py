@@ -205,6 +205,7 @@ def _run(lib, args, w, a, key_size, dueling):
     (3, 8, 40, 12, 6, 9, True, False),       # widths that are no multiple of a tile or slab
     (9, 8, 32, 64, 16, 9, False, True),      # R = 72 over three row tiles; a world with no edge
     (2, 3, 70, 20, 5, 3, True, True),        # A = 3
+    (1, 4, 256, 64, 16, 9, False, False),    # W = 1, R = 4 (below a row tile), full width
 ])
 def test_emulated_kernel_matches_plain(emulated, w, a, hidden, msg, key, n_act, dueling,
                                        empty_world):
@@ -243,6 +244,7 @@ def _run_fwd(lib, args, w, a, key_size, dueling):
     (9, 8, 32, 64, 16, 9, False, True),      # R = 72 over three row tiles; a world with no edge
     (7, 4, 70, 20, 5, 3, True, True),        # A = 4, R = 28; H = 70 splits the head unevenly
     (2, 3, 70, 20, 5, 3, False, True),       # A = 3: the last head block holds 2 rows
+    (1, 4, 256, 64, 16, 9, False, False),    # the classic host loop's 4-UBS step: W = 1, R = 4
 ])
 def test_emulated_forward_matches_plain(emulated_fwd, w, a, hidden, msg, key, n_act, dueling,
                                         empty_world):

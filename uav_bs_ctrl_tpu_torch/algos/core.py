@@ -37,6 +37,15 @@ stubs (``utils/checkpoint.py:find_state``); ``mu``/``nu`` follow the params'
 key mapping into ``exp_avg``/``exp_avg_sq`` and ``count`` becomes every
 parameter's ``step``. :meth:`save_checkpoint` writes the same file the other
 way round, so either package resumes it.
+
+The classic host loop (``algos/madrqn/run.py``, ``algos/drqn/run.py``) acts
+with :meth:`init_hidden` and :meth:`act` on one host world, as JAX's
+``core.py:121-154``: the observation has no world axis, so :meth:`act` adds
+W = 1 for the agent and its kernels and strips it again. Its draws (the
+epsilon coin, then the random actions) and :meth:`update`'s replay sample
+come from the NumPy stream it is given, the one ``config.set_rand_seed``
+returns, in JAX's order; DiscreteComm's Gumbel noise comes from the
+learner's generator, where JAX splits its own key.
 """
 
 import copy
@@ -60,6 +69,8 @@ class RecurrentQLearner:
     def __init__(self, env_info, args, agent, mixer=None, seed=0):
         check_training_args(args)
         self.device = args.device
+        self.n_agents = env_info.get("n_agents", 1)
+        self.n_actions = env_info["n_actions"]
         self.noise_generator = torch.Generator(device=self.device).manual_seed(seed)
         self.max_seq_len = (args.max_seq_len if args.max_seq_len is not None
                             else env_info["episode_limit"])
@@ -95,6 +106,38 @@ class RecurrentQLearner:
     def target_parameters(self):
         mixer = [] if self.target_mixer is None else list(self.target_mixer.parameters())
         return list(self.target_net.parameters()) + mixer
+
+    # ------------------------------------------------------------------ #
+    # Acting (the classic host loop)
+
+    def init_hidden(self, batch_size=1):
+        """Zero hidden states: ``[n_agents, hidden]`` for one world (JAX's shape)."""
+        h = np.zeros((self.n_agents * batch_size, self.net.hidden), dtype=np.float32)
+        return h.reshape(batch_size, self.n_agents, -1).squeeze(0) if batch_size == 1 else h
+
+    @torch.no_grad()
+    def act(self, obs, h, eps_thres, rng=None):
+        """Joint epsilon-greedy actions of one host world (reference quirk 3):
+        ``(actions list, h' [n_agents, hidden])``. The greedy actions and h'
+        come from the policy on ``obs``/``h`` (no world axis); then one coin
+        ``rng.random()`` (``rng`` default ``np.random``, as JAX) keeps them
+        when above ``eps_thres``, else ``rng.randint`` draws every agent's."""
+        rng = np.random if rng is None else rng
+        obs = {k: torch.tensor(np.asarray(v))[None].to(self.device) for k, v in obs.items()}
+        h = torch.tensor(np.asarray(h, np.float32))[None].to(self.device)
+        shape = self.net.noise_shape((1,), self.n_agents)
+        key = None if shape is None else gumbel_draw(shape, self.noise_generator, self.device)
+        q, h2 = self._act_q(obs, h, key)
+        greedy, h2 = q[0].argmax(-1).cpu().numpy(), h2[0].cpu().numpy()
+        if rng.random() > eps_thres:
+            acts = greedy
+        else:
+            acts = rng.randint(self.n_actions, size=(self.n_agents,))
+        return acts.tolist(), h2
+
+    def _act_q(self, obs, h, key):
+        """The policy's ``(Q, h')`` on one step of W = 1 worlds, through the kernels."""
+        return self.net(obs, h, True, key)
 
     # ------------------------------------------------------------------ #
     # Experience
@@ -197,12 +240,13 @@ class RecurrentQLearner:
             for t, p in zip(self.target_parameters(), params):
                 t.mul_(self.polyak).add_(p, alpha=1.0 - self.polyak)
 
-    def update(self):
-        """One update from a host-buffer sample (without replacement)."""
+    def update(self, rng=None):
+        """One update from a host-buffer sample (without replacement, drawn
+        from ``rng``, default ``np.random`` as JAX)."""
         if len(self.buffer) < self.batch_size:
             raise RuntimeError("insufficient samples for an update")
         batch = tree_map(lambda x: torch.as_tensor(x, device=self.device),
-                         self.buffer.sample(self.batch_size))
+                         self.buffer.sample(self.batch_size, rng))
         return {k: float(v) for k, v in self.update_on_batch(batch).items()}
 
     def step_lr_scheduler(self):

@@ -12,8 +12,10 @@ protocol (or none) at any number of rounds are served and trained;
 differentiable GATv2 backend.
 """
 
+import random
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from uav_bs_ctrl_tpu_torch.device import resolve_device
@@ -52,6 +54,7 @@ DEFAULT_CONFIG = {
     'num_test_episodes': 5,
     'save_freq': 10,
     'anneal_lr': True,
+    'norm_r': True,        # kept for config parity; unwired (SURVEY.md quirk 1)
     'double_q': False,
     'mixer': False,
 }
@@ -60,11 +63,13 @@ GAT_BACKENDS = ('dense', 'pallas', 'pallas_fused', 'pallas_fused_mxu', 'graph_pa
 
 
 def make_args(saved_args: dict, device=None) -> SimpleNamespace:
-    """Defaults overlaid with a run's saved args; ``device`` wins when given."""
+    """Defaults overlaid with a run's saved args, on the caller's ``device``
+    (None: ``cuda``). The ``device`` a run stored is never read: committed
+    runs store ``"cpu"`` or ``"tpu"``, and a run must not leave the card
+    because of where it was trained."""
     config = dict(DEFAULT_CONFIG)
     config.update(saved_args)
-    if device is not None:
-        config['device'] = device
+    config['device'] = device
     return check_args_sanity(SimpleNamespace(**config))
 
 
@@ -144,3 +149,13 @@ def check_training_args(args):
             "no custom VJP.  Use 'pallas_fused' or 'pallas_fused_mxu' for training, or call "
             "models.encoders.gatv2(..., backend='pallas') directly.")
     return args
+
+
+def set_rand_seed(seed: int) -> np.random.RandomState:
+    """Seed Python's ``random`` (as JAX's ``algos/common.py:set_rand_seed``)
+    and return the host loop's NumPy stream, ``np.random.RandomState(seed)``.
+    The classic drivers thread it through the host envs, ``act`` and the
+    replay sample, which draw from it in the JAX package's order; JAX draws
+    the same numbers from ``np.random`` after ``np.random.seed(seed)``."""
+    random.seed(seed)
+    return np.random.RandomState(seed)

@@ -1,8 +1,9 @@
-"""Shared env math: the air-to-ground channel model and lattice sampling.
+"""Shared env math: the air-to-ground channel model, Jain's fairness index
+and lattice sampling.
 
 NumPy-only copy of ``uav_bs_ctrl_tpu/envs/common.py`` (``AirToGroundChannel``,
-``select_from_cube``), kept in the port so it imports nothing of the JAX
-package.
+``jain_fairness_index``, ``select_from_cube``), kept in the port so it imports
+nothing of the JAX package.
 """
 
 import numpy as np
@@ -25,6 +26,15 @@ def select_from_cube(n_els, min_val, max_val, n_dims, rng=None):
         coords[:, d] = rem % side
         rem = rem // side
     return coords + int(min_val)
+
+
+def jain_fairness_index(x) -> float:
+    """Jain's fairness index: (sum x)^2 / (n * sum x^2), clipped at 1e-6."""
+    x = np.asarray(x)
+    if x.size == 0:
+        return 1.0
+    x = np.clip(x, 1e-6, np.inf)
+    return float(np.square(x.sum()) / (x.size * np.square(x).sum()))
 
 
 class AirToGroundChannel:

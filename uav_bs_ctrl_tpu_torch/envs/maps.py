@@ -1,7 +1,10 @@
 """Named scenario configurations ("maps") for the multi-UBS coverage env.
 
 NumPy-only copy of ``uav_bs_ctrl_tpu/envs/maps.py``, kept in the port so that
-layout pools draw the same positions from the same NumPy seed.
+layout pools draw the same positions from the same NumPy seed. Each
+``set_positions`` takes an optional ``rng`` (a ``np.random.RandomState``) and
+draws from it in the JAX package's order; without one it draws from
+``np.random``, as the JAX package does.
 
 Parity surface: reference ``envs/mubs_cov/maps.py`` — same registry keys
 (``test``, ``debug``, exp2 ``inf``/``r400``/``r800``, exp3
@@ -13,6 +16,10 @@ TPU scaling benchmarks, which have no reference counterpart.
 import numpy as np
 
 from uav_bs_ctrl_tpu_torch.envs.common import select_from_cube
+
+
+def _rng(rng):
+    return np.random if rng is None else rng
 
 
 class Map:
@@ -37,9 +44,9 @@ class Map:
     def get_params(self) -> dict:
         return dict(self.__dict__)
 
-    def set_positions(self) -> dict:
-        pos_ubs = select_from_cube(self.n_ubs, 0, self.range_pos, 2)
-        pos_gts = select_from_cube(self.n_gts, 0, self.range_pos, 2)
+    def set_positions(self, rng=None) -> dict:
+        pos_ubs = select_from_cube(self.n_ubs, 0, self.range_pos, 2, rng)
+        pos_gts = select_from_cube(self.n_gts, 0, self.range_pos, 2, rng)
         return dict(ubs=pos_ubs.astype(np.float32), gt=pos_gts.astype(np.float32))
 
 
@@ -53,7 +60,7 @@ class Debug(Map):
         defaults.update(kw)
         super().__init__(**defaults)
 
-    def set_positions(self):
+    def set_positions(self, rng=None):
         pos_ubs = 100 * np.array([[3, 3], [8, 2], [8, 9]], dtype=np.float32)
         pos_gts = 100 * np.array([[3, 4], [4, 2], [3, 1], [6, 9]], dtype=np.float32)
         return dict(ubs=pos_ubs, gt=pos_gts)
@@ -69,18 +76,18 @@ class HotSpot(Map):
         defaults.update(kw)
         super().__init__(**defaults)
 
-    def set_positions(self):
+    def set_positions(self, rng=None):
         min_dist = 200.0
-        pos_ubs = min_dist * select_from_cube(self.n_ubs, 0, self.range_pos // min_dist, 2)
+        pos_ubs = min_dist * select_from_cube(self.n_ubs, 0, self.range_pos // min_dist, 2, rng)
 
         range_spot = 1
         while range_spot**2 < self.n_gts:
             range_spot += 1
-        pos_spot = min_dist * range_spot * select_from_cube(1, 0, self.range_pos // min_dist // range_spot, 2)
-        pos_gts = pos_spot + min_dist * select_from_cube(self.n_gts, 0, range_spot, 2)
+        pos_spot = min_dist * range_spot * select_from_cube(1, 0, self.range_pos // min_dist // range_spot, 2, rng)
+        pos_gts = pos_spot + min_dist * select_from_cube(self.n_gts, 0, range_spot, 2, rng)
 
         pos_gts = np.clip(pos_gts, 0, self.range_pos)
-        np.random.shuffle(pos_gts)
+        _rng(rng).shuffle(pos_gts)
         return dict(ubs=pos_ubs.astype(np.float32), gt=pos_gts.astype(np.float32))
 
 
@@ -97,23 +104,23 @@ class DenseHotSpot(Map):
         self.n_grps = n_grps
         self.gts_per_grp = gts_per_grp
 
-    def set_positions(self):
+    def set_positions(self, rng=None):
         min_dist = 200.0
-        pos_ubs = min_dist * select_from_cube(self.n_ubs, 0, self.range_pos // min_dist, 2)
+        pos_ubs = min_dist * select_from_cube(self.n_ubs, 0, self.range_pos // min_dist, 2, rng)
 
         range_spot = 1
         while range_spot**2 < self.n_grps:
             range_spot += 1
-        pos_spot = min_dist * range_spot * select_from_cube(1, 0, self.range_pos // min_dist // range_spot, 2)
-        pos_grps = pos_spot + min_dist * select_from_cube(self.n_grps, 0, range_spot, 2)
+        pos_spot = min_dist * range_spot * select_from_cube(1, 0, self.range_pos // min_dist // range_spot, 2, rng)
+        pos_grps = pos_spot + min_dist * select_from_cube(self.n_grps, 0, range_spot, 2, rng)
 
         pos_gts = np.empty((self.n_gts, 2), dtype=np.float32)
         for g in range(self.n_grps):
             rows = slice(g * self.gts_per_grp, (g + 1) * self.gts_per_grp)
-            pos_gts[rows] = pos_grps[g] + self.r_cov * (np.random.rand(self.gts_per_grp, 2) - 0.5)
+            pos_gts[rows] = pos_grps[g] + self.r_cov * (_rng(rng).rand(self.gts_per_grp, 2) - 0.5)
 
         pos_gts = np.clip(pos_gts, 0, self.range_pos)
-        np.random.shuffle(pos_gts)
+        _rng(rng).shuffle(pos_gts)
         return dict(ubs=pos_ubs.astype(np.float32), gt=pos_gts.astype(np.float32))
 
 
@@ -127,13 +134,13 @@ class DenseHotSpotV2(Map):
         defaults.update(kw)
         super().__init__(**defaults)
 
-    def set_positions(self):
-        pos_ubs = 100 * select_from_cube(self.n_ubs, 0, self.range_pos // 100, 2)
+    def set_positions(self, rng=None):
+        pos_ubs = 100 * select_from_cube(self.n_ubs, 0, self.range_pos // 100, 2, rng)
         radius_spot = 400
-        pos_spot = radius_spot * select_from_cube(1, 1, self.range_pos // radius_spot, 2)
-        pos_gts = pos_spot + radius_spot * 2 * (np.random.rand(self.n_gts, 2) - 0.5)
+        pos_spot = radius_spot * select_from_cube(1, 1, self.range_pos // radius_spot, 2, rng)
+        pos_gts = pos_spot + radius_spot * 2 * (_rng(rng).rand(self.n_gts, 2) - 0.5)
         pos_gts = np.clip(pos_gts, 0, self.range_pos)
-        np.random.shuffle(pos_gts)
+        _rng(rng).shuffle(pos_gts)
         return dict(ubs=pos_ubs.astype(np.float32), gt=pos_gts.astype(np.float32))
 
 

@@ -10,8 +10,8 @@ the same way; the stable ``argsort`` keeps index order on ties.
 
 :func:`set_position` is the NumPy copy of the NumPy env's
 ``SingleUbsCoverageEnv._set_position`` (``uav_bs_ctrl_tpu/envs/subs_cov.py``),
-drawing from ``np.random`` in the same order, so that a seed gives the JAX
-package's layouts.
+drawing from ``np.random`` (or the ``rng`` it is given) in the same order,
+so that a seed gives the JAX package's layouts.
 """
 
 from typing import NamedTuple
@@ -87,30 +87,32 @@ def make_params(range_pos=1000, episode_limit=200, n_grps=2, gts_per_grp=1,
         avail_moves=tuple(map(tuple, avail_moves.tolist())))
 
 
-def set_position(params: SubsParams):
-    """One layout from ``np.random``: ``(pos_ubs [2], pos_gts [M, 2])`` float32.
+def set_position(params: SubsParams, rng=None):
+    """One layout from ``rng`` (a ``np.random.RandomState``; default
+    ``np.random``): ``(pos_ubs [2], pos_gts [M, 2])`` float32.
 
     The UBS starts at the region's centre; the GT groups sit at random angles
     (evenly spread from a random offset) and radii of 0.2-0.3 ``range_pos``,
     each GT at N(0, (0.25 r_cov)^2) around its group's centre, clipped to the
     region; then the GT rows are shuffled (``subs_cov.py:_set_position``).
     """
+    rng = np.random if rng is None else rng
     n_grps, range_pos = params.n_grps, params.range_pos
     per_grp = params.n_gts // n_grps
     pos_ubs = np.array([range_pos / 2, range_pos / 2], dtype=np.float32)
 
-    ang_grps = (np.random.rand() + np.arange(n_grps) / n_grps) * 2 * np.pi
+    ang_grps = (rng.rand() + np.arange(n_grps) / n_grps) * 2 * np.pi
     r_min, r_max = 0.2 * range_pos, 0.3 * range_pos
-    r_grps = r_min + np.random.rand(n_grps) * (r_max - r_min)
+    r_grps = r_min + rng.rand(n_grps) * (r_max - r_min)
     pos_grps = pos_ubs + (np.stack((np.cos(ang_grps), np.sin(ang_grps))) * r_grps).T
 
     pos_gts = np.empty((params.n_gts, 2), dtype=np.float32)
     for g in range(n_grps):
         rows = slice(g * per_grp, (g + 1) * per_grp)
-        pos_gts[rows] = pos_grps[g] + 0.25 * params.r_cov * np.random.randn(per_grp, 2)
+        pos_gts[rows] = pos_grps[g] + 0.25 * params.r_cov * rng.randn(per_grp, 2)
 
     pos_gts = np.clip(pos_gts, 0, range_pos)
-    np.random.shuffle(pos_gts)
+    rng.shuffle(pos_gts)
     return pos_ubs, pos_gts
 
 

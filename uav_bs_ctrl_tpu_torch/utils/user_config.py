@@ -10,3 +10,9 @@ DEFAULT_DATA_DIR = osp.join(
 
 # Whether to insert a date and time stamp into save-dir names.
 FORCE_DATESTAMP = False
+
+# Whether ExperimentGrid auto-generates shorthand key names.
+DEFAULT_SHORTHAND = True
+
+# Seconds to pause before launching a grid (0 disables).
+WAIT_BEFORE_LAUNCH = 0
