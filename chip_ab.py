@@ -19,7 +19,9 @@ forward's fully masked rows), whether they are bit-identical, and the ms per
 call of each, timed with ``chip_smoke.time_cuda`` in turns: old, new, new, old.
 
 The step kernels run at the 8-UBS width (A = 8, hidden 256, msg 64, key 16, 9
-actions) at 32 and 512 worlds (the forward also at 40, the serving batch). The
+actions) at 32 and 512 worlds (the forward also at 40, the serving batch), and
+again on the same inputs rounded to bf16 where the old source has the bf16
+launcher. The
 GATv2 kernels run at the 8-UBS width (4 heads of 64) for the 'seen' GT slots
 (M = 50, D = 4) and the 'near' UBS slots (M = 7, D = 2), at N = 256 rows (the
 update), 320 (serving 40 worlds) and 4096, each with slots valid at the share
@@ -148,6 +150,8 @@ def main():
                    check=True, timeout=build.NVCC_TIMEOUT_S)
     old = ctypes.CDLL(str(old_so))
     for fn, (restype, argtypes) in signatures.items():
+        if not hasattr(old, fn):        # an older source without the bf16 launchers
+            continue
         getattr(old, fn).restype = restype
         getattr(old, fn).argtypes = argtypes
     if unscratched:
@@ -156,7 +160,10 @@ def main():
 
     rng = np.random.default_rng(0)
     if name in STEP_WORLDS:
-        cases = step_cases(name, rng)
+        cases = list(step_cases(name, rng))
+        if hasattr(old, f"{next(iter(signatures))}_bf16"):       # and the bf16 launchers
+            cases += [(f"{label} bf16", tuple(t.to(torch.bfloat16) if torch.is_tensor(t) else t
+                                              for t in args)) for label, args in cases]
     else:
         cases = flash_cases() if name == "flash_gat" else gat_cases(name, rng)
     for label, args in cases:

@@ -40,7 +40,14 @@ committed summaries), ``run_classic``'s exp3 preset on the 4-UBS TarMAC+QMIX
 configuration for one 2000-step epoch (one update gated against the plain
 path and repeated bit for bit, its checkpoint read back by ``test_series``)
 and a one-variant ``ExperimentGrid`` through the pickled-thunk subprocess;
-and timings (``exp1_times`` adds exp1's kernels, updates and collection).
+the bench workload (``bench_phases``): ``bench.py``'s flagship update on its
+synthetic replay, at f32 and bf16 under the ``per_step``, ``hoisted`` and
+``merged`` schedules (gates at B = 32: f32 kernel updates against the plain
+path and the schedules against each other; bf16 kernel updates against an
+f64 plain-path referee, f32 masters, a bit-identical repeat, bf16 launches
+only; times at B = 256 with each bf16 kernel against its f64 referee and
+beside the f32 one; one fresh bf16 ``run_fast.train_fast`` epoch); and
+timings (``exp1_times`` adds exp1's kernels, updates and collection).
 Any failed phase exits non-zero with no result line. The last line is the
 JSON device record.
 """
@@ -66,6 +73,7 @@ ROOT = Path(__file__).resolve().parent
 WATCHDOG_S = 900
 ATOL = RTOL = 1e-4        # f32 kernel vs plain version, full width
 F32_PEAK_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores (data sheet)
+BF16_PEAK_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense (data sheet)
 HBM_BYTES_PER_S = 3.35e12
 RUN_DIR = ROOT / "data" / "exp3_fast_8ubs_tarmac_qmix_il10_lay64k" / \
     "exp3_fast_8ubs_tarmac_qmix_il10_lay64k_s0"
@@ -100,6 +108,8 @@ DISC_Q_RTOL = 1e-4        # 4-UBS DiscreteComm Q vs the plain path: of max(1, ma
                           # 150-190 there, where one f32 ulp is 1.5e-5
 CAPTURE_STEPS = (0, 25)   # 4-UBS serving steps whose flash_gat inputs are checked and timed:
                           # the 'seen' mask is about 1 % valid at step 0, 38 % at step 25
+GAT_TIE = 1e-5            # a GATv2 pre-activation |z| this small takes LeakyReLU's slope 1 or
+                          # 0.2 by roundoff: the der entries it feeds are reported, not held
 TIE = 1e-4                # a Gumbel margin |z0 - z1| this small rounds either way: a roundoff
                           # tie, where the plain path's bit may follow the kernel path's
 
@@ -214,11 +224,13 @@ def max_err(got, want, what):
 def gat_cost(x, mask, hf, heads):
     """(operations, bytes) one flash_gat_fused call needs: per valid slot the
     projection 2*D*HF, bias, +er, LeakyReLU, score 2*HF and aggregation 2*HF,
-    plus 3 per head for the softmax; each input read once, each output written once."""
+    plus 3 per head for the softmax; each input read once, each output written
+    once, in the operands' storage type (the row statistics in f32)."""
     n, m, d = x.shape
     valid = float((mask > 0).sum())
     ops = valid * (hf * (2 * d + 7) + 3 * heads) + n * hf
-    nbytes = 4 * (x.numel() + mask.numel() + 2 * n * hf + d * hf + 2 * hf + 2 * n * heads)
+    nbytes = x.element_size() * (x.numel() + mask.numel() + 2 * n * hf + d * hf + 2 * hf) \
+        + 4 * 2 * n * heads
     return ops, nbytes
 
 
@@ -248,7 +260,7 @@ def step_cost(args):
            + rows * 2 * ((hid + msg) * 3 * hid + hid * 3 * hid) + rows * hid * 10
            + rows * 2 * hid * (n_act + (1 if dueling else 0)))
     read = args[:15] + ((wvh, bvh) if dueling else ())
-    nbytes = 4 * (sum(t.numel() for t in read) + rows * (n_act + hid))
+    nbytes = x.element_size() * (sum(t.numel() for t in read) + rows * (n_act + hid))
     return ops, nbytes
 
 
@@ -261,8 +273,9 @@ def gat_bwd_cost(x, mask, hf, heads, need_dx):
     n, m, d = x.shape
     valid = float((mask > 0).sum())
     ops = valid * (hf * (4 * d + 16 + (2 * d if need_dx else 0)) + 4 * heads) + 2 * n * hf
-    nbytes = 4 * (x.numel() + mask.numel() + 3 * n * hf + 2 * n * heads + 2 * d * hf + 2 * hf
-                  + n * hf + d * hf + 2 * hf + (x.numel() if need_dx else 0))
+    nbytes = x.element_size() * (x.numel() + mask.numel() + 3 * n * hf + 2 * d * hf + 2 * hf
+                                 + n * hf + d * hf + 2 * hf + (x.numel() if need_dx else 0)) \
+        + 4 * 2 * n * heads
     return ops, nbytes
 
 
@@ -288,8 +301,8 @@ def step_bwd_cost(args):
     weight_grads = vsq + gru + rows * 2 * hid * (n_act + 1) + rows * (6 * hid + msg + 2 * key
                                                                       + n_act + 1)
     weights = args[3:17]
-    nbytes = 4 * (2 * sum(t.numel() for t in weights) + x.numel() + h.numel() + adjf.numel()
-                  + rows * (n_act + hid) + 2 * rows * hid)
+    nbytes = x.element_size() * (2 * sum(t.numel() for t in weights) + x.numel() + h.numel()
+                                 + adjf.numel() + rows * (n_act + hid) + 2 * rows * hid)
     return recompute + backward + weight_grads, nbytes
 
 
@@ -310,8 +323,12 @@ def rel_err(got, want, what, limit=BWD_RTOL):
     return worst
 
 
-def bound(ops, nbytes):
-    t_ops, t_bytes = ops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound(ops, nbytes, dtype=torch.float32):
+    """The least ms the card could take: the larger of the bytes over HBM's rate
+    and the operations over the card's peak for the operands' type (bf16:
+    the tensor cores' rate, though the kernels widen to f32)."""
+    peak = BF16_PEAK_FLOPS if dtype == torch.bfloat16 else F32_PEAK_FLOPS
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -637,6 +654,546 @@ def ms_per_update(learner, batch, use_kernels=True, noise=None, n=5):
         torch.cuda.synchronize()
     learner.load_state_dict(snap)
     return (time.perf_counter() - t0) * 1e3 / n
+
+
+# bench.py's flagship update (TRAIN_KW, :65-83; setup_learner, :101-130), its own copy.
+BENCH_A, BENCH_M, BENCH_K, BENCH_NF_GT, BENCH_NF_UBS = 8, 50, 7, 5, 3
+BENCH_HID, BENCH_HEADS, BENCH_MSG, BENCH_KEY, BENCH_N_ACT = 256, 4, 64, 16, 9
+BENCH_T, BENCH_B, BENCH_GATE_B = 50, 256, 32
+BENCH_STATE = BENCH_A * 2 + BENCH_M * 4
+BENCH_SCHEDULES = ("per_step", "hoisted", "merged")
+BF16_TOL = 2e-2           # a bf16 kernel or update vs its f64 referee: of max(1, max |referee|)
+LEAF_FLOOR = 1e-3         # a bf16 gradient leaf's own scale: at least this share of the largest
+LEAF_RATIO = 2.0          # a leaf on its own scale: the kernel path's error at most this times
+                          # the plain bf16 path's, + BF16_TOL (bf16 leaves deep in the chain
+                          # are off by up to about 0.3 of their own scale, a zero one by 1)
+
+
+def bench_train_kw(batch_size, compute_dtype, bptt_encoder):
+    """``bench.py``'s ``TRAIN_KW`` at ``batch_size`` (its B is 256)."""
+    return dict(o="gnn", c="tarmac", hidden_size=BENCH_HID, msg_size=BENCH_MSG,
+                key_size=BENCH_KEY, n_heads=BENCH_HEADS, n_layers=2, batch_size=batch_size,
+                max_seq_len=BENCH_T, double_q=True, dueling=True,
+                replay_size=max(64, batch_size), compute_dtype=compute_dtype,
+                gat_backend="pallas_fused_mxu", bptt_encoder=bptt_encoder, step_backend="xla")
+
+
+def bench_learner(batch_size, compute_dtype, bptt_encoder):
+    from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
+    from uav_bs_ctrl_tpu_torch.config import make_args
+    env_info = dict(obs_shape=dict(agent=2, gt=BENCH_NF_GT - 1, ubs=BENCH_NF_UBS - 1),
+                    state_shape=BENCH_STATE, n_actions=BENCH_N_ACT, n_agents=BENCH_A,
+                    episode_limit=BENCH_T)
+    return MultiAgentQLearner(env_info, make_args(bench_train_kw(batch_size, compute_dtype,
+                                                                 bptt_encoder), DEVICE), seed=0)
+
+
+def bench_synth_obs(rng):
+    a, m, k = BENCH_A, BENCH_M, BENCH_K
+    return {
+        "agent": rng.normal(size=(a, 2)).astype(np.float32),
+        "gt": np.concatenate([(rng.random((a, m, 1)) > 0.3).astype(np.float32),
+                              rng.normal(size=(a, m, BENCH_NF_GT - 1)).astype(np.float32)], -1),
+        "ubs": np.concatenate([(rng.random((a, k, 1)) > 0.3).astype(np.float32),
+                               rng.normal(size=(a, k, BENCH_NF_UBS - 1)).astype(np.float32)], -1),
+        "adj": np.ones((a, a), dtype=bool),
+    }
+
+
+def bench_replay(learner):
+    """``bench.py:setup_learner``'s synthetic replay, drawn in its order from
+    ``np.random.default_rng(0)``: B sequences of T transitions."""
+    rng = np.random.default_rng(0)
+    for _ in range(BENCH_B):
+        for t in range(BENCH_T):
+            learner.cache(
+                obs=bench_synth_obs(rng), h=rng.normal(size=(BENCH_A, BENCH_HID)).astype(np.float32),
+                state=rng.normal(size=(BENCH_STATE,)).astype(np.float32),
+                act=rng.integers(BENCH_N_ACT, size=BENCH_A),
+                rew=rng.normal(size=BENCH_A).astype(np.float32),
+                next_obs=bench_synth_obs(rng),
+                next_h=rng.normal(size=(BENCH_A, BENCH_HID)).astype(np.float32),
+                next_state=rng.normal(size=(BENCH_STATE,)).astype(np.float32),
+                done=float(t == BENCH_T - 1), bad_mask=float(t == BENCH_T - 1))
+
+
+def bench_per_update(bptt_encoder):
+    """Wrapper calls of one bench update: #2 twice a step of both unrolls and
+    #3 twice a backward step (per_step, merged), or once per relation and net
+    (hoisted); #4 every step, #5 every backward step."""
+    T = BENCH_T
+    gat = (4, 2) if bptt_encoder == "hoisted" else (2 * (2 * T + 1), 2 * T)
+    return {"flash_gat": 0, "flash_gat_fused": gat[0], "flash_gat_fused_bwd": gat[1],
+            "tarmac_step": 2 * T + 1, "tarmac_step_bwd": T}
+
+
+def referee_learner(learner):
+    """The f64 referee of a bf16 learner: the same learner with its nets'
+    params rounded to bf16 and every module in f64, computing in f64 on the
+    plain path (``use_kernels=False``)."""
+    ref = bench_learner(BENCH_GATE_B, "float32", learner.bptt_encoder)
+    ref.load_state_dict(learner.state_dict())
+    for net in (ref.net, ref.target_net):
+        for p in net.parameters():
+            p.data = p.data.to(torch.bfloat16).double()
+    for mod in (ref.mixer, ref.target_mixer):
+        if mod is not None:
+            mod.double()
+    ref.compute_dtype = torch.float64
+    return ref
+
+
+def referee_batch(batch):
+    """The referee's batch: obs and h rounded to bf16 (as the bf16 update
+    casts them), every floating leaf in f64."""
+    def cast(key, v):
+        if not v.is_floating_point():
+            return v
+        return (v.to(torch.bfloat16) if key in ("obs", "h") else v).double()
+    return {k: ({kk: cast("obs", vv) for kk, vv in v.items()} if isinstance(v, dict)
+                else cast(k, v)) for k, v in batch.items()}
+
+
+def loss_q_grads(learner, batch, use_kernels):
+    """LossQ, Q [B, T, A] and the raw gradients of one backward (no step)."""
+    learner.optimizer.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss, qvals = learner._loss(batch, use_kernels, None)
+        loss.backward()
+    return loss.item(), qvals.detach(), [p.grad.detach().clone() for p in learner.parameters()]
+
+
+def referee_err(got, ref, scale=None):
+    """max |got - ref| / max(1, scale), the scale max |ref| unless given."""
+    got, ref = got.double(), ref.double()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"bad output: shape {tuple(got.shape)} vs {tuple(ref.shape)}, "
+                             "or non-finite values")
+    scale = ref.abs().max().item() if scale is None else scale
+    return (got - ref).abs().max().item() / max(1.0, scale)
+
+
+def gat_referee(fwd_args, out, mstat, lstat, g, dtype=torch.float64, chunk=8192):
+    """The referees of #2 and #3 on their own inputs, the plain versions in
+    ``dtype`` (f64 for a bf16 kernel, f32 for an f32 one): (out, m, l) of the
+    plain forward on ``fwd_args``' values, and (dw, db, der, dattn) of the
+    plain backward on the backward's inputs (the kernel forward's ``out``,
+    ``m``, ``l``, and ``g``), taken ``chunk`` rows at a time (a call of 10^5
+    rows would hold tens of GB of temporaries); and the der entries [N, HF]
+    that a valid slot's |z| below ``GAT_TIE`` feeds."""
+    from uav_bs_ctrl_tpu_torch.ops.gat_kernels import (flash_gat_fused_bwd_plain,
+                                                       flash_gat_fused_plain)
+    x, w, b, er, attn, mask, heads, slope = fwd_args
+    cast = lambda t: t.to(dtype)
+    fwds, ders, ties, sums = [], [], [], None
+    for i in range(0, x.shape[0], chunk):
+        rows = slice(i, i + chunk)
+        args = (cast(x[rows]), cast(w), cast(b), cast(er[rows]), cast(attn), cast(mask[rows]))
+        fwds.append(flash_gat_fused_plain(*args, heads, slope))
+        _, dw, db, der, dattn = flash_gat_fused_bwd_plain(
+            *args, cast(out[rows]), mstat[rows].to(dtype), lstat[rows].to(dtype),
+            cast(g[rows]), heads, slope, False)
+        ders.append(der)
+        z = args[0] @ args[1] + args[2] + args[3][:, None, :]
+        ties.append(((z.abs() < GAT_TIE) & (args[5] > 0)[:, :, None]).any(1))
+        sums = [dw, db, dattn] if sums is None else [a + c for a, c in zip(sums, (dw, db, dattn))]
+    return (tuple(torch.cat(parts) for parts in zip(*fwds)),
+            (sums[0], sums[1], torch.cat(ders), sums[2]), torch.cat(ties))
+
+
+def clip_like_update(learner, grads):
+    """``grads`` (net leaves, then mixer leaves) clipped as ``apply_grads``
+    clips them: the net's to [-1, 1], the mixer's as they are."""
+    n_net = len(list(learner.net.parameters()))
+    return [g.clamp(-1.0, 1.0) if i < n_net else g for i, g in enumerate(grads)]
+
+
+def leaf_errs(grads, refs, largest):
+    """Each leaf's max |got - ref| over its own scale: its max |ref|, at least
+    ``LEAF_FLOOR`` of ``largest`` (a leaf that is zero in exact arithmetic,
+    such as a key bias under the softmax, has no scale of its own)."""
+    return [(g.double() - r.double()).abs().max().item()
+            / max(r.abs().max().item(), LEAF_FLOOR * largest) for g, r in zip(grads, refs)]
+
+
+@contextlib.contextmanager
+def zeroed_gat_dw(gat_kernels):
+    """#3 as the learner's backward calls it, with its dW set to zero."""
+    kernel = gat_kernels.flash_gat_fused_bwd
+
+    def zeroed(*args, **kwargs):
+        dx, dw, db, der, dattn = kernel(*args, **kwargs)
+        return dx, torch.zeros_like(dw), db, der, dattn
+    zeroed.launches, zeroed.launches_bf16 = kernel.launches, kernel.launches_bf16  # counted
+    gat_kernels.flash_gat_fused_bwd = zeroed                 # through the module's name
+    try:
+        yield
+    finally:
+        gat_kernels.flash_gat_fused_bwd = kernel
+
+
+def bench_phases(ctx):
+    """``bench.py``'s flagship update (8 UBSs, M = 50, K = 7, hidden 256, 4
+    heads, msg 64, key 16, dueling, double-Q, ``pallas_fused_mxu``) through the
+    port's learner, on ``bench.py:setup_learner``'s synthetic replay (B = 256
+    sequences of T = 50), at f32 and bf16 under each BPTT schedule. Gates at B
+    = 32: f32 kernel updates against the plain path (``check_update``) and
+    ``hoisted``/``merged`` against ``per_step``; bf16 kernel updates within
+    ``BF16_TOL`` of the f64 plain-path referee (LossQ, Q, clipped grads), each
+    clipped-grad leaf on its own scale against the plain bf16 path's error
+    (``leaf_errs``; zeroing #3's dW must fail it), f32 masters and AdamW state
+    after, a bit-identical repeat, only bf16 launches. Times at B = 256: ms
+    and launches per update, the device-busy share, edges/s; each kernel at
+    the update's shapes in both dtypes, a bf16 one against its f64 referee,
+    an f32 one against its plain version. Then one fresh bf16 ``train_fast``
+    epoch. Returns the bf16 kernels' record entries."""
+    from uav_bs_ctrl_tpu_torch import run_fast
+    from uav_bs_ctrl_tpu_torch.algos.buffer import tree_leaves, tree_map
+    from uav_bs_ctrl_tpu_torch.ops import gat_kernels, step_kernels
+    from uav_bs_ctrl_tpu_torch.utils import checkpoint
+    counts, counts_bf16, reset_counts = ctx.counts, ctx.counts_bf16, ctx.reset_counts
+    kernel_names = ("flash_gat_fused", "flash_gat_fused_bwd", "tarmac_step", "tarmac_step_bwd")
+    T, A = BENCH_T, BENCH_A
+    edges = BENCH_B * (2 * T + 1) * A * (BENCH_M + BENCH_K + A)     # bench.py:64
+
+    with phase(f"bench workload: bench.py's replay, {BENCH_B} sequences of {T} steps"):
+        t0 = time.perf_counter()
+        base = bench_learner(BENCH_B, "float32", "per_step")
+        bench_replay(base)
+        sample = lambda b, seed: tree_map(lambda v: torch.as_tensor(v, device=DEVICE),
+                                          base.buffer.sample(b, np.random.RandomState(seed)))
+        gate_batch, batch = sample(BENCH_GATE_B, 1), sample(BENCH_B, 2)
+        print(f"  replay of {len(base.buffer)} sequences built and sampled in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        learners = {(dt, s): bench_learner(BENCH_GATE_B, dt, s)
+                    for dt in ("float32", "bfloat16") for s in BENCH_SCHEDULES}
+
+    with phase(f"bench workload: f32 gates at B = {BENCH_GATE_B} (each schedule's kernel update "
+               f"against the plain path; hoisted and merged against per_step)"):
+        raw = {}
+        for s in BENCH_SCHEDULES:
+            learner = learners["float32", s]
+            print(f"  {s}:", flush=True)
+            check_update(learner, gate_batch, bench_per_update(s), counts)
+            snap = learner.state_dict()
+            raw[s] = loss_q_grads(learner, gate_batch, True)
+            learner.load_state_dict(snap)
+        names = [f"net.{k}" for k, _ in learners["float32", "per_step"].net.named_parameters()]
+        scale = max(g.abs().max().item() for g in raw["per_step"][2])
+        for s in ("hoisted", "merged"):
+            loss_err = abs(raw[s][0] - raw["per_step"][0]) / abs(raw["per_step"][0])
+            grad_err = max((a - b).abs().max().item() for a, b in zip(raw[s][2],
+                                                                      raw["per_step"][2])) / scale
+            print(f"  {s} against per_step: LossQ rel diff {loss_err:.2e} (limit "
+                  f"{UPDATE_LOSS_RTOL}), raw grads max |diff| / largest {grad_err:.2e} (limit "
+                  f"{UPDATE_GRAD_RTOL}; {len(names)} tensors)", flush=True)
+            if not (loss_err <= UPDATE_LOSS_RTOL and grad_err <= UPDATE_GRAD_RTOL):
+                raise AssertionError(f"f32 {s} differs from per_step")
+
+    with phase(f"bench workload: bf16 gates at B = {BENCH_GATE_B} (the kernel update against "
+               f"its f64 plain-path referee, each gradient leaf also on its own scale beside "
+               f"the plain bf16 path's, a planted fault, f32 masters and AdamW state, a "
+               f"bit-identical repeat, bf16 launches only)"):
+        ref_batch = referee_batch(gate_batch)
+        for s in BENCH_SCHEDULES:
+            learner = learners["bfloat16", s]
+            names = [f"{g}.{k}" for g, mod in (("net", learner.net), ("mixer", learner.mixer))
+                     if mod is not None for k, _ in mod.named_parameters()]
+            snap = learner.state_dict()
+            before, before16 = counts(), counts_bf16()
+            loss, q, grads = loss_q_grads(learner, gate_batch, True)
+            launched = {k: v - before[k] for k, v in counts().items()}
+            launched16 = {k: v - before16[k] for k, v in counts_bf16().items()}
+            learner.apply_grads()
+            clipped = [p.grad.detach().clone() for p in learner.parameters()]
+            after = learner.state_dict()
+            learner.load_state_dict(snap)
+            again = loss_q_grads(learner, gate_batch, True)
+            learner.apply_grads()
+            again_state = learner.state_dict()
+            bitwise = again[0] == loss and torch.equal(again[1], q) and all(
+                torch.equal(a, b) for a, b in zip(again[2], grads)) and all(
+                torch.equal(v, again_state[m][k]) for m in ("net", "target_net")
+                for k, v in after[m].items())
+            masters = all(p.dtype == torch.float32 for m in (learner.net, learner.target_net)
+                          for p in m.parameters()) and all(
+                t.dtype == torch.float32 for p in learner.parameters()
+                for t in (learner.optimizer.state[p]["exp_avg"],
+                          learner.optimizer.state[p]["exp_avg_sq"]))
+            learner.load_state_dict(snap)
+            plain_clipped = clip_like_update(learner,
+                                             loss_q_grads(learner, gate_batch, False)[2])
+            ref = referee_learner(learner)
+            ref_loss, ref_q, ref_grads = loss_q_grads(ref, ref_batch, False)
+            ref_clipped = clip_like_update(ref, ref_grads)
+            del ref
+            gscale = max(g.abs().max().item() for g in ref_clipped)
+            errs = {"LossQ": abs(loss - ref_loss) / max(1.0, abs(ref_loss)),
+                    "Q": referee_err(q, ref_q),
+                    "clipped grads": max(referee_err(a, b, gscale)
+                                         for a, b in zip(clipped, ref_clipped))}
+            leaves = leaf_errs(clipped, ref_clipped, gscale)
+            plain_leaves = leaf_errs(plain_clipped, ref_clipped, gscale)
+            leaf_fail = [n for n, k, p in zip(names, leaves, plain_leaves)
+                         if k > LEAF_RATIO * p + BF16_TOL]
+            want = bench_per_update(s)
+            print(f"  {s}: LossQ {loss:.6f}, referee {ref_loss:.6f}; errors against the f64 "
+                  f"referee (of max(1, max |referee|); grads of the largest clipped grad "
+                  f"{gscale:.3g}): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                  + f" (limit {BF16_TOL}); masters and AdamW state f32: {masters}; repeat "
+                  f"bit-identical: {bitwise}; bf16 launches {launched16}", flush=True)
+            print(f"  {s}: each clipped-grad leaf on its own scale (max |referee|, at least "
+                  f"{LEAF_FLOOR} of the largest), kernel path vs plain bf16 path (limit: "
+                  f"{LEAF_RATIO} x plain + {BF16_TOL}); the worst five: " + "; ".join(
+                      f"{names[i]} {leaves[i]:.2e} vs {plain_leaves[i]:.2e}"
+                      for i in sorted(range(len(names)), key=lambda i: -leaves[i])[:5]),
+                  flush=True)
+            if s == "per_step":     # the leaf gate's power: #3's dW zeroed must fail it
+                learner.load_state_dict(snap)
+                with zeroed_gat_dw(gat_kernels):
+                    fault = clip_like_update(learner, loss_q_grads(learner, gate_batch, True)[2])
+                learner.load_state_dict(snap)
+                caught = [(n, k) for n, k, p in zip(names, leaf_errs(fault, ref_clipped, gscale),
+                                                    plain_leaves)
+                          if k > LEAF_RATIO * p + BF16_TOL]
+                print(f"  planted fault, #3's dW zeroed: the leaf gate fails on "
+                      f"{[(n, round(k, 4)) for n, k in caught]}", flush=True)
+                if not caught:
+                    raise AssertionError("the leaf gate missed a zeroed GATv2 dW")
+            if max(errs.values()) > BF16_TOL or leaf_fail or not (
+                    masters and bitwise and math.isfinite(loss)):
+                raise AssertionError(f"bf16 {s}: the update fails its gates (leaves beyond "
+                                     f"their limit: {leaf_fail})")
+            if launched16 != want or launched != want:
+                raise AssertionError(f"bf16 {s}: expected {want} bf16 launches and no f32 one, "
+                                     f"got {launched16} of {launched}")
+
+    out = SimpleNamespace(records=[], ms={}, launches={})
+    with phase(f"bench workload: times at B = {BENCH_B}, f32 and bf16 x per_step, hoisted, "
+               f"merged ({edges} message-passing edges an update, bench.py:64)"):
+        print(f"  card: {card_line()}", flush=True)
+        captured = {}
+        for dt in ("float32", "bfloat16"):
+            for s in BENCH_SCHEDULES:
+                learner = learners[dt, s]
+                snap = learner.state_dict()
+                with torch.enable_grad():
+                    learner.update_on_batch(batch)           # warm, and sizes the allocator
+                torch.cuda.synchronize()
+                reset_counts()
+                with torch.enable_grad():
+                    learner.update_on_batch(batch)
+                torch.cuda.synchronize()
+                launches = counts() if dt == "float32" else counts_bf16()
+                if launches != bench_per_update(s) or (dt == "bfloat16" and launches != counts()):
+                    raise AssertionError(f"{dt} {s}: expected {bench_per_update(s)} launches "
+                                         f"of that type, got {counts()}, bf16 {counts_bf16()}")
+                learner.load_state_dict(snap)
+                ms = ms_per_update(learner, batch, n=3)
+                print(f"  {dt} {s}: {ms:.2f} ms per update, {1e3 / ms:.2f} updates/s, "
+                      f"{edges * 1e3 / ms:.4g} edges/s; wrapper launches per update "
+                      f"{launches}", flush=True)
+                cuda_launches = profile_updates(learner, batch, 2, ms,
+                                                {k: launches[k] for k in kernel_names})
+                learner.load_state_dict(snap)
+                out.ms[dt, s] = ms
+                out.launches[dt, s] = launches
+                if s in ("per_step", "hoisted"):
+                    with torch.enable_grad():
+                        calls, _ = capture_backward_calls(learner, batch,
+                                                          T // 2 if s == "per_step" else 0)
+                    learner.load_state_dict(snap)
+                    captured[dt, s] = calls
+                del cuda_launches
+
+        timed = {name: {"float32": [], "bfloat16": []} for name in kernel_names}
+        worst = {dt: {name: [0.0, 0.0, 0.0] for name in kernel_names}   # rel err, abs err,
+                 for dt in ("float32", "bfloat16")}                       # plain bf16's rel err
+        for dt in ("float32", "bfloat16"):
+            for s in ("per_step", "hoisted"):
+                calls = captured[dt, s]
+                big = s == "hoisted"
+                for name, c in calls:
+                    if big and name == "tarmac_step_bwd":
+                        continue                 # #4/#5 run a step at a time in every schedule
+                    fwd_args = c[0]
+                    if name == "flash_gat_fused_bwd":
+                        fwd_name = "flash_gat_fused"
+                        fwd, bwd = gat_kernels.flash_gat_fused, gat_kernels.flash_gat_fused_bwd
+                        out_k, ms_k, ls_k = fwd(*fwd_args)
+                        bwd_args = fwd_args[:6] + (out_k, ms_k, ls_k, c[1]) + fwd_args[6:] + \
+                            (False,)
+                        fwd_cost = gat_cost(fwd_args[0], fwd_args[5], fwd_args[1].shape[1],
+                                            fwd_args[6])
+                        bwd_cost = gat_bwd_cost(fwd_args[0], fwd_args[5], fwd_args[1].shape[1],
+                                                fwd_args[6], False)
+                        plains = (gat_kernels.flash_gat_fused_plain,
+                                  gat_kernels.flash_gat_fused_bwd_plain)
+                        label = f"'{'seen' if fwd_args[0].shape[1] == BENCH_M else 'near'}' " \
+                                f"N={fwd_args[0].shape[0]}"
+                    else:
+                        fwd_name = "tarmac_step"
+                        fwd, bwd = step_kernels.tarmac_step, step_kernels.tarmac_step_bwd
+                        bwd_args = fwd_args[:17] + c[1:] + fwd_args[17:]
+                        fwd_cost, bwd_cost = step_cost(fwd_args), step_bwd_cost(fwd_args)
+                        plains = (step_kernels.tarmac_step_plain,
+                                  step_kernels.tarmac_step_bwd_plain)
+                        label = f"R={fwd_args[0].shape[0]}"
+                    # Every output against its referee on the same inputs: a bf16 kernel
+                    # against the plain version in f64 (within BF16_TOL of max(1, max
+                    # |referee|)), an f32 one against the plain version in f32 (max_err's
+                    # ATOL/RTOL forward, BWD_RTOL backward). The update's own cotangents
+                    # are small (about 1e-5 at GATv2's output), so the backward is also
+                    # held with unit-normal ones.
+                    bf16 = dt == "bfloat16"
+                    ref_dtype = torch.float64 if bf16 else torch.float32
+                    unit = tuple(torch.randn(t.shape, device=t.device).to(t.dtype)
+                                 for t in c[1:])
+                    for cot_label, cot in (("the update's cotangent", c[1:]),
+                                           ("unit-normal cotangents", unit)):
+                        if fwd_name == "flash_gat_fused":
+                            b_args = fwd_args[:6] + (out_k, ms_k, ls_k) + cot + \
+                                fwd_args[6:] + (False,)
+                            *refs, ties = gat_referee(fwd_args, out_k, ms_k, ls_k, cot[0],
+                                                      ref_dtype)
+                            # At bf16 the row statistics' -1e30 of a fully masked row
+                            # is not the f64 referee's: only ``out`` is held there.
+                            got = ((out_k,) if bf16 else (out_k, ms_k, ls_k),
+                                   bwd(*b_args)[1:])
+                            if not bf16:
+                                # A der entry fed by a LeakyReLU tie is off by up to 0.8
+                                # |d_s attn| (1e-2 of max |der| at N = 10^5 with unit
+                                # cotangents): held at f32 where no tie feeds it. bf16's
+                                # limit holds every entry.
+                                tie_err = (got[1][2] - refs[1][2])[ties].abs().max().item() \
+                                    if ties.any() else 0.0
+                                print(f"  {dt} {name}, {label}, {cot_label}: "
+                                      f"{int(ties.sum())} of {ties.numel()} der entries fed by "
+                                      f"a |z| < {GAT_TIE} tie, max |kernel - plain| there "
+                                      f"{tie_err:.2e}", flush=True)
+                                untie = lambda t: torch.where(ties, 0.0, t)
+                                got = (got[0], got[1][:2] + (untie(got[1][2]),) + got[1][3:])
+                                refs = (refs[0], refs[1][:2] + (untie(refs[1][2]),) + refs[1][3:])
+                            plain_got = None if big or not bf16 else (
+                                plains[0](*fwd_args)[:1], plains[1](*b_args)[1:])
+                        else:
+                            b_args = fwd_args[:17] + cot + fwd_args[17:]
+                            ref_in = [t.to(ref_dtype) if torch.is_tensor(t) else t
+                                      for t in b_args]
+                            refs = (plains[0](*(ref_in[:17] + ref_in[19:])), plains[1](*ref_in))
+                            got = (fwd(*fwd_args), bwd(*b_args))
+                            plain_got = (plains[0](*fwd_args), plains[1](*b_args)) if bf16 \
+                                else None
+                        for kname, part in ((fwd_name, 0), (name, 1)):
+                            what = f"{dt} {kname}, {label}, {cot_label}"
+                            rel = max(referee_err(g_, r) for g_, r in zip(got[part], refs[part]))
+                            ab = max((g_.double() - r.double()).abs().max().item()
+                                     for g_, r in zip(got[part], refs[part]))
+                            if bf16:
+                                prel = float("nan") if plain_got is None else max(
+                                    referee_err(g_, r)
+                                    for g_, r in zip(plain_got[part], refs[part]))
+                                print(f"  {what}: max |kernel - f64 referee| / max(1, "
+                                      f"max|referee|) {rel:.2e} (limit {BF16_TOL}), abs "
+                                      f"{ab:.2e}; the plain bf16 version's "
+                                      f"{'not measured' if math.isnan(prel) else f'{prel:.2e}'}",
+                                      flush=True)
+                                if rel > BF16_TOL:
+                                    raise AssertionError(f"{what}: {rel:.3e} from its f64 "
+                                                         "referee")
+                            else:
+                                prel = float("nan")
+                                if part == 0:
+                                    max_err(got[part], refs[part], what)
+                                else:
+                                    rel_err(got[part], refs[part], what)
+                                print(f"  {what}: max |kernel - plain f32| / max(1, max|plain|) "
+                                      f"{rel:.2e}, abs {ab:.2e} (limits: forward atol {ATOL} "
+                                      f"rtol {RTOL}, backward {BWD_RTOL})", flush=True)
+                            w_ = worst[dt][kname]
+                            w_[0], w_[1] = max(w_[0], rel), max(w_[1], ab)
+                            if not math.isnan(prel):
+                                w_[2] = max(w_[2], prel)
+                    for kname, fn, plain, kargs, cost in (
+                            (fwd_name, fwd, plains[0], fwd_args, fwd_cost),
+                            (name, bwd, plains[1], bwd_args, bwd_cost)):
+                        ms = time_cuda(lambda: fn(*kargs), n_iter=5 if big else 20,
+                                       reps=3 if big else 5)
+                        if big and dt == "float32":
+                            plain_ms = None             # tens of GB of f32 temporaries
+                        else:
+                            plain_ms = time_cuda(lambda: plain(*kargs), n_iter=3 if big else 20,
+                                                 reps=3 if big else 5)
+                        bound_ms, bound_by = bound(*cost, fwd_args[0].dtype)
+                        plain_txt = "not measured" if plain_ms is None else f"{plain_ms:.4f} ms"
+                        print(f"  {dt} {kname} {label}: {ms:.4f} ms, plain {plain_txt}, "
+                              f"bound {bound_ms:.5f} ms ({bound_by}: {cost[0]:.3e} ops, "
+                              f"{cost[1]:.3e} bytes), {100 * bound_ms / ms:.2f} % of the bound's "
+                              f"speed", flush=True)
+                        timed[kname][dt].append(dict(inputs=label, ms=ms, plain_ms=plain_ms,
+                                                     bound_ms=bound_ms, bound_by=bound_by))
+        for s in BENCH_SCHEDULES:
+            print(f"  ms per update at B = {BENCH_B}, {s}: f32 {out.ms['float32', s]:.2f}, bf16 "
+                  f"{out.ms['bfloat16', s]:.2f}", flush=True)
+        for name in kernel_names:
+            rows = timed[name]["bfloat16"]
+            finite = [r["plain_ms"] for r in rows if r["plain_ms"] is not None]
+            out.records.append({
+                "name": f"{name}_bf16", "route": "cuda",
+                "source": f"uav_bs_ctrl_tpu_torch/ops/csrc/{name}.cu",
+                "replaces": REPLACES[name],
+                "launches": out.launches["bfloat16", "per_step"][name],
+                "max_abs_err": worst["bfloat16"][name][1],
+                "max_rel_err": worst["bfloat16"][name][0],
+                "plain_bf16_max_rel_err": worst["bfloat16"][name][2],
+                "f32_max_rel_err_vs_plain": worst["float32"][name][0],
+                "ms": statistics.mean(r["ms"] for r in rows),
+                "plain_ms": statistics.mean(finite) if finite else None,
+                "bound_ms": statistics.mean(r["bound_ms"] for r in rows),
+                "bound_by": rows[0]["bound_by"], "library_ms": None, "cases": rows,
+                "f32_cases": timed[name]["float32"],
+                "launches_per_update": {s: out.launches["bfloat16", s][name]
+                                        for s in BENCH_SCHEDULES}})
+        del learners, base, batch, gate_batch, captured
+
+    with phase("bench workload: a fresh run_fast.train_fast('exp3', c='tarmac', "
+               "compute_dtype='bfloat16') epoch of 2000 steps (8 worlds, updates from the "
+               "fifth iteration)"):
+        scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_bf16_"))
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            tr = run_fast.train_fast(
+                "exp3", "8ubs", seed=0, n_worlds=8,
+                train_overrides=dict(c="tarmac", compute_dtype="bfloat16", epochs=1,
+                                     steps_per_epoch=2000, update_after=0, save_freq=1,
+                                     device=DEVICE),
+                logger_kwargs=dict(output_dir=str(scratch), exp_name="chip_smoke_bf16"))
+        torch.cuda.synchronize()
+        fresh_s = time.perf_counter() - t0
+        launches, launches16 = counts(), counts_bf16()
+        head, rows = progress_rows(scratch)
+        values = [float(v) for r in rows for k, v in r.items() if k not in ("Epoch",)]
+        ckpt = checkpoint.load(scratch / "checkpoint_epoch1.pt")
+        adam = checkpoint.find_state(ckpt["optimizer_state_dict"], "ScaleByAdamState")
+        leaves = [np.asarray(v) for tree in (ckpt["model_state_dict"], *adam.args[1:])
+                  for v in tree_leaves(tree)]
+        print(f"  {fresh_s:.2f} s; row {[(k, rows[0][k]) for k in ('Epoch', 'TotalEnvInteracts', 'LossQ', 'AverageEpRet', 'AverageTestEpRet')]}; "
+              f"{int(adam.args[0])} updates; checkpoint leaves "
+              f"{sorted({str(v.dtype) for v in leaves})}; launches {launches}, bf16 "
+              f"{launches16}", flush=True)
+        if len(rows) != 1 or not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"progress.txt rows {rows}")
+        if {str(v.dtype) for v in leaves} != {"float32"} or int(adam.args[0]) != tr.updates_per_iter:
+            raise AssertionError("the bf16 run's checkpoint must hold f32 masters and moments "
+                                 f"after {tr.updates_per_iter} updates")
+        if launches16 != launches or not all(
+                launches16[k] for k in kernel_names):
+            raise AssertionError(f"the bf16 run launched f32 kernels or missed one: {launches}, "
+                                 f"bf16 {launches16}")
+        del tr
+        shutil.rmtree(scratch)
+    return out
 
 
 def exp1_phases(ctx):
@@ -1180,10 +1737,13 @@ def main():
 
     def reset_counts():
         for fn, _ in all_kernels.values():
-            fn.launches = 0
+            fn.launches = fn.launches_bf16 = 0
 
     def counts():
         return {name: fn.launches for name, (fn, _) in all_kernels.items()}
+
+    def counts_bf16():
+        return {name: fn.launches_bf16 for name, (fn, _) in all_kernels.items()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1758,6 +2318,8 @@ def main():
                                      reset_counts=reset_counts, phase_launches=phase_launches))
     host_loop_phases(SimpleNamespace(counts=counts, reset_counts=reset_counts,
                                      phase_launches=phase_launches))
+    bench = bench_phases(SimpleNamespace(counts=counts, counts_bf16=counts_bf16,
+                                         reset_counts=reset_counts))
 
     record = []
     with phase("times"):
@@ -1943,7 +2505,7 @@ def main():
               f"{host_noise_ms:.3f} ms), so about {step_ms - pol_ms:.2f} ms for the env step "
               f"and the exploration draws", flush=True)
 
-    print(json.dumps({"kernels": record}))
+    print(json.dumps({"kernels": record + bench.records}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

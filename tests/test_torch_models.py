@@ -6,6 +6,7 @@ kernels (interpret mode); the port both through its kernel path (the plain
 versions on the CPU) and its unfused reference path.
 """
 
+import warnings
 from types import SimpleNamespace as SN
 
 import numpy as np
@@ -165,8 +166,9 @@ def test_config_accepts_jax_backend_names_but_not_unported_ones():
     """Serving and training take both encoders and every comm protocol,
     serving every GATv2 backend ('pallas': the flash_gat kernel); training
     rejects 'pallas' as JAX does (no gradient); bf16 compute and the
-    'hoisted'/'merged' BPTT schedules are not ported (ROADMAP.md Queue 1
-    item 5)."""
+    'hoisted'/'merged' BPTT schedules are accepted, and another compute
+    dtype or schedule raises JAX's error (``algos/common.py:37-40``,
+    ``algos/core.py:80-82``)."""
     for gat in ("dense", "pallas", "pallas_fused", "pallas_fused_mxu", "graph_parallel"):
         make_args(_agent_args(False, gat_backend=gat, step_backend="pallas"), device="cpu")
     for c in (None, "base", "disc", "commnet", "tarmac", "econv"):
@@ -185,8 +187,48 @@ def test_config_accepts_jax_backend_names_but_not_unported_ones():
         make_args(dict(_agent_args(False), c="disc", step_backend="pallas"), device="cpu")
     with pytest.raises(KeyError):
         make_args(dict(_agent_args(False), c="gossip"), device="cpu")
-    for unported in (dict(compute_dtype="bfloat16"), dict(bptt_encoder="hoisted")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-            make_args(dict(_agent_args(False), **unported), device="cpu")
+    for accepted in (dict(compute_dtype="bfloat16"), dict(bptt_encoder="hoisted"),
+                     dict(bptt_encoder="merged")):
+        args = make_args(dict(_agent_args(False), **accepted), device="cpu")
+        assert all(getattr(args, k) == v for k, v in accepted.items())
+    with pytest.raises(ValueError, match="compute_dtype must be 'float32' or 'bfloat16', "
+                                         "got 'float16'"):
+        make_args(dict(_agent_args(False), compute_dtype="float16"), device="cpu")
+    with pytest.raises(AssertionError, match="^scan$"):
+        make_args(dict(_agent_args(False), bptt_encoder="scan"), device="cpu")
     with pytest.raises(ValueError, match="o must be"):
         make_args(dict(_agent_args(False), o="cnn"), device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["gat_backend", "comm_backend"])
+def test_graph_parallel_warns_once_per_slot_count_in_both_packages(backend):
+    """``'graph_parallel'`` with no mesh runs dense after a one-time
+    ``RuntimeWarning`` per slot count (JAX ``models/encoders.py:31-50``,
+    ``models/comm.py:149-160``): 'seen' (M = 6) and 'near' (K = 3) under
+    ``gat_backend``, the TarMAC talk attention under ``comm_backend``, with
+    JAX's text; a second forward warns no more. The port's one-round TarMAC
+    step runs fused (the JAX step under ``step_backend='xla'``) and warns the
+    same."""
+    from uav_bs_ctrl_tpu_torch.models import encoders as tenc
+    kw = dict(_agent_args(False), **{backend: "graph_parallel"})
+    slots = ("6", "3") if backend == "gat_backend" else ("tarmac_talk",)
+    want = sorted(f"backend='graph_parallel' ({n}) fell back to dense: no mesh registered "
+                  "(parallel.graph_parallel.set_graph_parallel_mesh)" for n in slots)
+    obs = _obs(np.random.default_rng(11))
+    h = np.zeros((3, 4, HIDDEN), np.float32)
+    jagent = jagents.GnnAgent(OBS_SHAPE, N_ACT, SN(**kw))
+    p = jagent.init(jax.random.PRNGKey(11))
+    agent = _load(GnnAgent(OBS_SHAPE, N_ACT, make_args(kw, device="cpu")), p)
+    runs = {"jax": lambda: jagent.apply(p, {k: jnp.asarray(v) for k, v in obs.items()},
+                                        jnp.asarray(h)),
+            "port": lambda: agent(_torch_obs(obs), torch.from_numpy(h))}
+    for name, warned in (("jax", jenc._gp_fallback_warned), ("port", tenc._gp_fallback_warned)):
+        warned.clear()
+        for expected in (want, []):
+            with warnings.catch_warnings(record=True) as record:
+                warnings.simplefilter("always")
+                runs[name]()
+            got = sorted(str(w.message) for w in record if w.category is RuntimeWarning
+                         and "graph_parallel" in str(w.message))
+            assert got == expected, (name, got)
+        warned.clear()

@@ -16,9 +16,10 @@ the JAX package's ``run_fast.py``.
 - The CLI under a subprocess with an injected crash and ``--retries 2``
   resumes to the full budget, as ``tests/test_retry.py`` holds ``run_fast.py``.
 - ``run_fast`` imports and runs where jax, optax, pandas, matplotlib and
-  cloudpickle are missing; options the port does not run raise ``ValueError``
-  naming their ROADMAP.md Queue 1 item; the CLI runs exp2, the exp3 MLP
-  ablation and every protocol, and its defaults are JAX's.
+  cloudpickle are missing; ``--compute-dtype bfloat16`` (which raised until
+  ROADMAP.md Queue 1 item 5) reaches the drivers and gives a bf16 learner;
+  the CLI runs exp2, the exp3 MLP ablation and every protocol, and its
+  defaults are JAX's.
 - exp2 and exp3 DiscreteComm on both packages' real trainers at a tiny width,
   and a port-written exp2 DiscreteComm checkpoint resumed by the JAX learner,
   whose next update matches the port's.
@@ -44,6 +45,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import run_fast as jax_run_fast
 from test_torch_update import TOL, _check_first_update, _jax_first_update
@@ -398,10 +400,43 @@ def test_run_fast_runs_where_jax_optax_pandas_are_missing(tmp_path):
     (["--compute-dtype", "bfloat16"], "item 5"),
     (["--exp", "exp2", "--c", "disc", "--compute-dtype", "bfloat16"], "item 5"),
 ])
-def test_options_the_port_does_not_run_raise_naming_their_queue_item(tmp_path, extra, item):
+def test_options_the_port_does_not_run_raise_naming_their_queue_item(tmp_path, monkeypatch,
+                                                                     extra, item):
+    """The options that raised until ROADMAP.md Queue 1 ``item`` was ported
+    (bf16 compute) now run: the CLI accepts them and hands them to its
+    driver, and the learner built from the driver's arguments computes in
+    bf16 with f32 master params. The drivers are recorded, not run."""
+    from uav_bs_ctrl_tpu_torch.algos.drqn import config as drqn_config
+    from uav_bs_ctrl_tpu_torch.algos.drqn import fused as drqn_fused
+    from uav_bs_ctrl_tpu_torch.algos.drqn.learner import QLearner
+    from uav_bs_ctrl_tpu_torch.envs import torch_env, torch_env_subs
+    calls = []
+    monkeypatch.setattr(run_fast, "train_fast", lambda *a, **kw: calls.append(("fast", a, kw)))
+    monkeypatch.setattr(run_fast, "train_fast_exp1",
+                        lambda *a, **kw: calls.append(("exp1", a, kw)))
     argv = ["--exp", "exp3", "--c", "tarmac", "--device", "cpu", "--data-dir", str(tmp_path)]
-    with pytest.raises(ValueError, match=item):
-        run_fast.main(argv + extra)
+    run_fast.main(argv + extra)
+    (kind, args, kw), = calls
+    overrides = kw["train_overrides"]
+    assert overrides["compute_dtype"] == "bfloat16" and overrides["device"] == "cpu"
+    if kind == "exp1":
+        env_params = torch_env_subs.make_params(**args[0])
+        cfg = {**drqn_config.DEFAULT_CONFIG, **run_fast.EXP1_PRESET, **overrides}
+        learner = QLearner(dict(obs_shape=drqn_fused.obs_shape(env_params, cfg["agent"]),
+                                n_actions=env_params.n_actions,
+                                episode_limit=env_params.episode_limit),
+                           drqn_config.check_args(SN(**cfg)))
+    else:
+        exp, map_id = args
+        env_params = torch_env.make_params(map_id)
+        kw_all = {**run_fast.EXP_PRESETS[exp], **overrides}
+        learner = MultiAgentQLearner(
+            dict(obs_shape=fused.obs_shape(env_params, kw_all["o"]),
+                 state_shape=fused.state_shape(env_params), n_actions=env_params.n_actions,
+                 n_agents=env_params.n_ubs, episode_limit=env_params.episode_limit),
+            make_args(kw_all, device="cpu"))
+    assert learner.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in learner.parameters())
     assert not list(tmp_path.iterdir())
 
 

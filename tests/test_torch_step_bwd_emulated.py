@@ -10,7 +10,10 @@ source uses: each CTA's threads run as ``std::thread``s that meet at a
 CTAs run one after another (so a ``__shared__`` array is a function-level
 static); and a launch ``k<<<g, b, smem, s>>>(...)`` (or ``k<Tag><<<...>>>``)
 becomes a call of the emulated launcher. Every ``csrc/*.cuh`` header is put
-through the same substitutions and written beside the source. The tests call
+through the same substitutions and written beside the source, with a
+``cuda_bf16.h`` whose 16-bit type rounds as the card's does
+(``BF16_EMULATION_HEADER``; ``test_torch_bf16_emulated.py`` runs the bf16
+instantiations). The tests call
 the C entry points ``tarmac_step_backward`` and ``tarmac_step_forward`` on CPU
 tensors through ``ctypes`` (``test_torch_gat_emulated.py`` builds the GATv2
 kernels the same way). They check the arithmetic, the job tables, the scratch
@@ -123,6 +126,29 @@ inline void __syncwarp(unsigned = 0xffffffffu) { emu::warp->barrier.arrive_and_w
 #define __shared__ static
 """
 
+# cuda_bf16.h for the emulation (csrc/storage.cuh includes it): a 16-bit storage type,
+# the widening load and the round-to-nearest-even store, bit for bit as on the card.
+BF16_EMULATION_HEADER = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+struct __nv_bfloat16 { std::uint16_t x; };
+inline float __bfloat162float(__nv_bfloat16 v) {
+  std::uint32_t u = std::uint32_t(v.x) << 16;
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  std::uint32_t u;
+  std::memcpy(&u, &f, sizeof u);
+  if ((u & 0x7fffffffu) > 0x7f800000u)              // NaN stays a (quiet) NaN
+    return __nv_bfloat16{std::uint16_t((u >> 16) | 0x40u)};
+  u += 0x7fffu + ((u >> 16) & 1u);                  // round to nearest, ties to even
+  return __nv_bfloat16{std::uint16_t(u >> 16)};
+}
+"""
+
 
 def _emulate(source):
     """A CUDA source's text made C++ for the emulation header."""
@@ -138,6 +164,7 @@ def _build(out, name, signatures):
     if gxx is None:
         pytest.skip("needs g++ to build the emulated kernel source")
     (out / "cuda_runtime.h").write_text(EMULATION_HEADER)
+    (out / "cuda_bf16.h").write_text(BF16_EMULATION_HEADER)
     for header in CSRC.glob("*.cuh"):
         (out / header.name).write_text(_emulate(header.read_text()))
     (out / f"{name}.cpp").write_text(_emulate((CSRC / f"{name}.cu").read_text()))

@@ -54,8 +54,9 @@ def flatten_obs(obs):
 
 
 def make_policy(net, o):
-    """``net`` as a rollout policy on the env's obs: as it is for ``o='gnn'``,
-    on :func:`flatten_obs` of the obs for ``o='mlp'``."""
+    """``net`` (an agent, or a learner's ``_apply_net``: any ``(obs, h,
+    use_kernels, key) -> (q, h')``) as a rollout policy on the env's obs: as
+    it is for ``o='gnn'``, on :func:`flatten_obs` of the obs for ``o='mlp'``."""
     if o == "gnn":
         return net
 

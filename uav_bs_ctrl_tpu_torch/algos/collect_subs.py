@@ -49,8 +49,9 @@ def flatten_obs(obs):
 
 
 def make_policy(net, agent):
-    """``net`` as a rollout policy on the env's obs: as it is for the 'gnn'
-    agent, on :func:`flatten_obs` of the obs for 'rnn'."""
+    """``net`` (an agent, or a learner's ``_apply_net``) as a rollout policy on
+    the env's obs: as it is for the 'gnn' agent, on :func:`flatten_obs` of the
+    obs for 'rnn'."""
     if agent == "gnn":
         return net
 

@@ -1,11 +1,16 @@
 """Recurrent Q-learning core: the scan-BPTT double-Q update (counterpart of
-``algos/core.py``, its ``per_step`` schedule).
+``algos/core.py``).
 
 One update, as the JAX package's jitted ``_update_fn``:
 
 - policy unroll of the agent over T+1 steps from the stored h[0], target
   unroll over the T next observations from the stored h[1], under
-  ``torch.no_grad()``;
+  ``torch.no_grad()``, on one of JAX's three schedules (``bptt_encoder``):
+  ``per_step`` calls the agent a step at a time; ``hoisted`` encodes every
+  step's observation in one batched call per net (the GATv2 kernel #2 then
+  runs once per relation for each net, and its backward #3 once per relation)
+  and loops over the recurrent ``step`` only; ``merged`` runs policy and
+  target in one loop of T+1 steps (the target on obs[t+1] for t < T);
 - Q of the taken actions; the next value from the target net at the policy's
   detached argmax (double-Q) or the target's max; QMIX mixes per-agent Q with
   the states at t (policy) and t+1 (target);
@@ -18,9 +23,19 @@ One update, as the JAX package's jitted ``_update_fn``:
   ``tests/test_torch_train.py`` holds against optax;
 - Polyak averaging of net and mixer targets.
 
+Mixed precision (``compute_dtype='bfloat16'``, JAX ``core.py:68-76``): the
+master params, the mixer, the loss, AdamW and Polyak stay float32. An update
+casts the policy's and the target's floating params to bf16 once (a
+differentiable cast, so the gradients reach the f32 masters through it), and
+the observations and the stored h once; the unrolls run in bf16 with a bf16
+h carry, and the Q stacks come back to f32 once. :func:`apply_net` (JAX's
+``_apply_net``) runs one forward at the compute dtype for ``act``, the
+collection and the test episodes, and returns q and h' in f32.
+
 With ``use_kernels`` (the default) every GATv2 and recurrent step goes through
-the kernels' autograd Functions, forward and backward; ``False`` takes the
-unfused module path, the reference the kernel path is held against.
+the kernels' autograd Functions, forward and backward (their bf16
+instantiations at bf16); ``False`` takes the unfused module path, the
+reference the kernel path is held against.
 
 Each step of both unrolls gets its own key, as JAX's ``_loss_fn`` splits one
 a step: when the agent reads one (DiscreteComm's Gumbel noise; the agent's
@@ -28,7 +43,8 @@ a step: when the agent reads one (DiscreteComm's Gumbel noise; the agent's
 the learner's device from the learner's own generator, seeded with its seed,
 and an agent that reads no key leaves the generator untouched. ``backward``
 and ``update_on_batch`` also take that noise, so that two paths (or the two
-packages) can be given the same draws.
+packages) can be given the same draws; every schedule reads the same noise
+at the same step.
 
 :meth:`load_checkpoint` resumes a JAX checkpoint as the JAX package's does:
 params, mixer, LR scale and the AdamW state. The optax chain's
@@ -52,6 +68,7 @@ import copy
 
 import numpy as np
 import torch
+from torch import nn
 
 from uav_bs_ctrl_tpu_torch.algos.buffer import SequenceReplayBuffer, tree_map
 from uav_bs_ctrl_tpu_torch.config import check_training_args
@@ -61,6 +78,51 @@ from uav_bs_ctrl_tpu_torch.utils.convert import learner_params_from_jax, learner
 
 CLIP_VALUE = 1.0
 BETAS, ADAM_EPS, WEIGHT_DECAY = (0.9, 0.999), 1e-8, 0.01
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def cast_floating(tree, dtype):
+    """The floating leaves of a dict of tensors cast to ``dtype``; masks and
+    indices pass through (JAX ``cast_floating``)."""
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in tree.items()}
+
+
+def cast_params(net, dtype):
+    """``{name: param}`` of ``net`` at ``dtype``, by a differentiable cast."""
+    return {name: p.to(dtype) for name, p in net.named_parameters()}
+
+
+class _Nets(nn.Module):
+    """Calls ``fn(**nets)``, so that ``torch.func.functional_call`` can put
+    other params into several nets for the span of one call."""
+
+    def __init__(self, fn, nets):
+        super().__init__()
+        self.fn = fn
+        self.nets = nn.ModuleDict(nets)
+
+    def forward(self):
+        return self.fn(**self.nets)
+
+
+def with_params(fn, nets, params):
+    """``fn(**nets)`` with each net's parameters replaced by ``params[name]``
+    (``{param name: tensor}``), or as they are where that is None."""
+    swap = {f"nets.{name}.{k}": v for name, p in params.items() if p is not None
+            for k, v in p.items()}
+    if not swap:
+        return fn(**nets)
+    return torch.func.functional_call(_Nets(fn, nets), swap, ())
+
+
+def apply_net(net, obs, h, use_kernels=True, key=None, dtype=torch.float32):
+    """One forward of ``net`` at ``dtype`` (JAX ``_apply_net``): at bf16 on
+    bf16 copies of its params, obs and h; q and h' are returned in f32."""
+    if dtype == torch.float32:
+        return net(obs, h, use_kernels, key)
+    q, h2 = with_params(lambda net: net(cast_floating(obs, dtype), h.to(dtype), use_kernels,
+                                        key), {"net": net}, {"net": cast_params(net, dtype)})
+    return q.float(), h2.float()
 
 
 class RecurrentQLearner:
@@ -79,6 +141,8 @@ class RecurrentQLearner:
         self.batch_size = args.batch_size
         self.double_q = bool(args.double_q)
         self.share_reward = bool(args.share_reward)
+        self.compute_dtype = COMPUTE_DTYPES[getattr(args, "compute_dtype", "float32")]
+        self.bptt_encoder = getattr(args, "bptt_encoder", "per_step")
 
         self.net = agent.to(self.device)
         self.mixer = None if mixer is None else mixer.to(self.device)
@@ -137,7 +201,12 @@ class RecurrentQLearner:
 
     def _act_q(self, obs, h, key):
         """The policy's ``(Q, h')`` on one step of W = 1 worlds, through the kernels."""
-        return self.net(obs, h, True, key)
+        return self._apply_net(obs, h, True, key)
+
+    def _apply_net(self, obs, h, use_kernels=True, key=None):
+        """The policy's ``(q, h')`` at the compute dtype, in f32 (JAX
+        ``_apply_net``): what ``act``, the collection and the test episodes run."""
+        return apply_net(self.net, obs, h, use_kernels, key, self.compute_dtype)
 
     # ------------------------------------------------------------------ #
     # Experience
@@ -160,13 +229,75 @@ class RecurrentQLearner:
     # ------------------------------------------------------------------ #
     # Update
 
-    def _unroll(self, net, obs, h, t0, n_steps, use_kernels, noise):
-        qs = []
-        for i, t in enumerate(range(t0, t0 + n_steps)):
-            key = None if noise is None else noise[i]
-            q, h = net({k: v[:, t] for k, v in obs.items()}, h, use_kernels, key)
-            qs.append(q)
-        return qs
+    # The three BPTT schedules (JAX ``core.py:194-283``): each returns the
+    # policy's Q [B, T+1, A, n_act] and the target's [B, T, A, n_act], and
+    # feeds step t of each unroll the noise of step t. The policy's step T
+    # feeds only the detached double-Q argmax, so it is detached: autograd
+    # runs T backward steps, not T+1.
+
+    @staticmethod
+    def _step_obs(obs, t):
+        return {k: v[:, t] for k, v in obs.items()}
+
+    @staticmethod
+    def _stack_pol(qs):
+        return torch.stack(qs[:-1] + [qs[-1].detach()], 1)
+
+    def _per_step(self, pol, targ, obs, h0, h_targ0, use_kernels, noise):
+        T = self.max_seq_len
+
+        def unroll(net, h, t0, n_steps, steps_noise):
+            qs = []
+            for i in range(n_steps):
+                key = None if steps_noise is None else steps_noise[i]
+                q, h = net(self._step_obs(obs, t0 + i), h, use_kernels, key)
+                qs.append(q)
+            return qs
+
+        q_pol = self._stack_pol(unroll(pol, h0, 0, T + 1, noise["pol"]))
+        with torch.no_grad():
+            return q_pol, torch.stack(unroll(targ, h_targ0, 1, T, noise["targ"]), 1)
+
+    def _hoisted(self, pol, targ, obs, h0, h_targ0, use_kernels, noise):
+        """One ``encode`` of every step per net ([B, T+1] and [B, T] lead
+        dims through the encoder), then a loop over ``step`` only."""
+        T = self.max_seq_len
+        adj = obs.get("adj")
+
+        def unroll(net, x, h, t0, steps_noise):
+            qs = []
+            for i in range(x.shape[1]):
+                key = None if steps_noise is None else steps_noise[i]
+                q, h = net.step(x[:, i], None if adj is None else adj[:, t0 + i], h,
+                                use_kernels, key)
+                qs.append(q)
+            return qs
+
+        q_pol = self._stack_pol(unroll(pol, pol.encode(obs, use_kernels), h0, 0, noise["pol"]))
+        with torch.no_grad():
+            x_targ = targ.encode({k: v[:, 1:] for k, v in obs.items()}, use_kernels)
+            return q_pol, torch.stack(unroll(targ, x_targ, h_targ0, 1, noise["targ"]), 1)
+
+    def _merged(self, pol, targ, obs, h0, h_targ0, use_kernels, noise):
+        """Policy and target in one loop of T+1 steps: at step t the policy
+        reads obs[t] and, for t < T, the target obs[t+1]. JAX merges them to
+        halve its scan's sequential steps; eager PyTorch makes the same
+        launches as ``per_step`` here, and the schedule exists so that a
+        configuration naming it trains. Its outputs and noise are the
+        two-loop schedule's."""
+        T = self.max_seq_len
+        q_pol, q_targ = [], []
+        h, h_targ = h0, h_targ0
+        for t in range(T + 1):
+            key = None if noise["pol"] is None else noise["pol"][t]
+            q, h = pol(self._step_obs(obs, t), h, use_kernels, key)
+            q_pol.append(q)
+            if t < T:
+                key = None if noise["targ"] is None else noise["targ"][t]
+                with torch.no_grad():
+                    q, h_targ = targ(self._step_obs(obs, t + 1), h_targ, use_kernels, key)
+                q_targ.append(q)
+        return self._stack_pol(q_pol), torch.stack(q_targ, 1)
 
     def draw_noise(self, batch):
         """The per-step noise of one update on ``batch``: ``{"pol": [T+1, ...],
@@ -182,19 +313,31 @@ class RecurrentQLearner:
 
     def _loss(self, batch, use_kernels, noise):
         """``(loss, qvals)`` for a batch-major batch (leaves [B, T(+1), ...])."""
+        cdt = self.compute_dtype
+        obs = cast_floating(batch["obs"], cdt)
+        h0, h_targ0 = batch["h"][:, 0].to(cdt), batch["h"][:, 1].to(cdt)
+        noise = {"pol": None, "targ": None} if noise is None else noise
+        unrolls = {"per_step": self._per_step, "hoisted": self._hoisted,
+                   "merged": self._merged}[self.bptt_encoder]
+
+        def run(pol, targ):
+            return unrolls(pol, targ, obs, h0, h_targ0, use_kernels, noise)
+
+        params = {"pol": None, "targ": None}
+        if cdt != torch.float32:            # cast once per update (JAX core.py:190-192)
+            params["pol"] = cast_params(self.net, cdt)
+            with torch.no_grad():
+                params["targ"] = cast_params(self.target_net, cdt)
+        q_pol, target_out = with_params(run, {"pol": self.net, "targ": self.target_net},
+                                        params)
+        # The Q stacks come back to the masters' dtype (f32) once.
+        master = self.parameters()[0].dtype
+        q_pol, target_out = q_pol.to(master), target_out.to(master)    # [B, T+1|T, A, n_act]
         T = self.max_seq_len
-        obs = batch["obs"]
-        pol_noise, targ_noise = (None, None) if noise is None else (noise["pol"], noise["targ"])
-        # The policy's step T feeds only the detached double-Q argmax, so
-        # autograd never reaches it: T backward steps, not T+1.
-        q_pol = self._unroll(self.net, obs, batch["h"][:, 0], 0, T + 1, use_kernels, pol_noise)
-        with torch.no_grad():
-            target_out = torch.stack(self._unroll(self.target_net, obs, batch["h"][:, 1], 1, T,
-                                                  use_kernels, targ_noise), 1)
         acts = batch["act"].long()[..., None]                          # [B, T, A, 1]
-        qvals = torch.stack(q_pol[:T], 1).gather(-1, acts)[..., 0]     # [B, T, A]
+        qvals = q_pol[:, :T].gather(-1, acts)[..., 0]                  # [B, T, A]
         if self.double_q:
-            next_acts = torch.stack(q_pol[1:], 1).detach().argmax(-1, keepdim=True)
+            next_acts = q_pol[:, 1:].detach().argmax(-1, keepdim=True)
             next_vals = target_out.gather(-1, next_acts)[..., 0]
         else:
             next_vals = target_out.amax(-1)

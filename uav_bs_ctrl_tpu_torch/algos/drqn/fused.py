@@ -59,7 +59,8 @@ class FusedDrqnTrainer(DeviceRing):
         env_info = dict(obs_shape=obs_shape(self.env_params, args.agent),
                         n_actions=self.env_params.n_actions, episode_limit=self.T)
         self.learner = QLearner(env_info, args, seed=seed)
-        self.policy = collect_subs.make_policy(self.learner.net, args.agent)
+        # Collection and test episodes at the compute dtype (JAX ``_agent_apply``).
+        self.policy = collect_subs.make_policy(self.learner._apply_net, args.agent)
 
         capacity = capacity_chunks or args.replay_size
         capacity -= capacity % self.chunks_per_iter

@@ -73,7 +73,8 @@ class FusedMadrqnTrainer(DeviceRing):
                         n_actions=self.env_params.n_actions, n_agents=self.env_params.n_ubs,
                         episode_limit=self.T)
         self.learner = MultiAgentQLearner(env_info, args, seed=seed)
-        self.policy = collect.make_policy(self.learner.net, args.o)
+        # Collection and test episodes at the compute dtype (JAX ``_agent_apply``).
+        self.policy = collect.make_policy(self.learner._apply_net, args.o)
 
         self.pool = collect.make_layout_pool(map_id, n_layouts, seed=seed)
         self.test_pool = collect.make_layout_pool(map_id, n_layouts, seed=seed + 10_000)

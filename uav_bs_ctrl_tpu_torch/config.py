@@ -7,7 +7,9 @@ them. JAX backend names are accepted: ``gat_backend='pallas'`` maps to the
 ``flash_gat`` kernel (inference only, as in JAX), every other GATv2 backend
 to the projection-fused kernels, and either step backend of one-round TarMAC
 to the fused step. Both observation encoders ('gnn', 'mlp') and every comm
-protocol (or none) at any number of rounds are served and trained;
+protocol (or none) at any number of rounds are served and trained, at
+``compute_dtype`` float32 or bfloat16 and under every ``bptt_encoder``
+schedule (``per_step``, ``hoisted``, ``merged``);
 :func:`check_training_args` adds the JAX package's rule that training needs a
 differentiable GATv2 backend.
 """
@@ -60,6 +62,8 @@ DEFAULT_CONFIG = {
 }
 
 GAT_BACKENDS = ('dense', 'pallas', 'pallas_fused', 'pallas_fused_mxu', 'graph_parallel')
+COMPUTE_DTYPES = ('float32', 'bfloat16')
+BPTT_SCHEDULES = ('per_step', 'hoisted', 'merged')
 
 
 def make_args(saved_args: dict, device=None) -> SimpleNamespace:
@@ -116,15 +120,16 @@ def check_matmul_precision(args):
 
 
 def check_compute(args):
-    """Raise on the compute dtype and BPTT schedules the port does not run yet."""
-    if args.compute_dtype != 'float32':
-        raise NotImplementedError(f"compute_dtype={args.compute_dtype!r}: the port runs "
-                                  "float32 only; bf16 compute is still to be ported "
-                                  "(ROADMAP.md Queue 1 item 5)")
-    if getattr(args, 'bptt_encoder', 'per_step') != 'per_step':
-        raise NotImplementedError(f"bptt_encoder={args.bptt_encoder!r}: the port runs the "
-                                  "'per_step' schedule only; 'hoisted' and 'merged' are "
-                                  "still to be ported (ROADMAP.md Queue 1 item 5)")
+    """JAX's checks of the compute dtype (``algos/common.py:37-40``, a
+    ``ValueError``) and of the BPTT schedule (``algos/core.py:80-82``, an
+    ``AssertionError``)."""
+    compute_dtype = getattr(args, 'compute_dtype', 'float32')
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
+                         f"got {compute_dtype!r}")
+    bptt_encoder = getattr(args, 'bptt_encoder', 'per_step')
+    if bptt_encoder not in BPTT_SCHEDULES:
+        raise AssertionError(bptt_encoder)
 
 
 def set_matmul_precision(mm_prec):

@@ -119,6 +119,7 @@ class GnnAgent(nn.Module):
             wvh = torch.zeros((hidden, 1), dtype=x.dtype, device=x.device)
             bvh = torch.zeros((1,), dtype=x.dtype, device=x.device)
         c = self.f_comm
+        c.warn_fallback()
         q, h_new = tarmac_step_train(
             x.reshape(-1, hidden).contiguous(), h.reshape(-1, hidden).contiguous(),
             adjf.to(x.dtype).contiguous(),

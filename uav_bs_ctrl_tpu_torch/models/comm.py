@@ -17,12 +17,15 @@ parameter names, so that ``params_from_jax`` maps the trees by path:
   in-edges, GRU([x; c], h); rounds.
 
 ``sg`` (JAX's ``stop_gradient``) is ``detach``. A destination with no
-in-edge receives zeros.
+in-edge receives zeros. TarMAC under ``comm_backend='graph_parallel'`` runs
+its dense attention after a one-time ``RuntimeWarning`` (JAX
+``models/comm.py:149-160``): the port registers no mesh.
 """
 
 import torch
 from torch import nn
 
+from uav_bs_ctrl_tpu_torch.models.encoders import _warn_graph_parallel_fallback
 from uav_bs_ctrl_tpu_torch.models.modules import GRUCell, Linear, gumbel_softmax
 from uav_bs_ctrl_tpu_torch.ops.masked import masked_max, masked_softmax
 
@@ -90,17 +93,24 @@ class TarMAC(nn.Module):
     """Signature/query scores / key_size, softmax over SOURCES per destination,
     attention-weighted value sum, GRU([x; c], h); ``n_rounds`` rounds."""
 
-    def __init__(self, hidden, msg_size, key_size, n_rounds=1):
+    def __init__(self, hidden, msg_size, key_size, n_rounds=1, backend="dense"):
         super().__init__()
         self.key_size = key_size
         self.n_rounds = n_rounds
+        self.backend = backend
         self.f_val = Linear(2 * hidden, msg_size)
         self.f_sign = Linear(2 * hidden, key_size)
         self.f_que = Linear(2 * hidden, key_size)
         self.f_udt = GRUCell(hidden + msg_size, hidden)
 
+    def warn_fallback(self):
+        """JAX's one-time warning when the talk attention asked for the mesh."""
+        if self.backend == "graph_parallel":
+            _warn_graph_parallel_fallback("tarmac_talk")
+
     def forward(self, adj, x, h, key=None):
         for _ in range(self.n_rounds):
+            self.warn_fallback()
             inputs = torch.cat([x, h.detach()], dim=-1)    # h reaches v/s/q without gradient
             v = self.f_val(inputs)                         # [..., S, msg]
             s = self.f_sign(inputs)                        # [..., S, key]
@@ -143,5 +153,6 @@ def make_comm(args):
     return {"base": lambda: BaseComm(hidden, msg),
             "disc": lambda: DiscreteComm(hidden, msg),
             "commnet": lambda: CommNet(hidden, args.n_rounds),
-            "tarmac": lambda: TarMAC(hidden, msg, args.key_size, args.n_rounds),
+            "tarmac": lambda: TarMAC(hidden, msg, args.key_size, args.n_rounds,
+                                     getattr(args, "comm_backend", "dense")),
             "econv": lambda: EdgeConv(hidden, msg, args.n_rounds)}[args.c]()

@@ -7,10 +7,14 @@ features plus a ``[..., A, M]`` visibility mask), exactly the env's obs layout.
 The JAX package's ``gat_backend`` picks the kernel: ``'pallas'`` projects
 ``el = fc_src(x_src)`` as a plain product and runs ``flash_gat`` over it (the
 inference-only path: the kernel has no gradient); every other backend runs
-the projection-fused ``flash_gat_fused_train``.
+the projection-fused ``flash_gat_fused_train``. ``'graph_parallel'`` has no
+mesh in the port: it runs as the dense backend does, after a one-time
+``RuntimeWarning`` per slot count with the JAX package's text
+(``models/encoders.py:31-50``).
 """
 
 import math
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +23,20 @@ from torch import nn
 from uav_bs_ctrl_tpu_torch.models.modules import MLP, Linear
 from uav_bs_ctrl_tpu_torch.ops.gat_kernels import flash_gat, flash_gat_fused_train
 from uav_bs_ctrl_tpu_torch.ops.masked import masked_softmax
+
+_gp_fallback_warned = set()
+
+
+def _warn_graph_parallel_fallback(n_slots):
+    """One-time warning, per slot count (or ``'tarmac_talk'``), that
+    ``'graph_parallel'`` ran as the dense backend: the port registers no mesh."""
+    if n_slots in _gp_fallback_warned:
+        return
+    _gp_fallback_warned.add(n_slots)
+    warnings.warn(
+        f"backend='graph_parallel' ({n_slots}) fell back to dense: no mesh "
+        "registered (parallel.graph_parallel.set_graph_parallel_mesh)",
+        RuntimeWarning, stacklevel=3)
 
 
 class GATv2(nn.Module):
@@ -52,6 +70,8 @@ class GATv2(nn.Module):
         res = self.res_fc(x_dst) if self.res_fc is not None else x_dst
         if x_src.shape[-2] == 0:          # no slots at all: residual only
             return torch.relu(res)
+        if self.backend == "graph_parallel":
+            _warn_graph_parallel_fallback(x_src.shape[-2])
         er = self.fc_dst(x_dst)                                   # [..., H*F]
         hf = er.shape[-1]
         if use_kernels:

@@ -93,13 +93,16 @@ def gumbel_softmax(logits, tau=1.0, hard=False, seed=None, noise=None):
 
     The noise is ``noise`` when given (a tensor of ``logits``' shape, e.g. the
     JAX package's ``jax.random.gumbel`` draw), else ``gumbel_noise`` from
-    ``seed`` on ``logits``' device. ``hard`` gives the one-hot of the argmax
-    forward and the soft sample's gradient (straight-through).
+    ``seed`` on ``logits``' device; it is drawn in f32 and rounded to
+    ``logits``' dtype, where JAX draws it (``jax.random.gumbel(key, shape,
+    logits.dtype)``), so a bf16 step stays bf16. ``hard`` gives the one-hot
+    of the argmax forward and the soft sample's gradient (straight-through).
     """
     if noise is None:
         if seed is None:
             raise ValueError("gumbel_softmax needs a seed or the noise itself")
         noise = gumbel_noise(logits.shape, seed, logits.device)
+    noise = noise.to(logits.dtype)
     y_soft = torch.softmax((logits + noise) / tau, dim=-1)
     if not hard:
         return y_soft

@@ -5,7 +5,9 @@ device pointers, sizes and a ``cudaStream_t`` and return the launch's
 ``cudaError_t``; no source includes PyTorch's headers, so a file compiles in
 seconds and needs neither ninja nor pybind11. The shared object goes to
 ``ops/_build/<name>-<hash>.so``, keyed by the source, every ``csrc/*.cuh``
-header, the flags and ``nvcc --version``, and is built on first use.
+header, the flags and ``nvcc --version``, and is built on first use. Kernels
+#2-#5 export one launcher per storage type: ``<name>`` takes float32
+pointers, ``<name>_bf16`` bfloat16 ones (``SUFFIX``).
 """
 
 import ctypes
@@ -101,18 +103,37 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     return _loaded[name]
 
 
-def pointers(device, tensors: dict) -> list:
+SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}   # a launcher's name by storage type
+
+
+def storage_type(what, *tensors):
+    """The storage type of a kernel call's tensor operands: float32 or
+    bfloat16, the same for all (the kernels take no mixed types); raises
+    ``TypeError`` otherwise."""
+    dtype = tensors[0].dtype
+    if dtype not in SUFFIX:
+        raise TypeError(f"{what} takes float32 or bfloat16 operands, got {dtype}")
+    mixed = sorted({str(t.dtype) for t in tensors if t.dtype != dtype})
+    if mixed:
+        raise TypeError(f"{what} takes operands of one dtype, got {dtype} and {mixed}")
+    return dtype
+
+
+def pointers(device, tensors: dict, storage=torch.float32, f32=()) -> list:
     """Device pointers of ``tensors`` after checking what the kernels take:
-    float32, contiguous, on ``device``, and not part of an autograd graph
-    (autograd reaches a kernel only through its ``torch.autograd.Function``,
-    ``flash_gat_fused_train`` or ``tarmac_step_train``)."""
+    ``storage`` (float32 or bfloat16; float32 for the names in ``f32``, the
+    row statistics and scratch), contiguous, on ``device``, and not part of
+    an autograd graph (autograd reaches a kernel only through its
+    ``torch.autograd.Function``, ``flash_gat_fused_train`` or
+    ``tarmac_step_train``)."""
     grad = torch.is_grad_enabled()
     ptrs = []
     for name, t in tensors.items():
+        want = torch.float32 if name in f32 else storage
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes float32")
+        if t.dtype != want:
+            raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes {want}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
         if grad and t.requires_grad:
@@ -121,6 +142,14 @@ def pointers(device, tensors: dict) -> list:
                 "torch.autograd.Function (flash_gat_fused_train, tarmac_step_train)")
         ptrs.append(ctypes.c_void_p(t.data_ptr()))
     return ptrs
+
+
+def count_launch(fn, dtype):
+    """Add one to the wrapper ``fn``'s launch count, and to its bf16 count
+    for a bf16 launch (``fn.launches - fn.launches_bf16`` are f32 ones)."""
+    fn.launches += 1
+    if dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
 
 
 def check_launch(lib, error_string_fn: str, err: int, what: str):

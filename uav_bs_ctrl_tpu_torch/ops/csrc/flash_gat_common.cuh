@@ -17,10 +17,14 @@
 // ones. Splitting a row's slots over the warps of a CTA needed a barrier for every
 // exchange (the max, the sums) and strided loads; one warp per head needs neither.
 //
-// No atomics anywhere: a repeated call is bit-identical.
+// No atomics anywhere: a repeated call is bit-identical. The helpers take their tensor
+// operands in a storage type T (storage.cuh: float or __nv_bfloat16) and widen each load
+// to f32; the staging areas in shared memory and the registers are f32.
 
 #pragma once
 #include <cuda_runtime.h>
+
+#include "storage.cuh"
 
 namespace {
 
@@ -36,12 +40,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The lane's C columns of a row of HF floats (zero beyond C).
-template <int CM>
-__device__ __forceinline__ void row_slice(const float* __restrict__ row, int col0, int C,
+// The lane's C columns of a row of HF values, in f32 (zero beyond C).
+template <int CM, class T>
+__device__ __forceinline__ void row_slice(const T* __restrict__ row, int col0, int C,
                                           float (&v)[CM]) {
 #pragma unroll
-  for (int c = 0; c < CM; ++c) v[c] = c < C ? row[col0 + 32 * c] : 0.f;
+  for (int c = 0; c < CM; ++c) v[c] = c < C ? to_f32(row[col0 + 32 * c]) : 0.f;
 }
 
 // The lane's register slice of W (DM x CM), b and attn: zero beyond C and D, so padded
@@ -50,10 +54,10 @@ template <int CM, int DM>
 struct HeadSlice {
   float w[DM][CM], b[CM], attn[CM];
 
-  __device__ __forceinline__ void load(const float* __restrict__ w_g,
-                                       const float* __restrict__ b_g,
-                                       const float* __restrict__ attn_g, int col0, int C,
-                                       int D, int HF) {
+  template <class T>
+  __device__ __forceinline__ void load(const T* __restrict__ w_g, const T* __restrict__ b_g,
+                                       const T* __restrict__ attn_g, int col0, int C, int D,
+                                       int HF) {
 #pragma unroll
     for (int d = 0; d < DM; ++d) {
       if (d < D) {
@@ -81,12 +85,13 @@ struct HeadSlice {
 
 // The lane's mask entries of slots [j0, j0 + len), len <= kMaxChunk: word w holds slot
 // w * 32 + lane (0 beyond len).
-__device__ __forceinline__ void load_mask_words(const float* __restrict__ mask_row, int j0,
-                                                int len, int lane, float (&mv)[kMaxChunk / 32]) {
+template <class T>
+__device__ __forceinline__ void load_mask_words(const T* __restrict__ mask_row, int j0, int len,
+                                                int lane, float (&mv)[kMaxChunk / 32]) {
 #pragma unroll
   for (int w = 0; w < kMaxChunk / 32; ++w) {
     const int j = w * 32 + lane;
-    mv[w] = j < len ? mask_row[j0 + j] : 0.f;
+    mv[w] = j < len ? to_f32(mask_row[j0 + j]) : 0.f;
   }
 }
 
@@ -107,12 +112,12 @@ __device__ __forceinline__ int list_valid(const float (&mv)[kMaxChunk / 32], int
   return cnt;
 }
 
-// The warp stages slots [j0, j0 + len) of its row: x into s_x [len, DM] (zero-padded
+// The warp stages slots [j0, j0 + len) of its row: x into s_x [len, DM] in f32 (zero-padded
 // beyond D) and the valid slots' chunk positions, in order, into s_list. Returns their
 // count (the same in every lane).
-template <int DM>
-__device__ __forceinline__ int stage_chunk(const float* __restrict__ x_row,
-                                           const float* __restrict__ mask_row, int j0, int len,
+template <int DM, class T>
+__device__ __forceinline__ int stage_chunk(const T* __restrict__ x_row,
+                                           const T* __restrict__ mask_row, int j0, int len,
                                            int D, float* s_x, int* s_list, int lane) {
   float mv[kMaxChunk / 32];
   load_mask_words(mask_row, j0, len, lane, mv);
@@ -122,7 +127,7 @@ __device__ __forceinline__ int stage_chunk(const float* __restrict__ x_row,
 #pragma unroll
     for (int k = 0; k < kStageBatch; ++k) {
       const int i = i0 + 32 * k + lane, j = i / DM, d = i % DM;
-      v[k] = i < len * DM && d < D ? x_row[(size_t)(j0 + j) * D + d] : 0.f;
+      v[k] = i < len * DM && d < D ? to_f32(x_row[(size_t)(j0 + j) * D + d]) : 0.f;
     }
 #pragma unroll
     for (int k = 0; k < kStageBatch; ++k) {

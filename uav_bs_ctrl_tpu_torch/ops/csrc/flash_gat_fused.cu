@@ -32,6 +32,14 @@
 //      1e-30), el recomputed, in registers.
 // A row of more slots than a chunk holds is staged in chunks: pass 1 takes the max over
 // every chunk, pass 2 recomputes each chunk's scores, so the softmax stays exact.
+//
+// Storage types (storage.cuh): the kernel is a template on the type T of x, w, b, er, attn,
+// mask and out, float (flash_gat_fused_forward) or __nv_bfloat16
+// (flash_gat_fused_forward_bf16). A bf16 load widens to f32, the projection, scores,
+// softmax and sums are f32, out is rounded to T once, and the row statistics m and l stay
+// f32 in both. At bf16 the kernel computes the unrounded form: JAX's pallas_fused_mxu also
+// rounds the scores' input e and the weights p to bf16 before its dots
+// (pallas_kernels.py:252-279), pallas_fused does not; one kernel serves both.
 
 #include "flash_gat_common.cuh"
 
@@ -58,11 +66,11 @@ __device__ __forceinline__ void chunk_scores(const HeadSlice<CM, DM>& sl, const 
   }
 }
 
-template <int CM, int DM, int MaxThreads>
+template <class T, int CM, int DM, int MaxThreads>
 __global__ void __launch_bounds__(MaxThreads) flash_gat_fused_fwd_rows(
-    const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
-    const float* __restrict__ er, const float* __restrict__ attn, const float* __restrict__ mask,
-    float* __restrict__ out, float* __restrict__ mstat, float* __restrict__ lstat, int M,
+    const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
+    const T* __restrict__ er, const T* __restrict__ attn, const T* __restrict__ mask,
+    T* __restrict__ out, float* __restrict__ mstat, float* __restrict__ lstat, int M,
     int D, int HF, int H, int chunk, float slope) {
   extern __shared__ float smem[];
   const int h = threadIdx.x >> 5, lane = threadIdx.x & 31, n = blockIdx.x;
@@ -70,8 +78,8 @@ __global__ void __launch_bounds__(MaxThreads) flash_gat_fused_fwd_rows(
   float* s_x = smem + (size_t)h * chunk * (DM + 2);         // this warp's [chunk, DM]
   float* s_sc = s_x + chunk * DM;                             // its scores [chunk]
   int* s_list = reinterpret_cast<int*>(s_sc + chunk);         // its valid slots [chunk]
-  const float* x_row = x + (size_t)n * M * D;
-  const float* mask_row = mask + (size_t)n * M;
+  const T* x_row = x + (size_t)n * M * D;
+  const T* mask_row = mask + (size_t)n * M;
 
   HeadSlice<CM, DM> sl;
   sl.load(w, b, attn, col0, C, D, HF);
@@ -109,26 +117,48 @@ __global__ void __launch_bounds__(MaxThreads) flash_gat_fused_fwd_rows(
   const float inv = fmaxf(l, 1e-30f);
 #pragma unroll
   for (int c = 0; c < CM; ++c)
-    if (c < C) out[(size_t)n * HF + col0 + 32 * c] = acc[c] / inv;
+    if (c < C) out[(size_t)n * HF + col0 + 32 * c] = from_f32<T>(acc[c] / inv);
   if (lane == 0) {
     mstat[(size_t)n * H + h] = m;
     lstat[(size_t)n * H + h] = l;
   }
 }
 
-template <int CM, int DM, int MaxThreads>
-cudaError_t launch_forward(const float* x, const float* w, const float* b, const float* er,
-                           const float* attn, const float* mask, float* out, float* mstat,
-                           float* lstat, int N, int M, int D, int HF, int H, float slope,
-                           cudaStream_t stream) {
+template <class T, int CM, int DM, int MaxThreads>
+cudaError_t launch_forward(const T* x, const T* w, const T* b, const T* er, const T* attn,
+                           const T* mask, T* out, float* mstat, float* lstat, int N, int M,
+                           int D, int HF, int H, float slope, cudaStream_t stream) {
   const int chunk = chunk_for(M, H, DM + 2);
   const size_t smem = sizeof(float) * (size_t)H * chunk * (DM + 2);
-  auto kernel = flash_gat_fused_fwd_rows<CM, DM, MaxThreads>;
+  auto kernel = flash_gat_fused_fwd_rows<T, CM, DM, MaxThreads>;
   cudaError_t e = allow_smem((const void*)kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<N, 32 * H, smem, stream>>>(x, w, b, er, attn, mask, out, mstat, lstat, M, D, HF, H,
                                       chunk, slope);
   return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t forward(const T* x, const T* w, const T* b, const T* er, const T* attn,
+                    const T* mask, T* out, float* mstat, float* lstat, int N, int M, int D,
+                    int HF, int H, float slope, cudaStream_t stream) {
+  if (D > kMaxD || HF % 32 != 0 || HF > 1024 || H <= 0 || HF % H != 0 || (HF / H) % 32 != 0)
+    return cudaErrorInvalidValue;
+  if (N == 0) return cudaSuccess;
+  const int C = HF / H / 32;                      // columns a lane
+#define FGF_ARGS x, w, b, er, attn, mask, out, mstat, lstat, N, M, D, HF, H, slope, stream
+  if (H > 8)                                      // more than 256 threads: F is 32, 64 or 96
+    return C <= 2 ? launch_forward<T, 2, kMaxD, 1024>(FGF_ARGS)
+                  : launch_forward<T, 4, kMaxD, 1024>(FGF_ARGS);
+  if (C > 8) return launch_forward<T, 32, kMaxD, 256>(FGF_ARGS);
+  if (C > 4) return launch_forward<T, 8, kMaxD, 256>(FGF_ARGS);
+  if (C > 2) return launch_forward<T, 4, kMaxD, 256>(FGF_ARGS);
+  switch (dm_for(D)) {                            // the runs' F = 64: two columns a lane
+    case 2: return launch_forward<T, 2, 2, 256>(FGF_ARGS);
+    case 4: return launch_forward<T, 2, 4, 256>(FGF_ARGS);
+    default: return launch_forward<T, 2, kMaxD, 256>(FGF_ARGS);
+  }
+#undef FGF_ARGS
 }
 
 }  // namespace
@@ -137,23 +167,17 @@ extern "C" int flash_gat_fused_forward(
     const float* x, const float* w, const float* b, const float* er, const float* attn,
     const float* mask, float* out, float* mstat, float* lstat,
     int N, int M, int D, int HF, int H, float slope, cudaStream_t stream) {
-  if (D > kMaxD || HF % 32 != 0 || HF > 1024 || H <= 0 || HF % H != 0 || (HF / H) % 32 != 0)
-    return cudaErrorInvalidValue;
-  if (N == 0) return cudaSuccess;
-  const int C = HF / H / 32;                      // columns a lane
-#define FGF_ARGS x, w, b, er, attn, mask, out, mstat, lstat, N, M, D, HF, H, slope, stream
-  if (H > 8)                                      // more than 256 threads: F is 32, 64 or 96
-    return C <= 2 ? launch_forward<2, kMaxD, 1024>(FGF_ARGS)
-                  : launch_forward<4, kMaxD, 1024>(FGF_ARGS);
-  if (C > 8) return launch_forward<32, kMaxD, 256>(FGF_ARGS);
-  if (C > 4) return launch_forward<8, kMaxD, 256>(FGF_ARGS);
-  if (C > 2) return launch_forward<4, kMaxD, 256>(FGF_ARGS);
-  switch (dm_for(D)) {                            // the runs' F = 64: two columns a lane
-    case 2: return launch_forward<2, 2, 256>(FGF_ARGS);
-    case 4: return launch_forward<2, 4, 256>(FGF_ARGS);
-    default: return launch_forward<2, kMaxD, 256>(FGF_ARGS);
-  }
-#undef FGF_ARGS
+  return forward<float>(x, w, b, er, attn, mask, out, mstat, lstat, N, M, D, HF, H, slope,
+                        stream);
+}
+
+extern "C" int flash_gat_fused_forward_bf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* w, const __nv_bfloat16* b,
+    const __nv_bfloat16* er, const __nv_bfloat16* attn, const __nv_bfloat16* mask,
+    __nv_bfloat16* out, float* mstat, float* lstat,
+    int N, int M, int D, int HF, int H, float slope, cudaStream_t stream) {
+  return forward<__nv_bfloat16>(x, w, b, er, attn, mask, out, mstat, lstat, N, M, D, HF, H,
+                                slope, stream);
 }
 
 extern "C" const char* flash_gat_fused_error_string(int err) {

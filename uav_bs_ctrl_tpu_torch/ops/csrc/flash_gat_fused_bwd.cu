@@ -38,6 +38,12 @@
 // barrier: the only barrier, and only with dx. Launch 2 sums the CTAs' partials, 16 row
 // lanes a column and a fixed tree, so two runs give bit-identical gradients without
 // atomics.
+//
+// Storage types (storage.cuh): a template on the type T of x, w, b, er, attn, mask, g, out
+// and of the gradients dW, db, der, dattn and dx, float (flash_gat_fused_backward) or
+// __nv_bfloat16 (flash_gat_fused_backward_bf16); the row statistics m, l and the partials
+// are f32 in both. Every sum is f32, and each gradient is rounded to T once, where it is
+// stored. At bf16 it is the backward of the unrounded form (see flash_gat_fused.cu).
 
 #include "flash_gat_common.cuh"
 
@@ -67,13 +73,12 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[DM], int lane) {
   return r;
 }
 
-template <int CM, int DM, int MaxThreads>
+template <class T, int CM, int DM, int MaxThreads>
 __global__ void __launch_bounds__(MaxThreads) flash_gat_fused_bwd_rows(
-    const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
-    const float* __restrict__ er, const float* __restrict__ attn,
-    const float* __restrict__ mask, const float* __restrict__ g,
-    const float* __restrict__ out, const float* __restrict__ mstat,
-    const float* __restrict__ lstat, float* __restrict__ der, float* __restrict__ dx,
+    const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
+    const T* __restrict__ er, const T* __restrict__ attn, const T* __restrict__ mask,
+    const T* __restrict__ g, const T* __restrict__ out, const float* __restrict__ mstat,
+    const float* __restrict__ lstat, T* __restrict__ der, T* __restrict__ dx,
     float* __restrict__ partial, int N, int M, int D, int HF, int H, int chunk, float slope) {
   extern __shared__ float smem[];
   const int h = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -94,8 +99,8 @@ __global__ void __launch_bounds__(MaxThreads) flash_gat_fused_bwd_rows(
   }
 
   for (int n = blockIdx.x; n < N; n += gridDim.x) {
-    const float* x_row = x + (size_t)n * M * D;
-    const float* mask_row = mask + (size_t)n * M;
+    const T* x_row = x + (size_t)n * M * D;
+    const T* mask_row = mask + (size_t)n * M;
     float erl[CM], gl[CM], ol[CM], dr[CM];
     row_slice<CM>(er + (size_t)n * HF, col0, C, erl);
     row_slice<CM>(g + (size_t)n * HF, col0, C, gl);
@@ -162,16 +167,17 @@ __global__ void __launch_bounds__(MaxThreads) flash_gat_fused_bwd_rows(
           const int k = i / D, d = i % D;
           float v = 0.f;
           for (int hh = 0; hh < H; ++hh) v += s_dx[((size_t)k * H + hh) * DM + d];
-          dx[((size_t)n * M + j0 + s_list0[k]) * D + d] = v;
+          dx[((size_t)n * M + j0 + s_list0[k]) * D + d] = from_f32<T>(v);
         }
         for (int i = threadIdx.x; i < len * D; i += blockDim.x)
-          if (!(mask_row[j0 + i / D] > 0.f)) dx[((size_t)n * M + j0) * D + i] = 0.f;
+          if (!(to_f32(mask_row[j0 + i / D]) > 0.f))
+            dx[((size_t)n * M + j0) * D + i] = from_f32<T>(0.f);
         __syncthreads();                            // s_dx and the lists are free again
       }
     }
 #pragma unroll
     for (int c = 0; c < CM; ++c)
-      if (c < C) der[(size_t)n * HF + col0 + 32 * c] = dr[c];
+      if (c < C) der[(size_t)n * HF + col0 + 32 * c] = from_f32<T>(dr[c]);
   }
 
   float* part = partial + (size_t)blockIdx.x * (D + 2) * HF + col0;
@@ -188,9 +194,10 @@ __global__ void __launch_bounds__(MaxThreads) flash_gat_fused_bwd_rows(
 
 // Launch 2: column k of the partials summed over their R rows (one a CTA of launch 1):
 // row lane r sums rows r, r + kRedLanes, ..., then the lanes' sums meet in a fixed tree.
+template <class T>
 __global__ void __launch_bounds__(kRedCols * kRedLanes) flash_gat_fused_bwd_reduce(
-    const float* __restrict__ partial, float* __restrict__ dw, float* __restrict__ db,
-    float* __restrict__ dattn, int R, int D, int HF) {
+    const float* __restrict__ partial, T* __restrict__ dw, T* __restrict__ db,
+    T* __restrict__ dattn, int R, int D, int HF) {
   __shared__ float s_sum[kRedLanes][kRedCols];
   const int col = threadIdx.x % kRedCols, r = threadIdx.x / kRedCols;
   const int P = (D + 2) * HF;
@@ -204,23 +211,22 @@ __global__ void __launch_bounds__(kRedCols * kRedLanes) flash_gat_fused_bwd_redu
     if (r < half) s_sum[r][col] += s_sum[r + half][col];
   }
   if (r == 0 && k < P) {
-    const float tot = s_sum[0][col];
+    const T tot = from_f32<T>(s_sum[0][col]);
     if (k < D * HF) dw[k] = tot;
     else if (k < (D + 1) * HF) db[k - D * HF] = tot;
     else dattn[k - (D + 1) * HF] = tot;
   }
 }
 
-template <int CM, int DM, int MaxThreads>
-cudaError_t launch_rows(const float* x, const float* w, const float* b, const float* er,
-                        const float* attn, const float* mask, const float* g, const float* out,
-                        const float* mstat, const float* lstat, float* der, float* dx,
-                        float* partial, int N, int M, int D, int HF, int H, float slope,
-                        cudaStream_t stream) {
+template <class T, int CM, int DM, int MaxThreads>
+cudaError_t launch_rows(const T* x, const T* w, const T* b, const T* er, const T* attn,
+                        const T* mask, const T* g, const T* out, const float* mstat,
+                        const float* lstat, T* der, T* dx, float* partial, int N, int M, int D,
+                        int HF, int H, float slope, cudaStream_t stream) {
   const int dx_floats = dx != nullptr ? DM : 0;   // a slot's share of s_dx, per warp
   const int chunk = chunk_for(M, H, DM + 1 + dx_floats);
   const size_t smem = sizeof(float) * (size_t)H * chunk * (DM + 1 + dx_floats);
-  auto kernel = flash_gat_fused_bwd_rows<CM, DM, MaxThreads>;
+  auto kernel = flash_gat_fused_bwd_rows<T, CM, DM, MaxThreads>;
   cudaError_t e = allow_smem((const void*)kernel, smem);
   if (e != cudaSuccess) return e;
   const int grid = N < kMaxCtas ? N : kMaxCtas;
@@ -229,13 +235,11 @@ cudaError_t launch_rows(const float* x, const float* w, const float* b, const fl
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int flash_gat_fused_backward(
-    const float* x, const float* w, const float* b, const float* er, const float* attn,
-    const float* mask, const float* g, const float* out, const float* mstat,
-    const float* lstat, float* dw, float* db, float* der, float* dattn, float* dx,
-    float* partial, int N, int M, int D, int HF, int H, float slope, cudaStream_t stream) {
+template <class T>
+cudaError_t backward(const T* x, const T* w, const T* b, const T* er, const T* attn,
+                     const T* mask, const T* g, const T* out, const float* mstat,
+                     const float* lstat, T* dw, T* db, T* der, T* dattn, T* dx, float* partial,
+                     int N, int M, int D, int HF, int H, float slope, cudaStream_t stream) {
   if (D > kMaxD || HF % 32 != 0 || HF > 1024 || H <= 0 || HF % H != 0 || (HF / H) % 32 != 0)
     return cudaErrorInvalidValue;
   if (N > 0) {
@@ -244,27 +248,51 @@ extern "C" int flash_gat_fused_backward(
 #define FGF_ARGS x, w, b, er, attn, mask, g, out, mstat, lstat, der, dx, partial, N, M, D, HF, \
                  H, slope, stream
     if (H > 8)                                    // more than 256 threads: F is 32, 64 or 96
-      e = C <= 2 ? launch_rows<2, kMaxD, 1024>(FGF_ARGS) : launch_rows<4, kMaxD, 1024>(FGF_ARGS);
+      e = C <= 2 ? launch_rows<T, 2, kMaxD, 1024>(FGF_ARGS)
+                 : launch_rows<T, 4, kMaxD, 1024>(FGF_ARGS);
     else if (C > 8)
-      e = launch_rows<32, kMaxD, 256>(FGF_ARGS);
+      e = launch_rows<T, 32, kMaxD, 256>(FGF_ARGS);
     else if (C > 4)
-      e = launch_rows<8, kMaxD, 256>(FGF_ARGS);
+      e = launch_rows<T, 8, kMaxD, 256>(FGF_ARGS);
     else if (C > 2)
-      e = launch_rows<4, kMaxD, 256>(FGF_ARGS);
+      e = launch_rows<T, 4, kMaxD, 256>(FGF_ARGS);
     else if (dm_for(D) == 2)                      // the runs' F = 64: two columns a lane
-      e = launch_rows<2, 2, 256>(FGF_ARGS);
+      e = launch_rows<T, 2, 2, 256>(FGF_ARGS);
     else if (dm_for(D) == 4)
-      e = launch_rows<2, 4, 256>(FGF_ARGS);
+      e = launch_rows<T, 2, 4, 256>(FGF_ARGS);
     else
-      e = launch_rows<2, kMaxD, 256>(FGF_ARGS);
+      e = launch_rows<T, 2, kMaxD, 256>(FGF_ARGS);
 #undef FGF_ARGS
     if (e != cudaSuccess) return e;
   }
   const int P = (D + 2) * HF;
-  flash_gat_fused_bwd_reduce<<<(P + kRedCols - 1) / kRedCols, kRedCols * kRedLanes, 0,
-                               stream>>>(partial, dw, db, dattn, N < kMaxCtas ? N : kMaxCtas,
-                                         D, HF);
+  auto reduce = flash_gat_fused_bwd_reduce<T>;
+  reduce<<<(P + kRedCols - 1) / kRedCols, kRedCols * kRedLanes, 0, stream>>>(
+      partial, dw, db, dattn, N < kMaxCtas ? N : kMaxCtas, D, HF);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// partial: min(N, 1024) rows of (D + 2) * HF floats (one a CTA of launch 1).
+extern "C" int flash_gat_fused_backward(
+    const float* x, const float* w, const float* b, const float* er, const float* attn,
+    const float* mask, const float* g, const float* out, const float* mstat,
+    const float* lstat, float* dw, float* db, float* der, float* dattn, float* dx,
+    float* partial, int N, int M, int D, int HF, int H, float slope, cudaStream_t stream) {
+  return backward<float>(x, w, b, er, attn, mask, g, out, mstat, lstat, dw, db, der, dattn, dx,
+                         partial, N, M, D, HF, H, slope, stream);
+}
+
+extern "C" int flash_gat_fused_backward_bf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* w, const __nv_bfloat16* b,
+    const __nv_bfloat16* er, const __nv_bfloat16* attn, const __nv_bfloat16* mask,
+    const __nv_bfloat16* g, const __nv_bfloat16* out, const float* mstat, const float* lstat,
+    __nv_bfloat16* dw, __nv_bfloat16* db, __nv_bfloat16* der, __nv_bfloat16* dattn,
+    __nv_bfloat16* dx, float* partial, int N, int M, int D, int HF, int H, float slope,
+    cudaStream_t stream) {
+  return backward<__nv_bfloat16>(x, w, b, er, attn, mask, g, out, mstat, lstat, dw, db, der,
+                                 dattn, dx, partial, N, M, D, HF, H, slope, stream);
 }
 
 extern "C" const char* flash_gat_fused_bwd_error_string(int err) {

@@ -30,6 +30,12 @@
 //       chunks of k whose partials are added in a fixed order (no atomics, no warp
 //       shuffles), so a repeated call is bit-identical.
 // Any A and any R work; R = 0 launches nothing.
+//
+// Storage types (storage.cuh): every kernel is a template on the type T of x, h, adjf, the
+// weights, q and h2, float (tarmac_step_forward) or __nv_bfloat16 (tarmac_step_forward_bf16),
+// as JAX's kernel widens every bf16 input to f32 inside (step_kernels.py:126-137). The
+// scratch (v|s|q, c, gi, gh) and every sum are f32; q and h2 are rounded to T once, and q is
+// computed from the unrounded h2.
 
 #include "tarmac_step_common.cuh"
 
@@ -41,12 +47,12 @@ constexpr int kHeadSplit = 8;       // chunks of k per head output
 constexpr int kHeadThreads = 256;
 
 // (d) h2 = GRU gates of (gi, gh, h), and q from h2, for the CTA's rows.
+template <class T>
 __global__ void __launch_bounds__(kHeadThreads) tarmac_step_fwd_head(
-    const float* __restrict__ h, const float* __restrict__ gi, const float* __restrict__ gh,
-    const float* __restrict__ wo, const float* __restrict__ bo,
-    const float* __restrict__ wvh, const float* __restrict__ bvh,
-    float* __restrict__ q_out, float* __restrict__ h2_out, int R, int H, int NACT,
-    int dueling) {
+    const T* __restrict__ h, const float* __restrict__ gi, const float* __restrict__ gh,
+    const T* __restrict__ wo, const T* __restrict__ bo, const T* __restrict__ wvh,
+    const T* __restrict__ bvh, T* __restrict__ q_out, T* __restrict__ h2_out, int R, int H,
+    int NACT, int dueling) {
   extern __shared__ float smem[];
   const int O = NACT + (dueling ? 1 : 0);               // the advantages, then the value
   float* s_h2 = smem;                                    // [rows, H]
@@ -59,9 +65,9 @@ __global__ void __launch_bounds__(kHeadThreads) tarmac_step_fwd_head(
     const int j = i % H;
     const size_t row = (size_t)row0 + i / H;
     const Gates g = gru_gates(gi + row * 3 * H, gh + row * 3 * H, j, H);
-    const float h2 = (1.f - g.z) * g.n + g.z * h[row * H + j];
+    const float h2 = (1.f - g.z) * g.n + g.z * to_f32(h[row * H + j]);
     s_h2[i] = h2;
-    h2_out[row * H + j] = h2;
+    h2_out[row * H + j] = from_f32<T>(h2);
   }
   __syncthreads();
 
@@ -72,9 +78,10 @@ __global__ void __launch_bounds__(kHeadThreads) tarmac_step_fwd_head(
     const int k1 = min(H, (s + 1) * chunk);
     float acc = 0.f;
     if (o < NACT)
-      for (int k = s * chunk; k < k1; ++k) acc = fmaf(hr[k], wo[(size_t)k * NACT + o], acc);
+      for (int k = s * chunk; k < k1; ++k)
+        acc = fmaf(hr[k], to_f32(wo[(size_t)k * NACT + o]), acc);
     else
-      for (int k = s * chunk; k < k1; ++k) acc = fmaf(hr[k], wvh[k], acc);
+      for (int k = s * chunk; k < k1; ++k) acc = fmaf(hr[k], to_f32(wvh[k]), acc);
     s_part[i] = acc;
   }
   __syncthreads();
@@ -83,7 +90,7 @@ __global__ void __launch_bounds__(kHeadThreads) tarmac_step_fwd_head(
     const int o = i % O;
     float acc = 0.f;
     for (int s = 0; s < kHeadSplit; ++s) acc += s_part[i * kHeadSplit + s];
-    s_out[i] = acc + (o < NACT ? bo[o] : bvh[0]);
+    s_out[i] = acc + (o < NACT ? to_f32(bo[o]) : to_f32(bvh[0]));
   }
   __syncthreads();
 
@@ -96,8 +103,35 @@ __global__ void __launch_bounds__(kHeadThreads) tarmac_step_fwd_head(
       for (int p = 0; p < NACT; ++p) mean += out[p];
       qv = out[NACT] + (qv - mean / NACT);
     }
-    q_out[(size_t)(row0 + r) * NACT + o] = qv;
+    q_out[(size_t)(row0 + r) * NACT + o] = from_f32<T>(qv);
   }
+}
+
+template <class T>
+cudaError_t forward(const T* x, const T* h, const T* adjf, const T* wv, const T* bv,
+                    const T* ws, const T* bs, const T* wq, const T* bq, const T* wi,
+                    const T* wh, const T* bi, const T* bh, const T* wo, const T* bo,
+                    const T* wvh, const T* bvh, T* q_out, T* h2_out, float* scratch, int W,
+                    int A, int H, int MSG, int K, int NACT, int dueling, float key_size,
+                    cudaStream_t stream) {
+  const int R = W * A;
+  if (R == 0) return cudaSuccess;
+  float* vsq = scratch;
+  float* c = vsq + (size_t)R * (MSG + 2 * K);
+  float* gi = c + (size_t)R * MSG;
+  float* gh = gi + (size_t)R * 3 * H;
+  cudaError_t e = launch_up_to_gates<tarmac_step_fwd, T>(x, h, adjf, wv, bv, ws, bs, wq, bq,
+                                                         wi, wh, bi, bh, vsq, c, gi, gh, W, A,
+                                                         H, MSG, K, key_size, stream);
+  if (e != cudaSuccess) return e;
+  const int O = NACT + (dueling ? 1 : 0);
+  const size_t smem = sizeof(float) * (size_t)kHeadRows * (H + O * (kHeadSplit + 1));
+  auto head = tarmac_step_fwd_head<T>;
+  if ((e = allow_smem((const void*)head, smem)) != cudaSuccess) return e;
+  const unsigned blocks = (unsigned)((R + kHeadRows - 1) / kHeadRows);
+  head<<<blocks, kHeadThreads, smem, stream>>>(h, gi, gh, wo, bo, wvh, bvh, q_out, h2_out, R,
+                                               H, NACT, dueling);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -111,24 +145,23 @@ extern "C" int tarmac_step_forward(
     const float* wvh, const float* bvh, float* q_out, float* h2_out, float* scratch,
     int W, int A, int H, int MSG, int K, int NACT, int dueling, float key_size,
     cudaStream_t stream) {
-  const int R = W * A;
-  if (R == 0) return cudaSuccess;
-  float* vsq = scratch;
-  float* c = vsq + (size_t)R * (MSG + 2 * K);
-  float* gi = c + (size_t)R * MSG;
-  float* gh = gi + (size_t)R * 3 * H;
-  cudaError_t e = launch_up_to_gates<tarmac_step_fwd>(x, h, adjf, wv, bv, ws, bs, wq, bq, wi,
-                                                      wh, bi, bh, vsq, c, gi, gh, W, A, H, MSG,
-                                                      K, key_size, stream);
-  if (e != cudaSuccess) return e;
-  const int O = NACT + (dueling ? 1 : 0);
-  const size_t smem = sizeof(float) * (size_t)kHeadRows * (H + O * (kHeadSplit + 1));
-  if ((e = allow_smem((const void*)tarmac_step_fwd_head, smem)) != cudaSuccess) return e;
-  const unsigned blocks = (unsigned)((R + kHeadRows - 1) / kHeadRows);
-  tarmac_step_fwd_head<<<blocks, kHeadThreads, smem, stream>>>(h, gi, gh, wo, bo, wvh, bvh,
-                                                               q_out, h2_out, R, H, NACT,
-                                                               dueling);
-  return cudaGetLastError();
+  return forward<float>(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo, wvh, bvh,
+                        q_out, h2_out, scratch, W, A, H, MSG, K, NACT, dueling, key_size,
+                        stream);
+}
+
+extern "C" int tarmac_step_forward_bf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* h, const __nv_bfloat16* adjf,
+    const __nv_bfloat16* wv, const __nv_bfloat16* bv, const __nv_bfloat16* ws,
+    const __nv_bfloat16* bs, const __nv_bfloat16* wq, const __nv_bfloat16* bq,
+    const __nv_bfloat16* wi, const __nv_bfloat16* wh, const __nv_bfloat16* bi,
+    const __nv_bfloat16* bh, const __nv_bfloat16* wo, const __nv_bfloat16* bo,
+    const __nv_bfloat16* wvh, const __nv_bfloat16* bvh, __nv_bfloat16* q_out,
+    __nv_bfloat16* h2_out, float* scratch, int W, int A, int H, int MSG, int K, int NACT,
+    int dueling, float key_size, cudaStream_t stream) {
+  return forward<__nv_bfloat16>(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
+                                wvh, bvh, q_out, h2_out, scratch, W, A, H, MSG, K, NACT,
+                                dueling, key_size, stream);
 }
 
 extern "C" const char* tarmac_step_error_string(int err) {

@@ -17,7 +17,8 @@
 // A destination with no in-edge has an all-zero alpha column: c = 0 and its attention
 // cotangents are 0.
 //
-// Design. Seven launches per call, in dependency order, all on the caller's stream:
+// Design. Seven launches per call (eight at bf16), in dependency order, all on the caller's
+// stream:
 //   (a)-(c) the forward up to the GRU's pre-activations, launched by tarmac_step_common.cuh's
 //           launch_up_to_gates (v|s|q products, per-world alpha and c, gi/gh products)
 //   (d) per (row, hidden column): gates, h2, the head backward, the GRU backward -> dg, dh = dh2 z
@@ -25,6 +26,7 @@
 //   (f) per world  alpha again (world_alpha, as in (b)), dalpha, dscore, dv, ds, dq
 //   (g) products   dx += [dv|ds|dq] [wv|ws|wq][:H]^T, and the 14 weight gradients X^T G
 //                  (a bias gradient is a ones column times G)
+//   (h) bf16 only: dx and dh rounded from their f32 sums
 // Every dense product goes through the header's row-tiled product kernel and job table,
 // tiled by rows and columns across the whole card: at the training batch (R = 256) one
 // CTA per world would keep 32 of the 132 SMs busy and stream every weight from L2 for 8
@@ -33,6 +35,13 @@
 // What bounds it: f32 arithmetic outside the tensor cores, about 0.0112 ms at R = 256
 // (the 8-UBS training inputs) on an H100 at 67 TFLOP/s. Split-precision 3xTF32 mma.sync
 // products are the route to the tensor cores at f32 accuracy, and later work.
+//
+// Storage types (storage.cuh): every kernel is a template on the type T of the inputs,
+// gq, gh2 and the gradients, float (tarmac_step_backward) or __nv_bfloat16
+// (tarmac_step_backward_bf16). The scratch and every sum are f32. Each gradient is rounded
+// to T once: the 14 weight gradients where (g) stores them; dx and dh, which (e) and (g)
+// add to, are summed in f32 scratch at bf16 and rounded by a last launch (h), while at
+// f32 they are summed in place as before.
 
 #include "tarmac_step_common.cuh"
 
@@ -42,8 +51,9 @@ struct tarmac_step_bwd {};          // tags this library's kernels (see the head
 constexpr int kGateThreads = 256;
 
 // (f) the attention backward of one world, from dc: dv, ds, dq.
+template <class T>
 __global__ void __launch_bounds__(kWorldThreads) tarmac_step_bwd_attend_bwd(
-    const float* __restrict__ adjf, const float* __restrict__ vsq,
+    const T* __restrict__ adjf, const float* __restrict__ vsq,
     const float* __restrict__ dc, float* __restrict__ dv, float* __restrict__ ds,
     float* __restrict__ dq, int A, int MSG, int K, float key_size) {
   extern __shared__ float smem[];
@@ -104,11 +114,14 @@ struct Scratch {                    // per-row intermediates, each [R, width]
   float* gi;                        // 3H   [x|c] wi + bi
   float* gh;                        // 3H   h wh + bh
   float* dc;                        // MSG
+  float* dx;                        // H    dx summed in f32 (bf16 only; else the output)
+  float* dh;                        // H    dh summed in f32 (bf16 only; else the output)
 };
 
+template <class T>
 __global__ void __launch_bounds__(kGateThreads) tarmac_step_bwd_gates(
-    const float* __restrict__ h, const float* __restrict__ wo, const float* __restrict__ wvh,
-    const float* __restrict__ gq, const float* __restrict__ gh2, float* __restrict__ dh,
+    const T* __restrict__ h, const T* __restrict__ wo, const T* __restrict__ wvh,
+    const T* __restrict__ gq, const T* __restrict__ gh2, float* __restrict__ dh,
     Scratch sc, int R, int H, int NACT, int dueling) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)R * H) return;
@@ -116,23 +129,23 @@ __global__ void __launch_bounds__(kGateThreads) tarmac_step_bwd_gates(
   const int j = (int)(i % H);
   const Gates gt = gru_gates(sc.gi + row * 3 * H, sc.gh + row * 3 * H, j, H);
   const float rg = gt.r, zg = gt.z, hnb = gt.hn, ng = gt.n;
-  const float hp = h[i];
+  const float hp = to_f32(h[i]);
   sc.h2[i] = (1.f - zg) * ng + zg * hp;
 
-  const float* g = gq + row * NACT;
+  const T* g = gq + row * NACT;
   float sum = 0.f;
   if (dueling)
-    for (int o = 0; o < NACT; ++o) sum += g[o];
+    for (int o = 0; o < NACT; ++o) sum += to_f32(g[o]);
   const float mean = sum / NACT;
   float dh2 = 0.f;
   for (int o = 0; o < NACT; ++o) {
-    const float da = dueling ? g[o] - mean : g[o];
-    dh2 = fmaf(da, wo[(size_t)j * NACT + o], dh2);
+    const float da = dueling ? to_f32(g[o]) - mean : to_f32(g[o]);
+    dh2 = fmaf(da, to_f32(wo[(size_t)j * NACT + o]), dh2);
     if (j == 0) sc.dadv[row * NACT + o] = da;
   }
-  if (dueling) dh2 = fmaf(sum, wvh[j], dh2);
+  if (dueling) dh2 = fmaf(sum, to_f32(wvh[j]), dh2);
   if (j == 0) sc.dvh[row] = sum;
-  dh2 += gh2[i];
+  dh2 += to_f32(gh2[i]);
 
   const float dn = dh2 * (1.f - zg);
   const float dz = dh2 * (hp - ng);
@@ -146,19 +159,36 @@ __global__ void __launch_bounds__(kGateThreads) tarmac_step_bwd_gates(
   dh[i] = dh2 * zg;
 }
 
-}  // namespace
+// (h) at bf16: dx and dh, summed in f32 scratch, rounded into the outputs.
+template <class T>
+__global__ void __launch_bounds__(kGateThreads) tarmac_step_bwd_round(
+    const float* __restrict__ dx32, const float* __restrict__ dh32, T* __restrict__ dx,
+    T* __restrict__ dh, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  dx[i] = from_f32<T>(dx32[i]);
+  dh[i] = from_f32<T>(dh32[i]);
+}
 
-extern "C" int tarmac_step_backward(
-    const float* x, const float* h, const float* adjf,
-    const float* wv, const float* bv, const float* ws, const float* bs,
-    const float* wq, const float* bq, const float* wi, const float* wh,
-    const float* bi, const float* bh, const float* wo, const float* bo,
-    const float* wvh, const float* bvh, const float* gq, const float* gh2,
-    float* dx, float* dh, float* dwv, float* dbv, float* dws, float* dbs,
-    float* dwq, float* dbq, float* dwi, float* dwh, float* dbi, float* dbh,
-    float* dwo, float* dbo, float* dwvh, float* dbvh, float* scratch,
-    int W, int A, int H, int MSG, int K, int NACT, int dueling, float key_size,
-    cudaStream_t stream) {
+// Where dx and dh are summed: in the outputs themselves at f32, else in f32 scratch.
+template <class T>
+float* f32_sum(T* output, float* scratch) {
+  if constexpr (std::is_same<T, float>::value) {
+    return output;
+  } else {
+    return scratch;
+  }
+}
+
+template <class T>
+cudaError_t backward(const T* x, const T* h, const T* adjf, const T* wv, const T* bv,
+                     const T* ws, const T* bs, const T* wq, const T* bq, const T* wi,
+                     const T* wh, const T* bi, const T* bh, const T* wo, const T* bo,
+                     const T* wvh, const T* bvh, const T* gq, const T* gh2, T* dx, T* dh,
+                     T* dwv, T* dbv, T* dws, T* dbs, T* dwq, T* dbq, T* dwi, T* dwh, T* dbi,
+                     T* dbh, T* dwo, T* dbo, T* dwvh, T* dbvh, float* scratch, int W, int A,
+                     int H, int MSG, int K, int NACT, int dueling, float key_size,
+                     cudaStream_t stream) {
   (void)bo;
   (void)bvh;
   const int R = W * A, H3 = 3 * H, H4 = 4 * H, P = MSG + 2 * K;
@@ -175,53 +205,62 @@ extern "C" int tarmac_step_backward(
   sc.gi = sc.vsq + (size_t)R * P;
   sc.gh = sc.gi + (size_t)R * H3;
   sc.dc = sc.gh + (size_t)R * H3;
+  sc.dx = f32_sum(dx, sc.dc + (size_t)R * MSG);      // bf16: 2 R H floats more
+  sc.dh = f32_sum(dh, sc.dc + (size_t)R * (MSG + H));
   cudaError_t e;
 
   if (R > 0) {
-    if ((e = launch_up_to_gates<tarmac_step_bwd>(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh,
-                                                 bi, bh, sc.vsq, sc.c2, sc.gi, sc.gh, W, A,
-                                                 H, MSG, K, key_size, stream)) != cudaSuccess)
+    if ((e = launch_up_to_gates<tarmac_step_bwd, T>(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh,
+                                                    bi, bh, sc.vsq, sc.c2, sc.gi, sc.gh, W, A,
+                                                    H, MSG, K, key_size, stream)) !=
+        cudaSuccess)
       return e;
     {  // (d) gates, head and GRU backward; dh = dh2 z
       const size_t n = (size_t)R * H;
       const unsigned blocks = (unsigned)((n + kGateThreads - 1) / kGateThreads);
-      tarmac_step_bwd_gates<<<blocks, kGateThreads, 0, stream>>>(h, wo, wvh, gq, gh2, dh, sc,
-                                                                 R, H, NACT, dueling);
+      auto gates = tarmac_step_bwd_gates<T>;
+      gates<<<blocks, kGateThreads, 0, stream>>>(h, wo, wvh, gq, gh2, sc.dh, sc, R, H, NACT,
+                                                 dueling);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
     }
     {  // (e) dx = dgi wi[:H]^T, dc = dgi wi[H:]^T, dh += dgh wh^T (dgh = dpre_r|dpre_z|dhn)
-      Jobs jobs{};
-      Job& jdx = add_job(jobs, dx, H, R, H, 0, 1, nullptr, 0);
-      add_seg(jdx, sc.dg, H4, wi, H3, H3);
-      Job& jdc = add_job(jobs, sc.dc, MSG, R, MSG, 0, 1, nullptr, 0);
-      add_seg(jdc, sc.dg, H4, wi + (size_t)H * H3, H3, H3);
-      Job& jdh = add_job(jobs, dh, H, R, H, 0, 1, nullptr, 1);
-      add_seg(jdh, sc.dg, H4, wh, H3, 2 * H);
-      add_seg(jdh, sc.dg + H3, H4, wh + 2 * H, H3, H);
-      if ((e = launch_products<tarmac_step_bwd>(jobs, stream)) != cudaSuccess) return e;
+      Products<tarmac_step_bwd, Back<T>> p;
+      Job& jdx = p.template add<Back<T>>(sc.dx, H, R, H, 0, 1, nullptr, 0);
+      add_seg<Back<T>>(jdx, sc.dg, H4, wi, H3, H3);
+      Job& jdc = p.template add<Back<T>>(sc.dc, MSG, R, MSG, 0, 1, nullptr, 0);
+      add_seg<Back<T>>(jdc, sc.dg, H4, wi + (size_t)H * H3, H3, H3);
+      Job& jdh = p.template add<Back<T>>(sc.dh, H, R, H, 0, 1, nullptr, 1);
+      add_seg<Back<T>>(jdh, sc.dg, H4, wh, H3, 2 * H);
+      add_seg<Back<T>>(jdh, sc.dg + H3, H4, wh + 2 * H, H3, H);
+      if ((e = p.launch(stream)) != cudaSuccess) return e;
     }
     {  // (f) dv, ds, dq, per world
       const size_t smem = sizeof(float) * (size_t)A * (P + 2 * A + MSG);
-      if ((e = allow_smem((const void*)tarmac_step_bwd_attend_bwd, smem)) != cudaSuccess)
-        return e;
-      tarmac_step_bwd_attend_bwd<<<W, kWorldThreads, smem, stream>>>(
-          adjf, sc.vsq, sc.dc, sc.dv, sc.ds, sc.dq, A, MSG, K, key_size);
+      auto attend_bwd = tarmac_step_bwd_attend_bwd<T>;
+      if ((e = allow_smem((const void*)attend_bwd, smem)) != cudaSuccess) return e;
+      attend_bwd<<<W, kWorldThreads, smem, stream>>>(adjf, sc.vsq, sc.dc, sc.dv, sc.ds, sc.dq,
+                                                     A, MSG, K, key_size);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
     }
   }
 
   // (g) dx += [dv|ds|dq] [wv|ws|wq][:H]^T, and the weight gradients X^T G over all rows
   // (a bias gradient is a ones column, X = nullptr, times G). With R = 0 they are zeros.
-  Jobs jobs{};
-  Job& jdx = add_job(jobs, dx, H, R, H, 0, 1, nullptr, 1);
-  add_seg(jdx, sc.dv, MSG, wv, MSG, MSG);
-  add_seg(jdx, sc.ds, K, ws, K, K);
-  add_seg(jdx, sc.dq, K, wq, K, K);
-  auto xtg = [&](const float* X, int ldx, int xcols, const float* G, int ldg, int gcols,
-                 float* out, int ldo) {
-    Job& j = add_job(jobs, out, ldo, xcols, gcols, 1, 0, nullptr, 0);
-    add_seg(j, X, ldx, G, ldg, R);
+  Products<tarmac_step_bwd, Back<T>, GradX<T>, GradS<T>> p;
+  Job& jdx = p.template add<Back<T>>(sc.dx, H, R, H, 0, 1, nullptr, 1);
+  add_seg<Back<T>>(jdx, sc.dv, MSG, wv, MSG, MSG);
+  add_seg<Back<T>>(jdx, sc.ds, K, ws, K, K);
+  add_seg<Back<T>>(jdx, sc.dq, K, wq, K, K);
+  // X^T G into a T gradient: a call tensor X (x, h) is of kind GradX, f32 scratch or ones
+  // (nullptr) of kind GradS.
+  auto xtg = [&](auto X, int ldx, int xcols, const float* G, int ldg, int gcols, T* grad,
+                 int ldo) {
+    using Ty = typename std::conditional<std::is_same<decltype(X), const T*>::value, GradX<T>,
+                                         GradS<T>>::type;
+    Job& j = p.template add<Ty>(grad, ldo, xcols, gcols, 1, 0, nullptr, 0);
+    add_seg<Ty>(j, X, ldx, G, ldg, R);
   };
+  const float* ones = nullptr;
   // [x|h]^T dv, ds, dq and their biases
   xtg(x, H, H, sc.dv, MSG, MSG, dwv, MSG);
   xtg(h, H, H, sc.dv, MSG, MSG, dwv + (size_t)H * MSG, MSG);
@@ -231,22 +270,68 @@ extern "C" int tarmac_step_backward(
   xtg(h, H, H, sc.dq, K, K, dwq + (size_t)H * K, K);
   // [x|c]^T dgi, h^T dgh
   xtg(x, H, H, sc.dg, H4, H3, dwi, H3);
-  xtg(sc.c2, MSG, MSG, sc.dg, H4, H3, dwi + (size_t)H * H3, H3);
+  xtg((const float*)sc.c2, MSG, MSG, sc.dg, H4, H3, dwi + (size_t)H * H3, H3);
   xtg(h, H, H, sc.dg, H4, 2 * H, dwh, H3);
   xtg(h, H, H, sc.dg + H3, H4, H, dwh + 2 * H, H3);
   // head
-  xtg(sc.h2, H, H, sc.dadv, NACT, NACT, dwo, NACT);
-  xtg(sc.h2, H, H, sc.dvh, 1, 1, dwvh, 1);
+  xtg((const float*)sc.h2, H, H, sc.dadv, NACT, NACT, dwo, NACT);
+  xtg((const float*)sc.h2, H, H, sc.dvh, 1, 1, dwvh, 1);
   // biases: column sums
-  xtg(nullptr, 0, 1, sc.dv, MSG, MSG, dbv, MSG);
-  xtg(nullptr, 0, 1, sc.ds, K, K, dbs, K);
-  xtg(nullptr, 0, 1, sc.dq, K, K, dbq, K);
-  xtg(nullptr, 0, 1, sc.dg, H4, H3, dbi, H3);
-  xtg(nullptr, 0, 1, sc.dg, H4, 2 * H, dbh, H3);
-  xtg(nullptr, 0, 1, sc.dg + H3, H4, H, dbh + 2 * H, H3);
-  xtg(nullptr, 0, 1, sc.dadv, NACT, NACT, dbo, NACT);
-  xtg(nullptr, 0, 1, sc.dvh, 1, 1, dbvh, 1);
-  return launch_products<tarmac_step_bwd>(jobs, stream);
+  xtg(ones, 0, 1, sc.dv, MSG, MSG, dbv, MSG);
+  xtg(ones, 0, 1, sc.ds, K, K, dbs, K);
+  xtg(ones, 0, 1, sc.dq, K, K, dbq, K);
+  xtg(ones, 0, 1, sc.dg, H4, H3, dbi, H3);
+  xtg(ones, 0, 1, sc.dg, H4, 2 * H, dbh, H3);
+  xtg(ones, 0, 1, sc.dg + H3, H4, H, dbh + 2 * H, H3);
+  xtg(ones, 0, 1, sc.dadv, NACT, NACT, dbo, NACT);
+  xtg(ones, 0, 1, sc.dvh, 1, 1, dbvh, 1);
+  if ((e = p.launch(stream)) != cudaSuccess) return e;
+  if constexpr (!std::is_same<T, float>::value) {   // (h) round dx and dh
+    const size_t n = (size_t)R * H;
+    if (n > 0) {
+      auto round = tarmac_step_bwd_round<T>;
+      round<<<(unsigned)((n + kGateThreads - 1) / kGateThreads), kGateThreads, 0, stream>>>(
+          sc.dx, sc.dh, dx, dh, n);
+    }
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// scratch: bwd_scratch_floats (ops/step_kernels.py) floats; at bf16 2 R H more.
+extern "C" int tarmac_step_backward(
+    const float* x, const float* h, const float* adjf,
+    const float* wv, const float* bv, const float* ws, const float* bs,
+    const float* wq, const float* bq, const float* wi, const float* wh,
+    const float* bi, const float* bh, const float* wo, const float* bo,
+    const float* wvh, const float* bvh, const float* gq, const float* gh2,
+    float* dx, float* dh, float* dwv, float* dbv, float* dws, float* dbs,
+    float* dwq, float* dbq, float* dwi, float* dwh, float* dbi, float* dbh,
+    float* dwo, float* dbo, float* dwvh, float* dbvh, float* scratch,
+    int W, int A, int H, int MSG, int K, int NACT, int dueling, float key_size,
+    cudaStream_t stream) {
+  return backward<float>(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo, wvh, bvh,
+                         gq, gh2, dx, dh, dwv, dbv, dws, dbs, dwq, dbq, dwi, dwh, dbi, dbh,
+                         dwo, dbo, dwvh, dbvh, scratch, W, A, H, MSG, K, NACT, dueling,
+                         key_size, stream);
+}
+
+typedef __nv_bfloat16 bf16;
+
+extern "C" int tarmac_step_backward_bf16(
+    const bf16* x, const bf16* h, const bf16* adjf, const bf16* wv, const bf16* bv,
+    const bf16* ws, const bf16* bs, const bf16* wq, const bf16* bq, const bf16* wi,
+    const bf16* wh, const bf16* bi, const bf16* bh, const bf16* wo, const bf16* bo,
+    const bf16* wvh, const bf16* bvh, const bf16* gq, const bf16* gh2, bf16* dx, bf16* dh,
+    bf16* dwv, bf16* dbv, bf16* dws, bf16* dbs, bf16* dwq, bf16* dbq, bf16* dwi, bf16* dwh,
+    bf16* dbi, bf16* dbh, bf16* dwo, bf16* dbo, bf16* dwvh, bf16* dbvh, float* scratch,
+    int W, int A, int H, int MSG, int K, int NACT, int dueling, float key_size,
+    cudaStream_t stream) {
+  return backward<bf16>(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo, wvh, bvh,
+                        gq, gh2, dx, dh, dwv, dbv, dws, dbs, dwq, dbq, dwi, dwh, dbi, dbh,
+                        dwo, dbo, dwvh, dbvh, scratch, W, A, H, MSG, K, NACT, dueling,
+                        key_size, stream);
 }
 
 extern "C" const char* tarmac_step_bwd_error_string(int err) {

@@ -9,6 +9,15 @@ recompute backward of ``_fgf_bwd``, ``csrc/flash_gat_fused_bwd.cu``) and
 (``flash_gat_fused_train``'s custom VJP). One kernel pair serves both of the
 JAX package's ``pallas_fused`` and ``pallas_fused_mxu`` backends, whose
 difference is a TPU layout choice.
+
+The fused pair takes float32 or bfloat16 operands (one type for all) and
+launches that type's instantiation; f32 accumulation inside both, ``out``
+and the gradients in the operands' type, the row statistics ``m``, ``l`` in
+f32. At bf16 it computes the unrounded form: JAX's ``pallas_fused_mxu`` also
+rounds the scores' input and the softmax weights to bf16 before its dots,
+``pallas_fused`` does not (``tests/test_torch_bf16.py`` judges both packages
+against an f64 referee). Each wrapper counts its launches (``launches``) and
+its bf16 launches (``launches_bf16``). ``flash_gat`` (#1) is float32 only.
 """
 
 import ctypes
@@ -25,12 +34,17 @@ _FLASH_SIGNATURES = {
     "flash_gat_forward": (_I, [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P]),
     "flash_gat_error_string": (ctypes.c_char_p, [_I]),
 }
+MAX_CTAS = 1024           # the backward's first launch's CTAs, one partial row each (kMaxCtas)
+_FWD_ARGS = (_I, [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P])
+_BWD_ARGS = (_I, [_P] * 16 + [_I] * 5 + [ctypes.c_float, _P])
 _SIGNATURES = {
-    "flash_gat_fused_forward": (_I, [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]),
+    "flash_gat_fused_forward": _FWD_ARGS,
+    "flash_gat_fused_forward_bf16": _FWD_ARGS,
     "flash_gat_fused_error_string": (ctypes.c_char_p, [_I]),
 }
 _BWD_SIGNATURES = {
-    "flash_gat_fused_backward": (_I, [_P] * 16 + [_I] * 5 + [ctypes.c_float, _P]),
+    "flash_gat_fused_backward": _BWD_ARGS,
+    "flash_gat_fused_backward_bf16": _BWD_ARGS,
     "flash_gat_fused_bwd_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -102,13 +116,15 @@ def flash_gat(el, er, attn, mask, n_heads, negative_slope=0.2):
     return out
 
 
-flash_gat.launches = 0
+flash_gat.launches = flash_gat.launches_bf16 = 0    # f32 only: launches_bf16 stays 0
 
 
 def flash_gat_fused_plain(x, w, b, er, attn, mask, n_heads, negative_slope=0.2):
     """Plain PyTorch version of :func:`flash_gat_fused` (materializes ``el``).
 
-    Same contract and the same all-masked rule; returns ``(out, m, l)``.
+    Same contract and the same all-masked rule; returns ``(out, m, l)``. It
+    computes in ``x.dtype`` with torch's rounding after every op (bf16 too);
+    ``m`` and ``l`` come back in f32 (f64 for f64 inputs), as the kernel's.
     """
     n, m, _ = x.shape
     hf = w.shape[1]
@@ -124,7 +140,8 @@ def flash_gat_fused_plain(x, w, b, er, attn, mask, n_heads, negative_slope=0.2):
     p = torch.where(valid, torch.exp(scores - shift[:, None, :]), 0.0)
     lstat = p.sum(1)
     out = torch.einsum("nmh,nmhf->nhf", p, el) / torch.clamp_min(lstat, 1e-30)[..., None]
-    return out.reshape(n, hf), mstat, lstat
+    stat = torch.promote_types(x.dtype, torch.float32)          # f32, or f64 for f64
+    return out.reshape(n, hf), mstat.to(stat), lstat.to(stat)
 
 
 def _check_shapes(what, x, w, b, er, attn, mask, n_heads, **backward):
@@ -154,30 +171,39 @@ def flash_gat_fused(x, w, b, er, attn, mask, n_heads, negative_slope=0.2):
     x: [N, M, D] raw source features per destination slot; w: [D, H*F] and
     b: [H*F], the source projection; er: [N, H*F] projected destination
     features; attn: [H, F]; mask: [N, M] float, > 0 where a slot is valid.
-    Returns ``(out [N, H*F], m [N, H], l [N, H])``: the aggregation and the
-    f32 softmax statistics. Rows with no valid slot give 0.
+    Returns ``(out [N, H*F], m [N, H], l [N, H])``: the aggregation (in the
+    operands' dtype) and the f32 softmax statistics. Rows with no valid slot
+    give 0.
 
     A CPU tensor runs the plain version; a CUDA tensor always launches the
-    kernel (float32, contiguous, H*F <= 1024, F a multiple of 32) or raises.
+    kernel of its dtype (float32 or bfloat16, one for every operand,
+    contiguous, H*F <= 1024, F a multiple of 32) or raises.
     """
     if x.device.type == "cpu":
         return flash_gat_fused_plain(x, w, b, er, attn, mask, n_heads, negative_slope)
     n, m, d = _check_shapes("flash_gat_fused", x, w, b, er, attn, mask, n_heads)
+    dtype = build.storage_type("flash_gat_fused", x, w, b, er, attn, mask)
     hf = w.shape[1]
-    out = torch.empty((n, hf), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, hf), dtype=dtype, device=x.device)
     mstat = torch.empty((n, n_heads), dtype=torch.float32, device=x.device)
     lstat = torch.empty_like(mstat)
     ptrs = build.pointers(x.device, {"x": x, "w": w, "b": b, "er": er, "attn": attn,
-                                     "mask": mask, "out": out, "m": mstat, "l": lstat})
+                                     "mask": mask, "out": out, "m": mstat, "l": lstat},
+                          dtype, f32=("m", "l"))
     lib = build.load("flash_gat_fused", _SIGNATURES)
-    err = lib.flash_gat_fused_forward(*ptrs, n, m, d, hf, n_heads, float(negative_slope),
-                                      build.stream_of(x.device))
+    launch = getattr(lib, "flash_gat_fused_forward" + build.SUFFIX[dtype])
+    err = launch(*ptrs, n, m, d, hf, n_heads, float(negative_slope), build.stream_of(x.device))
     build.check_launch(lib, "flash_gat_fused_error_string", err, "flash_gat_fused")
-    flash_gat_fused.launches += 1
+    build.count_launch(flash_gat_fused, dtype)
     return out, mstat, lstat
 
 
-flash_gat_fused.launches = 0
+flash_gat_fused.launches = flash_gat_fused.launches_bf16 = 0
+
+
+def leaky_grad(z, negative_slope):
+    """LeakyReLU's derivative at ``z``, in ``z``'s dtype: 1 where z >= 0."""
+    return torch.where(z >= 0, 1.0, negative_slope).to(z.dtype)
 
 
 def flash_gat_fused_bwd_plain(x, w, b, er, attn, mask, out, mstat, lstat, g, n_heads,
@@ -186,7 +212,7 @@ def flash_gat_fused_bwd_plain(x, w, b, er, attn, mask, out, mstat, lstat, g, n_h
 
     The recompute formulas of ``pallas_kernels.py:_flash_gat_fused_bwd_kernel``:
     with ``D[n,h] = sum_f g*out``, ``d_alpha = sum_f g*el``,
-    ``d_s = alpha (d_alpha - D)``, ``d_z = d_s attn leaky'(z)`` and
+    ``d_s = alpha (d_alpha - D)`` (taken as ``alpha sum_f g (el - out)``), ``d_z = d_s attn leaky'(z)`` and
     ``d_el = alpha g + d_z``: ``der = sum_m d_z``, ``dattn = sum d_s leaky(z)``,
     ``dW = x^T d_el``, ``db = sum d_el`` and, when ``need_dx``, ``dx = d_el W^T``.
     Returns ``(dx or None, dw, db, der, dattn)``.
@@ -198,13 +224,15 @@ def flash_gat_fused_bwd_plain(x, w, b, er, attn, mask, out, mstat, lstat, g, n_h
     z = el + er.reshape(n, 1, n_heads, f)
     lz = F.leaky_relu(z, negative_slope)
     scores = (lz * attn).sum(-1)                                  # [N, M, H]
+    mstat, lstat = mstat.to(x.dtype), lstat.to(x.dtype)           # the f32 stats, at x's dtype
     shift = torch.where(mstat <= NEG_BIG / 2, 0.0, mstat)
     p = torch.where((mask > 0)[:, :, None], torch.exp(scores - shift[:, None, :]), 0.0)
     alpha = p / torch.clamp_min(lstat, 1e-30)[:, None, :]
     g4 = g.reshape(n, 1, n_heads, f)
-    dvec = (g * out).reshape(n, n_heads, f).sum(-1)               # [N, H]
-    d_s = alpha * ((g4 * el).sum(-1) - dvec[:, None, :])          # [N, M, H]
-    d_z = d_s[..., None] * attn * torch.where(z >= 0, 1.0, negative_slope)
+    # d_alpha - D = sum_f g (el - out): the difference before the sum, so that
+    # at bf16 two nearly equal rounded sums do not cancel.
+    d_s = alpha * (g4 * (el - out.reshape(n, 1, n_heads, f))).sum(-1)   # [N, M, H]
+    d_z = d_s[..., None] * attn * leaky_grad(z, negative_slope)
     d_el = (alpha[..., None] * g4 + d_z).reshape(n * m, hf)
     der = d_z.sum(1).reshape(n, hf)
     dattn = (d_s[..., None] * lz).sum((0, 1))
@@ -220,36 +248,42 @@ def flash_gat_fused_bwd(x, w, b, er, attn, mask, out, mstat, lstat, g, n_heads,
 
     ``out, mstat, lstat`` are the forward's outputs and ``g = dL/dout``
     [N, H*F]. Returns ``(dx or None, dw [D, H*F], db [H*F], der [N, H*F],
-    dattn [H, F])``; ``dx`` [N, M, D] only when ``need_dx``. The mask gets no
-    gradient. A CPU tensor runs the plain version; a CUDA tensor always
-    launches the kernel or raises.
+    dattn [H, F])`` in the operands' dtype; ``dx`` [N, M, D] only when
+    ``need_dx``. The mask gets no gradient. A CPU tensor runs the plain
+    version; a CUDA tensor always launches the kernel of its dtype or raises.
+    Its scratch is one f32 partial row of (D+2)*H*F a CTA, ``min(N,
+    MAX_CTAS)`` rows.
     """
     if x.device.type == "cpu":
         return flash_gat_fused_bwd_plain(x, w, b, er, attn, mask, out, mstat, lstat, g,
                                          n_heads, negative_slope, need_dx)
     n, m, d = _check_shapes("flash_gat_fused_bwd", x, w, b, er, attn, mask, n_heads,
                             out=out, mstat=mstat, lstat=lstat, g=g)
+    dtype = build.storage_type("flash_gat_fused_bwd", x, w, b, er, attn, mask, out, g)
     hf = w.shape[1]
     dev = x.device
-    dw = torch.empty((d, hf), dtype=torch.float32, device=dev)
-    db = torch.empty((hf,), dtype=torch.float32, device=dev)
-    der = torch.empty((n, hf), dtype=torch.float32, device=dev)
-    dattn = torch.empty_like(attn, dtype=torch.float32)
-    dx = torch.empty((n, m, d), dtype=torch.float32, device=dev) if need_dx else None
-    partial = torch.empty((max(n, 1), (d + 2) * hf), dtype=torch.float32, device=dev)
+    dw = torch.empty((d, hf), dtype=dtype, device=dev)
+    db = torch.empty((hf,), dtype=dtype, device=dev)
+    der = torch.empty((n, hf), dtype=dtype, device=dev)
+    dattn = torch.empty_like(attn, dtype=dtype)
+    dx = torch.empty((n, m, d), dtype=dtype, device=dev) if need_dx else None
+    partial = torch.empty((max(min(n, MAX_CTAS), 1), (d + 2) * hf), dtype=torch.float32,
+                          device=dev)
     ptrs = build.pointers(dev, {"x": x, "w": w, "b": b, "er": er, "attn": attn, "mask": mask,
                                 "g": g, "out": out, "m": mstat, "l": lstat, "dw": dw,
-                                "db": db, "der": der, "dattn": dattn, "partial": partial})
+                                "db": db, "der": der, "dattn": dattn, "partial": partial},
+                          dtype, f32=("m", "l", "partial"))
     lib = build.load("flash_gat_fused_bwd", _BWD_SIGNATURES)
-    dx_ptr = build.pointers(dev, {"dx": dx})[0] if need_dx else _P(None)
-    err = lib.flash_gat_fused_backward(*ptrs[:14], dx_ptr, ptrs[14], n, m, d, hf, n_heads,
-                                       float(negative_slope), build.stream_of(dev))
+    dx_ptr = build.pointers(dev, {"dx": dx}, dtype)[0] if need_dx else _P(None)
+    launch = getattr(lib, "flash_gat_fused_backward" + build.SUFFIX[dtype])
+    err = launch(*ptrs[:14], dx_ptr, ptrs[14], n, m, d, hf, n_heads, float(negative_slope),
+                 build.stream_of(dev))
     build.check_launch(lib, "flash_gat_fused_bwd_error_string", err, "flash_gat_fused_bwd")
-    flash_gat_fused_bwd.launches += 1
+    build.count_launch(flash_gat_fused_bwd, dtype)
     return dx, dw, db, der, dattn
 
 
-flash_gat_fused_bwd.launches = 0
+flash_gat_fused_bwd.launches = flash_gat_fused_bwd.launches_bf16 = 0
 
 
 class _FlashGatFusedFn(torch.autograd.Function):

@@ -5,6 +5,12 @@ flattened contract: ``tarmac_step`` (forward, ``csrc/tarmac_step.cu``),
 ``tarmac_step_bwd`` (the recompute backward of ``_tst_bwd``,
 ``csrc/tarmac_step_bwd.cu``) and ``tarmac_step_train``, the
 ``torch.autograd.Function`` that joins them (``tarmac_step_train``'s custom VJP).
+
+Both take float32 or bfloat16 operands (one type for all) and launch that
+type's instantiation, as JAX's kernels widen every bf16 input to f32 inside:
+``q``, ``h'`` and every gradient come back in the operands' type, the scratch
+is f32. Each wrapper counts its launches (``launches``) and its bf16 ones
+(``launches_bf16``).
 """
 
 import ctypes
@@ -16,12 +22,16 @@ from uav_bs_ctrl_tpu_torch.ops import build
 from uav_bs_ctrl_tpu_torch.ops.masked import masked_softmax
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = (_I, [_P] * 20 + [_I] * 7 + [ctypes.c_float, _P])
+_BWD_ARGS = (_I, [_P] * 36 + [_I] * 7 + [ctypes.c_float, _P])
 _SIGNATURES = {
-    "tarmac_step_forward": (_I, [_P] * 20 + [_I] * 7 + [ctypes.c_float, _P]),
+    "tarmac_step_forward": _FWD_ARGS,
+    "tarmac_step_forward_bf16": _FWD_ARGS,
     "tarmac_step_error_string": (ctypes.c_char_p, [_I]),
 }
 _BWD_SIGNATURES = {
-    "tarmac_step_backward": (_I, [_P] * 36 + [_I] * 7 + [ctypes.c_float, _P]),
+    "tarmac_step_backward": _BWD_ARGS,
+    "tarmac_step_backward_bf16": _BWD_ARGS,
     "tarmac_step_bwd_error_string": (ctypes.c_char_p, [_I]),
 }
 _WEIGHTS = ("wv", "bv", "ws", "bs", "wq", "bq", "wi", "wh", "bi", "bh",
@@ -83,30 +93,33 @@ def tarmac_step(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
     Returns ``(q [W*A, n_act], h2 [W*A, H])``.
 
     A CPU tensor runs the plain version; a CUDA tensor always launches the
-    kernel (float32, contiguous) or raises.
+    kernel of its dtype (float32 or bfloat16, one for every operand,
+    contiguous) or raises.
     """
     weights = dict(zip(_WEIGHTS, (wv, bv, ws, bs, wq, bq, wi, wh, bi, bh,
                                   wo, bo, wvh, bvh)))
     if x.device.type == "cpu":
         return tarmac_step_plain(x, h, adjf, *weights.values(), a, key_size, dueling)
     rows, hidden, n_act = _check_shapes("tarmac_step", x, h, adjf, weights, a)
+    dtype = build.storage_type("tarmac_step", x, h, adjf, *weights.values())
     msg, ks = wv.shape[1], ws.shape[1]
-    q = torch.empty((rows, n_act), dtype=torch.float32, device=x.device)
-    h2 = torch.empty((rows, hidden), dtype=torch.float32, device=x.device)
+    q = torch.empty((rows, n_act), dtype=dtype, device=x.device)
+    h2 = torch.empty((rows, hidden), dtype=dtype, device=x.device)
     scratch = torch.empty(max(1, fwd_scratch_floats(rows, hidden, msg, ks)),
                           dtype=torch.float32, device=x.device)
     ptrs = build.pointers(x.device, {"x": x, "h": h, "adjf": adjf, **weights,
-                                     "q": q, "h2": h2, "scratch": scratch})
+                                     "q": q, "h2": h2, "scratch": scratch},
+                          dtype, f32=("scratch",))
     lib = build.load("tarmac_step", _SIGNATURES)
-    err = lib.tarmac_step_forward(*ptrs, rows // a, a, hidden, msg, ks, n_act,
-                                  int(bool(dueling)), float(key_size),
-                                  build.stream_of(x.device))
+    launch = getattr(lib, "tarmac_step_forward" + build.SUFFIX[dtype])
+    err = launch(*ptrs, rows // a, a, hidden, msg, ks, n_act, int(bool(dueling)),
+                 float(key_size), build.stream_of(x.device))
     build.check_launch(lib, "tarmac_step_error_string", err, "tarmac_step")
-    tarmac_step.launches += 1
+    build.count_launch(tarmac_step, dtype)
     return q, h2
 
 
-tarmac_step.launches = 0
+tarmac_step.launches = tarmac_step.launches_bf16 = 0
 
 
 def tarmac_step_bwd_plain(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh,
@@ -182,11 +195,12 @@ def fwd_scratch_floats(rows, hidden, msg, key):
     return rows * (2 * msg + 2 * key + 6 * hidden)
 
 
-def bwd_scratch_floats(rows, hidden, msg, key, n_act):
+def bwd_scratch_floats(rows, hidden, msg, key, n_act, bf16=False):
     """Floats of the scratch buffer ``tarmac_step_bwd``'s launches hand on to
     each other: per row dpre_r|dpre_z|dpre_n|dhn, c, h2, dv, ds, dq, dadv,
-    dvh, v|s|q, the GRU's two pre-activations gi and gh, and dc."""
-    return rows * (11 * hidden + 4 * msg + 4 * key + n_act + 1)
+    dvh, v|s|q, the GRU's two pre-activations gi and gh, and dc; at bf16 also
+    the f32 sums of dx and dh."""
+    return rows * (11 * hidden + 4 * msg + 4 * key + n_act + 1 + (2 * hidden if bf16 else 0))
 
 
 def tarmac_step_bwd(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
@@ -197,8 +211,8 @@ def tarmac_step_bwd(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
     Returns ``(dx, dh, dwv, dbv, dws, dbs, dwq, dbq, dwi, dwh, dbi, dbh, dwo,
     dbo, dwvh, dbvh)`` in the operands' shapes; ``dh`` is the GRU path only
     (``h`` is stop-gradient into v/s/q); ``dwvh``/``dbvh`` are zero without
-    ``dueling``. A CPU tensor runs the plain version; a CUDA tensor always
-    launches the kernel or raises.
+    ``dueling``; all in the operands' dtype. A CPU tensor runs the plain
+    version; a CUDA tensor always launches the kernel of its dtype or raises.
     """
     weights = dict(zip(_WEIGHTS, (wv, bv, ws, bs, wq, bq, wi, wh, bi, bh,
                                   wo, bo, wvh, bvh)))
@@ -207,25 +221,27 @@ def tarmac_step_bwd(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
                                      key_size, dueling)
     rows, hidden, n_act = _check_shapes("tarmac_step_bwd", x, h, adjf, weights, a,
                                         gq=gq, gh2=gh2)
+    dtype = build.storage_type("tarmac_step_bwd", x, h, adjf, *weights.values(), gq, gh2)
     msg, ks = wv.shape[1], ws.shape[1]
     dx = torch.empty_like(x)
     dh = torch.empty_like(h)
     dweights = {f"d{k}": torch.empty_like(t) for k, t in weights.items()}
-    scratch = torch.empty(max(1, bwd_scratch_floats(rows, hidden, msg, ks, n_act)),
+    scratch = torch.empty(max(1, bwd_scratch_floats(rows, hidden, msg, ks, n_act,
+                                                    dtype == torch.bfloat16)),
                           dtype=torch.float32, device=x.device)
     ptrs = build.pointers(x.device, {"x": x, "h": h, "adjf": adjf, **weights, "gq": gq,
                                      "gh2": gh2, "dx": dx, "dh": dh, **dweights,
-                                     "scratch": scratch})
+                                     "scratch": scratch}, dtype, f32=("scratch",))
     lib = build.load("tarmac_step_bwd", _BWD_SIGNATURES)
-    err = lib.tarmac_step_backward(*ptrs, rows // a, a, hidden, msg, ks, n_act,
-                                   int(bool(dueling)), float(key_size),
-                                   build.stream_of(x.device))
+    launch = getattr(lib, "tarmac_step_backward" + build.SUFFIX[dtype])
+    err = launch(*ptrs, rows // a, a, hidden, msg, ks, n_act, int(bool(dueling)),
+                 float(key_size), build.stream_of(x.device))
     build.check_launch(lib, "tarmac_step_bwd_error_string", err, "tarmac_step_bwd")
-    tarmac_step_bwd.launches += 1
+    build.count_launch(tarmac_step_bwd, dtype)
     return (dx, dh, *dweights.values())
 
 
-tarmac_step_bwd.launches = 0
+tarmac_step_bwd.launches = tarmac_step_bwd.launches_bf16 = 0
 
 
 class _TarmacStepFn(torch.autograd.Function):

@@ -25,10 +25,9 @@ learner resumes, AdamW moments included), ``config.json`` and
 ``train_fast_exp1``; runs go to ``data_torch/`` by default. ``--resume``
 continues from the run directory's newest checkpoint and ``--retries N``
 relaunches a crashed run with ``--resume`` up to N times. Runs on ``cuda``
-unless ``--device cpu`` is given.
-
-What the port does not run yet raises ``ValueError`` naming the ROADMAP.md
-Queue 1 item it waits for: ``--compute-dtype bfloat16`` (item 5).
+unless ``--device cpu`` is given. ``--compute-dtype bfloat16`` trains with
+bf16 compute and f32 master params (``algos/core.py``); the checkpoints hold
+the f32 masters, which the JAX learner resumes.
 """
 
 import argparse
@@ -69,12 +68,9 @@ TEST_COLUMNS = ("TestFairIdx", "TestAvgGlobalUtility", "TestTotalThroughput")
 
 
 def check_supported(exp, kw):
-    """Raise ``ValueError`` on what the port cannot train yet, naming the
-    ROADMAP.md Queue 1 item it waits for."""
+    """Raise ``ValueError`` on an experiment the driver does not have."""
     if exp != "exp1" and exp not in EXP_PRESETS:
         raise ValueError(f"--exp must be one of exp1, exp2, exp3, got {exp!r}")
-    if kw.get("compute_dtype", "float32") == "bfloat16":
-        raise ValueError("--compute-dtype bfloat16 waits for ROADMAP.md Queue 1 item 5")
 
 
 def epsilon(t, decay_steps):

@@ -17,12 +17,14 @@ on the run's ``env_kwargs``. ``--gat-backend`` overrides the run's GATv2
 backend (the JAX package reaches its ``flash_gat`` kernel only through
 ``gat_backend``): ``pallas`` runs ``flash_gat``, every other backend the
 projection-fused kernels; ``DrqnGnnAgent`` has no backend, so an exp1 run
-refuses it. Runs on ``cuda`` unless ``--device cpu`` is given; the GATv2
+refuses it, and so does a bf16 run (``flash_gat`` is float32 only). Runs on ``cuda`` unless ``--device cpu`` is given; the GATv2
 encoder and the one-round TarMAC step then go through the hand-written CUDA
-kernels.
+kernels. The policy runs at the run's ``compute_dtype`` (bf16 compute on the
+f32 checkpoint's weights, as the JAX learner's ``_apply_net``).
 """
 
 import argparse
+import functools
 import json
 import re
 from pathlib import Path
@@ -31,6 +33,7 @@ from types import SimpleNamespace
 import torch
 
 from uav_bs_ctrl_tpu_torch.algos import collect, collect_subs
+from uav_bs_ctrl_tpu_torch.algos.core import COMPUTE_DTYPES, apply_net
 from uav_bs_ctrl_tpu_torch.algos.drqn import config as drqn_config
 from uav_bs_ctrl_tpu_torch.algos.drqn import fused as drqn_fused
 from uav_bs_ctrl_tpu_torch.algos.madrqn.fused import obs_shape
@@ -71,6 +74,11 @@ def load_policy(run_dir, device=None, checkpoint_path=None, gat_backend=None):
         if gat_backend is not None:
             config["args"] = dict(config["args"], gat_backend=gat_backend)
         args = make_args(config["args"], device)
+        if args.gat_backend == "pallas" and args.compute_dtype == "bfloat16":
+            raise NotImplementedError(
+                "gat_backend='pallas' runs flash_gat (#1), which is float32 only here; its "
+                "bf16 variant is ROADMAP.md Queue 2 item 5. Serve a bf16 run with "
+                "'pallas_fused' or 'pallas_fused_mxu'.")
         env_params = torch_env.make_params(config["map_id"])
         agent = build_agent(obs_shape(env_params, args.o), env_params.n_actions, args)
     ckpt = checkpoint.load(checkpoint_path or latest_checkpoint(run_dir))
@@ -101,15 +109,17 @@ def evaluate(run_dir, n_episodes, eps=0.05, seed=0, device=None, checkpoint_path
     agent, config = load_policy(run_dir, device, checkpoint_path, gat_backend)
     generator = torch.Generator().manual_seed(seed)
     device = next(agent.parameters()).device
+    net = functools.partial(apply_net, agent, dtype=COMPUTE_DTYPES[config["args"].get(
+        "compute_dtype", "float32")])
     if is_exp1(config):
         env_params = torch_env_subs.make_params(**config["env_kwargs"])
-        policy = collect_subs.make_policy(agent, config["args"].get(
+        policy = collect_subs.make_policy(net, config["args"].get(
             "agent", drqn_config.DEFAULT_CONFIG["agent"]))
         return collect_subs.evaluate_policy_subs(
             env_params, policy, test_pool_subs(config["env_kwargs"], seed), agent.hidden,
             generator, n_episodes, device, eps)
     env_params = torch_env.make_params(config["map_id"])
-    policy = collect.make_policy(agent, config["args"].get("o", DEFAULT_CONFIG["o"]))
+    policy = collect.make_policy(net, config["args"].get("o", DEFAULT_CONFIG["o"]))
     return collect.evaluate_policy(env_params, policy, test_pool(config["map_id"], seed),
                                    agent.hidden, generator, n_episodes, device, eps)
 
