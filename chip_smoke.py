@@ -46,8 +46,16 @@ synthetic replay, at f32 and bf16 under the ``per_step``, ``hoisted`` and
 path and the schedules against each other; bf16 kernel updates against an
 f64 plain-path referee, f32 masters, a bit-identical repeat, bf16 launches
 only; times at B = 256 with each bf16 kernel against its f64 referee and
-beside the f32 one; one fresh bf16 ``run_fast.train_fast`` epoch); and
-timings (``exp1_times`` adds exp1's kernels, updates and collection).
+beside the f32 one; one fresh bf16 ``run_fast.train_fast`` epoch); slice 13
+(``slice13_phases``): ``vec_run.train_vectorized`` at the 8-UBS run's
+width (32 worlds, two 1,600-step chunks, 64 updates at B = 32 through
+#2-#5, one gated against the plain path, the checkpoint read by the classic
+learner), ``torch_env.reset``/``rollout`` of the 8-UBS policy on 512 worlds
+against ``eval_rollout``, the C++ env core in ``test_series`` (the
+committed rows reproduced; host env ms with the core and with NumPy), and
+``ops/segment.py`` on the card against the CPU on one update's 1,680,640
+edges; and timings (``exp1_times`` adds exp1's kernels, updates and
+collection).
 Any failed phase exits non-zero with no result line. The last line is the
 JSON device record.
 """
@@ -112,6 +120,14 @@ GAT_TIE = 1e-5            # a GATv2 pre-activation |z| this small takes LeakyReL
                           # 0.2 by roundoff: the der entries it feeds are reported, not held
 TIE = 1e-4                # a Gumbel margin |z0 - z1| this small rounds either way: a roundoff
                           # tie, where the plain path's bit may follow the kernel path's
+VEC_WORLDS = 32           # slice 13's vec_run phase: 32 worlds x T = 50, 1,600 env steps a chunk
+VEC_CUTS = dict(steps_per_epoch=3200, epochs=1, replay_size=64, num_test_episodes=5)
+ROLLOUT_WORLDS = 512      # torch_env.reset / rollout worlds
+ROLLOUT_ATOL = 1e-5       # rollout against eval_rollout: rewards and returns
+SEGMENT_RTOL = 1e-5       # ops/segment.py on the card against the CPU: of max |cpu|; the
+                          # card's index_add_ sums in no fixed order
+SEGMENT_ONEHOT_DST = 512  # the one-hot backend ([E, N] product) on the edges into 512 destinations
+UPDATE_EDGES = 1_680_640  # bench.py:64's edges of an update at B = 32, T = 50, A = 8, M = 50, K = 7
 
 
 @contextlib.contextmanager
@@ -1469,12 +1485,6 @@ def host_loop_phases(ctx):
         errs.append(((q - q_ref).abs().max().item(), (h2 - h_ref).abs().max().item()))
         return q, h2
 
-    def committed_rows(path):
-        """``{(metric, exp_name): [value strings]}`` of a committed test_summary.csv."""
-        rows = [line.split(",") for line in Path(path).read_text().splitlines()]
-        return {(m, e): [r[i] for r in rows[2:]]
-                for i, (m, e) in enumerate(zip(rows[0], rows[1])) if i}
-
     # (label, run, checkpoint, committed summary and the checkpoint it was made
     # at, steps an episode, launches a step)
     runs = (("exp1", HOST_EXP1_DIR, f"checkpoint_epoch{EXP1_EPOCH}.pt",
@@ -1514,12 +1524,9 @@ def host_loop_phases(ctx):
                 test_policies.test_series(None, test_policies.METRICS, [str(run_dir)],
                                           committed_ckpt, HOST_EPISODES,
                                           str(scratch / f"{label}_committed"), device=DEVICE)
-            want_rows = committed_rows(committed)
-            got_rows = committed_rows(scratch / (label if committed_ckpt == ckpt else
-                                                 f"{label}_committed") / "test_summary.csv")
-            same = [all(k in want_rows and math.isclose(float(got_rows[k][i]),
-                                                        float(want_rows[k][i]), rel_tol=1e-5)
-                        for k in got_rows) for i in range(HOST_EPISODES)]
+            same = rows_equal(scratch / (label if committed_ckpt == ckpt else
+                                         f"{label}_committed") / "test_summary.csv",
+                              committed, HOST_EPISODES)
             print(f"  at {committed_ckpt}, episodes whose row equals the committed "
                   f"{committed.relative_to(ROOT)} (the JAX harness, same seed; 1e-5 relative): "
                   f"{sum(same)} of {HOST_EPISODES} ({same})", flush=True)
@@ -1630,6 +1637,288 @@ def host_loop_phases(ctx):
     return out
 
 
+def committed_rows(path):
+    """``{(metric, exp_name): [value strings]}`` of a test_summary.csv."""
+    rows = [line.split(",") for line in Path(path).read_text().splitlines()]
+    return {(m, e): [r[i] for r in rows[2:]]
+            for i, (m, e) in enumerate(zip(rows[0], rows[1])) if i}
+
+
+def rows_equal(got_path, want_path, n_episodes):
+    """Per episode, whether every column of ``got_path``'s summary equals
+    ``want_path``'s to 1e-5 relative."""
+    got, want = committed_rows(got_path), committed_rows(want_path)
+    return [all(k in want and math.isclose(float(got[k][i]), float(want[k][i]), rel_tol=1e-5)
+                for k in got) for i in range(n_episodes)]
+
+
+def update_edge_list(obs):
+    """The message-passing edges of one update on ``obs`` (leaves [B, T+1, A,
+    ...]), flattened into one padded edge list: every world-step of the
+    policy's T+1 steps and the target's T (steps 1..T), each with its
+    'seen' (M GT slots -> agent), 'near' (K UBS slots -> agent) and talk (A
+    agents -> agent) graph, B (2T+1) A (M + K + A) edges in all
+    (``bench.py:64``). Returns ``(src, dst, mask, n_src, n_dst)``."""
+    t1 = obs["gt"].shape[1]
+    steps = torch.cat([torch.arange(t1), torch.arange(1, t1)])
+    gt = obs["gt"][:, steps, ..., 0] > 0                        # [B, S, A, M]
+    ubs = obs["ubs"][:, steps, ..., 0] > 0                      # [B, S, A, K]
+    adj = obs["adj"][:, steps]                                  # [B, S, A, A]
+    b, s, a, m = gt.shape
+    k, g = ubs.shape[-1], b * s
+    agent = torch.arange(g * a).reshape(g, a)                   # the destinations
+    n_seen, n_near = g * a * m, g * a * k
+    src = torch.cat([torch.arange(n_seen), n_seen + torch.arange(n_near),
+                     n_seen + n_near + agent[:, None, :].expand(g, a, a).reshape(-1)])
+    dst = torch.cat([agent[..., None].expand(g, a, m).reshape(-1),
+                     agent[..., None].expand(g, a, k).reshape(-1),
+                     agent[..., None].expand(g, a, a).reshape(-1)])
+    mask = torch.cat([gt.reshape(-1), ubs.reshape(-1), adj.reshape(-1)])
+    return src, dst, mask, n_seen + n_near + g * a, g * a
+
+
+def slice13_phases(ctx):
+    """Slice 13: ``vec_run.train_vectorized`` at the committed 8-UBS
+    TarMAC+QMIX run's full width (``VEC_WORLDS`` worlds, cut to
+    ``VEC_CUTS``; #2-#5 launched, one update gated against the plain path,
+    the checkpoint read by the classic learner, which acts once);
+    ``torch_env.reset`` of ``ROLLOUT_WORLDS`` worlds and a 50-step
+    ``torch_env.rollout`` of the committed 8-UBS policy at eps 0, its actions
+    and rewards against ``eval_rollout``'s on the same states; the C++ env
+    core (built, and used by ``test_series``, whose committed 4-UBS and exp1
+    rows must reproduce; host env ms per step with the core and with NumPy);
+    every ``ops/segment.py`` op on the card against the CPU on one update's
+    1,680,640 edges. ``ctx`` as for :func:`exp1_phases`; returns the
+    figures."""
+    from functools import partial
+    from uav_bs_ctrl_tpu_torch import serve, test_policies
+    from uav_bs_ctrl_tpu_torch.algos import collect
+    from uav_bs_ctrl_tpu_torch.algos.buffer import tree_map
+    from uav_bs_ctrl_tpu_torch.algos.madrqn import vec_run
+    from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
+    from uav_bs_ctrl_tpu_torch.algos.madrqn.wrappers import make_env
+    from uav_bs_ctrl_tpu_torch.config import make_args
+    from uav_bs_ctrl_tpu_torch.envs import torch_env
+    from uav_bs_ctrl_tpu_torch.envs.mubs_cov import MultiUbsCoverageEnv
+    from uav_bs_ctrl_tpu_torch.native import env_core
+    from uav_bs_ctrl_tpu_torch.ops import segment
+    from uav_bs_ctrl_tpu_torch.utils.profiling import StepTimer
+    counts, reset_counts = ctx.counts, ctx.reset_counts
+    zero = dict.fromkeys(counts(), 0)
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_slice13_"))
+    out = SimpleNamespace()
+    run_args = json.loads((RUN_DIR / "config.json").read_text())["args"]
+    kw = dict(run_args, device=DEVICE, save_freq=1, **VEC_CUTS)
+
+    with phase(f"vec_run: train_vectorized('8ubs') at {RUN_DIR.parent.name}'s width, "
+               f"{VEC_WORLDS} worlds, {VEC_CUTS}"):
+        print(f"  {card_line()}", flush=True)
+        print(f"  depth cuts: steps_per_epoch {run_args['steps_per_epoch']} -> "
+              f"{VEC_CUTS['steps_per_epoch']}, epochs {run_args['epochs']} -> "
+              f"{VEC_CUTS['epochs']}, replay_size {run_args['replay_size']} -> "
+              f"{VEC_CUTS['replay_size']} chunks, {VEC_CUTS['num_test_episodes']} test "
+              f"episodes; random weights from seed 0", flush=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            learner = vec_run.train_vectorized(
+                "8ubs", seed=0, train_kwargs=kw, n_worlds=VEC_WORLDS,
+                logger_kwargs=dict(output_dir=str(scratch / "vec"), exp_name="chip_smoke_vec"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ctx.phase_launches["vec_run"] = counts()
+        T, B = learner.max_seq_len, learner.batch_size
+        n_chunks = VEC_CUTS["steps_per_epoch"] * VEC_CUTS["epochs"] // (VEC_WORLDS * T)
+        n_upd = n_chunks * VEC_WORLDS
+        per_update = dict(zero, flash_gat_fused=2 * (2 * T + 1), tarmac_step=2 * T + 1,
+                          flash_gat_fused_bwd=2 * T, tarmac_step_bwd=T)
+        policy_steps = (n_chunks + 1) * T                      # the chunks, the test episodes
+        want = {k: n_upd * v for k, v in per_update.items()}
+        want["flash_gat_fused"] += 2 * policy_steps
+        want["tarmac_step"] += policy_steps
+        head, rows = progress_rows(scratch / "vec")
+        taken = learner.optimizer.state[learner.parameters()[0]]["step"].item()
+        out.vec = {c: float(rows[-1][c]) for c in ("EnvStepsPerSec", "TimeCollectMs",
+                                                   "TimeUpdateMs", "LossQ", "AverageEpRet",
+                                                   "AverageTestEpRet")}
+        print(f"  {wall:.2f} s; {n_chunks} chunks of {VEC_WORLDS} x {T} env steps, {taken:.0f} "
+              f"updates at B={B}; {out.vec}; launches {launches}, per chunk "
+              f"{ {k: v / n_chunks for k, v in launches.items()} }", flush=True)
+        if [(r["Epoch"], r["TotalEnvInteracts"]) for r in rows] != \
+                [("1", str(n_chunks * VEC_WORLDS * T))] or taken != n_upd \
+                or not all(math.isfinite(v) for v in out.vec.values()):
+            raise AssertionError(f"progress.txt {rows}, {taken} updates (expected {n_upd})")
+        if launches != want or not all(launches[k] for k in per_update if per_update[k]):
+            raise AssertionError(f"expected {want} launches, got {launches}")
+        batch = tree_map(lambda x: torch.as_tensor(x, device=DEVICE),
+                         learner.buffer.sample(B, np.random.RandomState(1)))
+        check_update(learner, batch, per_update, counts)
+        args = make_args(dict(kw, max_seq_len=None), DEVICE)
+        env = make_env(partial(MultiUbsCoverageEnv, "8ubs", record=False,
+                               rng=np.random.RandomState(0)), args)
+        classic = MultiAgentQLearner(env.get_env_info(), args, seed=1)
+        stamp = classic.load_checkpoint(scratch / "vec" / "checkpoint_epoch1.pt")
+        same = all(torch.equal(p, q) for p, q in zip(classic.parameters(), learner.parameters()))
+        (o, _), h = env.reset(), classic.init_hidden()
+        acts, _ = classic.act(o, h, 0.0, np.random.RandomState(2))
+        print(f"  checkpoint_epoch1.pt: stamp {stamp}; the classic learner holds the trained "
+              f"params bit for bit: {same}; its greedy actions {acts} (scheduler "
+              f"{env.env.scheduler})", flush=True)
+        if stamp != {"epoch": 1, "t": n_chunks * VEC_WORLDS * T} or not same \
+                or len(acts) != env.n_agents:
+            raise AssertionError("the vec_run checkpoint does not load into the classic learner")
+        del learner, classic
+
+    with phase(f"rollout: torch_env.reset of {ROLLOUT_WORLDS} worlds, a 50-step rollout of "
+               f"{RUN_DIR.name} at eps 0, against eval_rollout on the same states"):
+        agent, config = serve.load_policy(RUN_DIR, DEVICE)
+        params = torch_env.make_params(config["map_id"])
+        T = params.episode_limit
+        states = torch_env.reset(params, torch.Generator().manual_seed(0), DEVICE,
+                                 ROLLOUT_WORLDS)
+        h0 = torch.zeros((ROLLOUT_WORLDS, params.n_ubs, agent.hidden), device=DEVICE)
+        step, recorded = torch_env.step, []
+
+        def recording_step(p, s, a):
+            res = step(p, s, a)
+            recorded[-1].append((a, res[2]))
+            return res
+
+        def roll():
+            return torch_env.rollout(params, agent, states, h0, torch.Generator().manual_seed(1),
+                                     T, eps=0.0)
+
+        roll()                                       # first call at these shapes, untimed
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, rews = roll()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = ctx.phase_launches["rollout"] = counts()
+        torch_env.step = recording_step
+        try:
+            recorded.append([])
+            roll()
+            recorded.append([])
+            stats = collect.eval_rollout(params, agent, states, h0, T,
+                                         torch.Generator().manual_seed(2), 0.0)
+        finally:
+            torch_env.step = step
+        acts = [torch.stack([a for a, _ in rec]) for rec in recorded]
+        eval_rews = torch.stack([r for _, r in recorded[1]], 1)
+        rew_err = (rews - eval_rews).abs().max().item()
+        ret_err = (final.ep_ret - stats["TestEpRet"]).abs().max().item()
+        out.rollout_steps_per_s = ROLLOUT_WORLDS * T / dt
+        print(f"  {dt:.3f} s, {out.rollout_steps_per_s:.1f} env steps/s ({T / dt:.2f} batched "
+              f"steps/s); mean episode return {final.ep_ret.mean().item():.4f}; actions equal "
+              f"to eval_rollout's: {torch.equal(acts[0], acts[1])}; max |reward diff| "
+              f"{rew_err:.3e}, |return diff| {ret_err:.3e} (limit {ROLLOUT_ATOL}); launches "
+              f"{launches}", flush=True)
+        if not torch.equal(acts[0], acts[1]) or rew_err > ROLLOUT_ATOL \
+                or ret_err > ROLLOUT_ATOL or rews.shape != (ROLLOUT_WORLDS, T, params.n_ubs):
+            raise AssertionError("rollout disagrees with eval_rollout")
+        if launches != dict(zero, flash_gat_fused=2 * T, tarmac_step=T):
+            raise AssertionError(f"rollout launches {launches}")
+        del agent
+
+    with phase("native: the C++ env core in test_series (the committed rows) and the host "
+               "env's ms per step with the core and with NumPy"):
+        print(f"  {card_line()}", flush=True)
+        if not env_core.available():
+            raise AssertionError(f"the C++ env core did not build: {env_core.error()}")
+        print(f"  {Path(env_core.load()._name).relative_to(ROOT)}", flush=True)
+        out.env_ms = {}
+        available, warn_fallback = env_core.available, env_core.warn_fallback
+        # (label, run, checkpoint, committed summary or None, steps an episode, core used)
+        runs = (("4ubs", HOST_4UBS_DIR, "checkpoint_epoch100.pt",
+                 ROOT / "data" / "test_exp3_4ubs" / "test_summary.csv", 50, True),
+                ("8ubs", RUN_DIR, serve.latest_checkpoint(RUN_DIR).name, None, 50, True),
+                ("exp1", HOST_EXP1_DIR, f"checkpoint_epoch{EXP1_EPOCH}.pt",
+                 ROOT / "data" / "test_exp1_grp2" / "test_summary.csv", 200, False))
+        for label, run_dir, ckpt, committed, steps, uses_core in runs:
+            for scheduler in ("native", "numpy") if uses_core else ("numpy",):
+                if scheduler == "numpy":        # the env's NumPy path, as if the core were absent
+                    env_core.available, env_core.warn_fallback = (lambda: False), (lambda: None)
+                try:
+                    timer, calls = StepTimer(), env_core.calls
+                    test_policies.test_series(None, test_policies.METRICS, [str(run_dir)], ckpt,
+                                              HOST_EPISODES, str(scratch / label / scheduler),
+                                              device=DEVICE, timer=timer)
+                finally:
+                    env_core.available, env_core.warn_fallback = available, warn_fallback
+                n_calls = env_core.calls - calls
+                times = timer.flush()
+                out.env_ms[label, scheduler] = times["TimeEnvMs"]
+                want_calls = HOST_EPISODES * (steps + 1) if uses_core and scheduler == "native" \
+                    else 0
+                same = rows_equal(scratch / label / scheduler / "test_summary.csv",
+                                  committed or scratch / label / "native" / "test_summary.csv",
+                                  HOST_EPISODES)
+                against = committed.relative_to(ROOT) if committed else "the core's run"
+                print(f"  {label} at {ckpt}, {HOST_EPISODES} episodes, {scheduler}: env "
+                      f"{times['TimeEnvMs']:.3f} ms, act {times['TimeActMs']:.3f} ms a host step; "
+                      f"{n_calls} calls into the core (expected {want_calls}); rows equal to "
+                      f"{against}'s: {sum(same)} of {HOST_EPISODES}", flush=True)
+                if n_calls != want_calls or not all(same):
+                    raise AssertionError(f"{label} ({scheduler}): {n_calls} core calls, rows {same}")
+
+    with phase(f"segment: ops/segment.py on the card against the CPU, one 8-UBS update's "
+               f"edges (B = {batch['obs']['gt'].shape[0]}, T = {batch['obs']['gt'].shape[1] - 1})"):
+        obs = {k: batch["obs"][k].cpu() for k in ("gt", "ubs", "adj")}
+        src, dst, mask, n_src, n_dst = update_edge_list(obs)
+        gen = torch.Generator().manual_seed(3)
+        x = torch.randn((n_src, 4, 8), generator=gen)          # 4 heads of 8
+        q = torch.randn((n_dst, 4, 8), generator=gen)
+        v = torch.randn((n_src, 4, 8), generator=gen)
+
+        def ops(x, q, v, src, dst, mask, n_dst, backend):
+            """Every op on one edge list: ``{name: output}``."""
+            s = segment.sddmm_dot(x, q, src, dst)
+            e = segment.gather_src(v, src)
+            alpha = segment.segment_softmax(s, dst, mask, n_dst, backend)
+            res = {"segment_sum": segment.segment_sum(e, dst, mask, n_dst, backend),
+                   "segment_mean": segment.segment_mean(e, dst, mask, n_dst, backend),
+                   "segment_softmax": alpha,
+                   "spmm_attention": segment.spmm_attention(alpha, v, src, dst, mask, n_dst,
+                                                            backend)}
+            if backend == "xla":
+                res.update(gather_src=e, sddmm_dot=s,
+                           segment_max=segment.segment_max(e, dst, mask, n_dst))
+            return res
+
+        sub = dst < SEGMENT_ONEHOT_DST                         # the one-hot product is [E, N]
+        host = {"xla": (x, q, v, src, dst, mask, n_dst),
+                "onehot": (x, q, v, src[sub], dst[sub], mask[sub], SEGMENT_ONEHOT_DST)}
+        out.segment = {}
+        for backend, args in host.items():
+            card = tuple(a.to(DEVICE) if torch.is_tensor(a) else a for a in args)
+            want, got = ops(*args, backend), ops(*card, backend)
+            for name in sorted(want):
+                err = (got[name].cpu() - want[name]).abs().max().item() / max(
+                    want[name].abs().max().item(), 1e-30)
+                out.segment[f"{name} {backend}"] = err
+                print(f"  {name} ({backend}) {tuple(got[name].shape)}: max |card - cpu| / "
+                      f"max |cpu| {err:.3e} (limit {SEGMENT_RTOL})", flush=True)
+                if not err <= SEGMENT_RTOL:
+                    raise AssertionError(f"segment {name} ({backend}): {err:.3e}")
+            ms = time_cuda(lambda: ops(*card, backend), n_iter=3, reps=3)
+            out.segment[f"ms {backend}"] = ms
+            print(f"  every {backend} op once on {int(card[3].numel())} edges: {ms:.3f} ms on "
+                  f"the card", flush=True)
+        adj = obs["adj"][0, 0]
+        exact = all(torch.equal(a.cpu(), b) for a, b in zip(
+            segment.dense_to_edges(adj.to(DEVICE)), segment.dense_to_edges(adj)))
+        print(f"  {src.numel()} edges ({mask.float().mean().item():.4f} valid) into {n_dst} "
+              f"destinations from {n_src} sources; one-hot on the {int(sub.sum())} edges into "
+              f"the first {SEGMENT_ONEHOT_DST}; dense_to_edges equal: {exact}", flush=True)
+        if src.numel() != UPDATE_EDGES or not exact:
+            raise AssertionError(f"{src.numel()} edges (expected {UPDATE_EDGES}), "
+                                 f"dense_to_edges {exact}")
+    shutil.rmtree(scratch)
+    return out
+
+
 def exp1_times(e1):
     """exp1's times: #2 and #3 at exp1's shapes with their bounds, ms per
     update (gnn through the kernels and on the plain path, rnn), the
@@ -1722,6 +2011,7 @@ def main():
     from uav_bs_ctrl_tpu_torch.envs import torch_env
     from uav_bs_ctrl_tpu_torch.models.modules import gumbel_noise
     from uav_bs_ctrl_tpu_torch.ops import build
+    from uav_bs_ctrl_tpu_torch.native import build as native_build
     from uav_bs_ctrl_tpu_torch.ops.gat_kernels import (
         flash_gat, flash_gat_fused, flash_gat_fused_bwd, flash_gat_fused_bwd_plain,
         flash_gat_fused_plain, flash_gat_plain)
@@ -1759,6 +2049,8 @@ def main():
 
     with phase("build"):
         build.build(list(all_kernels))
+        print(f"  the C++ env core: {native_build.build(verbose=True).relative_to(ROOT)}",
+              flush=True)
 
     worst = dict.fromkeys(all_kernels, 0.0)
     rng = np.random.default_rng(0)
@@ -2320,6 +2612,8 @@ def main():
                                      phase_launches=phase_launches))
     bench = bench_phases(SimpleNamespace(counts=counts, counts_bf16=counts_bf16,
                                          reset_counts=reset_counts))
+    slice13_phases(SimpleNamespace(counts=counts, reset_counts=reset_counts,
+                                   phase_launches=phase_launches))
 
     record = []
     with phase("times"):

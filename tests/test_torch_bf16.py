@@ -477,16 +477,17 @@ def test_every_kernel_call_on_the_bf16_path_gets_bf16_operands(sched):
 
 
 def test_serving_a_bf16_run_with_flash_gat_raises_naming_its_queue_item(tmp_path):
-    """``flash_gat`` (#1) is float32 only: serving a bf16 run through it is
-    refused before anything is built, naming ROADMAP Queue 2 item 5; the
-    same run with the fused backend builds its bf16 policy."""
+    """``flash_gat`` (#1) is float32 only, in both packages: serving a bf16
+    run through it is refused before anything is built, saying so; the same
+    run with the fused backend builds its bf16 policy."""
     from uav_bs_ctrl_tpu_torch import serve
     run = Path(__file__).resolve().parents[1] / "data" / "exp3_fast_4ubs_disc_lay64k" / \
         "exp3_fast_4ubs_disc_lay64k_s0"
     config = json.loads((run / "config.json").read_text())
     config["args"]["compute_dtype"] = "bfloat16"
     (tmp_path / "config.json").write_text(json.dumps(config))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
+    with pytest.raises(NotImplementedError, match="flash_gat \\(#1\\), which is float32 only "
+                                                  "in both packages"):
         serve.load_policy(tmp_path, "cpu", run / "checkpoint_epoch200.pt", gat_backend="pallas")
     agent, _ = serve.load_policy(tmp_path, "cpu", run / "checkpoint_epoch200.pt",
                                  gat_backend="pallas_fused")

@@ -6,8 +6,8 @@
   against JAX's ``np.random.seed(seed)``), every obs, state, reward and info
   exactly equal. Both are the same NumPy code, so no tie rule is needed.
   The JAX env runs its NumPy scheduler and, with ``use_native``, its C++ core
-  where that library is built (else it falls back to NumPy itself); the
-  port's runs ``_schedule_numpy`` either way.
+  where that library is built (else it falls back to NumPy itself); so does
+  the port's, with its own build of the core (``tests/test_torch_native.py``).
 - The maps' and ``set_position``'s ``rng`` draws equal ``np.random``'s.
 - The recorders' CSVs, byte for byte, and as pandas reads them back.
 - The wrappers' obs dicts and env info for ``o='mlp'``, ``o='gnn'`` with and

@@ -234,6 +234,10 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
         "utils/run_entrypoint.py", "test_policies.py", "collect_curves.py", "run_exp1.py",
         "run_exp2.py", "run_exp3.py", "run_classic.py")}
     assert host_loop <= set(files)
+    slice13 = {port / name for name in (
+        "native/__init__.py", "native/build.py", "native/env_core.py",
+        "algos/madrqn/vec_run.py", "ops/segment.py")}
+    assert slice13 <= set(files)
     assert {"cloudpickle", "pandas", "matplotlib"} <= FORBIDDEN
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

@@ -10,10 +10,14 @@ utility reward, and the same observation / state feature layouts
 
 Every draw comes from ``rng`` (a ``np.random.RandomState``; default
 ``np.random``, as the JAX env), in the JAX env's order: the map's layout,
-then the GT priority permutation. The scheduler is the NumPy one
-(``_schedule_numpy``); ``use_native`` is accepted for the JAX signature, and
-the C++ core it selects there (``uav_bs_ctrl_tpu/native``, which agrees with
-the NumPy scheduler exactly) is not ported yet (ROADMAP.md Queue 1 item 8).
+then the GT priority permutation. ``use_native=True`` (the default, as in
+JAX) runs the C++ scheduling core (``uav_bs_ctrl_tpu_torch/native``, built
+with the host C++ compiler at the first env that asks for it; the same
+schedules as ``_schedule_numpy``, rates within 1e-6), with ``bw * n0`` as
+the noise, as the JAX env does. When the core cannot be built the env runs
+``_schedule_numpy``, as JAX's does, but not silently: it warns once per
+process with the compiler's error. ``scheduler`` records which ran:
+``'native'`` or ``'numpy'``.
 """
 
 import numpy as np
@@ -23,6 +27,7 @@ from uav_bs_ctrl_tpu_torch.envs.common import AirToGroundChannel, jain_fairness_
 from uav_bs_ctrl_tpu_torch.envs.maps import MAPS
 from uav_bs_ctrl_tpu_torch.envs.multi_agent_env import MultiAgentEnv
 from uav_bs_ctrl_tpu_torch.envs.recorder import MultiUbsRecorder
+from uav_bs_ctrl_tpu_torch.native import env_core
 
 
 class MultiUbsCoverageEnv(MultiAgentEnv):
@@ -94,6 +99,10 @@ class MultiUbsCoverageEnv(MultiAgentEnv):
 
         self.recorder = MultiUbsRecorder(self) if record else None
 
+        self.scheduler = "native" if use_native and env_core.available() else "numpy"
+        if use_native and self.scheduler == "numpy":
+            env_core.warn_fallback()
+
     # ------------------------------------------------------------------ #
 
     def reset(self):
@@ -156,7 +165,12 @@ class MultiUbsCoverageEnv(MultiAgentEnv):
         g = self.chan.estimate_chan_gain(self.d_u2g, self.h_ubs)
         mask_itf = self.d_u2g <= self.r_cov
 
-        self._schedule_numpy(g, mask_itf)
+        if self.scheduler == "native":
+            self.sched, self.rate_per_gt, self.rate_per_ubs = env_core.schedule_and_rate(
+                self.d_u2g, g, mask_itf, self.prior_gts, self.n_rbs, self.r_cov,
+                self.p_tx, self.bw * self.n0, self.bw)
+        else:
+            self._schedule_numpy(g, mask_itf)
 
         # Long-term service statistics.
         self.avg_rate_per_gt = (self.avg_rate_per_gt * self.t + self.rate_per_gt) / (self.t + 1)

@@ -228,6 +228,36 @@ def reset_from_positions(params: EnvParams, pos_ubs, pos_gts, prior_gts) -> EnvS
     return _transmit(params, state)
 
 
+def reset(params: EnvParams, generator, device, n_worlds) -> EnvState:
+    """``n_worlds`` worlds with uniform positions in ``[0, range_pos)`` for the
+    UBSs and GTs and a uniform GT priority permutation (JAX ``reset``, the
+    scaling path), drawn in that order from ``generator`` (a CPU
+    ``torch.Generator``) and moved to ``device``, through
+    :func:`reset_from_positions`."""
+    pos_ubs = torch.rand((n_worlds, params.n_ubs, 2), generator=generator) * params.range_pos
+    pos_gts = torch.rand((n_worlds, params.n_gts, 2), generator=generator) * params.range_pos
+    prior = torch.argsort(torch.rand((n_worlds, params.n_gts), generator=generator), dim=-1)
+    return reset_from_positions(params, pos_ubs.to(device), pos_gts.to(device),
+                                prior.to(device))
+
+
+def rollout(params: EnvParams, policy, state0, h0, generator, n_steps, eps=0.0):
+    """``n_steps`` steps of every world with ``policy(obs, h, key=...) -> (q,
+    h')`` in the loop (JAX ``rollout``, a scan there). Exploration is the
+    reference's quirk, as in ``algos/collect.py``: one coin per world per
+    step for all its agents, then uniform random actions, drawn from
+    ``generator``. Returns ``(final_state, rewards [W, T, N])``."""
+    from uav_bs_ctrl_tpu_torch.algos.collect import _act   # collect imports this module
+
+    state, h, rewards = state0, h0, []
+    obs = get_obs(params, state)
+    for _ in range(n_steps):
+        acts, h = _act(policy, obs, h, generator, eps, params.n_actions)
+        state, obs, rew, _ = step(params, state, acts)
+        rewards.append(rew)
+    return state, torch.stack(rewards, 1)
+
+
 def step(params: EnvParams, state: EnvState, actions):
     """One step of every world; actions [W, N] int. Returns
     (state', obs, reward [W, N], done [W])."""

@@ -76,9 +76,10 @@ def load_policy(run_dir, device=None, checkpoint_path=None, gat_backend=None):
         args = make_args(config["args"], device)
         if args.gat_backend == "pallas" and args.compute_dtype == "bfloat16":
             raise NotImplementedError(
-                "gat_backend='pallas' runs flash_gat (#1), which is float32 only here; its "
-                "bf16 variant is ROADMAP.md Queue 2 item 5. Serve a bf16 run with "
-                "'pallas_fused' or 'pallas_fused_mxu'.")
+                "gat_backend='pallas' runs flash_gat (#1), which is float32 only in both "
+                "packages (the JAX package's flash_gat cannot store its f32 accumulator into "
+                "bf16 outputs either). Serve a bf16 run with 'pallas_fused' or "
+                "'pallas_fused_mxu'.")
         env_params = torch_env.make_params(config["map_id"])
         agent = build_agent(obs_shape(env_params, args.o), env_params.n_actions, args)
     ckpt = checkpoint.load(checkpoint_path or latest_checkpoint(run_dir))
