@@ -54,8 +54,13 @@ learner), ``torch_env.reset``/``rollout`` of the 8-UBS policy on 512 worlds
 against ``eval_rollout``, the C++ env core in ``test_series`` (the
 committed rows reproduced; host env ms with the core and with NumPy), and
 ``ops/segment.py`` on the card against the CPU on one update's 1,680,640
-edges; and timings (``exp1_times`` adds exp1's kernels, updates and
-collection).
+edges; slice 14, the parallel layer (``parallel_phases``), ranks spawned on
+the one card over gloo: ``graft_entry.dryrun_multichip(4)`` (dp = 2, mp = 2,
+the toy and flagship cases against single-rank updates), a gp = 2 flagship
+step, the dp = 2 fused trainer against the single-rank one and a dp = 2
+update of the committed checkpoint through the update gates, with each
+rank's launches, ms per sharded update and collectives' share; and timings
+(``exp1_times`` adds exp1's kernels, updates and collection).
 Any failed phase exits non-zero with no result line. The last line is the
 JSON device record.
 """
@@ -128,6 +133,13 @@ SEGMENT_RTOL = 1e-5       # ops/segment.py on the card against the CPU: of max |
                           # card's index_add_ sums in no fixed order
 SEGMENT_ONEHOT_DST = 512  # the one-hot backend ([E, N] product) on the edges into 512 destinations
 UPDATE_EDGES = 1_680_640  # bench.py:64's edges of an update at B = 32, T = 50, A = 8, M = 50, K = 7
+# Slice 14's dp = 2 fused trainer: the 8-UBS run's width cut to 8 worlds, a 16-chunk ring, one
+# warm-up and one iteration of 2 updates in 2 sub-iterations; held to the single-rank trainer:
+# LossQ and episode stats rtol, params atol + rtol (tests/test_parallel.py:388-421) where the
+# raw gradient was resolved in every update (RESOLVED_RTOL, as check_update).
+PARALLEL_FUSED = dict(n_worlds=8, capacity_chunks=16, updates_per_iter=2, interleave=2,
+                      n_layouts=16)
+PARALLEL_RTOL, PARALLEL_ATOL, PARALLEL_PARAMS_RTOL = 1e-5, 2e-5, 1e-3
 
 
 @contextlib.contextmanager
@@ -620,24 +632,8 @@ def check_update(learner, batch, per_update, counts, noise=None):
         print(f"  DiscreteComm bits taken from the kernel path at roundoff ties: {ties['bits']} "
               f"of {samples} (smallest Gumbel margin {ties['min_margin']:.2e}, tie bound "
               f"{TIE})", flush=True)
-    loss_err = abs(kern[0] - plain_upd[0]) / abs(plain_upd[0])
-    scale = {g: max(r.abs().max().item() for n, r in zip(names, plain_upd[1])
-                    if n.startswith(g + ".")) for g in groups}
-    grad_err = max((k - q).abs().max().item() / scale[n.split(".")[0]]
-                   for n, k, q in zip(names, kern[2], plain_upd[2]))
-    resolved = {n: r.abs() > RESOLVED_RTOL * scale[n.split(".")[0]]
-                for n, r in zip(names, plain_upd[1])}
-    param_err, loose, loose_err, n_entries = 0.0, 0, 0.0, 0
-    for mod in mods:
-        for k, v in kern[3][mod].items():
-            name = f"{mod.replace('target_', '')}.{k}"
-            diff = (v - plain_upd[3][mod][k]).abs()
-            param_err = max(param_err, diff[resolved[name]].max().item()
-                            if resolved[name].any() else 0.0)
-            n_entries += diff.numel()
-            if not resolved[name].all():
-                loose += int((~resolved[name]).sum())
-                loose_err = max(loose_err, diff[~resolved[name]].max().item())
+    loss_err, grad_err, param_err, loose, loose_err, n_entries, scale = update_gate_errors(
+        kern, plain_upd, names, groups)
     bitwise = kern[0] == again[0] and all(
         torch.equal(a, b) for a, b in zip(kern[2] + kern[1], again[2] + again[1])) and all(
         torch.equal(v, again[3][mod][k]) for mod in mods for k, v in kern[3][mod].items())
@@ -655,6 +651,35 @@ def check_update(learner, batch, per_update, counts, noise=None):
             and grad_err <= UPDATE_GRAD_RTOL and param_err <= UPDATE_PARAM_ATOL and bitwise):
         raise AssertionError("the kernel update disagrees with the plain path or does "
                              "not repeat bit for bit")
+
+
+def update_gate_errors(got, ref, names, groups):
+    """:func:`check_update`'s gate figures of the update ``got`` against
+    ``ref``, each ``(LossQ, raw grads, clipped grads, state)`` (grads listed
+    as ``names``, ``"<group>.<param>"``; state ``{module: {param: tensor}}``
+    for each group and its ``target_`` twin): the LossQ relative error, the
+    clipped grads' max |diff| over the group's largest raw gradient, the
+    params' and targets' max |diff| where the raw gradient is resolved, the
+    unresolved entries, their max |diff|, all entries, and the scales."""
+    loss_err = abs(got[0] - ref[0]) / abs(ref[0])
+    scale = {g: max(r.abs().max().item() for n, r in zip(names, ref[1])
+                    if n.startswith(g + ".")) for g in groups}
+    grad_err = max((k - q).abs().max().item() / scale[n.split(".")[0]]
+                   for n, k, q in zip(names, got[2], ref[2]))
+    resolved = {n: r.abs() > RESOLVED_RTOL * scale[n.split(".")[0]]
+                for n, r in zip(names, ref[1])}
+    param_err, loose, loose_err, n_entries = 0.0, 0, 0.0, 0
+    for mod in groups + tuple(f"target_{g}" for g in groups):
+        for k, v in got[3][mod].items():
+            name = f"{mod.replace('target_', '')}.{k}"
+            diff = (v - ref[3][mod][k]).abs()
+            param_err = max(param_err, diff[resolved[name]].max().item()
+                            if resolved[name].any() else 0.0)
+            n_entries += diff.numel()
+            if not resolved[name].all():
+                loose += int((~resolved[name]).sum())
+                loose_err = max(loose_err, diff[~resolved[name]].max().item())
+    return loss_err, grad_err, param_err, loose, loose_err, n_entries, scale
 
 
 def ms_per_update(learner, batch, use_kernels=True, noise=None, n=5):
@@ -1919,6 +1944,195 @@ def slice13_phases(ctx):
     return out
 
 
+def per_update_launches(T):
+    """#1-#5's launches in one 8-UBS TarMAC update of T steps."""
+    return {"flash_gat": 0, "flash_gat_fused": 2 * (2 * T + 1), "tarmac_step": 2 * T + 1,
+            "flash_gat_fused_bwd": 2 * T, "tarmac_step_bwd": T}
+
+
+def fused_launches(T):
+    """#1-#5's launches in each rank of the dp fused trainer's warm-up and
+    iteration (``PARALLEL_FUSED``): the updates, and one policy forward a
+    step of the warm-up and of each sub-iteration's collection."""
+    want = {k: PARALLEL_FUSED["updates_per_iter"] * v for k, v in per_update_launches(T).items()}
+    steps = (1 + PARALLEL_FUSED["interleave"]) * T
+    want["flash_gat_fused"] += 2 * steps
+    want["tarmac_step"] += steps
+    return want
+
+
+def rank_lines(ranks, ms_key="ms", what="sharded update"):
+    """One line a rank: its #1-#5 launches, ms per ``what`` and its collectives' share."""
+    for r, x in enumerate(ranks):
+        coll = x["collectives"] if "collectives" in x else dict(ms=x["collective_ms"],
+                                                                calls=x["collective_calls"])
+        print(f"  rank {r}: launches {x['launches']}; {x[ms_key]:.2f} ms per {what}, of it "
+              f"{coll['ms']:.2f} ms in {coll['calls']} collectives "
+              f"({100 * coll['ms'] / x[ms_key]:.1f} %)", flush=True)
+
+
+def summed(ranks):
+    return {k: sum(x["launches"][k] for x in ranks) for k in ranks[0]["launches"]}
+
+
+def parallel_phases(ctx):
+    """Slice 14, the parallel layer on ``torch.distributed``, ranks sharing
+    the one card (gloo; NCCL refuses two ranks on one GPU), spawned by
+    ``parallel.launch`` after the parent built the kernels:
+    ``graft_entry.dryrun_multichip(4)`` (dp = 2, mp = 2; the toy and the
+    flagship 8-UBS case, each rank's sharded update held to a single-rank one
+    at JAX's tolerances, #2-#5 launched in every rank of the flagship case;
+    the toy's F = 8 heads take the plain path); then 2 ranks for a gp
+    = 2 flagship step (both relations and the talk graph edge-partitioned,
+    plain torch as JAX's, no fallback), the dp = 2 fused trainer at the
+    committed 8-UBS TarMAC+QMIX run's width resumed from its checkpoint
+    (``PARALLEL_FUSED``) against the single-rank trainer, and one dp = 2
+    update of the checkpoint on ``ctx.batch`` (B = 32, 16 a rank) through
+    :func:`check_update`'s gates against the single-rank kernel update.
+    Prints the backend and, per rank, the launches, ms per sharded update and
+    the collectives' share; adds each phase's launches (summed over the
+    ranks) to ``ctx.phase_launches``."""
+    from uav_bs_ctrl_tpu_torch import graft_entry, serve, train
+    from uav_bs_ctrl_tpu_torch.algos.buffer import tree_map
+    from uav_bs_ctrl_tpu_torch.algos.madrqn import fused
+    from uav_bs_ctrl_tpu_torch.parallel import launch, workers
+    run = json.loads((RUN_DIR / "config.json").read_text())
+    ckpt = serve.latest_checkpoint(RUN_DIR)
+
+    with phase("parallel: graft_entry.dryrun_multichip(4), the toy and flagship-8ubs cases"):
+        print(f"  {card_line()}; backend {launch.pick_backend(DEVICE, 4)}, 4 ranks on "
+              f"{torch.cuda.device_count()} card(s), mesh (dp, mp, gp) "
+              f"{graft_entry.mesh_dims(4)}", flush=True)
+        out = graft_entry.dryrun_multichip(4, DEVICE)
+        for label, ranks in out.items():
+            print(f"  {label}:", flush=True)
+            rank_lines(ranks)
+            case = graft_entry.CASES[label]
+            want = per_update_launches(case["T"])
+            if not case["kernels"]:          # the toy's F = 8 heads: the plain path
+                want = dict.fromkeys(want, 0)
+            if any(x["launches"] != want for x in ranks):
+                raise AssertionError(f"{label}: expected {want} launches a rank")
+            ctx.phase_launches[f"parallel_dryrun_{label}"] = summed(ranks)
+
+    with phase(f"parallel: 2 ranks, a gp = 2 flagship step, the dp = 2 fused trainer "
+               f"({PARALLEL_FUSED}) resumed from {ckpt.name}, a dp = 2 update of it at B = 32"):
+        print(f"  {card_line()}", flush=True)
+        trainer_kw = dict(PARALLEL_FUSED, seed=run["seed"])
+        with torch.enable_grad():
+            single = train.build_trainer(RUN_DIR, DEVICE, **PARALLEL_FUSED)
+            raws, apply = [], single.learner.apply_grads
+
+            def apply_and_keep():          # each update's raw gradients, for the gate below
+                raws.append([p.grad.detach().clone() for p in single.learner.parameters()])
+                apply()
+
+            single.learner.apply_grads = apply_and_keep
+            ref_metrics = [single.run_iteration(EPS, warmup=True), single.run_iteration(EPS)]
+            ref_params = [p.detach() for p in single.learner.parameters()]
+            learner = train.build_trainer(RUN_DIR, DEVICE, **PARALLEL_FUSED).learner
+            m = learner.backward(ctx.batch)
+            raw_ref = [p.grad.detach().clone() for p in learner.parameters()]
+            learner.apply_grads()
+        groups = ("net", "mixer")
+        names = [f"{g}.{k}" for g in groups for k, _ in getattr(learner, g).named_parameters()]
+        ref = (float(m["LossQ"]), raw_ref, [p.grad.detach().clone() for p in learner.parameters()],
+               learner.state_dict())
+        env_info = dict(obs_shape=fused.obs_shape(single.env_params, "gnn"),
+                        state_shape=fused.state_shape(single.env_params),
+                        n_actions=single.env_params.n_actions,
+                        n_agents=single.env_params.n_ubs, episode_limit=single.T)
+        batch = tree_map(lambda x: x.cpu().numpy(), ctx.batch)
+        t0 = time.perf_counter()
+        gp_step, dp_fused, dp_update = launch.spawn(2, [
+            (graft_entry.run_case, dict(label="flagship-8ubs", dims=(1, 1, 2))),
+            (workers.fused_train, dict(map_id=run["map_id"], train_kwargs=run["args"],
+                                       trainer_kw=trainer_kw, ckpt=str(ckpt),
+                                       schedule=[(EPS, True), (EPS, False)])),
+            (workers.learner_update, dict(cfg=dict(run["args"]), env_info=env_info, batch=batch,
+                                          dims=(2, 1, 1), ckpt=str(ckpt)))],
+            DEVICE)
+        print(f"  backend {gp_step[0]['backend']}; the spawn and the three tasks "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        print(f"  gp = 2 flagship step (plain torch: the edge-partitioned GATv2 and TarMAC "
+              f"attention run no kernel, as JAX's reach no pallas_call): LossQ "
+              f"{gp_step[0]['loss']:.6f}, single-rank {gp_step[0]['loss_single']:.6f}; grads max "
+              f"|diff| {max(x['grad_err'] for x in gp_step):.2e}, params "
+              f"{max(x['params_err'] for x in gp_step):.2e}", flush=True)
+        rank_lines(gp_step)
+        ctx.phase_launches["parallel_gp_step"] = summed(gp_step)
+
+        T = single.T
+        want = fused_launches(T)
+        print(f"  dp = 2 fused trainer: single-rank warm-up {json.dumps(ref_metrics[0])}, "
+              f"iteration {json.dumps(ref_metrics[1])}", flush=True)
+        # Entries whose raw gradient was resolved in every update (check_update's rule):
+        # elsewhere Adam turns roundoff-level gradients into steps of up to ~3 lr.
+        resolved = [torch.ones_like(p, dtype=torch.bool) for p in ref_params]
+        for raw in raws:
+            scale = {g: max(r.abs().max().item() for n, r in zip(names, raw)
+                            if n.startswith(g + ".")) for g in groups}
+            resolved = [m & (r.abs() > RESOLVED_RTOL * scale[n.split(".")[0]])
+                        for m, n, r in zip(resolved, names, raw)]
+        resolved = [m.cpu().numpy() for m in resolved]
+        params_err, loose, loose_err = 0.0, 0, 0.0
+        for r, x in enumerate(dp_fused):
+            print(f"  rank {r}: warm-up {json.dumps(x['metrics'][0])}, iteration "
+                  f"{json.dumps(x['metrics'][1])}; ring {x['ring']} ({x['local_rows']} "
+                  f"local slots); {x['seconds']:.2f} s, {x['collectives']['ms']:.2f} ms in "
+                  f"{x['collectives']['calls']} collectives; launches {x['launches']}",
+                  flush=True)
+            for got, ref_m in zip(x["metrics"], ref_metrics):
+                for k in ("LossQ", "EpRet") if "LossQ" in ref_m else ref_m:
+                    if abs(got[k] - ref_m[k]) > PARALLEL_RTOL * abs(ref_m[k]):
+                        raise AssertionError(f"dp fused rank {r} {k}: {got[k]} vs {ref_m[k]}")
+            for (name, got), want_p, ok in zip(x["params"].items(), ref_params, resolved):
+                want_p = want_p.cpu().numpy()
+                diff = np.abs(got - want_p)
+                limit = PARALLEL_ATOL + PARALLEL_PARAMS_RTOL * np.abs(want_p)
+                params_err = max(params_err, float(diff[ok].max()) if ok.any() else 0.0)
+                loose += int((~ok).sum())
+                loose_err = max(loose_err, float(diff[~ok].max()) if (~ok).any() else 0.0)
+                if (diff[ok] > limit[ok]).any():
+                    raise AssertionError(f"dp fused rank {r} param {name}: max |diff| "
+                                         f"{diff[ok].max():.3e} where resolved")
+            if x["launches"] != want:
+                raise AssertionError(f"dp fused rank {r}: expected {want} launches")
+        print(f"  params max |diff| {params_err:.2e} where the raw gradient was resolved in "
+              f"both updates (limit {PARALLEL_ATOL} + {PARALLEL_PARAMS_RTOL} |p|); "
+              f"{loose // len(dp_fused)} entries a rank below {RESOLVED_RTOL} of their group's "
+              f"largest, which Adam moves by roundoff, differ by up to {loose_err:.2e}",
+              flush=True)
+        ctx.phase_launches["parallel_fused_dp2"] = summed(dp_fused)
+
+        for r, x in enumerate(dp_update):
+            raw = [torch.from_numpy(x["grads"][n]).to(DEVICE) for n in names]
+            clipped = [g.clamp(-1.0, 1.0) if n.startswith("net.") else g
+                       for n, g in zip(names, raw)]
+            state = {("" if what == "params" else "target_") + g:
+                     {k[len(g) + 1:]: torch.from_numpy(v).to(DEVICE)
+                      for k, v in x[what].items() if k.startswith(g + ".")}
+                     for what in ("params", "targets") for g in groups}
+            loss_err, grad_err, param_err, loose, loose_err, n_entries, _ = update_gate_errors(
+                (x["loss"], raw, clipped, state), ref, names, groups)
+            print(f"  dp = 2 update, rank {r}: LossQ {x['loss']:.6f}, single-rank {ref[0]:.6f} "
+                  f"(rel diff {loss_err:.2e}, limit {UPDATE_LOSS_RTOL}); clipped grads "
+                  f"{grad_err:.2e} of the group's largest raw gradient (limit "
+                  f"{UPDATE_GRAD_RTOL}); params and targets {param_err:.2e} where resolved "
+                  f"(limit {UPDATE_PARAM_ATOL}; {loose} of {n_entries} unresolved entries within "
+                  f"{loose_err:.2e})", flush=True)
+            if not (math.isfinite(x["loss"]) and loss_err <= UPDATE_LOSS_RTOL
+                    and grad_err <= UPDATE_GRAD_RTOL and param_err <= UPDATE_PARAM_ATOL):
+                raise AssertionError(f"the dp = 2 update of rank {r} disagrees with the "
+                                     "single-rank kernel update")
+            if x["launches"] != per_update_launches(T):
+                raise AssertionError(f"dp update rank {r}: launches {x['launches']}")
+        rank_lines(dp_update)
+        ctx.phase_launches["parallel_update_dp2"] = summed(dp_update)
+        del single, learner
+
+
 def exp1_times(e1):
     """exp1's times: #2 and #3 at exp1's shapes with their bounds, ms per
     update (gnn through the kernels and on the plain path, rnn), the
@@ -2614,6 +2828,7 @@ def main():
                                          reset_counts=reset_counts))
     slice13_phases(SimpleNamespace(counts=counts, reset_counts=reset_counts,
                                    phase_launches=phase_launches))
+    parallel_phases(SimpleNamespace(batch=batch, phase_launches=phase_launches))
 
     record = []
     with phase("times"):

@@ -238,6 +238,11 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
         "native/__init__.py", "native/build.py", "native/env_core.py",
         "algos/madrqn/vec_run.py", "ops/segment.py")}
     assert slice13 <= set(files)
+    parallel = {port / name for name in (
+        "parallel/__init__.py", "parallel/dist.py", "parallel/mesh.py",
+        "parallel/graph_parallel.py", "parallel/launch.py", "parallel/workers.py",
+        "graft_entry.py")}
+    assert parallel <= set(files)
     assert {"cloudpickle", "pandas", "matplotlib"} <= FORBIDDEN
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

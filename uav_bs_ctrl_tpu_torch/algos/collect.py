@@ -10,6 +10,11 @@ card. Each step hands the policy its own key, as the JAX rollouts split
 generator only when the policy reads it (the DiscreteComm agent seeds its
 Gumbel noise with it), so a policy that samples nothing leaves the rollout's
 stream as it was.
+
+``rows=(lo, hi, W)`` runs worlds ``[lo, hi)`` of ``W`` (a dp rank's block,
+``algos/madrqn/fused.py``): every draw is made at the full ``W`` worlds, as
+one rank makes it, and the block's rows are kept, so the generator advances
+as the single-rank run's and the block's worlds are that run's.
 """
 
 import numpy as np
@@ -17,6 +22,7 @@ import torch
 
 from uav_bs_ctrl_tpu_torch.envs import torch_env
 from uav_bs_ctrl_tpu_torch.envs.maps import MAPS
+from uav_bs_ctrl_tpu_torch.models.modules import gumbel_noise
 
 
 def make_layout_pool(map_id, n_layouts, seed=0):
@@ -33,12 +39,14 @@ def make_layout_pool(map_id, n_layouts, seed=0):
     return np.stack(ubs), np.stack(gts)
 
 
-def reset_worlds(params, pool, generator, n_worlds, device):
+def reset_worlds(params, pool, generator, n_worlds, device, rows=None):
     """Reset ``n_worlds`` worlds from random pool layouts, each with a random
-    GT priority permutation."""
+    GT priority permutation (with ``rows``, worlds ``[lo, hi)`` of them)."""
     pool_ubs, pool_gts = (torch.as_tensor(a) for a in pool)
     idx = torch.randint(0, pool_ubs.shape[0], (n_worlds,), generator=generator)
     prior = torch.argsort(torch.rand((n_worlds, params.n_gts), generator=generator), dim=-1)
+    if rows is not None:
+        idx, prior = idx[rows[0]:rows[1]], prior[rows[0]:rows[1]]
     return torch_env.reset_from_positions(params, pool_ubs[idx].to(device),
                                           pool_gts[idx].to(device), prior.to(device))
 
@@ -67,24 +75,35 @@ def make_policy(net, o):
 
 class StepKey:
     """One env step's policy key: ``int(key)`` draws a seed from the rollout's
-    generator the first time and returns the same seed after."""
+    generator the first time and returns the same seed after; ``noise(shape,
+    device)`` is the Gumbel noise of that seed for ``shape`` (leading axis the
+    worlds), drawn at the full worlds of ``rows`` and cut to its block."""
 
-    def __init__(self, generator):
-        self._generator, self._seed = generator, None
+    def __init__(self, generator, rows=None):
+        self._generator, self._seed, self._rows = generator, None, rows
 
     def __int__(self):
         if self._seed is None:
             self._seed = int(torch.randint(0, 2**62, (), generator=self._generator))
         return self._seed
 
+    def noise(self, shape, device):
+        if self._rows is None:
+            return gumbel_noise(shape, int(self), device)
+        lo, hi, total = self._rows
+        return gumbel_noise((total,) + tuple(shape[1:]), int(self), device)[lo:hi]
 
-def _act(policy, obs, h, generator, eps, n_actions):
+
+def _act(policy, obs, h, generator, eps, n_actions, rows=None):
     """Joint epsilon-greedy actions [W, A] and the next hidden state;
     ``policy(obs, h, key=...)`` gets the step's ``StepKey``."""
-    q, h2 = policy(obs, h, key=StepKey(generator))
+    q, h2 = policy(obs, h, key=StepKey(generator, rows))
     greedy = q.argmax(-1)                                       # [W, A]
-    rand = torch.randint(0, n_actions, tuple(greedy.shape), generator=generator)
-    explore = torch.rand((greedy.shape[0], 1), generator=generator) < eps
+    n = greedy.shape[0] if rows is None else rows[2]
+    rand = torch.randint(0, n_actions, (n,) + tuple(greedy.shape[1:]), generator=generator)
+    explore = torch.rand((n, 1), generator=generator) < eps
+    if rows is not None:
+        rand, explore = rand[rows[0]:rows[1]], explore[rows[0]:rows[1]]
     return torch.where(explore.to(h.device), rand.to(h.device), greedy), h2
 
 
@@ -96,7 +115,7 @@ def episode_stats(states, prefix=""):
                 states.t.to(torch.float32), min=1)}
 
 
-def collect_chunk(env_params, policy, states, h0, n_steps, generator, eps):
+def collect_chunk(env_params, policy, states, h0, n_steps, generator, eps, rows=None):
     """Roll ``n_steps`` steps of every world; returns ``(chunk, states, stats)``.
 
     The chunk is in the replay layout: ``obs`` dict of [W, T+1, ...] (the last
@@ -113,7 +132,7 @@ def collect_chunk(env_params, policy, states, h0, n_steps, generator, eps):
     for _ in range(n_steps):
         obs_seq.append(obs)
         state_seq.append(torch_env.get_state_vec(env_params, states))
-        acts, h = _act(policy, obs, h, generator, eps, env_params.n_actions)
+        acts, h = _act(policy, obs, h, generator, eps, env_params.n_actions, rows)
         if len(h_pair) == 1:
             h_pair.append(h)
         states, obs, rew, done = torch_env.step(env_params, states, acts)

@@ -54,6 +54,15 @@ key mapping into ``exp_avg``/``exp_avg_sq`` and ``count`` becomes every
 parameter's ``step``. :meth:`save_checkpoint` writes the same file the other
 way round, so either package resumes it.
 
+:func:`parallel.mesh.distribute_learner` shards the update over a device mesh
+through ``self.sharding`` (None on one rank): ``backward`` takes this rank's
+dp rows of the global batch, :meth:`draw_noise` draws the global batch's
+noise and keeps the same rows, the dp group averages the raw gradients and
+the metrics before the clip, and AdamW, the clip and Polyak run on the
+rank's mp shards (``sharding.masters``), all-gathered into the modules after
+the step; :meth:`save_checkpoint` gathers the AdamW moments and rank 0
+alone writes the file.
+
 The classic host loop (``algos/madrqn/run.py``, ``algos/drqn/run.py``) acts
 with :meth:`init_hidden` and :meth:`act` on one host world, as JAX's
 ``core.py:121-154``: the observation has no world axis, so :meth:`act` adds
@@ -157,10 +166,11 @@ class RecurrentQLearner:
         self._epoch = 0
         self.optimizer = self._make_optimizer()
         self._update_lr = np.float32(self.lr)   # the last update's, as optax's state holds it
+        self.sharding = None                    # parallel.mesh.LearnerSharding
 
-    def _make_optimizer(self):
-        return torch.optim.AdamW(self.parameters(), lr=self.lr, betas=BETAS, eps=ADAM_EPS,
-                                 weight_decay=WEIGHT_DECAY)
+    def _make_optimizer(self, params=None):
+        return torch.optim.AdamW(self.parameters() if params is None else params, lr=self.lr,
+                                 betas=BETAS, eps=ADAM_EPS, weight_decay=WEIGHT_DECAY)
 
     def parameters(self):
         """Net then mixer parameters: what AdamW updates."""
@@ -302,13 +312,17 @@ class RecurrentQLearner:
     def draw_noise(self, batch):
         """The per-step noise of one update on ``batch``: ``{"pol": [T+1, ...],
         "targ": [T, ...]}`` drawn from the learner's generator, or None (and
-        nothing drawn) when the agent reads no key."""
+        nothing drawn) when the agent reads no key. A sharded learner draws
+        the global batch's noise and keeps its own rows."""
         b, _, a = batch["h"].shape[:3]
+        lo, hi = 0, b
+        if self.sharding is not None:
+            lo, hi, b = self.sharding.rows(b)
         shape = self.net.noise_shape((b,), a)
         if shape is None:
             return None
         T = self.max_seq_len
-        return {name: gumbel_draw((n,) + shape, self.noise_generator, self.device)
+        return {name: gumbel_draw((n,) + shape, self.noise_generator, self.device)[:, lo:hi]
                 for name, n in (("pol", T + 1), ("targ", T))}
 
     def _loss(self, batch, use_kernels, noise):
@@ -359,29 +373,39 @@ class RecurrentQLearner:
         return metrics
 
     def backward(self, batch, use_kernels=True, noise=None):
-        """The loss and its raw gradients in ``.grad`` (no clip, no step)."""
+        """The loss and its raw gradients in ``.grad`` (no clip, no step); a
+        sharded learner's are the dp means (``batch`` holds this rank's rows)."""
         if noise is None:
             noise = self.draw_noise(batch)
-        self.optimizer.zero_grad(set_to_none=True)
+        for p in self.parameters():       # the optimizer's may be a sharding's masters
+            p.grad = None
         loss, qvals = self._loss(batch, use_kernels, noise)
         loss.backward()
-        return dict(LossQ=loss.detach(), QVals=qvals.detach().mean())
+        metrics = dict(LossQ=loss.detach(), QVals=qvals.detach().mean())
+        return metrics if self.sharding is None else self.sharding.reduce(metrics)
 
     def apply_grads(self):
         """Clip the net's ``.grad`` to [-1, 1], step AdamW at ``lr * lr_scale``
-        and Polyak-average the targets."""
-        params = self.parameters()
-        for p in params:                  # optax updates (and decays) every leaf
+        and Polyak-average the targets (a sharded learner: its shards, then
+        gathered into the modules)."""
+        for p in self.parameters():       # optax updates (and decays) every leaf
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        torch.nn.utils.clip_grad_value_(self.net.parameters(), CLIP_VALUE)
+        params, targets = self.parameters(), self.target_parameters()
+        n_net = len(list(self.net.parameters()))
+        if self.sharding is not None:
+            self.sharding.take_grads()
+            params, targets = self.sharding.masters, self.sharding.target_masters
+        torch.nn.utils.clip_grad_value_(params[:n_net], CLIP_VALUE)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr * self.lr_scale
         self.optimizer.step()
         self._update_lr = np.float32(self.lr) * np.float32(self.lr_scale)  # f32, as JAX
         with torch.no_grad():
-            for t, p in zip(self.target_parameters(), params):
+            for t, p in zip(targets, params):
                 t.mul_(self.polyak).add_(p, alpha=1.0 - self.polyak)
+        if self.sharding is not None:
+            self.sharding.gather()
 
     def update(self, rng=None):
         """One update from a host-buffer sample (without replacement, drawn
@@ -401,8 +425,16 @@ class RecurrentQLearner:
     # ------------------------------------------------------------------ #
     # State
 
+    def _unsharded(self, what):
+        """Raise for ``what`` on a learner whose state is split over mp (a dp
+        sharding keeps the module params as AdamW's)."""
+        if self.sharding is not None and any(self.sharding.sliced):
+            raise RuntimeError(f"{what} on a learner sharded over mp: its params and "
+                               "AdamW state are shards (save_checkpoint gathers them)")
+
     def state_dict(self) -> dict:
         """A deep copy of everything an update reads and writes."""
+        self._unsharded("state_dict")
         modules = dict(net=self.net, target_net=self.target_net)
         if self.mixer is not None:
             modules.update(mixer=self.mixer, target_mixer=self.target_mixer)
@@ -413,6 +445,7 @@ class RecurrentQLearner:
         return copy.deepcopy(state)
 
     def load_state_dict(self, state: dict):
+        self._unsharded("load_state_dict")
         state = copy.deepcopy(state)
         for name in ("net", "target_net", "mixer", "target_mixer"):
             if name in state:
@@ -424,7 +457,9 @@ class RecurrentQLearner:
 
     def load_params(self, tree):
         """Net (and mixer) from a JAX learner tree ``{"net": ..., "mixer": ...}``;
-        targets become copies and AdamW starts afresh (as optax's ``init``)."""
+        targets become copies and AdamW starts afresh (as optax's ``init``).
+        A learner sharded over mp loads before ``distribute_learner``."""
+        self._unsharded("load_params")
         loaded = learner_params_from_jax(tree, self.net, self.mixer)
         self.net.load_state_dict(loaded["net"])
         self.target_net.load_state_dict(loaded["net"])
@@ -459,7 +494,8 @@ class RecurrentQLearner:
         and ``nu`` trees keyed as the params, the hyperparams as float32 0-d
         arrays with the learning rate of the last update (optax writes it into
         its state at each update; a fresh or loaded state holds its own)."""
-        state = self.optimizer.state
+        state = (self.optimizer.state if self.sharding is None
+                 else self.sharding.full_adam_state(self.optimizer))
         steps = {float(state[p]["step"]) if p in state else 0.0 for p in self.parameters()}
         if len(steps) != 1:
             raise ValueError(f"AdamW's parameters are at different steps {sorted(steps)}; "
@@ -479,7 +515,9 @@ class RecurrentQLearner:
     def save_checkpoint(self, path, stamp):
         """The JAX ``save_checkpoint``: ``stamp`` (``epoch``, ``t``), net,
         mixer, optax's AdamW state and, with ``anneal_lr``, the LR scheduler's
-        ``{epoch, lr_scale}``, as numpy leaves in the JAX layout."""
+        ``{epoch, lr_scale}``, as numpy leaves in the JAX layout. On a
+        sharded learner every rank calls it (the moments are gathered) and
+        rank 0 alone writes."""
         params = learner_params_to_jax(self._by_group(lambda p: p))
         checkpoint = dict(stamp)
         checkpoint["model_state_dict"] = params["net"]
@@ -489,6 +527,8 @@ class RecurrentQLearner:
         if self.anneal_lr:
             checkpoint["lr_scheduler_state_dict"] = dict(epoch=self._epoch,
                                                          lr_scale=self.lr_scale)
+        if self.sharding is not None and self.sharding.rank != 0:
+            return
         ckpt_io.save(path, checkpoint)
         print(f"Save checkpoint to {path}.")
 

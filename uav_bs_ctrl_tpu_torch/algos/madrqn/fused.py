@@ -6,8 +6,17 @@ updates, each on B chunks drawn with replacement from the ring]. Experience,
 ring and updates stay on the device; the host schedules and makes the random
 draws, from one CPU ``torch.Generator`` (resets, exploration, sample
 indices) moved to the device, so a seed gives the same run on the CPU and on
-the card. The JAX trainer's ``mesh`` (data-parallel sharding) is not ported
-(ROADMAP.md Queue 1).
+the card.
+
+``mesh`` (a ``DeviceMesh`` of ``parallel.mesh.make_mesh``; JAX
+``fused.py:97-119``) shards the whole loop over ``dp``: rank r collects its
+block of each collection's worlds, keeps them in its shard of the ring
+(``algos/buffer.py:RingShard``) and trains on its rows of each batch, the
+learner distributed (``parallel.mesh.distribute_learner``). Every rank
+advances the generator exactly as the single-rank trainer does (it draws the
+full-size tensors and keeps its rows), so the dp trainer reproduces the
+single-rank one; the metrics are means over every rank's worlds, and the
+test episodes run whole on every rank.
 
 Under ``o='mlp'`` the policy and the ring see the flat observation
 ``[agent | gt | ubs]`` per agent (and the talk graph), as the JAX trainer's
@@ -22,10 +31,12 @@ from types import SimpleNamespace as SN
 import torch
 
 from uav_bs_ctrl_tpu_torch.algos import collect
-from uav_bs_ctrl_tpu_torch.algos.buffer import DeviceRing
+from uav_bs_ctrl_tpu_torch.algos.buffer import DeviceRing, RingShard
 from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
 from uav_bs_ctrl_tpu_torch.config import DEFAULT_CONFIG, check_args_sanity
 from uav_bs_ctrl_tpu_torch.envs import torch_env
+from uav_bs_ctrl_tpu_torch.parallel.dist import all_reduce
+from uav_bs_ctrl_tpu_torch.parallel.mesh import distribute_learner
 
 
 def obs_shape(env_params, o):
@@ -48,7 +59,7 @@ class FusedMadrqnTrainer(DeviceRing):
     """Device-resident replay ring + on-device collection and updates."""
 
     def __init__(self, map_id, train_kwargs=None, n_worlds=16, capacity_chunks=256,
-                 updates_per_iter=None, n_layouts=64, seed=0, interleave=1):
+                 updates_per_iter=None, n_layouts=64, seed=0, interleave=1, mesh=None):
         cfg = dict(DEFAULT_CONFIG)
         cfg.update(train_kwargs or {})
         self.args = args = check_args_sanity(SN(**cfg))
@@ -83,17 +94,29 @@ class FusedMadrqnTrainer(DeviceRing):
         self.last_losses = None            # LossQ of each update of the last iteration
         self._ptr = 0
         self._size = 0
+        if mesh is not None:
+            names = mesh.mesh_dim_names
+            dp = mesh.size(names.index("dp"))
+            assert n_worlds % dp == 0 and (n_worlds // interleave) % dp == 0, \
+                f"n_worlds={n_worlds} and its sub-iterations must divide by dp={dp}"
+            assert capacity_chunks % dp == 0, \
+                f"capacity_chunks={capacity_chunks} must be divisible by dp={dp}"
+            distribute_learner(self.learner, mesh)
+            self.ring_shard = RingShard(capacity_chunks, dp, mesh.get_local_rank("dp"),
+                                        mesh.get_group("dp"))
 
     # ------------------------------------------------------------------ #
 
     @torch.no_grad()
     def _collect(self, eps, n_worlds):
+        rows = None if self.ring_shard is None else self.ring_shard.rows(n_worlds)
         states = collect.reset_worlds(self.env_params, self.pool, self.generator, n_worlds,
-                                      self.device)
-        h0 = torch.zeros((n_worlds, self.env_params.n_ubs, self.args.hidden_size),
+                                      self.device, rows)
+        n_local = n_worlds if rows is None else rows[1] - rows[0]
+        h0 = torch.zeros((n_local, self.env_params.n_ubs, self.args.hidden_size),
                          device=self.device)
         chunk, _, stats = collect.collect_chunk(self.env_params, self.policy, states, h0,
-                                                self.T, self.generator, eps)
+                                                self.T, self.generator, eps, rows)
         if self.args.o == "mlp":
             chunk["obs"] = collect.flatten_obs(chunk["obs"])
         if self.learner.share_reward:
@@ -116,7 +139,7 @@ class FusedMadrqnTrainer(DeviceRing):
         if warmup:
             chunk, stats = self._collect(eps, self.n_worlds)
             self._write(chunk)
-            return {k: float(v.mean()) for k, v in stats.items()}
+            return self._means(stats)
         sub_worlds = self.n_worlds // self.interleave
         k_sub = self.updates_per_iter // self.interleave
         losses, all_stats = [], []
@@ -126,9 +149,16 @@ class FusedMadrqnTrainer(DeviceRing):
             all_stats.append(stats)
             for _ in range(k_sub):
                 losses.append(self.learner.update_on_batch(self.sample_batch())["LossQ"])
-        stats = {k: torch.cat([s[k] for s in all_stats]) for k in all_stats[0]}
+        stats = {k: torch.cat([s[k] for s in all_stats])
+                 for k in ("EpRet", "FairIdx", "AvgGlobalUtility")}
         self.last_losses = torch.stack(losses)
-        metrics = dict(LossQ=self.last_losses.mean(), EpRet=stats["EpRet"].mean(),
-                       FairIdx=stats["FairIdx"].mean(),
-                       AvgGlobalUtility=stats["AvgGlobalUtility"].mean())
-        return {k: float(v) for k, v in metrics.items()}
+        return dict(LossQ=float(self.last_losses.mean()), **self._means(stats))
+
+    def _means(self, stats):
+        """Each stat's mean over the worlds (every rank's on a sharded ring)."""
+        if self.ring_shard is None:
+            return {k: float(v.mean()) for k, v in stats.items()}
+        sums = all_reduce(torch.stack([v.sum() for v in stats.values()]),
+                          self.ring_shard.group)
+        n = next(iter(stats.values())).numel() * self.ring_shard.dp
+        return {k: float(v / n) for k, v in zip(stats, sums)}

@@ -19,7 +19,8 @@ With ``use_kernels`` (the default) the encoder goes through the kernel of its
 ``gat_backend`` (``flash_gat`` for 'pallas', else ``flash_gat_fused_train``)
 and, for one-round TarMAC, the step through ``tarmac_step_train`` (the
 fused step the JAX package takes under ``step_backend='pallas'``; the port
-takes it under either step backend); the CUDA kernels on a card, their plain
+takes it under either step backend; not while a ``gp`` group runs the talk
+attention edge-partitioned); the CUDA kernels on a card, their plain
 versions on the CPU. Every other step runs on plain torch modules, as the JAX
 step does under ``step_backend='xla'``. ``use_kernels=False`` takes the
 unfused module path, whose autograd is the independent reference.
@@ -90,7 +91,7 @@ class GnnAgent(nn.Module):
         return self.enc(obs, use_kernels)                  # [..., A, hidden]
 
     def step(self, x, adj, h, use_kernels=True, key=None):
-        if use_kernels and self.fused_step:
+        if use_kernels and self.fused_step and self.f_comm.gp_group() is None:
             return self._step_fused(x, adj, h)
         h = self.rnn(x, h) if self.f_comm is None else self.f_comm(adj, x, h, key)
         return self.f_out(h), h

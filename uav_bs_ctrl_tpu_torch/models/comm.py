@@ -8,8 +8,9 @@ parameter names, so that ``params_from_jax`` maps the trees by path:
   GRU([x; c], h).
 - ``DiscreteComm``: 2-way hard Gumbel-softmax bits per EDGE, OR (max) over
   in-edges, decode Linear, GRU([x; dec(c)], h). The only protocol that
-  draws noise: ``key`` is the noise tensor itself, or a seed (anything
-  ``int()`` takes) of a generator on the inputs' device.
+  draws noise: ``key`` is the noise tensor itself, an object whose
+  ``noise(shape, device)`` draws it (the rollouts' ``StepKey``), or a seed
+  (anything ``int()`` takes) of a generator on the inputs' device.
 - ``CommNet``: mean of sg(h) over in-edges, GRU(x + Linear(c), h); rounds.
 - ``TarMAC``: signature/query scores / key_size, softmax over sources per
   destination, attention-weighted value sum, GRU([x; c], h); rounds.
@@ -18,8 +19,9 @@ parameter names, so that ``params_from_jax`` maps the trees by path:
 
 ``sg`` (JAX's ``stop_gradient``) is ``detach``. A destination with no
 in-edge receives zeros. TarMAC under ``comm_backend='graph_parallel'`` runs
-its dense attention after a one-time ``RuntimeWarning`` (JAX
-``models/comm.py:149-160``): the port registers no mesh.
+``tarmac_attention_graph_parallel`` over the registered ``gp`` group (JAX
+``models/comm.py:149-160``), or, with none, its dense attention after a
+one-time ``RuntimeWarning``.
 """
 
 import torch
@@ -28,6 +30,8 @@ from torch import nn
 from uav_bs_ctrl_tpu_torch.models.encoders import _warn_graph_parallel_fallback
 from uav_bs_ctrl_tpu_torch.models.modules import GRUCell, Linear, gumbel_softmax
 from uav_bs_ctrl_tpu_torch.ops.masked import masked_max, masked_softmax
+from uav_bs_ctrl_tpu_torch.parallel.graph_parallel import (
+    get_graph_parallel_group, tarmac_attention_graph_parallel)
 
 
 def _aggregate_mean(msg, adj):
@@ -67,6 +71,9 @@ class DiscreteComm(nn.Module):
             lead + (n_src, n_dst, self.msg_size, 2))
         if isinstance(key, torch.Tensor):
             bits = gumbel_softmax(edge_logits, tau=0.5, hard=True, noise=key)
+        elif hasattr(key, "noise"):
+            bits = gumbel_softmax(edge_logits, tau=0.5, hard=True,
+                                  noise=key.noise(edge_logits.shape, x.device))
         else:
             bits = gumbel_softmax(edge_logits, tau=0.5, hard=True,
                                   seed=None if key is None else int(key))
@@ -103,23 +110,35 @@ class TarMAC(nn.Module):
         self.f_que = Linear(2 * hidden, key_size)
         self.f_udt = GRUCell(hidden + msg_size, hidden)
 
+    def gp_group(self):
+        """The registered ``gp`` group under ``comm_backend='graph_parallel'``, or None."""
+        return get_graph_parallel_group() if self.backend == "graph_parallel" else None
+
     def warn_fallback(self):
-        """JAX's one-time warning when the talk attention asked for the mesh."""
-        if self.backend == "graph_parallel":
+        """JAX's one-time warning when the talk attention asked for a mesh
+        and none is registered."""
+        if self.backend == "graph_parallel" and self.gp_group() is None:
             _warn_graph_parallel_fallback("tarmac_talk")
 
     def forward(self, adj, x, h, key=None):
         for _ in range(self.n_rounds):
-            self.warn_fallback()
             inputs = torch.cat([x, h.detach()], dim=-1)    # h reaches v/s/q without gradient
             v = self.f_val(inputs)                         # [..., S, msg]
             s = self.f_sign(inputs)                        # [..., S, key]
             q = self.f_que(inputs)                         # [..., D, key]
-            scores = torch.einsum("...sk,...dk->...sd", s, q) / self.key_size
-            alpha = masked_softmax(scores, adj, dim=-2)
-            c = torch.einsum("...sd,...sm->...dm", alpha, v)
+            c = self._attention(s, q, v, adj)
             h = self.f_udt(torch.cat([x, c], dim=-1), h)
         return h
+
+    def _attention(self, s, q, v, adj):
+        """Per-destination softmax attention over valid source agents."""
+        group = self.gp_group()
+        if group is not None:
+            return tarmac_attention_graph_parallel(s, q, v, adj, self.key_size, group)
+        self.warn_fallback()
+        scores = torch.einsum("...sk,...dk->...sd", s, q) / self.key_size
+        alpha = masked_softmax(scores, adj, dim=-2)
+        return torch.einsum("...sd,...sm->...dm", alpha, v)
 
 
 class EdgeConv(nn.Module):

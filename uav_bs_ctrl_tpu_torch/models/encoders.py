@@ -7,29 +7,34 @@ features plus a ``[..., A, M]`` visibility mask), exactly the env's obs layout.
 The JAX package's ``gat_backend`` picks the kernel: ``'pallas'`` projects
 ``el = fc_src(x_src)`` as a plain product and runs ``flash_gat`` over it (the
 inference-only path: the kernel has no gradient); every other backend runs
-the projection-fused ``flash_gat_fused_train``. ``'graph_parallel'`` has no
-mesh in the port: it runs as the dense backend does, after a one-time
-``RuntimeWarning`` per slot count with the JAX package's text
-(``models/encoders.py:31-50``).
+the projection-fused ``flash_gat_fused_train``. ``'graph_parallel'`` with a
+``gp`` group registered (``parallel.graph_parallel.set_graph_parallel_mesh``)
+runs ``gatv2_graph_parallel`` on the slot axis padded to the group's size,
+whatever ``use_kernels`` says (JAX's path is plain too); with none it runs as
+the dense backend does, after a one-time ``RuntimeWarning`` per slot count
+with the JAX package's text (``models/encoders.py:31-50``).
 """
 
 import math
 import warnings
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from uav_bs_ctrl_tpu_torch.models.modules import MLP, Linear
 from uav_bs_ctrl_tpu_torch.ops.gat_kernels import flash_gat, flash_gat_fused_train
 from uav_bs_ctrl_tpu_torch.ops.masked import masked_softmax
+from uav_bs_ctrl_tpu_torch.parallel.graph_parallel import (
+    gatv2_graph_parallel, get_graph_parallel_group, pad_slot_axis)
 
 _gp_fallback_warned = set()
 
 
 def _warn_graph_parallel_fallback(n_slots):
     """One-time warning, per slot count (or ``'tarmac_talk'``), that
-    ``'graph_parallel'`` ran as the dense backend: the port registers no mesh."""
+    ``'graph_parallel'`` ran as the dense backend: no mesh is registered."""
     if n_slots in _gp_fallback_warned:
         return
     _gp_fallback_warned.add(n_slots)
@@ -67,11 +72,16 @@ class GATv2(nn.Module):
         kernels on a card, their plain versions on the CPU. ``False`` takes
         the dense path, whose autograd is the independent reference.
         """
+        if self.backend == "graph_parallel" and x_src.shape[-2]:
+            group = get_graph_parallel_group()
+            if group is not None:
+                x_src, mask = pad_slot_axis(x_src, mask, dist.get_world_size(group))
+                return gatv2_graph_parallel(self, x_src, x_dst, mask, self.n_heads, group,
+                                            self.negative_slope)
+            _warn_graph_parallel_fallback(x_src.shape[-2])
         res = self.res_fc(x_dst) if self.res_fc is not None else x_dst
         if x_src.shape[-2] == 0:          # no slots at all: residual only
             return torch.relu(res)
-        if self.backend == "graph_parallel":
-            _warn_graph_parallel_fallback(x_src.shape[-2])
         er = self.fc_dst(x_dst)                                   # [..., H*F]
         hf = er.shape[-1]
         if use_kernels:
