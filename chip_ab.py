@@ -21,7 +21,10 @@ call of each, timed with ``chip_smoke.time_cuda`` in turns: old, new, new, old.
 The step kernels run at the 8-UBS width (A = 8, hidden 256, msg 64, key 16, 9
 actions) at 32 and 512 worlds (the forward also at 40, the serving batch), and
 again on the same inputs rounded to bf16 where the old source has the bf16
-launcher. The
+launcher; for each step case the script also prints the plain version's ms
+(after the turns), the card's bound (``chip_smoke.bound``) and, at bf16, each
+version's largest error against the plain version in float64 on the same
+inputs, relative to max(1, max |referee|) per output. The
 GATv2 kernels run at the 8-UBS width (4 heads of 64) for the 'seen' GT slots
 (M = 50, D = 4) and the 'near' UBS slots (M = 7, D = 2), at N = 256 rows (the
 update), 320 (serving 40 worlds) and 4096, each with slots valid at the share
@@ -50,6 +53,8 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from uav_bs_ctrl_tpu_torch.ops import build, gat_kernels, step_kernels  # noqa: E402
 
+PLAIN = {"tarmac_step": (step_kernels.tarmac_step_plain, chip_smoke.step_cost),
+         "tarmac_step_bwd": (step_kernels.tarmac_step_bwd_plain, chip_smoke.step_bwd_cost)}
 KERNELS = {  # name: (wrapper, ctypes signatures)
     "flash_gat": (gat_kernels.flash_gat, gat_kernels._FLASH_SIGNATURES),
     "tarmac_step": (step_kernels.tarmac_step, step_kernels._SIGNATURES),
@@ -186,6 +191,20 @@ def main():
         print(f"{name} {label}: {sys.argv[2]} {times['old']} ms, this tree "
               f"{times['new']} ms; max |new - old| / max(1, max |old|) {diff:.2e}, "
               f"bit-identical {same}", flush=True)
+        if name in PLAIN:
+            plain, cost = PLAIN[name]
+            with torch.no_grad():
+                plain_ms = chip_smoke.time_cuda(lambda: plain(*args))
+                bound_ms, bound_by = chip_smoke.bound(*cost(args), args[0].dtype)
+                line = f"{name} {label}: plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms " \
+                    f"({bound_by})"
+                if args[0].dtype == torch.bfloat16:
+                    ref = plain(*(t.double() if torch.is_tensor(t) else t for t in args))
+                    errs = [max(chip_smoke.referee_err(g, r) for g, r in zip(outs, ref))
+                            for outs in (want, got)]
+                    line += f"; max |kernel - f64 referee| / max(1, max |referee|): " \
+                        f"{sys.argv[2]} {errs[0]:.2e}, this tree {errs[1]:.2e}"
+            print(line, flush=True)
     return 0
 
 

@@ -3,8 +3,9 @@
 
 Run from anywhere: ``python3 chip_smoke.py``. Phases, each printed with its wall
 time: the device; the nvcc build of every kernel (one nvcc per source, in
-parallel); each of the five kernels against its plain PyTorch version on the
-card; serving the committed exp3 8-UBS TarMAC policy (40 worlds, one 50-step
+parallel); the tensor-core (HMMA) instructions that ``cuobjdump -sass`` finds
+in the step kernels' bf16 products and, none, in their f32 ones; each of the
+five kernels against its plain PyTorch version on the card; serving the committed exp3 8-UBS TarMAC policy (40 worlds, one 50-step
 episode) through the kernels, with every step's Q checked against the plain
 path; serving the committed exp3 4-UBS DiscreteComm policy with
 ``gat_backend='pallas'`` (``flash_gat``), every step's Q checked against the
@@ -354,10 +355,41 @@ def rel_err(got, want, what, limit=BWD_RTOL):
 def bound(ops, nbytes, dtype=torch.float32):
     """The least ms the card could take: the larger of the bytes over HBM's rate
     and the operations over the card's peak for the operands' type (bf16:
-    the tensor cores' rate, though the kernels widen to f32)."""
+    the tensor cores' rate, which the step kernels' products run at and the
+    GATv2 kernels, widening to f32, do not)."""
     peak = BF16_PEAK_FLOPS if dtype == torch.bfloat16 else F32_PEAK_FLOPS
     t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def hmma_counts(libraries, cuda_bin):
+    """{library: {"bf16": n, "f32": n}}: the HMMA (tensor-core) instructions in
+    the step_products kernels of each built library, by storage type, from
+    ``cuobjdump -sass`` (beside nvcc in ``cuda_bin``, else on PATH; raises
+    without it). A bf16 kernel's name holds ``__nv_bfloat16``."""
+    tool = Path(cuda_bin) / "cuobjdump"
+    if not tool.is_file():
+        found = shutil.which("cuobjdump")
+        if found is None:
+            raise RuntimeError(f"cuobjdump is neither in {cuda_bin} nor on PATH")
+        tool = Path(found)
+    counts = {}
+    for name, path in libraries.items():
+        sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        found = {"bf16": [0, 0], "f32": [0, 0]}                # kernels, HMMA instructions
+        for block in sass.split("Function : ")[1:]:
+            fn = block.split(None, 1)[0]
+            if "step_products" not in fn:
+                continue
+            kind = found["bf16" if "__nv_bfloat16" in fn else "f32"]
+            kind[0] += 1
+            kind[1] += sum(1 for line in block.splitlines() if "HMMA" in line)
+        if not found["bf16"][0] or not found["f32"][0]:
+            raise AssertionError(f"{name}: no step_products kernel of one type in the SASS "
+                                 f"({found})")
+        counts[name] = found
+    return counts
 
 
 def capture_kernel_calls(agent, obs, h, key=None):
@@ -2262,9 +2294,20 @@ def main():
               f"nvidia-smi: {card}", flush=True)
 
     with phase("build"):
-        build.build(list(all_kernels))
+        built = build.build(list(all_kernels))
         print(f"  the C++ env core: {native_build.build(verbose=True).relative_to(ROOT)}",
               flush=True)
+
+    with phase("the step products on the tensor cores (cuobjdump -sass)"):
+        steps = ("tarmac_step", "tarmac_step_bwd")
+        hmma = hmma_counts({k: built[k] for k in steps}, Path(build.find_nvcc()).parent)
+        for name, c in hmma.items():
+            print(f"  {name}: HMMA instructions in its bf16 step_products kernels "
+                  f"{c['bf16'][1]} (of {c['bf16'][0]} kernels), in its f32 ones {c['f32'][1]} "
+                  f"(of {c['f32'][0]})", flush=True)
+            if c["bf16"][1] == 0 or c["f32"][1] != 0:
+                raise AssertionError(f"{name}: the bf16 products must run on the tensor cores "
+                                     "and the f32 ones must not")
 
     worst = dict.fromkeys(all_kernels, 0.0)
     rng = np.random.default_rng(0)

@@ -4,16 +4,23 @@
 of ``test_torch_step_bwd_emulated.py``, whose ``cuda_bf16.h`` stores a
 16-bit type and rounds to nearest even as the card does.
 
-Each bf16 call is held, bit for bit, to its f32 instantiation on the same
-inputs widened to f32 with the outputs rounded to bf16: the two differ only
-in their loads and stores, so this pins the templating. Each is also held to
-its plain version in float64 on the same bf16 inputs (the f64 referee of
-``ROADMAP.md`` "Numerics"), within 2e-2 of max(1, max |referee|) per output,
-and the plain bf16 version's error is printed beside it. The shapes are the
-emulated tests' smallest: GATv2 'near' (N = 9, M = 7, D = 2, 4 x 64, a fully
-masked row) and the classic host loop's 4-UBS 'seen' and 'near' rows, the
-fused step at R = 20 (non-dueling) and R = 6 with A = 3 (dueling, a world
-with no edge). Without g++ they skip.
+Each bf16 call is held to its f32 instantiation on the same inputs widened
+to f32 with the outputs rounded to bf16. The GATv2 pair differs from it only
+in its loads and stores, so it is held bit for bit, which pins the
+templating. The step pair's products run on the tensor cores, its f32
+scratch operands as a bf16 hi/lo pair (``csrc/tarmac_step_common.cuh``), in
+another order than the f32 instantiation's: every entry is held within one
+bf16 ulp of the rounded f32 call (or 1e-5 of max(1, max |f32|)), and at
+least 99 % of a call's entries to it bit for bit; the same check with the
+split's lo half zeroed (the scratch plainly rounded to bf16) must fail.
+Each output is also held to its plain version in float64 on the same bf16
+inputs (the f64 referee of ``ROADMAP.md`` "Numerics"), within 2e-2 of
+max(1, max |referee|), and the plain bf16 version's error is printed beside
+it. The shapes are the emulated tests' smallest: GATv2 'near' (N = 9, M = 7,
+D = 2, 4 x 64, a fully masked row) and the classic host loop's 4-UBS 'seen'
+and 'near' rows, the fused step at R = 20 (non-dueling) and R = 6 with A = 3
+(dueling, a world with no edge), widths that leave every product row
+unaligned or ragged. Without g++ they skip.
 """
 
 import ctypes
@@ -23,11 +30,14 @@ import pytest
 import torch
 
 from test_torch_gat_emulated import _case as gat_case
-from test_torch_step_bwd_emulated import _build, _case as step_case
+from test_torch_step_bwd_emulated import CSRC, _build, _case as step_case
 from uav_bs_ctrl_tpu_torch.ops import gat_kernels, step_kernels
 
 BF16_TOL = 2e-2
 SLOPE = 0.2
+STEP_SAME = 0.99      # share of a step call's entries bit-identical to the f32 call rounded
+STEP_ATOL = 1e-5      # of max(1, max |f32|): an entry more than one bf16 ulp off must be closer
+LO_HALF = "lo = bf16_bits(__float2bfloat16_rn(v - __bfloat162float(h)));"
 
 
 @pytest.fixture(scope="module")
@@ -38,12 +48,26 @@ def gat_libs(tmp_path_factory):
                    gat_kernels._BWD_SIGNATURES))
 
 
+def build_step_libs(tmp_path_factory, rewrite=lambda text: text):
+    """``tarmac_step.cu`` and ``tarmac_step_bwd.cu`` built under the
+    emulation, each source and header edited by ``rewrite`` first."""
+    return (_build(tmp_path_factory.mktemp("bf16_step_fwd"), "tarmac_step",
+                   step_kernels._SIGNATURES, rewrite),
+            _build(tmp_path_factory.mktemp("bf16_step_bwd"), "tarmac_step_bwd",
+                   step_kernels._BWD_SIGNATURES, rewrite))
+
+
 @pytest.fixture(scope="module")
 def step_libs(tmp_path_factory):
-    return (_build(tmp_path_factory.mktemp("bf16_step_fwd"), "tarmac_step",
-                   step_kernels._SIGNATURES),
-            _build(tmp_path_factory.mktemp("bf16_step_bwd"), "tarmac_step_bwd",
-                   step_kernels._BWD_SIGNATURES))
+    return build_step_libs(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def step_libs_without_lo(tmp_path_factory):
+    """The step libraries with the lo half of every f32 operand zeroed: the
+    scratch enters the products plainly rounded to bf16."""
+    assert LO_HALF in (CSRC / "tarmac_step_common.cuh").read_text()
+    return build_step_libs(tmp_path_factory, lambda text: text.replace(LO_HALF, "lo = 0u;"))
 
 
 def _ptr(t):
@@ -68,6 +92,33 @@ def _check(name, got16, got32, plain16, ref):
     err = _err(got16, ref)
     print(f"{name}: kernel {err:.2e}, plain bf16 {_err(plain16, ref):.2e}")
     assert err <= BF16_TOL, f"{name}: {err:.3e}"
+
+
+def _ulps(a, b):
+    """The bf16 steps between a and b, entry by entry."""
+    def ordered(t):                       # the bit patterns in the order of the values
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7fff), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _check_step(name, got16, got32, plain16, ref):
+    """Every entry within one bf16 ulp of the f32 instantiation rounded (or
+    STEP_ATOL of max(1, max |f32|)), and within BF16_TOL of the referee;
+    returns (entries bit-identical to the rounded f32 call, entries)."""
+    assert got16.dtype == torch.bfloat16
+    want = got32.to(torch.bfloat16)
+    scale = max(1.0, got32.abs().max().item())
+    near = (_ulps(got16, want) <= 1) | \
+        ((got16.double() - want.double()).abs() <= STEP_ATOL * scale)
+    assert near.all(), f"{name}: {int((~near).sum())} of {near.numel()} entries more than " \
+        "one bf16 ulp from the rounded f32 call"
+    same = int((got16.view(torch.int16) == want.view(torch.int16)).sum())
+    err = _err(got16, ref)
+    print(f"{name}: kernel {err:.2e}, plain bf16 {_err(plain16, ref):.2e}; "
+          f"{same} of {got16.numel()} entries the rounded f32 call's")
+    assert err <= BF16_TOL, f"{name}: {err:.3e}"
+    return same, got16.numel()
 
 
 def _gat_fwd(lib, c, heads, dtype):
@@ -148,30 +199,51 @@ def _step_calls(libs, args, gq, gh2, w, a, key, dueling, dtype):
     return [q, h2], outs
 
 
-@pytest.mark.parametrize("w,a,hidden,msg,key,n_act,dueling,empty_world", [
-    (5, 4, 32, 8, 4, 5, False, False),       # R = 20: one ragged row tile
-    (2, 3, 70, 20, 5, 3, True, True),        # A = 3, a world with no edge
-])
-def test_emulated_bf16_step_kernels(step_libs, w, a, hidden, msg, key, n_act, dueling,
-                                    empty_world):
+def check_step_case(libs, w, a, hidden, msg, key, n_act, dueling, empty_world):
+    """The bf16 forward and backward of one case against the f32 calls
+    (``_check_step`` for each output, STEP_SAME of all their entries
+    bit-identical) and the f64 referee."""
     t16 = [t.to(torch.bfloat16) for t in step_case(np.random.default_rng(w * a + hidden), w, a,
                                                     hidden, msg, key, n_act, empty_world)]
     t32 = [t.float() for t in t16]
     cfg = (a, float(key), dueling)
-    got16 = _step_calls(step_libs, t16[:17], t16[17], t16[18], w, a, key, dueling,
-                        torch.bfloat16)
-    got32 = _step_calls(step_libs, t32[:17], t32[17], t32[18], w, a, key, dueling,
-                        torch.float32)
+    got16 = _step_calls(libs, t16[:17], t16[17], t16[18], w, a, key, dueling, torch.bfloat16)
+    got32 = _step_calls(libs, t32[:17], t32[17], t32[18], w, a, key, dueling, torch.float32)
     t64 = [t.double() for t in t32]
     refs = (step_kernels.tarmac_step_plain(*t64[:17], *cfg),
             step_kernels.tarmac_step_bwd_plain(*t64, *cfg))
     plains = (step_kernels.tarmac_step_plain(*t16[:17], *cfg),
               step_kernels.tarmac_step_bwd_plain(*t16, *cfg))
     names = (("q", "h2"), ["dx", "dh"] + [f"d{k}" for k in step_kernels._WEIGHTS])
+    same = total = 0
     for part in range(2):
         for name, g16, g32, plain, ref in zip(names[part], got16[part], got32[part],
                                               plains[part], refs[part]):
             if not dueling and name in ("dwvh", "dbvh"):
                 assert not g16.any()          # written as zeros without the V head
                 continue
-            _check(name, g16, g32, plain, ref)
+            s_, n_ = _check_step(name, g16, g32, plain, ref)
+            same, total = same + s_, total + n_
+    print(f"{same} of {total} entries ({same / total:.4%}) the rounded f32 call's")
+    assert same >= STEP_SAME * total, f"{same} of {total} entries bit-identical"
+
+
+STEP_CASES = [
+    (5, 4, 32, 8, 4, 5, False, False),       # R = 20: one ragged row tile
+    (2, 3, 70, 20, 5, 3, True, True),        # A = 3, a world with no edge
+]
+
+
+@pytest.mark.parametrize("w,a,hidden,msg,key,n_act,dueling,empty_world", STEP_CASES)
+def test_emulated_bf16_step_kernels(step_libs, w, a, hidden, msg, key, n_act, dueling,
+                                    empty_world):
+    check_step_case(step_libs, w, a, hidden, msg, key, n_act, dueling, empty_world)
+
+
+@pytest.mark.parametrize("w,a,hidden,msg,key,n_act,dueling,empty_world", STEP_CASES)
+def test_emulated_bf16_step_check_fails_without_the_lo_half(
+        step_libs_without_lo, w, a, hidden, msg, key, n_act, dueling, empty_world):
+    """The planted fault: f32 scratch rounded to bf16 before its products."""
+    with pytest.raises(AssertionError):
+        check_step_case(step_libs_without_lo, w, a, hidden, msg, key, n_act, dueling,
+                        empty_world)

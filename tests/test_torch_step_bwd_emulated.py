@@ -13,7 +13,9 @@ becomes a call of the emulated launcher. Every ``csrc/*.cuh`` header is put
 through the same substitutions and written beside the source, with a
 ``cuda_bf16.h`` whose 16-bit type rounds as the card's does
 (``BF16_EMULATION_HEADER``; ``test_torch_bf16_emulated.py`` runs the bf16
-instantiations). The tests call
+instantiations), and ``mma_sm90.cuh``, the tensor-core instructions of the
+bf16 products, is replaced by C++ stand-ins (``MMA_EMULATION_HEADER``;
+``test_torch_mma_emulated.py`` holds them against numpy). The tests call
 the C entry points ``tarmac_step_backward`` and ``tarmac_step_forward`` on CPU
 tensors through ``ctypes`` (``test_torch_gat_emulated.py`` builds the GATv2
 kernels the same way). They check the arithmetic, the job tables, the scratch
@@ -56,6 +58,10 @@ inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 struct emu_dim3 { unsigned x = 0, y = 0, z = 0; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
+struct alignas(16) float4 { float x, y, z, w; };
+using std::max;
 using std::min;
 namespace emu {
 inline thread_local emu_dim3 thread_idx, block_idx, block_dim, grid_dim;
@@ -65,9 +71,17 @@ struct Warp {                      // a warp's lanes meet here for a shuffle or 
   explicit Warp(std::ptrdiff_t lanes) : barrier(lanes) {}
   std::barrier<> barrier;
   unsigned long long slot[32];
+  unsigned words[32][8];
 };
 inline thread_local Warp* warp = nullptr;
 inline thread_local int lane = 0;
+template <int N>
+void gather(const unsigned (&mine)[N], unsigned (&all)[32][N]) {   // every lane's N words
+  std::memcpy(warp->words[lane], mine, sizeof mine);
+  warp->barrier.arrive_and_wait();
+  for (int l = 0; l < 32; ++l) std::memcpy(all[l], warp->words[l], sizeof mine);
+  warp->barrier.arrive_and_wait();
+}
 template <class T>
 T exchange(T v, int src) {         // every lane posts v, then reads lane src's
   std::memcpy(&warp->slot[lane], &v, sizeof(T));
@@ -150,6 +164,78 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
 """
 
 
+# mma_sm90.cuh for the emulation: each instruction's stand-in, in the PTX ISA's per-lane
+# fragment layout. The 32 lanes of a warp meet through emu::gather (every lane posts its
+# registers or its row address, then reads all), so a lane computes from the whole warp's
+# operands as the instruction does; cp.async is a synchronous copy. Every shared or global
+# address an instruction takes must be 16-byte aligned (ldmatrix's rows, cp.async's both
+# ends), as on the card: the stand-ins abort otherwise.
+MMA_EMULATION_HEADER = r"""
+#pragma once
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+namespace {
+inline void emu_aligned(const void* p) {
+  if (reinterpret_cast<std::uintptr_t>(p) % 16 != 0) std::abort();
+}
+inline float emu_half(unsigned word, int h) {           // the bf16 in half h of a word
+  const unsigned u = (h ? word >> 16 : word & 0xffffu) << 16;
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  const unsigned mine[6] = {a[0], a[1], a[2], a[3], b[0], b[1]};
+  unsigned all[32][6];
+  emu::gather(mine, all);
+  float A[16][16], B[16][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l / 4, t = l % 4;
+    for (int h = 0; h < 2; ++h) {
+      A[g][2 * t + h] = emu_half(all[l][0], h);
+      A[g + 8][2 * t + h] = emu_half(all[l][1], h);
+      A[g][2 * t + 8 + h] = emu_half(all[l][2], h);
+      A[g + 8][2 * t + 8 + h] = emu_half(all[l][3], h);
+      B[2 * t + h][g] = emu_half(all[l][4], h);
+      B[2 * t + 8 + h][g] = emu_half(all[l][5], h);
+    }
+  }
+  const int g = emu::lane / 4, t = emu::lane % 4;
+  for (int f = 0; f < 4; ++f) {
+    const int m = g + 8 * (f / 2), n = 2 * t + f % 2;
+    float acc = d[f];
+    for (int k = 0; k < 16; ++k) acc += A[m][k] * B[k][n];   // a bf16 product is exact in f32
+    d[f] = acc;
+  }
+}
+template <int N, bool Trans>
+void ldmatrix(unsigned (&r)[N], const void* row) {
+  emu_aligned(row);
+  unsigned mine[2], all[32][2];
+  std::memcpy(mine, &row, sizeof row);
+  emu::gather(mine, all);
+  auto at = [&](int l, int col) {                        // lane l's row, column col
+    const unsigned short* p;
+    std::memcpy(&p, all[l], sizeof p);
+    return unsigned(p[col]);
+  };
+  const int g = emu::lane / 4, t = emu::lane % 4;
+  for (int i = 0; i < N; ++i)
+    r[i] = Trans ? at(8 * i + 2 * t, g) | at(8 * i + 2 * t + 1, g) << 16
+                 : at(8 * i + g, 2 * t) | at(8 * i + g, 2 * t + 1) << 16;
+}
+inline void cp_async_16(void* shared, const void* global) {
+  emu_aligned(shared);
+  emu_aligned(global);
+  std::memcpy(shared, global, 16);
+}
+inline void cp_async_commit() {}
+template <int N> void cp_async_wait() {}
+}  // namespace
+"""
+
+
 def _emulate(source):
     """A CUDA source's text made C++ for the emulation header."""
     source = source.replace("extern __shared__ float smem[];",
@@ -157,17 +243,22 @@ def _emulate(source):
     return re.sub(r"(\w+(?:<\w+>)?)<<<([^>]*)>>>\(", r"emu::launch(emu::Cfg{\2}, \1, ", source)
 
 
-def _build(out, name, signatures):
-    """``csrc/<name>.cu`` built with g++ under the emulation header into
-    ``out``, loaded with ctypes and ``signatures`` declared."""
+def _build(out, name, signatures, rewrite=lambda text: text, source=None):
+    """``csrc/<name>.cu`` (or the text ``source``) built with g++ under the
+    emulation header into ``out``, loaded with ctypes and ``signatures``
+    declared; ``rewrite`` edits the text of the source and of each header
+    first (a planted fault)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the emulated kernel source")
     (out / "cuda_runtime.h").write_text(EMULATION_HEADER)
     (out / "cuda_bf16.h").write_text(BF16_EMULATION_HEADER)
     for header in CSRC.glob("*.cuh"):
-        (out / header.name).write_text(_emulate(header.read_text()))
-    (out / f"{name}.cpp").write_text(_emulate((CSRC / f"{name}.cu").read_text()))
+        (out / header.name).write_text(MMA_EMULATION_HEADER if header.name == "mma_sm90.cuh"
+                                       else _emulate(rewrite(header.read_text())))
+    if source is None:
+        source = (CSRC / f"{name}.cu").read_text()
+    (out / f"{name}.cpp").write_text(_emulate(rewrite(source)))
     so = out / f"{name}.so"
     subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-w",
                     f"-I{out}", "-o", str(so), str(out / f"{name}.cpp")],

@@ -1,10 +1,12 @@
 // The storage types of the kernels' tensor operands and outputs: float or __nv_bfloat16.
 //
 // Every kernel of #2-#5 is a template on its storage type T. A load widens to f32
-// (to_f32), every product, softmax, row statistic, GRU gate and cross-CTA partial is
-// f32, and so is every scratch buffer; a store rounds to T to nearest even (from_f32).
-// With T = float both are the identity, so the f32 instantiations compute what the
-// kernels computed before they were templated, bit for bit.
+// (to_f32), every softmax, row statistic, GRU gate, sum and cross-CTA partial is f32, and
+// so is every scratch buffer; a store rounds to T to nearest even (from_f32). With T =
+// float both are the identity, so the f32 instantiations compute what the kernels computed
+// before they were templated, bit for bit. The products are f32 FMAs in every kernel but
+// the bf16 step kernels' (#4/#5, tarmac_step_common.cuh), whose bf16 operands meet on the
+// tensor cores with f32 sums, an f32 scratch operand as a bf16 hi/lo pair.
 
 #pragma once
 #include <cuda_bf16.h>

@@ -10,10 +10,12 @@
 //   h2          = GRUCell([x | c], h)                   gate order r, z, n; h2 = (1-z) n + z h
 //   q           = h2 @ wo + bo, or with dueling  (h2 @ wvh + bvh) + adv - mean(adv)
 //
-// What bounds it: f32 arithmetic outside the tensor cores, about 0.99 MFLOP a row at the
-// 8-UBS width (hidden 256, msg 64, key 16, 9 actions), nearly all of it the v/s/q and GRU
-// products: 0.00379 ms at R = 256 (training), 0.0047 ms at R = 320 (serving 40 worlds) and
-// 0.061 ms at R = 4096 (512 worlds) on an H100 at 67 TFLOP/s.
+// What bounds it: arithmetic, about 0.99 MFLOP a row at the 8-UBS width (hidden 256, msg
+// 64, key 16, 9 actions), nearly all of it the v/s/q and GRU products. The f32
+// instantiation runs them on the CUDA cores: 0.00379 ms at R = 256 (training), 0.0047 ms
+// at R = 320 (serving 40 worlds) and 0.061 ms at R = 4096 (512 worlds) on an H100 at 67
+// TFLOP/s. The bf16 one runs them on the tensor cores: 0.00205 ms at R = 2048 at 989
+// TFLOP/s, where its bytes take about as long.
 //
 // What the first design lost: one CTA of 256 threads per world, so 32 CTAs on the 132 SMs
 // at training's W = 32 (40 when serving); each CTA streamed about 2 MB of weights from L2
@@ -23,8 +25,10 @@
 //
 // Design. Four launches per call, in dependency order, all on the caller's stream:
 //   (a)-(c) tarmac_step_common.cuh's launch_up_to_gates, shared with the backward: the
-//           v|s|q and gi/gh products tiled by rows and columns across the whole card,
-//           and the per-world masked softmax and c = alpha^T v, into the caller's scratch
+//           v|s|q and gi/gh products tiled by rows and columns across the whole card
+//           (f32 FMAs at f32, mma.sync on the tensor cores at bf16, c entering as a bf16
+//           hi/lo pair), and the per-world masked softmax and c = alpha^T v, into the
+//           caller's scratch
 //   (d) gates and head: a CTA takes kHeadRows rows, computes the gates and h2 (written out
 //       and kept in shared memory), then the head's sums, each split into kHeadSplit
 //       chunks of k whose partials are added in a fixed order (no atomics, no warp
@@ -34,8 +38,9 @@
 // Storage types (storage.cuh): every kernel is a template on the type T of x, h, adjf, the
 // weights, q and h2, float (tarmac_step_forward) or __nv_bfloat16 (tarmac_step_forward_bf16),
 // as JAX's kernel widens every bf16 input to f32 inside (step_kernels.py:126-137). The
-// scratch (v|s|q, c, gi, gh) and every sum are f32; q and h2 are rounded to T once, and q is
-// computed from the unrounded h2.
+// scratch (v|s|q, c, gi, gh) and every sum are f32; the bf16 products keep about 16 bits of
+// an f32 scratch operand (its hi/lo pair); q and h2 are rounded to T once, and q is computed
+// from the unrounded h2.
 
 #include "tarmac_step_common.cuh"
 

@@ -17,8 +17,8 @@
 // A destination with no in-edge has an all-zero alpha column: c = 0 and its attention
 // cotangents are 0.
 //
-// Design. Seven launches per call (eight at bf16), in dependency order, all on the caller's
-// stream:
+// Design. Seven launches per call, in dependency order, all on the caller's stream (eight
+// at bf16):
 //   (a)-(c) the forward up to the GRU's pre-activations, launched by tarmac_step_common.cuh's
 //           launch_up_to_gates (v|s|q products, per-world alpha and c, gi/gh products)
 //   (d) per (row, hidden column): gates, h2, the head backward, the GRU backward -> dg, dh = dh2 z
@@ -26,22 +26,27 @@
 //   (f) per world  alpha again (world_alpha, as in (b)), dalpha, dscore, dv, ds, dq
 //   (g) products   dx += [dv|ds|dq] [wv|ws|wq][:H]^T, and the 14 weight gradients X^T G
 //                  (a bias gradient is a ones column times G)
-//   (h) bf16 only: dx and dh rounded from their f32 sums
+//   (h) bf16 only: each weight gradient's row-chunk partials added and rounded, and dx and
+//       dh rounded from their f32 sums
 // Every dense product goes through the header's row-tiled product kernel and job table,
 // tiled by rows and columns across the whole card: at the training batch (R = 256) one
 // CTA per world would keep 32 of the 132 SMs busy and stream every weight from L2 for 8
-// rows. Each output is summed by one thread in a fixed order, with no atomics and no
-// split-K, so a repeated call is bit-identical. Any A and any R work.
-// What bounds it: f32 arithmetic outside the tensor cores, about 0.0112 ms at R = 256
-// (the 8-UBS training inputs) on an H100 at 67 TFLOP/s. Split-precision 3xTF32 mma.sync
-// products are the route to the tensor cores at f32 accuracy, and later work.
+// rows. At f32 each output is summed by one thread in a fixed order, with no split of a
+// sum. At bf16 the products run on the tensor cores (mma.sync, f32 scratch operands as a
+// bf16 hi/lo pair), and an X^T G sum over all R rows, 64 slabs deep in one CTA at R =
+// 2048, is split into chunks of 256 rows (split_chunks) whose f32 partials (h) adds in a
+// fixed order. No atomics, so a repeated call is bit-identical. Any A and any R work.
+// What bounds it: arithmetic. At f32 on the CUDA cores about 0.0112 ms at R = 256 (the
+// 8-UBS training inputs) on an H100 at 67 TFLOP/s; split-precision 3xTF32 mma.sync
+// products are the route to the tensor cores at f32 accuracy, and later work. At bf16 on
+// the tensor cores 0.00605 ms at R = 2048 at 989 TFLOP/s.
 //
 // Storage types (storage.cuh): every kernel is a template on the type T of the inputs,
 // gq, gh2 and the gradients, float (tarmac_step_backward) or __nv_bfloat16
 // (tarmac_step_backward_bf16). The scratch and every sum are f32. Each gradient is rounded
-// to T once: the 14 weight gradients where (g) stores them; dx and dh, which (e) and (g)
-// add to, are summed in f32 scratch at bf16 and rounded by a last launch (h), while at
-// f32 they are summed in place as before.
+// to T once: at f32 the 14 weight gradients where (g) stores them, and dx and dh, which
+// (e) and (g) add to, are summed in place; at bf16 all of them in the last launch (h),
+// from f32 partials and sums in scratch.
 
 #include "tarmac_step_common.cuh"
 
@@ -116,7 +121,52 @@ struct Scratch {                    // per-row intermediates, each [R, width]
   float* dc;                        // MSG
   float* dx;                        // H    dx summed in f32 (bf16 only; else the output)
   float* dh;                        // H    dh summed in f32 (bf16 only; else the output)
+  float* part;                      // bf16 only, not per row: split_chunks(R) f32 partials
+                                    //      of every weight and bias gradient
 };
+
+// ---- bf16: the split weight-gradient sums ----
+
+constexpr int kSplitRows = 256;     // rows of an X^T G sum a chunk covers (from R = 512 on)
+constexpr int kMaxSplit = 16;       // chunks at most; beyond R = 4096 they grow
+
+// The chunks of an X^T G sum over R rows, and the rows of each (whole slabs).
+int split_chunks(int R) {
+  return std::max(1, std::min(kMaxSplit, (R + kSplitRows - 1) / kSplitRows));
+}
+int split_rows(int R) {
+  const int chunks = split_chunks(R), rows = (R + chunks - 1) / chunks;
+  return (rows + kBK - 1) / kBK * kBK;
+}
+
+constexpr int kMaxSums = 22;        // the 20 split gradient jobs of (g), dx and dh
+
+struct Sum {                        // out[m, n] (row stride ldc) = the sum, in order, of
+  const float* part;                // `parts` dense f32 partials [M, N] from part, rounded
+  void* out;
+  int parts, M, N, ldc;
+  int block0;                       // its first block in the launch
+};
+
+struct Sums {
+  Sum sum[kMaxSums];
+  int n;
+};
+
+// (h) at bf16: each gradient's partials added in a fixed order and rounded, dx and dh
+// rounded from their f32 sums; a thread an output entry, a block's entries of one Sum.
+template <class T>
+__global__ void __launch_bounds__(kGateThreads) tarmac_step_bwd_finish(
+    const __grid_constant__ Sums sums) {
+  int e = 0;
+  while (e + 1 < sums.n && (int)blockIdx.x >= sums.sum[e + 1].block0) ++e;
+  const Sum& S = sums.sum[e];
+  const int size = S.M * S.N, i = ((int)blockIdx.x - S.block0) * kGateThreads + threadIdx.x;
+  if (i >= size) return;
+  float v = 0.f;
+  for (int p = 0; p < S.parts; ++p) v += S.part[(size_t)p * size + i];
+  static_cast<T*>(S.out)[(size_t)(i / S.N) * S.ldc + i % S.N] = from_f32<T>(v);
+}
 
 template <class T>
 __global__ void __launch_bounds__(kGateThreads) tarmac_step_bwd_gates(
@@ -159,17 +209,6 @@ __global__ void __launch_bounds__(kGateThreads) tarmac_step_bwd_gates(
   dh[i] = dh2 * zg;
 }
 
-// (h) at bf16: dx and dh, summed in f32 scratch, rounded into the outputs.
-template <class T>
-__global__ void __launch_bounds__(kGateThreads) tarmac_step_bwd_round(
-    const float* __restrict__ dx32, const float* __restrict__ dh32, T* __restrict__ dx,
-    T* __restrict__ dh, size_t n) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  dx[i] = from_f32<T>(dx32[i]);
-  dh[i] = from_f32<T>(dh32[i]);
-}
-
 // Where dx and dh are summed: in the outputs themselves at f32, else in f32 scratch.
 template <class T>
 float* f32_sum(T* output, float* scratch) {
@@ -207,6 +246,8 @@ cudaError_t backward(const T* x, const T* h, const T* adjf, const T* wv, const T
   sc.dc = sc.gh + (size_t)R * H3;
   sc.dx = f32_sum(dx, sc.dc + (size_t)R * MSG);      // bf16: 2 R H floats more
   sc.dh = f32_sum(dh, sc.dc + (size_t)R * (MSG + H));
+  sc.part = sc.dc + (size_t)R * (MSG + 2 * H);
+  constexpr bool bf16 = !std::is_same<T, float>::value;
   cudaError_t e;
 
   if (R > 0) {
@@ -224,7 +265,7 @@ cudaError_t backward(const T* x, const T* h, const T* adjf, const T* wv, const T
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
     }
     {  // (e) dx = dgi wi[:H]^T, dc = dgi wi[H:]^T, dh += dgh wh^T (dgh = dpre_r|dpre_z|dhn)
-      Products<tarmac_step_bwd, Back<T>> p;
+      Products<tarmac_step_bwd, T, Back<T>> p;
       Job& jdx = p.template add<Back<T>>(sc.dx, H, R, H, 0, 1, nullptr, 0);
       add_seg<Back<T>>(jdx, sc.dg, H4, wi, H3, H3);
       Job& jdc = p.template add<Back<T>>(sc.dc, MSG, R, MSG, 0, 1, nullptr, 0);
@@ -246,19 +287,34 @@ cudaError_t backward(const T* x, const T* h, const T* adjf, const T* wv, const T
 
   // (g) dx += [dv|ds|dq] [wv|ws|wq][:H]^T, and the weight gradients X^T G over all rows
   // (a bias gradient is a ones column, X = nullptr, times G). With R = 0 they are zeros.
-  Products<tarmac_step_bwd, Back<T>, GradX<T>, GradS<T>> p;
+  // At bf16 every X^T G sum is split into row chunks whose f32 partials (h) adds.
+  using GX = typename std::conditional<bf16, GradXPart<T>, GradX<T>>::type;
+  using GS = typename std::conditional<bf16, GradSPart, GradS<T>>::type;
+  Products<tarmac_step_bwd, T, Back<T>, GX, GS> p;
+  Sums sums{};
   Job& jdx = p.template add<Back<T>>(sc.dx, H, R, H, 0, 1, nullptr, 1);
   add_seg<Back<T>>(jdx, sc.dv, MSG, wv, MSG, MSG);
   add_seg<Back<T>>(jdx, sc.ds, K, ws, K, K);
   add_seg<Back<T>>(jdx, sc.dq, K, wq, K, K);
-  // X^T G into a T gradient: a call tensor X (x, h) is of kind GradX, f32 scratch or ones
-  // (nullptr) of kind GradS.
+  // X^T G into a T gradient: a call tensor X (x, h) is of kind GX, f32 scratch or ones
+  // (nullptr) of kind GS.
+  float* part = sc.part;
+  const int chunks = split_chunks(R);
   auto xtg = [&](auto X, int ldx, int xcols, const float* G, int ldg, int gcols, T* grad,
                  int ldo) {
-    using Ty = typename std::conditional<std::is_same<decltype(X), const T*>::value, GradX<T>,
-                                         GradS<T>>::type;
-    Job& j = p.template add<Ty>(grad, ldo, xcols, gcols, 1, 0, nullptr, 0);
-    add_seg<Ty>(j, X, ldx, G, ldg, R);
+    using Ty = typename std::conditional<std::is_same<decltype(X), const T*>::value, GX,
+                                         GS>::type;
+    if constexpr (bf16) {
+      Job& j = p.template add<Ty>(part, gcols, xcols, gcols, 1, 0, nullptr, 0);
+      j.split = chunks;
+      j.krows = split_rows(R);
+      add_seg<Ty>(j, X, ldx, G, ldg, R);
+      sums.sum[sums.n++] = Sum{part, grad, chunks, xcols, gcols, ldo, 0};
+      part += (size_t)chunks * xcols * gcols;
+    } else {
+      Job& j = p.template add<Ty>(grad, ldo, xcols, gcols, 1, 0, nullptr, 0);
+      add_seg<Ty>(j, X, ldx, G, ldg, R);
+    }
   };
   const float* ones = nullptr;
   // [x|h]^T dv, ds, dq and their biases
@@ -286,20 +342,24 @@ cudaError_t backward(const T* x, const T* h, const T* adjf, const T* wv, const T
   xtg(ones, 0, 1, sc.dadv, NACT, NACT, dbo, NACT);
   xtg(ones, 0, 1, sc.dvh, 1, 1, dbvh, 1);
   if ((e = p.launch(stream)) != cudaSuccess) return e;
-  if constexpr (!std::is_same<T, float>::value) {   // (h) round dx and dh
-    const size_t n = (size_t)R * H;
-    if (n > 0) {
-      auto round = tarmac_step_bwd_round<T>;
-      round<<<(unsigned)((n + kGateThreads - 1) / kGateThreads), kGateThreads, 0, stream>>>(
-          sc.dx, sc.dh, dx, dh, n);
+  if constexpr (bf16) {   // (h) the gradients' partials added and rounded, dx and dh rounded
+    sums.sum[sums.n++] = Sum{sc.dx, dx, 1, R, H, H, 0};
+    sums.sum[sums.n++] = Sum{sc.dh, dh, 1, R, H, H, 0};
+    int blocks = 0;
+    for (int i = 0; i < sums.n; ++i) {
+      sums.sum[i].block0 = blocks;
+      blocks += (sums.sum[i].M * sums.sum[i].N + kGateThreads - 1) / kGateThreads;
     }
+    auto finish = tarmac_step_bwd_finish<T>;
+    finish<<<blocks, kGateThreads, 0, stream>>>(sums);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// scratch: bwd_scratch_floats (ops/step_kernels.py) floats; at bf16 2 R H more.
+// scratch: bwd_scratch_floats (ops/step_kernels.py) floats; at bf16 2 R H more, and
+// split_chunks(R) partials of every weight gradient.
 extern "C" int tarmac_step_backward(
     const float* x, const float* h, const float* adjf,
     const float* wv, const float* bv, const float* ws, const float* bs,

@@ -9,32 +9,51 @@
 // world; every dense product runs over all R rows through one generic kernel driven by a
 // job table (a job is C = sum over up to 3 segments of A_s B_s, + bias, + C), each launch
 // holding the independent products of its step so that their tiles fill the card
-// together. A CTA computes a 32 x 64 tile, 4 x 4 outputs a thread; the A and B slabs (32
-// deep) are staged in shared memory, double-buffered, the next slab's loads in flight in
-// registers while the current one is summed. A transposed operand (G W^T, X^T G) differs
-// only in how a slab is loaded. Every output element is summed by one thread in a fixed k
-// order: no atomics and no split of a sum across CTAs, so a repeated call is
-// bit-identical. Any A and any R work (ragged tiles are masked).
+// together. A CTA of 4 warps computes a 32 x 64 tile, walking k in slabs 32 deep; a
+// transposed operand (G W^T, X^T G) differs only in how a slab is loaded. Any A and any R
+// work (ragged tiles are masked). No atomics, so a repeated call is bit-identical.
 //
-// Each .cu includes this header once, so everything here lives in the anonymous namespace
-// of that translation unit. The kernels are templates on a tag type that the .cu defines
-// (tarmac_step_fwd, tarmac_step_bwd), so a profiler's kernel names tell the forward's
-// launches from the backward's, and on the storage type T of the call's tensors
-// (storage.cuh: float or __nv_bfloat16). A product's operands are the call's tensors (T)
-// or f32 scratch, fixed where the job is made: each job has a kind, a Types naming the
-// storage of its operands, and a launch of step_products<Tag, Kinds...> holds jobs of
-// the kinds it names. A CTA picks its job's kind once and runs that kind's product,
-// whose loads and stores are typed at compile time; a bf16 load widens to f32. The slabs
-// in shared memory and the sums are f32; an output is rounded to its type once, where it
-// is stored. With T = float every kind is all-f32, the same product as before.
+// The kernels are templates on a tag type that the .cu defines (tarmac_step_fwd,
+// tarmac_step_bwd), so a profiler's kernel names tell the forward's launches from the
+// backward's, and on the storage type T of the call's tensors (storage.cuh: float or
+// __nv_bfloat16), which picks the product:
+//
+// f32 (T = float): f32 FMAs on the CUDA cores. Each thread holds 4 x 4 outputs; the A and
+//   B slabs are staged in shared memory as f32, double-buffered, the next slab's loads in
+//   flight in registers while the current one is summed. Every output is summed by one
+//   thread in a fixed k order, no split of a sum across CTAs. What bounds it: 67 TFLOP/s.
+// bf16 (T = __nv_bfloat16): the tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32
+//   (mma_sm90.cuh), each warp a 16 x 32 quarter of the tile. Operands are staged in shared
+//   memory as bf16 in a ring of kStages slabs, one barrier a slab: a bf16 call tensor row
+//   that is 16-byte aligned arrives by cp.async, anything else (f32 scratch, a ragged or
+//   unaligned edge, a column of ones) through registers, stored after the slab before it
+//   is summed. An f32 scratch operand enters as two bf16 halves, hi = bf16(v) and lo =
+//   bf16(v - hi) (split_bf16): hi B + lo B against a bf16 B, hi hi + hi lo + lo hi where
+//   both are f32. A product so keeps about 16 bits of each f32 operand, and its output
+//   stays within about one bf16 ulp of the f32 instantiation's, rounded. ldmatrix (.trans
+//   for the layouts whose rows do not run along k) feeds the fragments; each layout pair
+//   is its own compiled loop, and the pad of 8 values a row keeps ldmatrix's 8 row reads
+//   on distinct banks. 64-row tiles were slower at R = 256 and no faster at 4096 (H100).
+//   A job may split its sum over k into `split` chunks of `krows` (the backward's X^T G
+//   over all R rows): each chunk's CTAs write f32 partials, which a later launch adds in a
+//   fixed order, so a repeated call stays bit-identical.
+//
+// A product's operands are the call's tensors (T) or f32 scratch, fixed where the job is
+// made: each job has a kind, a Types naming the storage of its operands, and a launch of
+// step_products<Tag, T, Kinds...> holds jobs of the kinds it names. A CTA picks its job's
+// kind once and runs that kind's product, whose loads and stores are typed at compile
+// time. The sums are f32; an output is rounded to its type once, where it is stored. With
+// T = float every kind is all-f32, the same product as before the kernels took bf16.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <type_traits>
 #include <utility>
 
+#include "mma_sm90.cuh"
 #include "storage.cuh"
 
 namespace {
@@ -47,7 +66,7 @@ __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-
 // ---- the tiled product: C[M, N] = sum_s A_s B_s (+ bias) (+ C) ----
 
 constexpr int kBM = 32, kBN = 64, kBK = 32;
-constexpr int kProdThreads = kBM * kBN / 16;           // 4 x 4 outputs a thread
+constexpr int kProdThreads = kBM * kBN / 16;           // f32: 4 x 4 outputs a thread
 constexpr int kLoadA = kBM * kBK / kProdThreads;       // slab values a thread loads
 constexpr int kLoadB = kBK * kBN / kProdThreads;
 constexpr int kMaxSeg = 3;
@@ -59,12 +78,15 @@ struct Seg {
   int lda, ldb, k;
 };
 
+constexpr int kWholeK = 1 << 30;   // the krows of a job whose sum is not split
+
 struct Job {
   Seg seg[kMaxSeg];
-  void* c;               // [M, ldc]
+  void* c;               // [M, ldc]; a split job's chunk i writes its partial at c + i M ldc
   const void* bias;      // [N], or nullptr
   int kind;              // the position of the job's Types in its launch's Kinds
   int n_seg, trans_a, trans_b, ldc, accumulate, M, N, tile0, tiles_n;
+  int split, krows;      // chunk i of the k sum covers [i krows, (i + 1) krows) (bf16 only)
 };
 
 struct Jobs {
@@ -87,6 +109,8 @@ template <class T> using ProjC = Types<T, float, T, float>;      // [x|c] wi: x,
 template <class T> using Back = Types<float, float, T, float>;   // scratch x weights -> scratch
 template <class T> using GradX = Types<T, T, float, T>;          // X^T G for a call tensor X
 template <class T> using GradS = Types<float, float, float, T>;  // X^T G for scratch (or ones) X
+template <class T> using GradXPart = Types<T, T, float, float>;  // GradX's split partials (bf16)
+using GradSPart = Types<float, float, float, float>;             // GradS's split partials (bf16)
 
 // The position of Ty among Kinds (its first, where a kind repeats, as all do at f32).
 template <class Ty, class... Kinds> struct KindOf;
@@ -97,35 +121,29 @@ template <class Ty, class Other, class... Rest> struct KindOf<Ty, Other, Rest...
   static constexpr int value = 1 + KindOf<Ty, Rest...>::value;
 };
 
-// A slab travels from global to shared memory as raw 32-bit words: an f32's bits, or a
-// bf16's 16 bits as loaded. A bf16 word is widened (<< kWiden) only where store_slab
-// writes the slab to shared memory, after the slab before it has been summed: no
-// instruction waits on the loads in between, as with f32.
-template <class T> using Raw =
-    typename std::conditional<std::is_same<T, float>::value, float, unsigned short>::type;
-template <class T> constexpr int kWiden = std::is_same<T, float>::value ? 0 : 16;
-
+// The f32 product's slab travels from global memory as raw 32-bit words (an f32's bits)
+// and is stored to shared memory after the slab before it has been summed, so no
+// instruction waits on the loads in between.
 struct Slab {
   unsigned a[kLoadA], b[kLoadB];
-  int seg;                          // the segment it was loaded from
 };
 
+// A value's raw bits: an f32's, or a bf16's 16 as loaded as an unsigned short.
 template <class R>
 __device__ __forceinline__ unsigned raw_bits(R v) {
   if constexpr (std::is_same<R, float>::value) {
     return float_bits(v);
   } else {
-    return v;                       // a bf16's bits, loaded as an unsigned short
+    return v;
   }
 }
 
-// The A values of the slab at depth k0 from an operand stored as T; ragged edges read as
-// 0, a missing A (a bias sum's ones column) as 1.
-template <class T>
+// The A values of the f32 slab at depth k0; ragged edges read as 0, a missing A (a bias
+// sum's ones column) as 1.
 __device__ __forceinline__ void load_a(const Job& J, const Seg& S, int k0, int m0,
                                        unsigned (&ra)[kLoadA]) {
-  const Raw<T>* a = static_cast<const Raw<T>*>(S.a);
-  const unsigned one = float_bits(1.f) >> kWiden<T>;
+  const float* a = static_cast<const float*>(S.a);
+  const unsigned one = float_bits(1.f);
 #pragma unroll
   for (int i = 0; i < kLoadA; ++i) {
     const int e = threadIdx.x + i * kProdThreads;
@@ -140,11 +158,10 @@ __device__ __forceinline__ void load_a(const Job& J, const Seg& S, int k0, int m
   }
 }
 
-// The B values of the slab at depth k0 from an operand stored as T.
-template <class T>
+// The B values of the f32 slab at depth k0.
 __device__ __forceinline__ void load_b(const Job& J, const Seg& S, int k0, int n0,
                                        unsigned (&rb)[kLoadB]) {
-  const Raw<T>* b = static_cast<const Raw<T>*>(S.b);
+  const float* b = static_cast<const float*>(S.b);
 #pragma unroll
   for (int i = 0; i < kLoadB; ++i) {
     const int e = threadIdx.x + i * kProdThreads;
@@ -157,36 +174,29 @@ __device__ __forceinline__ void load_b(const Job& J, const Seg& S, int k0, int n
   }
 }
 
-// The slab of segment `sg` at depth k0 into registers. Each operand is walked along its
+// The f32 slab of segment `sg` at depth k0 into registers. Each operand is walked along its
 // contiguous dimension, so a warp's loads coalesce.
-template <class Ty>
 __device__ __forceinline__ void load_slab(const Job& J, int sg, int k0, int m0, int n0,
                                           Slab& r) {
   const Seg& S = J.seg[sg];
-  if (std::is_same<typename Ty::A0, typename Ty::A>::value || sg > 0)
-    load_a<typename Ty::A>(J, S, k0, m0, r.a);
-  else
-    load_a<typename Ty::A0>(J, S, k0, m0, r.a);
-  load_b<typename Ty::B>(J, S, k0, n0, r.b);
-  r.seg = sg;
+  load_a(J, S, k0, m0, r.a);
+  load_b(J, S, k0, n0, r.b);
 }
 
-// The slab in f32 into shared memory (a bf16 word widened).
-template <class Ty>
+// The slab into shared memory.
 __device__ __forceinline__ void store_slab(const Job& J, const Slab& r, float (*s_a)[kBM + 1],
                                            float (*s_b)[kBN + 1]) {
-  const int widen_a = r.seg > 0 ? kWiden<typename Ty::A> : kWiden<typename Ty::A0>;
 #pragma unroll
   for (int i = 0; i < kLoadA; ++i) {
     const int e = threadIdx.x + i * kProdThreads;
     const int m = J.trans_a ? e % kBM : e / kBK, k = J.trans_a ? e / kBM : e % kBK;
-    s_a[k][m] = bits_float(r.a[i] << widen_a);
+    s_a[k][m] = bits_float(r.a[i]);
   }
 #pragma unroll
   for (int i = 0; i < kLoadB; ++i) {
     const int e = threadIdx.x + i * kProdThreads;
     const int n = J.trans_b ? e / kBK : e % kBN, k = J.trans_b ? e % kBK : e / kBN;
-    s_b[k][n] = bits_float(r.b[i] << kWiden<typename Ty::B>);
+    s_b[k][n] = bits_float(r.b[i]);
   }
 }
 
@@ -215,7 +225,7 @@ __device__ __forceinline__ void store_tile(const Job& J, const float (&acc)[4][4
   }
 }
 
-// The CTA's tile of a job of kind Ty, its slabs double-buffered in s_a, s_b.
+// The CTA's f32 tile of a job of kind Ty, its slabs double-buffered in s_a, s_b.
 template <class Ty>
 __device__ __forceinline__ void product_tile(const Job& J, float (*s_a)[kBK][kBM + 1],
                                              float (*s_b)[kBK][kBN + 1]) {
@@ -241,17 +251,17 @@ __device__ __forceinline__ void product_tile(const Job& J, float (*s_a)[kBK][kBM
 
   skip_done();
   if (n_slabs > 0) {
-    load_slab<Ty>(J, sg, k0, m0, n0, slab);
+    load_slab(J, sg, k0, m0, n0, slab);
     k0 += kBK;
     skip_done();
-    store_slab<Ty>(J, slab, s_a[0], s_b[0]);
+    store_slab(J, slab, s_a[0], s_b[0]);
   }
   __syncthreads();
   for (int t = 0; t < n_slabs; ++t) {
     const int buf = t & 1;
     const bool more = t + 1 < n_slabs;
     if (more) {
-      load_slab<Ty>(J, sg, k0, m0, n0, slab);
+      load_slab(J, sg, k0, m0, n0, slab);
       k0 += kBK;
       skip_done();
     }
@@ -267,10 +277,342 @@ __device__ __forceinline__ void product_tile(const Job& J, float (*s_a)[kBK][kBM
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-    if (more) store_slab<Ty>(J, slab, s_a[buf ^ 1], s_b[buf ^ 1]);
+    if (more) store_slab(J, slab, s_a[buf ^ 1], s_b[buf ^ 1]);
     __syncthreads();
   }
   store_tile<Ty>(J, acc, m0, n0, tx, ty);
+}
+
+// ---- the bf16 product on the tensor cores ----
+
+constexpr int kMmaBM = 32;                     // rows of a bf16 tile (kBN columns, kBK-deep slabs)
+constexpr int kMI = kMmaBM / 32;               // m16 blocks of a warp: 2 x 2 warps of kMmaBM/2 x 32
+constexpr int kStages = 3;                     // the ring's slabs: two in flight while one is summed
+constexpr int kPad = 8;                        // values a shared row is padded by (16 bytes)
+// A slab's shared layout (bf16), by whether the operand is stored transposed: A [m][k] or
+// A^T [k][m], B [k][n] or B^T [n][k]; kLd is a row's length, rows run along the operand's
+// contiguous dimension.
+template <bool TA> constexpr int kLdA = TA ? kMmaBM + kPad : kBK + kPad;
+template <bool TB> constexpr int kLdB = TB ? kBK + kPad : kBN + kPad;
+constexpr int kTileA = kMmaBM * kLdA<false> > kBK * kLdA<true> ? kMmaBM * kLdA<false>
+                                                               : kBK * kLdA<true>;
+constexpr int kTileB = kBK * kLdB<false> > kBN * kLdB<true> ? kBK * kLdB<false>
+                                                            : kBN * kLdB<true>;
+constexpr int kChunksA = kMmaBM * kBK / 8 / kProdThreads;   // 8-value chunks a thread fetches
+constexpr int kChunksB = kBK * kBN / 8 / kProdThreads;
+static_assert(kProdThreads == 128 && kBK == 32 && kBN == 64 && kMmaBM % 32 == 0,
+              "4 warps, 16-deep mma steps, 8-value chunks");
+
+struct alignas(16) MmaShared {                 // a bf16 CTA's dynamic shared memory
+  unsigned short a[kStages][2][kTileA];        // [stage][hi, lo][slab]
+  unsigned short b[kStages][2][kTileB];
+  Job job;
+};
+
+template <class S> constexpr bool kIsF32 = std::is_same<S, float>::value;
+
+__device__ __forceinline__ unsigned bf16_bits(__nv_bfloat16 v) {
+  unsigned short u;
+  memcpy(&u, &v, sizeof u);
+  return u;
+}
+
+// v as hi + lo, each the bits of a bf16: hi = bf16(v), lo = bf16(v - hi). v - hi is exact,
+// so hi + lo is v to about 2^-17 of |v|.
+__device__ __forceinline__ void split_bf16(float v, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(v);
+  hi = bf16_bits(h);
+  lo = bf16_bits(__float2bfloat16_rn(v - __bfloat162float(h)));
+}
+
+// A chunk of 8 values of a slab that travels through registers as raw 32-bit words (an
+// f32's bits, or a bf16's 16 bits), landed in the ring after the slab before it is summed.
+struct Staged {
+  unsigned v[8];
+  unsigned short* hi;        // where it lands; nullptr: nothing staged (none, or by cp.async)
+  unsigned short* lo;        // where the lo halves of f32 values land; nullptr for bf16
+};
+
+// The 8 values at (outer, inner .. inner + 7) of an operand stored as S, row-major along
+// `outer` with leading dimension ld, into the ring at hi (and lo): values past the operand's
+// edge (outer_ok false, or inner + j at inner_lim or beyond) are 0, a missing operand (base
+// nullptr: a bias sum's ones column) is 1. A 16-byte aligned chunk that lies wholly inside
+// is copied by cp.async (bf16) or loaded 16 bytes at a time (f32).
+template <class S>
+__device__ __forceinline__ void fetch_chunk(const void* base, int ld, bool aligned, int outer,
+                                            bool outer_ok, int inner, int inner_lim,
+                                            unsigned short* hi, unsigned short* lo,
+                                            Staged& st) {
+  using Bits = typename std::conditional<kIsF32<S>, float, unsigned short>::type;
+  const Bits* b = static_cast<const Bits*>(base) + (size_t)outer * ld + inner;
+  const bool whole = aligned && outer_ok && inner + 8 <= inner_lim;
+  if constexpr (!kIsF32<S>) {
+    if (whole) {
+      cp_async_16(hi, b);
+      st.hi = nullptr;
+      return;
+    }
+  }
+  st.hi = hi;
+  st.lo = kIsF32<S> ? lo : nullptr;
+  if constexpr (kIsF32<S>) {
+    if (whole) {
+      const float4 v0 = reinterpret_cast<const float4*>(b)[0];
+      const float4 v1 = reinterpret_cast<const float4*>(b)[1];
+      const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) st.v[j] = float_bits(v[j]);
+      return;
+    }
+  }
+  const unsigned one = kIsF32<S> ? float_bits(1.f) : float_bits(1.f) >> 16;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    unsigned v = 0u;
+    if (outer_ok && inner + j < inner_lim) v = base == nullptr ? one : raw_bits(b[j]);
+    st.v[j] = v;
+  }
+}
+
+__device__ __forceinline__ void land(const Staged& st) {
+  if (st.hi == nullptr) return;
+  unsigned hi[4], lo[4];
+  if (st.lo != nullptr) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      unsigned h0, l0, h1, l1;
+      split_bf16(bits_float(st.v[2 * j]), h0, l0);
+      split_bf16(bits_float(st.v[2 * j + 1]), h1, l1);
+      hi[j] = h0 | h1 << 16;
+      lo[j] = l0 | l1 << 16;
+    }
+    *reinterpret_cast<uint4*>(st.lo) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) hi[j] = st.v[2 * j] | st.v[2 * j + 1] << 16;
+  }
+  *reinterpret_cast<uint4*>(st.hi) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+}
+
+__device__ __forceinline__ bool aligned16(const void* p, int ld) {
+  return p != nullptr && (reinterpret_cast<size_t>(p) & 15) == 0 && ld % 8 == 0;
+}
+
+// A CTA's tile, read out of the shared Job once so that the slab loop keeps it in registers.
+struct Tile {
+  int m0, n0, M, N, kbeg, krows, n_seg;
+};
+
+// The slab a tile's k walk is at: its segment's fields, in registers, and its depth.
+struct Cursor {
+  const void* a;
+  const void* b;
+  int lda, ldb, sg, k0, kend;
+  bool a_aligned, b_aligned;
+};
+
+// Cursor c onto segment sg's first slab of the tile's k range, or past the last segment;
+// segments with nothing in the range are skipped.
+__device__ __forceinline__ void enter_segment(const Job& J, const Tile& t, int sg, Cursor& c) {
+  for (; sg < t.n_seg; ++sg) {
+    const Seg& S = J.seg[sg];
+    c.kend = min(S.k, t.kbeg + t.krows);
+    if (c.kend > t.kbeg) {
+      c.a = S.a;
+      c.b = S.b;
+      c.lda = S.lda;
+      c.ldb = S.ldb;
+      c.a_aligned = aligned16(S.a, S.lda);
+      c.b_aligned = aligned16(S.b, S.ldb);
+      break;
+    }
+  }
+  c.sg = sg;
+  c.k0 = t.kbeg;
+}
+
+__device__ __forceinline__ void next_slab(const Job& J, const Tile& t, Cursor& c) {
+  c.k0 += kBK;
+  if (c.k0 >= c.kend) enter_segment(J, t, c.sg + 1, c);
+}
+
+// The slab at cursor c into ring stage `stage`: A's chunks of 8 values kChunksA a thread,
+// B's kChunksB, each along its operand's contiguous dimension. st[0, kChunksA) take A's
+// chunks and the rest B's where they travel through registers.
+template <class Ty, bool TA, bool TB>
+__device__ __forceinline__ void fetch_slab(const Tile& t, const Cursor& c, int stage,
+                                           MmaShared& sh, Staged (&st)[kChunksA + kChunksB]) {
+  constexpr int a_row = TA ? kMmaBM / 8 : kBK / 8, b_row = TB ? kBK / 8 : kBN / 8;  // chunks
+#pragma unroll
+  for (int i = 0; i < kChunksA; ++i) {
+    const int e = threadIdx.x + i * kProdThreads, row = e / a_row, col = (e % a_row) * 8;
+    const int off = row * kLdA<TA> + col;
+    const int outer = TA ? c.k0 + row : t.m0 + row, inner = TA ? t.m0 + col : c.k0 + col;
+    const bool outer_ok = outer < (TA ? c.kend : t.M);
+    const int inner_lim = TA ? t.M : c.kend;
+    unsigned short *hi = sh.a[stage][0] + off, *lo = sh.a[stage][1] + off;
+    if (c.sg == 0 && !std::is_same<typename Ty::A0, typename Ty::A>::value)
+      fetch_chunk<typename Ty::A0>(c.a, c.lda, c.a_aligned, outer, outer_ok, inner, inner_lim,
+                                   hi, lo, st[i]);
+    else
+      fetch_chunk<typename Ty::A>(c.a, c.lda, c.a_aligned, outer, outer_ok, inner, inner_lim,
+                                  hi, lo, st[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < kChunksB; ++i) {
+    const int e = threadIdx.x + i * kProdThreads, row = e / b_row, col = (e % b_row) * 8;
+    const int off = row * kLdB<TB> + col;
+    const int outer = TB ? t.n0 + row : c.k0 + row, inner = TB ? c.k0 + col : t.n0 + col;
+    const bool outer_ok = outer < (TB ? t.N : c.kend);
+    const int inner_lim = TB ? c.kend : t.N;
+    fetch_chunk<typename Ty::B>(c.b, c.ldb, c.b_aligned, outer, outer_ok, inner, inner_lim,
+                                sh.b[stage][0] + off, sh.b[stage][1] + off, st[kChunksA + i]);
+  }
+}
+
+// A warp's (16 kMI) x 32 part of the tile over one slab: per 16-deep step kMI A fragments
+// and four B fragments (two ldmatrix.x4), hi and, for an f32 operand, lo; then hi hi, hi lo
+// (f32 B) and lo hi (f32 A) into the f32 sums acc[m16 block][n8 block][fragment]. The pairs
+// of a fragment run along k, a shared row of A [m][k] and of B^T [n][k]; the other layouts
+// are read with ldmatrix's .trans.
+template <bool TA, bool TB>
+__device__ __forceinline__ void mma_slab(const MmaShared& sh, int stage, bool a_lo, bool b_lo,
+                                         float (&acc)[kMI][4][4]) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = (warp / 2) * 16 * kMI, wn = (warp % 2) * 32;
+  const int mat = lane / 8, r = lane % 8;      // the 8 x 8 matrix whose row this lane addresses
+  const unsigned short* sa = sh.a[stage][0];
+  const unsigned short* sb = sh.b[stage][0];
+  constexpr int lo_a = kTileA, lo_b = kTileB;  // the lo half's offset from the hi half
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 16) {
+    unsigned a[kMI][2][4];
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi) {
+      const int m = wm + 16 * mi;
+      const int a_off = TA ? (kk + r + 8 * (mat / 2)) * kLdA<TA> + m + 8 * (mat % 2)
+                           : (m + lane % 16) * kLdA<TA> + kk + 8 * (lane / 16);
+      ldmatrix<4, TA>(a[mi][0], sa + a_off);
+      if (a_lo) ldmatrix<4, TA>(a[mi][1], sa + lo_a + a_off);
+    }
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+      const int n = wn + 16 * nb;
+      const int b_off = TB ? (n + r + 8 * (mat / 2)) * kLdB<TB> + kk + 8 * (mat % 2)
+                           : (kk + r + 8 * (mat % 2)) * kLdB<TB> + n + 8 * (mat / 2);
+      unsigned b[2][4];                        // [hi, lo][n8 block 2nb: 0, 1; 2nb + 1: 2, 3]
+      ldmatrix<4, !TB>(b[0], sb + b_off);
+      if (b_lo) ldmatrix<4, !TB>(b[1], sb + lo_b + b_off);
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const unsigned b_hi[2] = {b[0][2 * j], b[0][2 * j + 1]};
+          float (&d)[4] = acc[mi][2 * nb + j];
+          mma_bf16_16816(d, a[mi][0], b_hi);
+          if (b_lo) {
+            const unsigned b_lo_[2] = {b[1][2 * j], b[1][2 * j + 1]};
+            mma_bf16_16816(d, a[mi][0], b_lo_);
+          }
+          if (a_lo) mma_bf16_16816(d, a[mi][1], b_hi);
+        }
+    }
+  }
+}
+
+// The warp's outputs of the tile: + bias, + the output's old value where the job
+// accumulates, stored; a split job's chunk stores its f32 partial.
+template <class Ty>
+__device__ __forceinline__ void store_mma(const Job& J, const float (&acc)[kMI][4][4], int m0,
+                                          int n0, int chunk) {
+  using C = typename Ty::C;
+  C* c = static_cast<C*>(J.c) + (size_t)chunk * J.M * J.ldc;
+  const typename Ty::B* bias = static_cast<const typename Ty::B*>(J.bias);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int row = m0 + (warp / 2) * 16 * kMI + lane / 4;
+  const int col = n0 + (warp % 2) * 32 + 2 * (lane % 4);
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int m = row + 16 * mi + 8 * (f / 2), n = col + 8 * j + f % 2;
+        if (m >= J.M || n >= J.N) continue;
+        float v = acc[mi][j][f];
+        if (bias != nullptr) v += to_f32(bias[n]);
+        C* out = c + (size_t)m * J.ldc + n;
+        if (J.accumulate) v = to_f32(*out) + v;
+        *out = from_f32<C>(v);
+      }
+}
+
+// The CTA's bf16 tile of a job of kind Ty (of its k chunk, for a split job), its operands
+// stored transposed or not as TA, TB say, its slabs in a ring of kStages: slab s + 2 is
+// fetched while slab s is summed, and what travels through registers lands after that.
+template <class Ty, bool TA, bool TB>
+__device__ void product_tile_mma(const Job& J, MmaShared& sh) {
+  static_assert(kStages == 3, "slab s + 2 is fetched into the stage slab s - 1 freed");
+  const int tiles_n = J.tiles_n, tiles = ((J.M + kMmaBM - 1) / kMmaBM) * tiles_n;
+  const int local = blockIdx.x - J.tile0, chunk = local / tiles, tile = local % tiles;
+  const Tile t{(tile / tiles_n) * kMmaBM, (tile % tiles_n) * kBN, J.M, J.N, chunk * J.krows,
+               J.krows, J.n_seg};
+  int n_slabs = 0;
+  for (int s = 0; s < t.n_seg; ++s)
+    n_slabs += (max(min(J.seg[s].k, t.kbeg + t.krows) - t.kbeg, 0) + kBK - 1) / kBK;
+  Cursor fetch{}, sum{};                 // the next slab to fetch, and to sum
+  enter_segment(J, t, 0, fetch);
+  sum = fetch;
+  float acc[kMI][4][4];
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) acc[mi][j][f] = 0.f;
+  Staged st[kChunksA + kChunksB];
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_slabs) {
+      fetch_slab<Ty, TA, TB>(t, fetch, s, sh, st);
+      for (auto& x : st) land(x);
+      next_slab(J, t, fetch);
+    }
+    cp_async_commit();
+  }
+  int stage = 0;                         // slab s's
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait<kStages - 2>();       // this thread's copies of slab s have landed,
+    __syncthreads();                    // everyone's, and slab s - 1's stage is free
+    const bool more = s + kStages - 1 < n_slabs;
+    if (more) {
+      fetch_slab<Ty, TA, TB>(t, fetch, stage == 0 ? kStages - 1 : stage - 1, sh, st);
+      next_slab(J, t, fetch);
+    }
+    cp_async_commit();
+    const bool a_lo = sum.sg == 0 ? kIsF32<typename Ty::A0> : kIsF32<typename Ty::A>;
+    mma_slab<TA, TB>(sh, stage, a_lo, kIsF32<typename Ty::B>, acc);
+    next_slab(J, t, sum);
+    if (more)
+      for (auto& x : st) land(x);
+    stage = stage == kStages - 1 ? 0 : stage + 1;
+  }
+  cp_async_wait<0>();
+  store_mma<Ty>(J, acc, t.m0, t.n0, chunk);
+}
+
+// ---- the launch ----
+
+// The CTA's job (the one whose tiles hold blockIdx.x), copied out of the parameter space
+// once: the slab loop then reads its fields from shared memory (6 % less time a call than
+// reading them through a reference to the parameters, for both libraries, H100).
+__device__ __forceinline__ void load_job(const Jobs& jobs, Job& J) {
+  if (threadIdx.x == 0) {
+    int jb = 0;
+    while (jb + 1 < jobs.n_jobs && (int)blockIdx.x >= jobs.job[jb + 1].tile0) ++jb;
+    J = jobs.job[jb];
+  }
+  __syncthreads();
 }
 
 // The CTA's job through its kind's product_tile; a kind that repeats an earlier one
@@ -284,22 +626,39 @@ __device__ __forceinline__ void run_kind(const Job& J, float (*s_a)[kBK][kBM + 1
    ...);
 }
 
-template <class Tag, class... Kinds>
-__global__ void __launch_bounds__(kProdThreads) step_products(const __grid_constant__ Jobs jobs) {
-  // +1 columns: a slab stored along k (row-major A, transposed B) hits 32 banks.
-  __shared__ float s_a[2][kBK][kBM + 1];
-  __shared__ float s_b[2][kBK][kBN + 1];
-  // The CTA's job, copied out of the parameter space once: the slab loop then reads
-  // its fields from shared memory (6 % less time a call than reading them through a
-  // reference to the parameters, for both libraries, H100).
-  __shared__ Job J;
-  if (threadIdx.x == 0) {
-    int jb = 0;
-    while (jb + 1 < jobs.n_jobs && (int)blockIdx.x >= jobs.job[jb + 1].tile0) ++jb;
-    J = jobs.job[jb];
+// At bf16, through product_tile_mma of its kind and of its operands' layouts.
+template <class Ty>
+__device__ __forceinline__ void run_layout(const Job& J, MmaShared& sh) {
+  if (J.trans_a) {
+    if (J.trans_b) product_tile_mma<Ty, true, true>(J, sh);
+    else product_tile_mma<Ty, true, false>(J, sh);
+  } else {
+    if (J.trans_b) product_tile_mma<Ty, false, true>(J, sh);
+    else product_tile_mma<Ty, false, false>(J, sh);
   }
-  __syncthreads();
-  run_kind<Kinds...>(J, s_a, s_b, std::index_sequence_for<Kinds...>{});
+}
+
+template <class... Kinds, size_t... I>
+__device__ __forceinline__ void run_kind_mma(const Job& J, MmaShared& sh,
+                                             std::index_sequence<I...>) {
+  ((J.kind == (int)I ? run_layout<Kinds>(J, sh) : void()), ...);
+}
+
+template <class Tag, class T, class... Kinds>
+__global__ void __launch_bounds__(kProdThreads) step_products(const __grid_constant__ Jobs jobs) {
+  if constexpr (kIsF32<T>) {
+    // +1 columns: a slab stored along k (row-major A, transposed B) hits 32 banks.
+    __shared__ float s_a[2][kBK][kBM + 1];
+    __shared__ float s_b[2][kBK][kBN + 1];
+    __shared__ Job J;
+    load_job(jobs, J);
+    run_kind<Kinds...>(J, s_a, s_b, std::index_sequence_for<Kinds...>{});
+  } else {
+    extern __shared__ float smem[];
+    MmaShared& sh = *reinterpret_cast<MmaShared*>(smem);
+    load_job(jobs, sh.job);
+    run_kind_mma<Kinds...>(sh.job, sh, std::index_sequence_for<Kinds...>{});
+  }
 }
 
 // ---- per world: the A x A attention ----
@@ -375,8 +734,13 @@ __device__ __forceinline__ Gates gru_gates(const float* gi, const float* gh, int
 
 // ---- host side ----
 
-// The jobs of one launch of step_products<Tag, Kinds...>, each of one of those kinds.
-template <class Tag, class... Kinds>
+cudaError_t allow_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// The jobs of one launch of step_products<Tag, T, Kinds...>, each of one of those kinds.
+template <class Tag, class T, class... Kinds>
 struct Products {
   Jobs jobs{};
 
@@ -394,19 +758,26 @@ struct Products {
     j.trans_a = trans_a;
     j.trans_b = trans_b;
     j.accumulate = accumulate;
+    j.split = 1;
+    j.krows = kWholeK;
     return j;
   }
 
   cudaError_t launch(cudaStream_t stream) {
+    constexpr bool mma = !kIsF32<T>;
+    constexpr int tile_m = mma ? kMmaBM : kBM;
+    constexpr size_t smem = mma ? sizeof(MmaShared) : 0;
     int tiles = 0;
     for (int i = 0; i < jobs.n_jobs; ++i) {
       Job& j = jobs.job[i];
       j.tile0 = tiles;
       j.tiles_n = (j.N + kBN - 1) / kBN;
-      tiles += ((j.M + kBM - 1) / kBM) * j.tiles_n;
+      tiles += j.split * ((j.M + tile_m - 1) / tile_m) * j.tiles_n;
     }
-    auto kernel = step_products<Tag, Kinds...>;
-    if (tiles > 0) kernel<<<tiles, kProdThreads, 0, stream>>>(jobs);
+    auto kernel = step_products<Tag, T, Kinds...>;
+    cudaError_t e = allow_smem((const void*)kernel, smem);
+    if (e != cudaSuccess) return e;
+    if (tiles > 0) kernel<<<tiles, kProdThreads, smem, stream>>>(jobs);
     return cudaGetLastError();
   }
 };
@@ -426,10 +797,6 @@ void add_seg(Job& j, const TA* a, int lda, const typename Ty::B* b, int ldb, int
   s.k = k;
 }
 
-cudaError_t allow_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
 
 // Launches (a), (b) and (c) for R = W*A > 0 rows, into vsq [R, MSG + 2K], c [R, MSG],
 // gi and gh [R, 3H] (f32 scratch).
@@ -443,7 +810,7 @@ cudaError_t launch_up_to_gates(const T* x, const T* h, const T* adjf, const T* w
   const int R = W * A, H3 = 3 * H, P = MSG + 2 * K;
   cudaError_t e;
   {  // (a) [v|s|q] = [x|h] [wv|ws|wq] + [bv|bs|bq]
-    Products<Tag, Proj<T>> p;
+    Products<Tag, T, Proj<T>> p;
     const T* w[3] = {wv, ws, wq};
     const T* b[3] = {bv, bs, bq};
     const int n[3] = {MSG, K, K}, col[3] = {0, MSG, MSG + K};
@@ -462,7 +829,7 @@ cudaError_t launch_up_to_gates(const T* x, const T* h, const T* adjf, const T* w
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   // (c) gi = [x|c] wi + bi, gh = h wh + bh
-  Products<Tag, ProjC<T>> p;
+  Products<Tag, T, ProjC<T>> p;
   Job& jgi = p.template add<ProjC<T>>(gi, H3, R, H3, 0, 0, bi, 0);
   add_seg<ProjC<T>>(jgi, x, H, wi, H3, H);
   add_seg<ProjC<T>>(jgi, (const float*)c, MSG, wi + (size_t)H * H3, H3, MSG);

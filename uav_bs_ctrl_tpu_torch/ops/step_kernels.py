@@ -195,12 +195,32 @@ def fwd_scratch_floats(rows, hidden, msg, key):
     return rows * (2 * msg + 2 * key + 6 * hidden)
 
 
+SPLIT_ROWS, MAX_SPLIT = 256, 16    # csrc/tarmac_step_bwd.cu's kSplitRows, kMaxSplit
+
+
+def split_chunks(rows):
+    """The row chunks each weight gradient's sum over ``rows`` rows is split
+    into at bf16 (``csrc/tarmac_step_bwd.cu:split_chunks``)."""
+    return max(1, min(MAX_SPLIT, -(-rows // SPLIT_ROWS)))
+
+
+def weight_floats(hidden, msg, key, n_act):
+    """Entries of all 14 weight and bias gradients."""
+    return (2 * hidden * (msg + 2 * key) + 6 * hidden * hidden + 3 * msg * hidden
+            + hidden * (n_act + 1) + msg + 2 * key + 6 * hidden + n_act + 1)
+
+
 def bwd_scratch_floats(rows, hidden, msg, key, n_act, bf16=False):
     """Floats of the scratch buffer ``tarmac_step_bwd``'s launches hand on to
     each other: per row dpre_r|dpre_z|dpre_n|dhn, c, h2, dv, ds, dq, dadv,
     dvh, v|s|q, the GRU's two pre-activations gi and gh, and dc; at bf16 also
-    the f32 sums of dx and dh."""
-    return rows * (11 * hidden + 4 * msg + 4 * key + n_act + 1 + (2 * hidden if bf16 else 0))
+    the f32 sums of dx and dh, and each weight gradient's f32 partials, one
+    per row chunk."""
+    per_row = rows * (11 * hidden + 4 * msg + 4 * key + n_act + 1)
+    if not bf16:
+        return per_row
+    return per_row + 2 * rows * hidden + split_chunks(rows) * weight_floats(hidden, msg, key,
+                                                                            n_act)
 
 
 def tarmac_step_bwd(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
