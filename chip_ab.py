@@ -19,18 +19,22 @@ forward's fully masked rows), whether they are bit-identical, and the ms per
 call of each, timed with ``chip_smoke.time_cuda`` in turns: old, new, new, old.
 
 The step kernels run at the 8-UBS width (A = 8, hidden 256, msg 64, key 16, 9
-actions) at 32 and 512 worlds (the forward also at 40, the serving batch), and
-again on the same inputs rounded to bf16 where the old source has the bf16
-launcher; for each step case the script also prints the plain version's ms
-(after the turns), the card's bound (``chip_smoke.bound``) and, at bf16, each
-version's largest error against the plain version in float64 on the same
-inputs, relative to max(1, max |referee|) per output. The
+actions) at 32, 256 and 512 worlds (R = 256, 2,048 and 4,096; the forward also
+at 40, the serving batch, and at the classic host loop's one 4-UBS world, R =
+4), and again on the same inputs rounded to bf16 where the old source has the
+bf16 launcher; for each step case the script also prints the plain version's ms
+(after the turns), the card's bound (``chip_smoke.bound``; at f32 its
+operations at the rate of 3xTF32 products on the tensor cores) and, at bf16,
+each version's largest error against the plain version in float64 on
+the same inputs, relative to max(1, max |referee|) per output. The
 GATv2 kernels run at the 8-UBS width (4 heads of 64) for the 'seen' GT slots
 (M = 50, D = 4) and the 'near' UBS slots (M = 7, D = 2), at N = 256 rows (the
 update), 320 (serving 40 worlds) and 4096, each with slots valid at the share
 ``chip_smoke.py`` measures in the update's inputs (``UPDATE_VALID``) and at
 70 % (its kernel cases); the backward gets the plain forward's statistics and
-a random cotangent, without ``dx`` (as in training). ``flash_gat`` runs at the
+a random cotangent, without ``dx`` (as in training). The forward also runs at
+the classic host loop's rows (``HOST_GAT``: exp1's one UBS, N = 1, and one
+4-UBS world, N = 4), with its plain ms and bound. ``flash_gat`` runs at the
 4-UBS DiscreteComm width (4 heads of 64) at N = 160 rows (serving 40 worlds),
 320, 2048 and 4096, for the 'seen' GT slots (M = 50) at the valid shares
 serving sees at step 0 and step 25 of an episode (``SERVING_VALID``) and at
@@ -54,7 +58,8 @@ import chip_smoke  # noqa: E402
 from uav_bs_ctrl_tpu_torch.ops import build, gat_kernels, step_kernels  # noqa: E402
 
 PLAIN = {"tarmac_step": (step_kernels.tarmac_step_plain, chip_smoke.step_cost),
-         "tarmac_step_bwd": (step_kernels.tarmac_step_bwd_plain, chip_smoke.step_bwd_cost)}
+         "tarmac_step_bwd": (step_kernels.tarmac_step_bwd_plain, chip_smoke.step_bwd_cost),
+         "flash_gat_fused": (gat_kernels.flash_gat_fused_plain, chip_smoke.gat_cost)}
 KERNELS = {  # name: (wrapper, ctypes signatures)
     "flash_gat": (gat_kernels.flash_gat, gat_kernels._FLASH_SIGNATURES),
     "tarmac_step": (step_kernels.tarmac_step, step_kernels._SIGNATURES),
@@ -62,10 +67,14 @@ KERNELS = {  # name: (wrapper, ctypes signatures)
     "flash_gat_fused": (gat_kernels.flash_gat_fused, gat_kernels._SIGNATURES),
     "flash_gat_fused_bwd": (gat_kernels.flash_gat_fused_bwd, gat_kernels._BWD_SIGNATURES),
 }
-STEP_WORLDS = {"tarmac_step": (32, 40, 512), "tarmac_step_bwd": (32, 512)}
+STEP_WORLDS = {"tarmac_step": (32, 40, 256, 512), "tarmac_step_bwd": (32, 256, 512)}
+HOST_STEP = (1, 4)                 # the classic host loop's TarMAC step: one 4-UBS world
 GAT_ROWS = (256, 320, 4096)
 GAT_SLOTS = {"seen": (50, 4), "near": (7, 2)}        # M, D
 UPDATE_VALID = {"seen": 0.32, "near": 1.0}           # valid share of the update's masks
+# The classic host loop's #2 calls (N, M, D, valid share): exp1's one UBS over its 10 GTs,
+# all valid; a 4-UBS world's 'seen' GT slots and its 'near' UBS slots.
+HOST_GAT = ((1, 10, 4, 1.0), (4, 50, 4, UPDATE_VALID["seen"]), (4, 3, 2, 1.0))
 FLASH_ROWS = (160, 320, 2048, 4096)
 SERVING_VALID = (0.013, 0.38)      # 4-UBS serving's 'seen' valid share at steps 0 and 25
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -103,12 +112,16 @@ def scale(ref):
 
 def step_cases(name, rng):
     """(label, wrapper arguments) of the step kernel ``name``."""
-    for w in STEP_WORLDS[name]:
-        args = tuple(chip_smoke.step_case(rng, w, 8, 256, 64, 16, 9).values())
+    worlds = [(w, 8) for w in STEP_WORLDS[name]]
+    if name == "tarmac_step":
+        worlds.append(HOST_STEP)
+    for w, a in worlds:
+        args = tuple(chip_smoke.step_case(rng, w, a, 256, 64, 16, 9).values())
         if name == "tarmac_step_bwd":
-            args += (torch.randn((w * 8, 9), device="cuda"),
-                     torch.randn((w * 8, 256), device="cuda"))
-        yield f"R={w * 8}", args + (8, 16, False)
+            args += (torch.randn((w * a, 9), device="cuda"),
+                     torch.randn((w * a, 256), device="cuda"))
+        yield f"R={w * a}" + (f" (A={a}, the host loop's step)" if a != 8 else ""), \
+            args + (a, 16, False)
 
 
 def gat_cases(name, rng):
@@ -123,6 +136,12 @@ def gat_cases(name, rng):
                         (torch.randn((n, 256), device="cuda"),)
                 share = (c["mask"] > 0).float().mean().item()
                 yield f"N={n} {slots} (M={m}, D={d}) valid {share:.3f}", args + (4,)
+    if name == "flash_gat_fused":
+        for n, m, d, valid in HOST_GAT:
+            c = chip_smoke.gat_case(rng, n, m, d, 256, 4, [], valid)
+            args = (c["x"], c["w"], c["b"], c["er"], c["attn"], c["mask"], 4)
+            share = (c["mask"] > 0).float().mean().item()
+            yield f"N={n} (M={m}, D={d}) valid {share:.3f}, the host loop's", args
 
 
 def flash_cases():
@@ -195,8 +214,8 @@ def main():
             plain, cost = PLAIN[name]
             with torch.no_grad():
                 plain_ms = chip_smoke.time_cuda(lambda: plain(*args))
-                bound_ms, bound_by = chip_smoke.bound(*cost(args), args[0].dtype)
-                line = f"{name} {label}: plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms " \
+                bound_ms, bound_by = chip_smoke.bound(*cost(args))
+                line = f"{name} {label}: plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms " \
                     f"({bound_by})"
                 if args[0].dtype == torch.bfloat16:
                     ref = plain(*(t.double() if torch.is_tensor(t) else t for t in args))

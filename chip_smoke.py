@@ -4,7 +4,7 @@
 Run from anywhere: ``python3 chip_smoke.py``. Phases, each printed with its wall
 time: the device; the nvcc build of every kernel (one nvcc per source, in
 parallel); the tensor-core (HMMA) instructions that ``cuobjdump -sass`` finds
-in the step kernels' bf16 products and, none, in their f32 ones; each of the
+in every product kernel of the step kernels, f32 (3xTF32) and bf16; each of the
 five kernels against its plain PyTorch version on the card; serving the committed exp3 8-UBS TarMAC policy (40 worlds, one 50-step
 episode) through the kernels, with every step's Q checked against the plain
 path; serving the committed exp3 4-UBS DiscreteComm policy with
@@ -88,6 +88,8 @@ WATCHDOG_S = 900
 ATOL = RTOL = 1e-4        # f32 kernel vs plain version, full width
 F32_PEAK_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores (data sheet)
 BF16_PEAK_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense (data sheet)
+TF32_PEAK_FLOPS = 495e12  # H100 SXM tf32 on the tensor cores, dense (data sheet)
+F32_MMA_PEAK_FLOPS = TF32_PEAK_FLOPS / 3  # f32-accurate products there: 3xTF32's three passes
 HBM_BYTES_PER_S = 3.35e12
 RUN_DIR = ROOT / "data" / "exp3_fast_8ubs_tarmac_qmix_il10_lay64k" / \
     "exp3_fast_8ubs_tarmac_qmix_il10_lay64k_s0"
@@ -250,21 +252,29 @@ def max_err(got, want, what):
     return worst
 
 
-def gat_cost(x, mask, hf, heads):
-    """(operations, bytes) one flash_gat_fused call needs: per valid slot the
-    projection 2*D*HF, bias, +er, LeakyReLU, score 2*HF and aggregation 2*HF,
-    plus 3 per head for the softmax; each input read once, each output written
-    once, in the operands' storage type (the row statistics in f32)."""
+def gat_peak(dtype):
+    """The peak FLOP/s of a GATv2 kernel's operations: bf16's on the tensor
+    cores, f32's outside them."""
+    return BF16_PEAK_FLOPS if dtype == torch.bfloat16 else F32_PEAK_FLOPS
+
+
+def gat_cost(args):
+    """(operations, bytes, peak FLOP/s) one flash_gat_fused call on ``args``
+    needs: per valid slot the projection 2*D*HF, bias, +er, LeakyReLU, score
+    2*HF and aggregation 2*HF, plus 3 per head for the softmax; each input read
+    once, each output written once, in the operands' storage type (the row
+    statistics in f32)."""
+    x, mask, hf, heads = args[0], args[5], args[1].shape[1], args[6]
     n, m, d = x.shape
     valid = float((mask > 0).sum())
     ops = valid * (hf * (2 * d + 7) + 3 * heads) + n * hf
     nbytes = x.element_size() * (x.numel() + mask.numel() + 2 * n * hf + d * hf + 2 * hf) \
         + 4 * 2 * n * heads
-    return ops, nbytes
+    return ops, nbytes, gat_peak(x.dtype)
 
 
 def flash_gat_cost(el, mask, heads):
-    """(operations, bytes) one flash_gat call needs: per valid slot +er,
+    """(operations, bytes, peak FLOP/s) one flash_gat call (f32 only) needs: per valid slot +er,
     LeakyReLU (2), x attn, the score sum and the weighted sum (2), about 7*HF,
     plus 3 per head for the softmax, and a divide per output. Bytes: the mask,
     er and attn read once, the output written once, and of el only the valid
@@ -273,13 +283,22 @@ def flash_gat_cost(el, mask, heads):
     valid = float((mask > 0).sum())
     ops = valid * (7 * hf + 3 * heads) + n * hf
     nbytes = 4 * (valid * hf + mask.numel() + 2 * n * hf + hf)
-    return ops, nbytes
+    return ops, nbytes, F32_PEAK_FLOPS
+
+
+def step_peak(dtype):
+    """The peak FLOP/s of a step kernel's operations: its products run on the
+    tensor cores, in bf16 or, at f32, as 3xTF32 (three tf32 passes, the least
+    the card takes for f32-accurate products). The gates, softmax and sums
+    outside the products are counted at that rate too, faster than the CUDA
+    cores', so the bound stays one that the kernel cannot beat."""
+    return BF16_PEAK_FLOPS if dtype == torch.bfloat16 else F32_MMA_PEAK_FLOPS
 
 
 def step_cost(args):
-    """(operations, bytes) one tarmac_step call needs: the v/s/q projections,
-    scores, softmax and aggregation over the valid edges, the GRU's two
-    products and gates, and the head."""
+    """(operations, bytes, peak FLOP/s) one tarmac_step call needs: the v/s/q
+    projections, scores, softmax and aggregation over the valid edges, the
+    GRU's two products and gates, and the head."""
     x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo, wvh, bvh = args[:17]
     dueling = args[19]
     rows, hid = x.shape
@@ -290,26 +309,28 @@ def step_cost(args):
            + rows * 2 * hid * (n_act + (1 if dueling else 0)))
     read = args[:15] + ((wvh, bvh) if dueling else ())
     nbytes = x.element_size() * (sum(t.numel() for t in read) + rows * (n_act + hid))
-    return ops, nbytes
+    return ops, nbytes, step_peak(x.dtype)
 
 
-def gat_bwd_cost(x, mask, hf, heads, need_dx):
-    """(operations, bytes) one flash_gat_fused_bwd call needs: per valid slot
+def gat_bwd_cost(args):
+    """(operations, bytes, peak FLOP/s) one flash_gat_fused_bwd call on
+    ``args`` needs: per valid slot
     the recompute of el, z, LeakyReLU and the score (2*D*HF + 5*HF), d_alpha
     (2*HF), d_s, d_z and d_el (5*HF), the der/dattn/db sums (4*HF) and dW
     (2*D*HF), plus 4 per head for alpha; dx adds 2*D*HF per slot. Each input
     (x, mask, w, b, er, attn, g, out, m, l) read once, each output written once."""
+    x, mask, hf, heads, need_dx = args[0], args[5], args[1].shape[1], args[10], args[12]
     n, m, d = x.shape
     valid = float((mask > 0).sum())
     ops = valid * (hf * (4 * d + 16 + (2 * d if need_dx else 0)) + 4 * heads) + 2 * n * hf
     nbytes = x.element_size() * (x.numel() + mask.numel() + 3 * n * hf + 2 * d * hf + 2 * hf
                                  + n * hf + d * hf + 2 * hf + (x.numel() if need_dx else 0)) \
         + 4 * 2 * n * heads
-    return ops, nbytes
+    return ops, nbytes, gat_peak(x.dtype)
 
 
 def step_bwd_cost(args):
-    """(operations, bytes) one tarmac_step_bwd call needs: the forward
+    """(operations, bytes, peak FLOP/s) one tarmac_step_bwd call needs: the forward
     recompute up to h2; the head, GRU (elementwise) and attention backwards;
     the transposed products [dx|dc] = dgi wi^T, dgh wh^T and dv/ds/dq times
     the v/s/q weights; and the 14 weight gradients X^T G with their bias sums.
@@ -332,7 +353,7 @@ def step_bwd_cost(args):
     weights = args[3:17]
     nbytes = x.element_size() * (2 * sum(t.numel() for t in weights) + x.numel() + h.numel()
                                  + adjf.numel() + rows * (n_act + hid) + 2 * rows * hid)
-    return recompute + backward + weight_grads, nbytes
+    return recompute + backward + weight_grads, nbytes, step_peak(x.dtype)
 
 
 def rel_err(got, want, what, limit=BWD_RTOL):
@@ -352,21 +373,35 @@ def rel_err(got, want, what, limit=BWD_RTOL):
     return worst
 
 
-def bound(ops, nbytes, dtype=torch.float32):
+def bound(ops, nbytes, peak):
     """The least ms the card could take: the larger of the bytes over HBM's rate
-    and the operations over the card's peak for the operands' type (bf16:
-    the tensor cores' rate, which the step kernels' products run at and the
-    GATv2 kernels, widening to f32, do not)."""
-    peak = BF16_PEAK_FLOPS if dtype == torch.bfloat16 else F32_PEAK_FLOPS
+    and the operations over ``peak``, the rate a cost function gives for its
+    kernel's work (``gat_peak``, ``step_peak``)."""
     t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def time_case(what, inputs, fn, plain, args, cost, **timing):
+    """Times ``fn(*args)`` and, unless ``plain`` is None, ``plain(*args)``
+    (``time_cuda(..., **timing)``), prints both beside the bound of ``cost``
+    under ``what`` and returns the case ``{"inputs", "ms", "plain_ms",
+    "bound_ms", "bound_by"}``."""
+    ms = time_cuda(lambda: fn(*args), **timing)
+    plain_ms = None if plain is None else time_cuda(lambda: plain(*args), **timing)
+    bound_ms, bound_by = bound(*cost)
+    plain_txt = "not measured" if plain_ms is None else f"{plain_ms:.4f} ms"
+    print(f"  {what}: {ms:.4f} ms, plain {plain_txt}, bound {bound_ms:.6f} ms ({bound_by}: "
+          f"{cost[0]:.3e} ops, {cost[1]:.3e} bytes), {100 * bound_ms / ms:.2f} % of the "
+          f"bound's speed", flush=True)
+    return dict(inputs=inputs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def hmma_counts(libraries, cuda_bin):
-    """{library: {"bf16": n, "f32": n}}: the HMMA (tensor-core) instructions in
-    the step_products kernels of each built library, by storage type, from
-    ``cuobjdump -sass`` (beside nvcc in ``cuda_bin``, else on PATH; raises
-    without it). A bf16 kernel's name holds ``__nv_bfloat16``."""
+    """{library: {"bf16": [kernels, HMMA instructions, kernels without one],
+    "f32": [...]}}: the HMMA (tensor-core) instructions in the step_products
+    kernels of each built library, by storage type, from ``cuobjdump -sass``
+    (beside nvcc in ``cuda_bin``, else on PATH; raises without it). A bf16
+    kernel's name holds ``__nv_bfloat16``."""
     tool = Path(cuda_bin) / "cuobjdump"
     if not tool.is_file():
         found = shutil.which("cuobjdump")
@@ -377,14 +412,16 @@ def hmma_counts(libraries, cuda_bin):
     for name, path in libraries.items():
         sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
                               check=True, timeout=300).stdout
-        found = {"bf16": [0, 0], "f32": [0, 0]}                # kernels, HMMA instructions
+        found = {"bf16": [0, 0, 0], "f32": [0, 0, 0]}
         for block in sass.split("Function : ")[1:]:
             fn = block.split(None, 1)[0]
             if "step_products" not in fn:
                 continue
             kind = found["bf16" if "__nv_bfloat16" in fn else "f32"]
+            hmma = sum(1 for line in block.splitlines() if "HMMA" in line)
             kind[0] += 1
-            kind[1] += sum(1 for line in block.splitlines() if "HMMA" in line)
+            kind[1] += hmma
+            kind[2] += hmma == 0
         if not found["bf16"][0] or not found["f32"][0]:
             raise AssertionError(f"{name}: no step_products kernel of one type in the SASS "
                                  f"({found})")
@@ -1096,10 +1133,7 @@ def bench_phases(ctx):
                         out_k, ms_k, ls_k = fwd(*fwd_args)
                         bwd_args = fwd_args[:6] + (out_k, ms_k, ls_k, c[1]) + fwd_args[6:] + \
                             (False,)
-                        fwd_cost = gat_cost(fwd_args[0], fwd_args[5], fwd_args[1].shape[1],
-                                            fwd_args[6])
-                        bwd_cost = gat_bwd_cost(fwd_args[0], fwd_args[5], fwd_args[1].shape[1],
-                                                fwd_args[6], False)
+                        fwd_cost, bwd_cost = gat_cost(fwd_args), gat_bwd_cost(bwd_args)
                         plains = (gat_kernels.flash_gat_fused_plain,
                                   gat_kernels.flash_gat_fused_bwd_plain)
                         label = f"'{'seen' if fwd_args[0].shape[1] == BENCH_M else 'near'}' " \
@@ -1190,21 +1224,10 @@ def bench_phases(ctx):
                     for kname, fn, plain, kargs, cost in (
                             (fwd_name, fwd, plains[0], fwd_args, fwd_cost),
                             (name, bwd, plains[1], bwd_args, bwd_cost)):
-                        ms = time_cuda(lambda: fn(*kargs), n_iter=5 if big else 20,
-                                       reps=3 if big else 5)
-                        if big and dt == "float32":
-                            plain_ms = None             # tens of GB of f32 temporaries
-                        else:
-                            plain_ms = time_cuda(lambda: plain(*kargs), n_iter=3 if big else 20,
-                                                 reps=3 if big else 5)
-                        bound_ms, bound_by = bound(*cost, fwd_args[0].dtype)
-                        plain_txt = "not measured" if plain_ms is None else f"{plain_ms:.4f} ms"
-                        print(f"  {dt} {kname} {label}: {ms:.4f} ms, plain {plain_txt}, "
-                              f"bound {bound_ms:.5f} ms ({bound_by}: {cost[0]:.3e} ops, "
-                              f"{cost[1]:.3e} bytes), {100 * bound_ms / ms:.2f} % of the bound's "
-                              f"speed", flush=True)
-                        timed[kname][dt].append(dict(inputs=label, ms=ms, plain_ms=plain_ms,
-                                                     bound_ms=bound_ms, bound_by=bound_by))
+                        f32_big = big and dt == "float32"    # tens of GB of f32 temporaries
+                        timed[kname][dt].append(time_case(
+                            f"{dt} {kname} {label}", label, fn, None if f32_big else plain,
+                            kargs, cost, n_iter=5 if big else 20, reps=3 if big else 5))
         for s in BENCH_SCHEDULES:
             print(f"  ms per update at B = {BENCH_B}, {s}: f32 {out.ms['float32', s]:.2f}, bf16 "
                   f"{out.ms['bfloat16', s]:.2f}", flush=True)
@@ -1532,11 +1555,13 @@ def host_loop_phases(ctx):
     counts, reset_counts = ctx.counts, ctx.reset_counts
     zero = dict.fromkeys(counts(), 0)
     scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_host_"))
-    out = SimpleNamespace(step_ms={})
+    out = SimpleNamespace(step_ms={}, kernel_cases={})
     act_q = core.RecurrentQLearner._act_q
-    errs = []
+    errs, first = [], []
 
     def checked(self, obs, h, key):
+        if not first:
+            first.append((self.net, obs, h, key))
         q, h2 = act_q(self, obs, h, key)
         q_ref, h_ref = self.net(obs, h, False, key)
         errs.append(((q - q_ref).abs().max().item(), (h2 - h_ref).abs().max().item()))
@@ -1589,6 +1614,7 @@ def host_loop_phases(ctx):
                   f"{sum(same)} of {HOST_EPISODES} ({same})", flush=True)
 
             errs.clear()
+            first.clear()
             core.RecurrentQLearner._act_q = checked
             try:
                 reset_counts()
@@ -1607,6 +1633,7 @@ def host_loop_phases(ctx):
                                      f"{worst_h:.3e} over {len(errs)} steps")
             if counts() != want:
                 raise AssertionError(f"expected {want} launches, got {counts()}")
+            host_kernel_times(label, capture_kernel_calls(*first[0]), out.kernel_cases)
 
     classic_dir = scratch / "classic"
     with phase(f"run_classic: exp3 preset, 4ubs TarMAC+QMIX at full width, one epoch of "
@@ -1692,6 +1719,26 @@ def host_loop_phases(ctx):
             raise AssertionError(f"the grid's run: failed {failed}, rows {rows}, config {saved}")
     shutil.rmtree(scratch)
     return out
+
+
+def host_kernel_times(label, calls, cases):
+    """Times the kernel calls of one host step (one world: #2 at N = 1 or 4
+    rows, #4 at R = 4) against their plain versions, with their bounds, into
+    ``cases[name]``; measurement only, after the phase's launches are counted."""
+    from uav_bs_ctrl_tpu_torch.ops.gat_kernels import flash_gat_fused, flash_gat_fused_plain
+    from uav_bs_ctrl_tpu_torch.ops.step_kernels import tarmac_step, tarmac_step_plain
+    fns = {"flash_gat_fused": (flash_gat_fused, flash_gat_fused_plain),
+           "tarmac_step": (tarmac_step, tarmac_step_plain)}
+    for name, args in calls:
+        fn, plain = fns[name]
+        if name == "tarmac_step":
+            cost, shape = step_cost(args), f"R={args[0].shape[0]}"
+        else:
+            cost = gat_cost(args)
+            shape = f"N={args[0].shape[0]} M={args[0].shape[1]} D={args[0].shape[2]}"
+        cases.setdefault(name, []).append(time_case(
+            f"host loop {label} {name} {shape}", f"host loop {label}: {shape}", fn, plain, args,
+            cost))
 
 
 def committed_rows(path):
@@ -2179,21 +2226,11 @@ def exp1_times(e1):
     cases = {name: [] for name in fns}
     for (name, n), args in sorted(e1.cases.items()):
         fn, plain = fns[name]
-        ms, plain_ms = time_cuda(lambda: fn(*args)), time_cuda(lambda: plain(*args))
-        x, mask, hf = args[0], args[5], args[1].shape[1]
-        if name == "flash_gat_fused_bwd":
-            cost = gat_bwd_cost(x, mask, hf, args[10], args[12])
-        else:
-            cost = gat_cost(x, mask, hf, args[6])
-        bound_ms, bound_by = bound(*cost)
+        cost = gat_bwd_cost(args) if name == "flash_gat_fused_bwd" else gat_cost(args)
         what = "serving inputs" if name == "flash_gat_fused" and n == N_WORLDS else "random"
-        print(f"  exp1 {name} N={n} M={x.shape[1]} all valid ({what}): {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: {cost[0]:.3e} ops, "
-              f"{cost[1]:.3e} bytes), {100 * bound_ms / ms:.2f} % of the bound's speed",
-              flush=True)
-        cases[name].append({"inputs": f"exp1 N={n} M={x.shape[1]} all valid ({what})",
-                            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                            "bound_by": bound_by})
+        shape = f"N={n} M={args[0].shape[1]} all valid ({what})"
+        cases[name].append(time_case(f"exp1 {name} {shape}", f"exp1 {shape}", fn, plain, args,
+                                     cost))
     gnn, rnn = e1.gnn_trainer, e1.rnn_trainer
     upd = {}
     for label, tr, batch, kernels in (("gnn, kernels", gnn, e1.gnn_batch, True),
@@ -2299,15 +2336,15 @@ def main():
               flush=True)
 
     with phase("the step products on the tensor cores (cuobjdump -sass)"):
-        steps = ("tarmac_step", "tarmac_step_bwd")
-        hmma = hmma_counts({k: built[k] for k in steps}, Path(build.find_nvcc()).parent)
+        hmma = hmma_counts({k: built[k] for k in ("tarmac_step", "tarmac_step_bwd")},
+                           Path(build.find_nvcc()).parent)
         for name, c in hmma.items():
-            print(f"  {name}: HMMA instructions in its bf16 step_products kernels "
-                  f"{c['bf16'][1]} (of {c['bf16'][0]} kernels), in its f32 ones {c['f32'][1]} "
-                  f"(of {c['f32'][0]})", flush=True)
-            if c["bf16"][1] == 0 or c["f32"][1] != 0:
-                raise AssertionError(f"{name}: the bf16 products must run on the tensor cores "
-                                     "and the f32 ones must not")
+            print(f"  {name}: HMMA instructions in its f32 step_products kernels {c['f32'][1]} "
+                  f"(of {c['f32'][0]} kernels, {c['f32'][2]} without one), in its bf16 ones "
+                  f"{c['bf16'][1]} (of {c['bf16'][0]}, {c['bf16'][2]} without one)", flush=True)
+            if c["bf16"][2] or c["f32"][2]:
+                raise AssertionError(f"{name}: every f32 and bf16 product kernel must run on "
+                                     "the tensor cores")
 
     worst = dict.fromkeys(all_kernels, 0.0)
     rng = np.random.default_rng(0)
@@ -2865,8 +2902,8 @@ def main():
 
     e1 = exp1_phases(SimpleNamespace(rng=rng, worst=worst, counts=counts,
                                      reset_counts=reset_counts, phase_launches=phase_launches))
-    host_loop_phases(SimpleNamespace(counts=counts, reset_counts=reset_counts,
-                                     phase_launches=phase_launches))
+    host_loop = host_loop_phases(SimpleNamespace(counts=counts, reset_counts=reset_counts,
+                                                 phase_launches=phase_launches))
     bench = bench_phases(SimpleNamespace(counts=counts, counts_bf16=counts_bf16,
                                          reset_counts=reset_counts))
     slice13_phases(SimpleNamespace(counts=counts, reset_counts=reset_counts,
@@ -2878,13 +2915,8 @@ def main():
         print(f"  card: {card}", flush=True)
         for cname, args in calls:
             fn, plain = kernels[cname]
-            ms, plain_ms = time_cuda(lambda: fn(*args)), time_cuda(lambda: plain(*args))
-            cost = step_cost(args) if cname == "tarmac_step" else \
-                gat_cost(args[0], args[5], args[1].shape[1], args[6])
-            bound_ms, bound_by = bound(*cost)
-            print(f"  serving {cname} {tuple(args[0].shape)}: {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms, bound {bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.2f} % of "
-                  f"the bound's speed", flush=True)
+            cost = step_cost(args) if cname == "tarmac_step" else gat_cost(args)
+            time_case(f"serving {cname} {tuple(args[0].shape)}", "serving", fn, plain, args, cost)
         with torch.enable_grad():
             bwd_calls, update_valid = capture_backward_calls(learner, batch, T // 2)
         learner.load_state_dict(snap)
@@ -2897,31 +2929,22 @@ def main():
         flash_cases = []
         for step in CAPTURE_STEPS:
             for rel, (_, args) in zip(("seen", "near"), dcalls[step]):
-                ms = time_cuda(lambda: flash_gat(*args))
-                plain_ms = time_cuda(lambda: flash_gat_plain(*args))
-                cost = flash_gat_cost(args[0], args[3], args[4])
-                bound_ms, bound_by = bound(*cost)
                 share = (args[3] > 0).float().mean().item()
-                print(f"  4-UBS serving flash_gat, step {step} '{rel}' {tuple(args[0].shape)}, "
-                      f"valid share {share:.4f}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                      f"{bound_ms:.5f} ms ({bound_by}: {cost[0]:.3e} ops, {cost[1]:.3e} "
-                      f"bytes); {disc_launches['flash_gat'] // disc_steps} launches per env "
-                      f"step", flush=True)
-                timed["flash_gat"].append((ms, plain_ms, bound_ms, bound_by))
-                flash_cases.append({"inputs": f"step {step} {rel}", "valid_share": share,
-                                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                    "bound_by": bound_by})
+                case = time_case(
+                    f"4-UBS serving flash_gat, step {step} '{rel}' {tuple(args[0].shape)}, valid "
+                    f"share {share:.4f}, {disc_launches['flash_gat'] // disc_steps} launches "
+                    f"per env step", f"step {step} {rel}", flash_gat, flash_gat_plain, args,
+                    flash_gat_cost(args[0], args[3], args[4]))
+                timed["flash_gat"].append(case)
+                flash_cases.append(dict(case, valid_share=share))
         for name, captured in bwd_calls:
             fwd_args = captured[0]
             if name == "flash_gat_fused_bwd":
                 out, mstat, lstat = flash_gat_fused(*fwd_args)
-                fwd_name, fwd_cost = "flash_gat_fused", gat_cost(fwd_args[0], fwd_args[5],
-                                                                 fwd_args[1].shape[1],
-                                                                 fwd_args[6])
+                fwd_name, fwd_cost = "flash_gat_fused", gat_cost(fwd_args)
                 bwd_args = fwd_args[:6] + (out, mstat, lstat, captured[1]) + fwd_args[6:] + \
                     (False,)
-                bwd_cost = gat_bwd_cost(fwd_args[0], fwd_args[5], fwd_args[1].shape[1],
-                                        fwd_args[6], False)
+                bwd_cost = gat_bwd_cost(bwd_args)
             else:
                 fwd_name, fwd_cost = "tarmac_step", step_cost(fwd_args)
                 bwd_args = fwd_args[:17] + captured[1:] + fwd_args[17:]
@@ -2932,32 +2955,21 @@ def main():
             for kname, kargs, cost in ((fwd_name, fwd_args, fwd_cost),
                                        (name, bwd_args, bwd_cost)):
                 fn, plain = all_kernels[kname]
-                ms = time_cuda(lambda: fn(*kargs))
-                plain_ms = time_cuda(lambda: plain(*kargs))
-                bound_ms, bound_by = bound(*cost)
-                print(f"  training {kname} {tuple(kargs[0].shape)}: {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-                      f"{cost[0]:.3e} ops, {cost[1]:.3e} bytes), {100 * bound_ms / ms:.2f} % "
-                      f"of the bound's speed", flush=True)
-                timed[kname].append((ms, plain_ms, bound_ms, bound_by))
+                shape = tuple(kargs[0].shape)
+                timed[kname].append(time_case(f"training {kname} {shape}", f"training {shape}",
+                                              fn, plain, kargs, cost))
         # tarmac_step_bwd at 512 worlds (R = 4096), random inputs of the training width.
         c = step_case(rng, 512, A, 256, 64, 16, 9)
         big = tuple(c.values()) + (torch.randn((512 * A, 9), device=device),
                                    torch.randn((512 * A, 256), device=device), A, 16, False)
-        cost = step_bwd_cost(big)
-        big_ms, big_plain_ms = time_cuda(lambda: tarmac_step_bwd(*big)), \
-            time_cuda(lambda: tarmac_step_bwd_plain(*big))
-        print(f"  tarmac_step_bwd (4096, 256), 512 worlds: {big_ms:.4f} ms, plain "
-              f"{big_plain_ms:.4f} ms, bound {bound(*cost)[0]:.5f} ms ({bound(*cost)[1]}: "
-              f"{cost[0]:.3e} ops, {cost[1]:.3e} bytes)", flush=True)
         big_fwd = big[:17] + big[19:]
-        cost = step_cost(big_fwd)
-        big_ms, big_plain_ms = time_cuda(lambda: tarmac_step(*big_fwd)), \
-            time_cuda(lambda: tarmac_step_plain(*big_fwd))
-        print(f"  tarmac_step (4096, 256), 512 worlds: {big_ms:.4f} ms, plain {big_plain_ms:.4f} "
-              f"ms, bound {bound(*cost)[0]:.5f} ms ({bound(*cost)[1]}: {cost[0]:.3e} ops, "
-              f"{cost[1]:.3e} bytes), {100 * bound(*cost)[0] / big_ms:.2f} % of the bound's "
-              f"speed", flush=True)
+        big_cases = {
+            "tarmac_step_bwd": time_case("tarmac_step_bwd (4096, 256), 512 worlds",
+                                         "512 worlds, R=4096", tarmac_step_bwd,
+                                         tarmac_step_bwd_plain, big, step_bwd_cost(big)),
+            "tarmac_step": time_case("tarmac_step (4096, 256), 512 worlds", "512 worlds, R=4096",
+                                     tarmac_step, tarmac_step_plain, big_fwd,
+                                     step_cost(big_fwd))}
         exp1_cases = exp1_times(e1)
         # Each kernel's launches on its main path: flash_gat's the 4-UBS 'pallas'
         # serving, the others' the training path.
@@ -2968,15 +2980,19 @@ def main():
                 "source": f"uav_bs_ctrl_tpu_torch/ops/csrc/{name}.cu",
                 "replaces": REPLACES[name], "launches": path_launches[name],
                 "max_abs_err": worst[name],
-                "ms": statistics.mean(r[0] for r in rows),
-                "plain_ms": statistics.mean(r[1] for r in rows),
-                "bound_ms": statistics.mean(r[2] for r in rows),
-                "bound_by": rows[0][3], "library_ms": None,
+                "ms": statistics.mean(r["ms"] for r in rows),
+                "plain_ms": statistics.mean(r["plain_ms"] for r in rows),
+                "bound_ms": statistics.mean(r["bound_ms"] for r in rows),
+                "bound_by": rows[0]["bound_by"], "library_ms": None,
                 "phase_launches": {k: v[name] for k, v in phase_launches.items()}})
             if name == "flash_gat":
                 record[-1]["cases"] = flash_cases
             if name in exp1_cases:
                 record[-1]["cases"] = exp1_cases[name]
+            if name in big_cases:
+                record[-1]["cases"] = [big_cases[name]]
+            if name in host_loop.kernel_cases:
+                record[-1].setdefault("cases", []).extend(host_loop.kernel_cases[name])
 
         learner.load_state_dict(snap)
         upd = {True: [], False: []}

@@ -1,8 +1,12 @@
 """The GPU scripts' CPU-side pieces: ``chip_ab.py`` imports nothing of JAX,
 takes the five redesigned kernels, refuses to run without a card, scales its
-differences without the -1e30 sentinel and tells the scratch-less forward
-source apart, and ``chip_smoke.launch_split`` splits a kernel's profiled launches by their
-position within one call."""
+differences without the -1e30 sentinel, tells the scratch-less forward
+source apart and times the step kernels at R = 256, 2,048, 4,096 and the host
+loop's step; ``chip_smoke.launch_split`` splits a kernel's profiled launches by their
+position within one call, ``chip_smoke.hmma_counts`` counts each product kernel
+without a tensor-core instruction (on a stand-in ``cuobjdump``), and
+``chip_smoke.bound`` holds an f32 step kernel's operations at three tf32
+passes at the tensor cores' peak."""
 
 import ast
 import os
@@ -103,3 +107,60 @@ def test_kernel_label_keeps_the_function_and_its_library_tag():
     assert chip_smoke.kernel_label(f"{ns}tarmac_step_fwd_head(float const*, int)") == \
         "tarmac_step_fwd_head"
     assert "tarmac_step_bwd" not in fwd and chip_smoke.LIBRARY_TAGS["tarmac_step"] in fwd
+
+
+def _fake_cuobjdump(tmp_path, functions):
+    """A cuobjdump that prints a SASS listing of ``functions`` ({name: HMMA
+    lines}), as ``cuobjdump -sass`` lays one out."""
+    listing = "".join(f"\t\tFunction : {name}\n" + "        /*0000*/ IMAD.MOV.U32 R1 ;\n"
+                      + "        /*0010*/ HMMA.1688.F32.TF32 R4, R8, R12, R4 ;\n" * n
+                      for name, n in functions.items())
+    (tmp_path / "sass.txt").write_text(listing)
+    tool = tmp_path / "cuobjdump"
+    tool.write_text(f"#!/bin/sh\ncat {tmp_path / 'sass.txt'}\n")
+    tool.chmod(0o755)
+    return tmp_path
+
+
+def test_hmma_counts_counts_each_type_and_each_kernel_without_hmma(tmp_path):
+    f32 = "_ZN1_13step_productsINS_15tarmac_step_bwdEfJNS_5TypesIffffEEEEEvNS_4JobsE"
+    bf16 = "_ZN1_13step_productsINS_15tarmac_step_bwdE13__nv_bfloat16JNS_5TypesIffS2_fEEEEEv"
+    other = "_ZN1_22tarmac_step_bwd_finishIfEEvNS_4SumsE"
+    cuda_bin = _fake_cuobjdump(tmp_path, {f32: 48, f32 + "x": 0, bf16: 24, other: 0})
+    counts = chip_smoke.hmma_counts({"tarmac_step_bwd": tmp_path / "lib.so"}, cuda_bin)
+    assert counts == {"tarmac_step_bwd": {"f32": [2, 48, 1], "bf16": [1, 24, 0]}}
+
+
+def test_hmma_counts_refuses_a_library_without_one_type(tmp_path):
+    f32 = "_ZN1_13step_productsINS_15tarmac_step_fwdEfJNS_5TypesIffffEEEEEvNS_4JobsE"
+    cuda_bin = _fake_cuobjdump(tmp_path, {f32: 48})
+    with pytest.raises(AssertionError):
+        chip_smoke.hmma_counts({"tarmac_step": tmp_path / "lib.so"}, cuda_bin)
+
+
+def test_f32_step_bound_is_three_tf32_passes_at_the_tf32_peak():
+    """An f32 step kernel's operations are bound at 3xTF32's rate on the tensor
+    cores, below the CUDA cores' f32 time; bf16's at the bf16 peak; an f32
+    GATv2 kernel's at the CUDA cores' f32 peak."""
+    import torch
+    f32, bf16 = chip_smoke.step_peak(torch.float32), chip_smoke.step_peak(torch.bfloat16)
+    assert chip_smoke.bound(495e9, 0.0, f32) == (pytest.approx(3.0), "operations")
+    assert chip_smoke.bound(989e9, 0.0, bf16) == (pytest.approx(1.0), "operations")
+    ops = 7.475e8                                       # #5 at R = 256, the 8-UBS width
+    gat = chip_smoke.gat_peak(torch.float32)
+    assert chip_smoke.bound(ops, 0.0, f32)[0] < chip_smoke.bound(ops, 0.0, gat)[0]
+    assert chip_smoke.bound(1.0, 3.35e9, f32) == (pytest.approx(1.0), "bytes")
+
+
+def test_chip_ab_times_the_step_kernels_at_the_three_row_counts_and_the_host_step():
+    import numpy as np
+    old_device, chip_smoke.DEVICE = chip_smoke.DEVICE, "cpu"
+    try:
+        labels = [label for label, _ in chip_ab.step_cases("tarmac_step",
+                                                           np.random.default_rng(0))]
+    finally:
+        chip_smoke.DEVICE = old_device
+    assert {"R=256", "R=2048", "R=4096"} <= set(labels)
+    assert any(label.startswith("R=4 ") for label in labels)
+    assert {w * 8 for w in chip_ab.STEP_WORLDS["tarmac_step_bwd"]} == {256, 2048, 4096}
+    assert {n for n, *_ in chip_ab.HOST_GAT} == {1, 4}

@@ -3,19 +3,21 @@ emulation of their CUDA threads, against ``tarmac_step_bwd_plain`` and ``tarmac_
 
 Without nvcc a CUDA source cannot be compiled here. These tests compile it
 with g++ as C++ instead, under a small header that emulates the pieces the
-source uses: each CTA's threads run as ``std::thread``s that meet at a
-``std::barrier`` for ``__syncthreads``; the 32 lanes of each warp meet at a
-``std::barrier`` of their own for ``__shfl_xor_sync``, ``__ballot_sync`` and
-``__syncwarp`` (which a kernel calls only where its warp is converged);
-CTAs run one after another (so a ``__shared__`` array is a function-level
-static); and a launch ``k<<<g, b, smem, s>>>(...)`` (or ``k<Tag><<<...>>>``)
-becomes a call of the emulated launcher. Every ``csrc/*.cuh`` header is put
+source uses: each CTA's threads run as fibers (``ucontext``) on the calling
+thread, each until it waits at a barrier, those of every other CTA in
+reverse order; they meet at a barrier for ``__syncthreads``, and the 32
+lanes of each warp at a barrier of their own for ``__shfl_xor_sync``,
+``__ballot_sync`` and ``__syncwarp`` (which a kernel calls only where its
+warp is converged); CTAs run one after another (so a ``__shared__`` array is
+a function-level static); and a launch ``k<<<g, b, smem, s>>>(...)`` (or
+``k<Tag><<<...>>>``) becomes a call of the emulated launcher. Every ``csrc/*.cuh`` header is put
 through the same substitutions and written beside the source, with a
 ``cuda_bf16.h`` whose 16-bit type rounds as the card's does
 (``BF16_EMULATION_HEADER``; ``test_torch_bf16_emulated.py`` runs the bf16
 instantiations), and ``mma_sm90.cuh``, the tensor-core instructions of the
-bf16 products, is replaced by C++ stand-ins (``MMA_EMULATION_HEADER``;
-``test_torch_mma_emulated.py`` holds them against numpy). The tests call
+step products (3xTF32 at f32, bf16 at bf16), is replaced by C++ stand-ins
+(``MMA_EMULATION_HEADER``; ``test_torch_mma_emulated.py`` and
+``test_torch_tf32_emulated.py`` hold them against numpy). The tests call
 the C entry points ``tarmac_step_backward`` and ``tarmac_step_forward`` on CPU
 tensors through ``ctypes`` (``test_torch_gat_emulated.py`` builds the GATv2
 kernels the same way). They check the arithmetic, the job tables, the scratch
@@ -42,13 +44,15 @@ ORDER = ("x", "h", "adjf", "wv", "bv", "ws", "bs", "wq", "bq", "wi", "wh", "bi",
          "wo", "bo", "wvh", "bvh", "gq", "gh2")
 EMULATION_HEADER = r"""
 #pragma once
+#include <ucontext.h>
 #include <algorithm>
-#include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
+#include <functional>
 #include <memory>
-#include <thread>
 #include <vector>
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -64,70 +68,151 @@ struct alignas(16) float4 { float x, y, z, w; };
 using std::max;
 using std::min;
 namespace emu {
-inline thread_local emu_dim3 thread_idx, block_idx, block_dim, grid_dim;
-inline thread_local std::barrier<>* block_barrier = nullptr;
-inline thread_local float* dynamic_smem = nullptr;
+// A CTA's threads run as fibers (ucontext) on the launching thread, one at a time: a thread
+// runs until it waits at a barrier, and the scheduler resumes the threads whose barrier has
+// opened, in thread order in one block and in reverse order in the next, so that a read of
+// another thread's write with no barrier between them misreads in one of the two. A
+// barrier is a count and a phase; no lock, no OS thread.
+struct Barrier {
+  explicit Barrier(std::ptrdiff_t n) : expected(n) {}
+  std::ptrdiff_t expected, arrived = 0;
+  unsigned phase = 0;
+  void arrive_and_wait();
+  void arrive_and_drop() {         // arrives now and leaves every later phase
+    if (--expected == arrived) open();
+  }
+  void open() {
+    arrived = 0;
+    ++phase;
+  }
+};
 struct Warp {                      // a warp's lanes meet here for a shuffle or a ballot
   explicit Warp(std::ptrdiff_t lanes) : barrier(lanes) {}
-  std::barrier<> barrier;
+  Barrier barrier;
   unsigned long long slot[32];
-  unsigned words[32][8];
+  unsigned words[2][32][8];          // gather's posts, the two halves in turn
 };
-inline thread_local Warp* warp = nullptr;
-inline thread_local int lane = 0;
+struct Fiber {                     // one CUDA thread
+  ucontext_t context;
+  emu_dim3 thread_idx;
+  Warp* warp = nullptr;
+  int lane = 0;
+  unsigned gathers = 0;
+  const Barrier* waits_at = nullptr; // the barrier it waits at, and the phase it waits out
+  unsigned waits_phase = 0;
+  bool done = false;
+};
+inline emu_dim3 block_idx, block_dim, grid_dim;
+inline Barrier* block_barrier = nullptr;
+inline float* dynamic_smem = nullptr;
+inline Fiber* current = nullptr;
+inline ucontext_t scheduler;
+inline std::function<void()> body;
+inline void Barrier::arrive_and_wait() {
+  if (++arrived == expected) return open();
+  current->waits_at = this;
+  current->waits_phase = phase;
+  swapcontext(&current->context, &scheduler);
+}
+inline int lane_id() { return current->lane; }
+// Every lane's N words. A lane posts into the half its previous gather did not use, so one
+// barrier a gather does: no lane posts there again before every lane has reached the next
+// gather, and so has read this one.
 template <int N>
-void gather(const unsigned (&mine)[N], unsigned (&all)[32][N]) {   // every lane's N words
-  std::memcpy(warp->words[lane], mine, sizeof mine);
-  warp->barrier.arrive_and_wait();
-  for (int l = 0; l < 32; ++l) std::memcpy(all[l], warp->words[l], sizeof mine);
-  warp->barrier.arrive_and_wait();
+void gather(const unsigned (&mine)[N], unsigned (&all)[32][N]) {
+  Fiber& f = *current;
+  unsigned (&posts)[32][8] = f.warp->words[f.gathers++ & 1u];
+  std::memcpy(posts[f.lane], mine, sizeof mine);
+  f.warp->barrier.arrive_and_wait();
+  for (int l = 0; l < 32; ++l) std::memcpy(all[l], posts[l], sizeof mine);
 }
 template <class T>
 T exchange(T v, int src) {         // every lane posts v, then reads lane src's
-  std::memcpy(&warp->slot[lane], &v, sizeof(T));
-  warp->barrier.arrive_and_wait();
+  Warp* w = current->warp;
+  std::memcpy(&w->slot[current->lane], &v, sizeof(T));
+  w->barrier.arrive_and_wait();
   T r;
-  std::memcpy(&r, &warp->slot[src], sizeof(T));
-  warp->barrier.arrive_and_wait();
+  std::memcpy(&r, &w->slot[src], sizeof(T));
+  w->barrier.arrive_and_wait();
   return r;
 }
+inline void run_fiber() {          // returns to the scheduler through uc_link
+  body();
+  current->done = true;
+  block_barrier->arrive_and_drop();
+  current->warp->barrier.arrive_and_drop();
+}
 struct Cfg { unsigned grid; int block; size_t smem; cudaStream_t stream; };
+constexpr size_t kStack = size_t(1) << 18;
+inline std::vector<std::unique_ptr<char[]>> stacks;
+inline unsigned blocks_run = 0;
 template <class F, class... Args>
 void launch(Cfg c, F kernel, Args... args) {
+  while ((int)stacks.size() < c.block) stacks.emplace_back(new char[kStack]);
+  std::vector<Fiber> fibers(c.block);
+  body = [&] { kernel(args...); };
+  block_dim.x = c.block;
+  grid_dim.x = c.grid;
   for (unsigned b = 0; b < c.grid; ++b) {
     std::vector<float> smem(c.smem / sizeof(float) + 1);
-    std::barrier<> barrier(c.block);
+    Barrier barrier(c.block);
     std::vector<std::unique_ptr<Warp>> warps;
     for (int w = 0; 32 * w < c.block; ++w)
       warps.push_back(std::make_unique<Warp>(std::min(32, c.block - 32 * w)));
-    std::vector<std::thread> threads;
-    for (int t = 0; t < c.block; ++t)
-      threads.emplace_back([&, t] {
-        thread_idx.x = t; block_idx.x = b; block_dim.x = c.block; grid_dim.x = c.grid;
-        block_barrier = &barrier; dynamic_smem = smem.data();
-        warp = warps[t / 32].get(); lane = t % 32;
-        kernel(args...);
-        barrier.arrive_and_drop();
-        warp->barrier.arrive_and_drop();
-      });
-    for (auto& t : threads) t.join();
+    block_idx.x = b;
+    block_barrier = &barrier;
+    dynamic_smem = smem.data();
+    for (int t = 0; t < c.block; ++t) {
+      Fiber& f = fibers[t];
+      f.thread_idx.x = t;
+      f.warp = warps[t / 32].get();
+      f.lane = t % 32;
+      f.gathers = 0;
+      f.waits_at = nullptr;
+      f.done = false;
+      getcontext(&f.context);
+      f.context.uc_stack.ss_sp = stacks[t].get();
+      f.context.uc_stack.ss_size = kStack;
+      f.context.uc_link = &scheduler;
+      makecontext(&f.context, run_fiber, 0);
+    }
+    const bool reverse = blocks_run++ & 1u;
+    for (int live = c.block; live > 0;) {
+      bool ran = false;
+      for (int i = 0; i < c.block; ++i) {
+        Fiber& f = fibers[reverse ? c.block - 1 - i : i];
+        if (f.done || (f.waits_at != nullptr && f.waits_at->phase == f.waits_phase)) continue;
+        f.waits_at = nullptr;
+        current = &f;
+        ran = true;
+        swapcontext(&scheduler, &f.context);
+        if (f.done) --live;
+      }
+      if (!ran) {
+        std::fprintf(stderr, "emulated block %u: every thread waits at a barrier\n", b);
+        std::abort();
+      }
+    }
   }
+  current = nullptr;
+  body = nullptr;
 }
 }  // namespace emu
 template <class T>
-T __shfl_xor_sync(unsigned, T v, int off) { return emu::exchange(v, emu::lane ^ off); }
+T __shfl_xor_sync(unsigned, T v, int off) { return emu::exchange(v, emu::lane_id() ^ off); }
 inline unsigned __ballot_sync(unsigned, int pred) {
-  emu::warp->slot[emu::lane] = pred != 0;
-  emu::warp->barrier.arrive_and_wait();
+  emu::Warp* w = emu::current->warp;
+  w->slot[emu::lane_id()] = pred != 0;
+  w->barrier.arrive_and_wait();
   unsigned bits = 0;
   for (int l = 0; l < 32; ++l)
-    if (emu::warp->slot[l]) bits |= 1u << l;
-  emu::warp->barrier.arrive_and_wait();
+    if (w->slot[l]) bits |= 1u << l;
+  w->barrier.arrive_and_wait();
   return bits;
 }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
-inline void __syncwarp(unsigned = 0xffffffffu) { emu::warp->barrier.arrive_and_wait(); }
-#define threadIdx emu::thread_idx
+inline void __syncwarp(unsigned = 0xffffffffu) { emu::current->warp->barrier.arrive_and_wait(); }
+#define threadIdx (emu::current->thread_idx)
 #define blockIdx emu::block_idx
 #define blockDim emu::block_dim
 #define gridDim emu::grid_dim
@@ -167,14 +252,26 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
 # mma_sm90.cuh for the emulation: each instruction's stand-in, in the PTX ISA's per-lane
 # fragment layout. The 32 lanes of a warp meet through emu::gather (every lane posts its
 # registers or its row address, then reads all), so a lane computes from the whole warp's
-# operands as the instruction does; cp.async is a synchronous copy. Every shared or global
-# address an instruction takes must be 16-byte aligned (ldmatrix's rows, cp.async's both
-# ends), as on the card: the stand-ins abort otherwise.
+# operands as the instruction does; cp.async is a synchronous copy, counted in
+# emu_cp_async_calls. Every shared or global address an instruction takes must be 16-byte
+# aligned (ldmatrix's rows, cp.async's both ends), as on the card: the stand-ins abort
+# otherwise. A tf32 operand is read as the f32 its top 19 bits give (the low 13 cleared),
+# and to_tf32 rounds to nearest with ties away from zero. The bf16 product sums in f32,
+# rounding to nearest; the tf32 one sums as the tensor cores do (Fasi, Higham, Mikaitis and
+# Pranesh 2021, "Numerical behavior of NVIDIA tensor cores", on the A100's TF32): the
+# products exact, each block of 4 of them and the running sum aligned to the largest
+# exponent among them with the bits below 24 from its leading one cut off, added exactly,
+# and the result cut to f32, so every sum rounds toward zero (emu_hmma_block).
 MMA_EMULATION_HEADER = r"""
 #pragma once
+#include <algorithm>
+#include <atomic>
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+extern "C" std::atomic<long> emu_cp_async_calls;
+std::atomic<long> emu_cp_async_calls{0};
 namespace {
 inline void emu_aligned(const void* p) {
   if (reinterpret_cast<std::uintptr_t>(p) % 16 != 0) std::abort();
@@ -201,13 +298,68 @@ inline void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], const unsigned
       B[2 * t + 8 + h][g] = emu_half(all[l][5], h);
     }
   }
-  const int g = emu::lane / 4, t = emu::lane % 4;
+  const int g = emu::lane_id() / 4, t = emu::lane_id() % 4;
   for (int f = 0; f < 4; ++f) {
     const int m = g + 8 * (f / 2), n = 2 * t + f % 2;
     float acc = d[f];
     for (int k = 0; k < 16; ++k) acc += A[m][k] * B[k][n];   // a bf16 product is exact in f32
     d[f] = acc;
   }
+}
+inline float emu_tf32(unsigned word) {                  // a tf32 operand's value
+  const unsigned u = word & 0xffffe000u;
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline float emu_hmma_block(float c, const float (&p)[4]) {   // c + p[0] + ... + p[3]
+  const double terms[5] = {c, p[0], p[1], p[2], p[3]};
+  int top = 0;
+  bool any = false;
+  for (double v : terms) {
+    if (v == 0.0) continue;
+    int e;
+    std::frexp(v, &e);                                  // |v| in [2^(e-1), 2^e)
+    top = any ? std::max(top, e) : e;
+    any = true;
+  }
+  if (!any) return 0.f;
+  const double quantum = std::ldexp(1.0, top - 24);     // the last of 24 bits below the top
+  double sum = 0.0;                                     // exact: 5 terms of < 2^24 quanta
+  for (double v : terms) sum += std::trunc(v / quantum) * quantum;
+  float f = static_cast<float>(sum);
+  if (std::fabs(static_cast<double>(f)) > std::fabs(sum)) f = std::nextafter(f, 0.f);
+  return f;
+}
+inline void mma_tf32_1688(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  const unsigned mine[6] = {a[0], a[1], a[2], a[3], b[0], b[1]};
+  unsigned all[32][6];
+  emu::gather(mine, all);
+  float A[16][8], B[8][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l / 4, t = l % 4;
+    A[g][t] = emu_tf32(all[l][0]);
+    A[g + 8][t] = emu_tf32(all[l][1]);
+    A[g][t + 4] = emu_tf32(all[l][2]);
+    A[g + 8][t + 4] = emu_tf32(all[l][3]);
+    B[t][g] = emu_tf32(all[l][4]);
+    B[t + 4][g] = emu_tf32(all[l][5]);
+  }
+  const int g = emu::lane_id() / 4, t = emu::lane_id() % 4;
+  for (int f = 0; f < 4; ++f) {
+    const int m = g + 8 * (f / 2), n = 2 * t + f % 2;
+    for (int k0 = 0; k0 < 8; k0 += 4) {                 // a tf32 product is exact in f32
+      const float p[4] = {A[m][k0] * B[k0][n], A[m][k0 + 1] * B[k0 + 1][n],
+                          A[m][k0 + 2] * B[k0 + 2][n], A[m][k0 + 3] * B[k0 + 3][n]};
+      d[f] = emu_hmma_block(d[f], p);
+    }
+  }
+}
+inline unsigned to_tf32(float v) {
+  unsigned u;
+  std::memcpy(&u, &v, sizeof u);
+  if ((u & 0x7f800000u) == 0x7f800000u) return u;        // inf and NaN as they are
+  return (u + 0x1000u) & 0xffffe000u;                     // half the dropped ulp, then cut
 }
 template <int N, bool Trans>
 void ldmatrix(unsigned (&r)[N], const void* row) {
@@ -220,7 +372,7 @@ void ldmatrix(unsigned (&r)[N], const void* row) {
     std::memcpy(&p, all[l], sizeof p);
     return unsigned(p[col]);
   };
-  const int g = emu::lane / 4, t = emu::lane % 4;
+  const int g = emu::lane_id() / 4, t = emu::lane_id() % 4;
   for (int i = 0; i < N; ++i)
     r[i] = Trans ? at(8 * i + 2 * t, g) | at(8 * i + 2 * t + 1, g) << 16
                  : at(8 * i + g, 2 * t) | at(8 * i + g, 2 * t + 1) << 16;
@@ -229,6 +381,7 @@ inline void cp_async_16(void* shared, const void* global) {
   emu_aligned(shared);
   emu_aligned(global);
   std::memcpy(shared, global, 16);
+  ++emu_cp_async_calls;
 }
 inline void cp_async_commit() {}
 template <int N> void cp_async_wait() {}

@@ -3,17 +3,25 @@
 //
 //   mma_bf16_16816   D[16x8] += A[16x16] B[16x8], bf16 operands, f32 sums
 //                    (mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32)
+//   mma_tf32_1688    D[16x8] += A[16x8] B[8x8], tf32 operands (an f32's sign, exponent and
+//                    top 10 mantissa bits; the low 13 are not read), f32 sums
+//                    (mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32; HMMA.1688.F32.TF32)
+//   to_tf32          an f32 rounded to tf32, to nearest with ties away from zero, its low 13
+//                    bits cleared (cvt.rna.tf32.f32)
 //   ldmatrix<N, T>   N (1, 2 or 4) 8x8 matrices of 16-bit values from shared memory into
 //                    fragments, transposed with T (ldmatrix.sync.aligned.m8n8.xN[.trans])
 //   cp_async_16      a 16-byte copy from global to shared memory that does not block
 //                    (cp.async.cg), cp_async_commit / cp_async_wait<N> group and await them
 //
-// Fragment layouts (the PTX ISA's, lane l, g = l / 4, t = l % 4; each 32-bit register holds
-// two 16-bit values, the lower column or row first):
+// Fragment layouts (the PTX ISA's, lane l, g = l / 4, t = l % 4). m16n8k16 bf16: each 32-bit
+// register holds two 16-bit values, the lower column or row first:
 //   A  a[0] (row g, cols 2t, 2t+1)  a[1] (row g+8, same)  a[2] (row g, cols 2t+8, +9)
 //      a[3] (row g+8, cols 2t+8, +9)
 //   B  b[0] (rows 2t, 2t+1, col g)  b[1] (rows 2t+8, 2t+9, col g)
 //   D  d[0], d[1] (row g, cols 2t, 2t+1)  d[2], d[3] (row g+8, same)
+// m16n8k8 tf32: each register one value; D as m16n8k16's:
+//   A  a[0] (row g, col t)  a[1] (row g+8, col t)  a[2] (row g, col t+4)  a[3] (row g+8, col t+4)
+//   B  b[0] (row t, col g)  b[1] (row t+4, col g)
 // ldmatrix: lanes 8i..8i+7 give the addresses of the 8 rows (16 bytes each, 16-byte aligned)
 // of matrix i; register i of lane l receives row g, cols 2t, 2t+1 of matrix i, or with
 // .trans rows 2t, 2t+1 of col g. All 32 lanes of the warp execute each of them together.
@@ -35,6 +43,22 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const unsigned (&a)[4],
+                                              const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The bits of v rounded to tf32.
+__device__ __forceinline__ unsigned to_tf32(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
 }
 
 template <int N, bool Trans>

@@ -3,10 +3,10 @@
 // Every kernel of #2-#5 is a template on its storage type T. A load widens to f32
 // (to_f32), every softmax, row statistic, GRU gate, sum and cross-CTA partial is f32, and
 // so is every scratch buffer; a store rounds to T to nearest even (from_f32). With T =
-// float both are the identity, so the f32 instantiations compute what the kernels computed
-// before they were templated, bit for bit. The products are f32 FMAs in every kernel but
-// the bf16 step kernels' (#4/#5, tarmac_step_common.cuh), whose bf16 operands meet on the
-// tensor cores with f32 sums, an f32 scratch operand as a bf16 hi/lo pair.
+// float both are the identity. The products are f32 FMAs in every kernel but the step
+// kernels' (#4/#5, tarmac_step_common.cuh), which run on the tensor cores with f32 sums: f32
+// operands as 3xTF32 (each split into two tf32 parts), bf16 operands as they are, an f32
+// scratch operand of a bf16 call as a bf16 hi/lo pair.
 
 #pragma once
 #include <cuda_bf16.h>

@@ -11,11 +11,14 @@
 //   q           = h2 @ wo + bo, or with dueling  (h2 @ wvh + bvh) + adv - mean(adv)
 //
 // What bounds it: arithmetic, about 0.99 MFLOP a row at the 8-UBS width (hidden 256, msg
-// 64, key 16, 9 actions), nearly all of it the v/s/q and GRU products. The f32
-// instantiation runs them on the CUDA cores: 0.00379 ms at R = 256 (training), 0.0047 ms
-// at R = 320 (serving 40 worlds) and 0.061 ms at R = 4096 (512 worlds) on an H100 at 67
-// TFLOP/s. The bf16 one runs them on the tensor cores: 0.00205 ms at R = 2048 at 989
-// TFLOP/s, where its bytes take about as long.
+// 64, key 16, 9 actions), nearly all of it the v/s/q and GRU products: 0.00379 ms at R =
+// 256 (training), 0.0047 ms at R = 320 (serving 40 worlds) and 0.061 ms at R = 4096 (512
+// worlds) on an H100's 67 TFLOP/s of f32 FMAs. Both instantiations run the products on the
+// tensor cores. The f32 one as 3xTF32, three tf32 passes at 495 TFLOP/s that keep f32's
+// accuracy: 0.00153 ms at R = 256. The bf16 one at 989 TFLOP/s: 0.00205 ms at R = 2048,
+// where its bytes take about as long. On an NVIDIA H100 80GB HBM3 at 700.00 W
+// (chip_ab.py): f32 0.0723 ms at R = 256 and 0.1454 at R = 2048 (on the CUDA cores before:
+// 0.1066, 0.2089), bf16 0.0456 and 0.0785.
 //
 // What the first design lost: one CTA of 256 threads per world, so 32 CTAs on the 132 SMs
 // at training's W = 32 (40 when serving); each CTA streamed about 2 MB of weights from L2
@@ -26,8 +29,8 @@
 // Design. Four launches per call, in dependency order, all on the caller's stream:
 //   (a)-(c) tarmac_step_common.cuh's launch_up_to_gates, shared with the backward: the
 //           v|s|q and gi/gh products tiled by rows and columns across the whole card
-//           (f32 FMAs at f32, mma.sync on the tensor cores at bf16, c entering as a bf16
-//           hi/lo pair), and the per-world masked softmax and c = alpha^T v, into the
+//           (mma.sync on the tensor cores: 3xTF32 at f32; bf16 at bf16, c entering as a
+//           bf16 hi/lo pair), and the per-world masked softmax and c = alpha^T v, into the
 //           caller's scratch
 //   (d) gates and head: a CTA takes kHeadRows rows, computes the gates and h2 (written out
 //       and kept in shared memory), then the head's sums, each split into kHeadSplit

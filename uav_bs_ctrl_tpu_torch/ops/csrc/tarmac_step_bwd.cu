@@ -17,8 +17,7 @@
 // A destination with no in-edge has an all-zero alpha column: c = 0 and its attention
 // cotangents are 0.
 //
-// Design. Seven launches per call, in dependency order, all on the caller's stream (eight
-// at bf16):
+// Design. Eight launches per call, in dependency order, all on the caller's stream:
 //   (a)-(c) the forward up to the GRU's pre-activations, launched by tarmac_step_common.cuh's
 //           launch_up_to_gates (v|s|q products, per-world alpha and c, gi/gh products)
 //   (d) per (row, hidden column): gates, h2, the head backward, the GRU backward -> dg, dh = dh2 z
@@ -26,27 +25,29 @@
 //   (f) per world  alpha again (world_alpha, as in (b)), dalpha, dscore, dv, ds, dq
 //   (g) products   dx += [dv|ds|dq] [wv|ws|wq][:H]^T, and the 14 weight gradients X^T G
 //                  (a bias gradient is a ones column times G)
-//   (h) bf16 only: each weight gradient's row-chunk partials added and rounded, and dx and
-//       dh rounded from their f32 sums
+//   (h) each weight gradient's row-chunk partials added in a fixed order and stored in T,
+//       and at bf16 dx and dh rounded from their f32 sums
 // Every dense product goes through the header's row-tiled product kernel and job table,
 // tiled by rows and columns across the whole card: at the training batch (R = 256) one
 // CTA per world would keep 32 of the 132 SMs busy and stream every weight from L2 for 8
-// rows. At f32 each output is summed by one thread in a fixed order, with no split of a
-// sum. At bf16 the products run on the tensor cores (mma.sync, f32 scratch operands as a
-// bf16 hi/lo pair), and an X^T G sum over all R rows, 64 slabs deep in one CTA at R =
-// 2048, is split into chunks of 256 rows (split_chunks) whose f32 partials (h) adds in a
-// fixed order. No atomics, so a repeated call is bit-identical. Any A and any R work.
-// What bounds it: arithmetic. At f32 on the CUDA cores about 0.0112 ms at R = 256 (the
-// 8-UBS training inputs) on an H100 at 67 TFLOP/s; split-precision 3xTF32 mma.sync
-// products are the route to the tensor cores at f32 accuracy, and later work. At bf16 on
-// the tensor cores 0.00605 ms at R = 2048 at 989 TFLOP/s.
+// rows. The products run on the tensor cores (mma.sync): at f32 as 3xTF32 (each f32 value
+// split into two tf32 parts, three products an 8-deep step), at bf16 with f32 scratch
+// operands as a bf16 hi/lo pair. An X^T G sum over all R rows, 64 slabs deep in one CTA at
+// R = 2048, is split into chunks of 256 rows (split_chunks) whose f32 partials (h) adds in
+// a fixed order. No atomics, so a repeated call is bit-identical. Any A and any R work.
+// What bounds it: arithmetic, about 7.5e8 operations at R = 256 (the 8-UBS training
+// inputs): at f32 0.0112 ms on an H100's 67 TFLOP/s of f32 FMAs, or 0.0045 ms for 3xTF32's
+// three tf32 passes at 495 TFLOP/s; at bf16 0.00605 ms at R = 2048 at 989 TFLOP/s. On an
+// NVIDIA H100 80GB HBM3 at 700.00 W (chip_ab.py): f32 0.1472 ms at R = 256 and 0.4044 at
+// R = 2048 (on the CUDA cores before: 0.2221, 0.6842), bf16 0.0962 and 0.2433; of f32's
+// launches at R = 2048 the weight gradients (g) take 0.132 ms and (e) 0.093.
 //
 // Storage types (storage.cuh): every kernel is a template on the type T of the inputs,
 // gq, gh2 and the gradients, float (tarmac_step_backward) or __nv_bfloat16
-// (tarmac_step_backward_bf16). The scratch and every sum are f32. Each gradient is rounded
-// to T once: at f32 the 14 weight gradients where (g) stores them, and dx and dh, which
-// (e) and (g) add to, are summed in place; at bf16 all of them in the last launch (h),
-// from f32 partials and sums in scratch.
+// (tarmac_step_backward_bf16). The scratch and every sum are f32. Each gradient is stored
+// in T once: the 14 weight gradients by the last launch (h), from their f32 partials; dx
+// and dh, which (e) and (g) add to, are summed in place at f32 and rounded by (h) from f32
+// sums in scratch at bf16.
 
 #include "tarmac_step_common.cuh"
 
@@ -121,11 +122,11 @@ struct Scratch {                    // per-row intermediates, each [R, width]
   float* dc;                        // MSG
   float* dx;                        // H    dx summed in f32 (bf16 only; else the output)
   float* dh;                        // H    dh summed in f32 (bf16 only; else the output)
-  float* part;                      // bf16 only, not per row: split_chunks(R) f32 partials
-                                    //      of every weight and bias gradient
+  float* part;                      // not per row: split_chunks(R) f32 partials of every
+                                    // weight and bias gradient
 };
 
-// ---- bf16: the split weight-gradient sums ----
+// ---- the split weight-gradient sums ----
 
 constexpr int kSplitRows = 256;     // rows of an X^T G sum a chunk covers (from R = 512 on)
 constexpr int kMaxSplit = 16;       // chunks at most; beyond R = 4096 they grow
@@ -153,8 +154,9 @@ struct Sums {
   int n;
 };
 
-// (h) at bf16: each gradient's partials added in a fixed order and rounded, dx and dh
-// rounded from their f32 sums; a thread an output entry, a block's entries of one Sum.
+// (h) each gradient's partials added in a fixed order and stored (rounded at bf16), and at
+// bf16 dx and dh rounded from their f32 sums; a thread an output entry, a block's entries of
+// one Sum.
 template <class T>
 __global__ void __launch_bounds__(kGateThreads) tarmac_step_bwd_finish(
     const __grid_constant__ Sums sums) {
@@ -246,8 +248,8 @@ cudaError_t backward(const T* x, const T* h, const T* adjf, const T* wv, const T
   sc.dc = sc.gh + (size_t)R * H3;
   sc.dx = f32_sum(dx, sc.dc + (size_t)R * MSG);      // bf16: 2 R H floats more
   sc.dh = f32_sum(dh, sc.dc + (size_t)R * (MSG + H));
-  sc.part = sc.dc + (size_t)R * (MSG + 2 * H);
   constexpr bool bf16 = !std::is_same<T, float>::value;
+  sc.part = sc.dc + (size_t)R * (MSG + (bf16 ? 2 * H : 0));
   cudaError_t e;
 
   if (R > 0) {
@@ -287,34 +289,27 @@ cudaError_t backward(const T* x, const T* h, const T* adjf, const T* wv, const T
 
   // (g) dx += [dv|ds|dq] [wv|ws|wq][:H]^T, and the weight gradients X^T G over all rows
   // (a bias gradient is a ones column, X = nullptr, times G). With R = 0 they are zeros.
-  // At bf16 every X^T G sum is split into row chunks whose f32 partials (h) adds.
-  using GX = typename std::conditional<bf16, GradXPart<T>, GradX<T>>::type;
-  using GS = typename std::conditional<bf16, GradSPart, GradS<T>>::type;
-  Products<tarmac_step_bwd, T, Back<T>, GX, GS> p;
+  // Every X^T G sum is split into row chunks whose f32 partials (h) adds.
+  Products<tarmac_step_bwd, T, Back<T>, GradXPart<T>, GradSPart> p;
   Sums sums{};
   Job& jdx = p.template add<Back<T>>(sc.dx, H, R, H, 0, 1, nullptr, 1);
   add_seg<Back<T>>(jdx, sc.dv, MSG, wv, MSG, MSG);
   add_seg<Back<T>>(jdx, sc.ds, K, ws, K, K);
   add_seg<Back<T>>(jdx, sc.dq, K, wq, K, K);
-  // X^T G into a T gradient: a call tensor X (x, h) is of kind GX, f32 scratch or ones
-  // (nullptr) of kind GS.
+  // X^T G into a T gradient's f32 partials: a call tensor X (x, h) is of kind GradXPart,
+  // f32 scratch or ones (nullptr) of kind GradSPart.
   float* part = sc.part;
   const int chunks = split_chunks(R);
   auto xtg = [&](auto X, int ldx, int xcols, const float* G, int ldg, int gcols, T* grad,
                  int ldo) {
-    using Ty = typename std::conditional<std::is_same<decltype(X), const T*>::value, GX,
-                                         GS>::type;
-    if constexpr (bf16) {
-      Job& j = p.template add<Ty>(part, gcols, xcols, gcols, 1, 0, nullptr, 0);
-      j.split = chunks;
-      j.krows = split_rows(R);
-      add_seg<Ty>(j, X, ldx, G, ldg, R);
-      sums.sum[sums.n++] = Sum{part, grad, chunks, xcols, gcols, ldo, 0};
-      part += (size_t)chunks * xcols * gcols;
-    } else {
-      Job& j = p.template add<Ty>(grad, ldo, xcols, gcols, 1, 0, nullptr, 0);
-      add_seg<Ty>(j, X, ldx, G, ldg, R);
-    }
+    using Ty = typename std::conditional<std::is_same<decltype(X), const T*>::value,
+                                         GradXPart<T>, GradSPart>::type;
+    Job& j = p.template add<Ty>(part, gcols, xcols, gcols, 1, 0, nullptr, 0);
+    j.split = chunks;
+    j.krows = split_rows(R);
+    add_seg<Ty>(j, X, ldx, G, ldg, R);
+    sums.sum[sums.n++] = Sum{part, grad, chunks, xcols, gcols, ldo, 0};
+    part += (size_t)chunks * xcols * gcols;
   };
   const float* ones = nullptr;
   // [x|h]^T dv, ds, dq and their biases
@@ -342,24 +337,25 @@ cudaError_t backward(const T* x, const T* h, const T* adjf, const T* wv, const T
   xtg(ones, 0, 1, sc.dadv, NACT, NACT, dbo, NACT);
   xtg(ones, 0, 1, sc.dvh, 1, 1, dbvh, 1);
   if ((e = p.launch(stream)) != cudaSuccess) return e;
-  if constexpr (bf16) {   // (h) the gradients' partials added and rounded, dx and dh rounded
+  // (h) the gradients' partials added (and rounded at bf16), dx and dh rounded at bf16
+  if constexpr (bf16) {
     sums.sum[sums.n++] = Sum{sc.dx, dx, 1, R, H, H, 0};
     sums.sum[sums.n++] = Sum{sc.dh, dh, 1, R, H, H, 0};
-    int blocks = 0;
-    for (int i = 0; i < sums.n; ++i) {
-      sums.sum[i].block0 = blocks;
-      blocks += (sums.sum[i].M * sums.sum[i].N + kGateThreads - 1) / kGateThreads;
-    }
-    auto finish = tarmac_step_bwd_finish<T>;
-    finish<<<blocks, kGateThreads, 0, stream>>>(sums);
   }
+  int blocks = 0;
+  for (int i = 0; i < sums.n; ++i) {
+    sums.sum[i].block0 = blocks;
+    blocks += (sums.sum[i].M * sums.sum[i].N + kGateThreads - 1) / kGateThreads;
+  }
+  auto finish = tarmac_step_bwd_finish<T>;
+  finish<<<blocks, kGateThreads, 0, stream>>>(sums);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// scratch: bwd_scratch_floats (ops/step_kernels.py) floats; at bf16 2 R H more, and
-// split_chunks(R) partials of every weight gradient.
+// scratch: bwd_scratch_floats (ops/step_kernels.py) floats: per-row intermediates, at bf16
+// 2 R H more, and split_chunks(R) partials of every weight gradient.
 extern "C" int tarmac_step_backward(
     const float* x, const float* h, const float* adjf,
     const float* wv, const float* bv, const float* ws, const float* bs,

@@ -16,34 +16,45 @@
 // The kernels are templates on a tag type that the .cu defines (tarmac_step_fwd,
 // tarmac_step_bwd), so a profiler's kernel names tell the forward's launches from the
 // backward's, and on the storage type T of the call's tensors (storage.cuh: float or
-// __nv_bfloat16), which picks the product:
+// __nv_bfloat16). Every product runs on the tensor cores through mma.sync (mma_sm90.cuh),
+// each warp a 16 x 32 quarter of the tile, its operands staged in shared memory in a ring of
+// kStages slabs with one barrier a slab: slab s + 2 is fetched while slab s is summed. An
+// operand row that is 16-byte aligned arrives by cp.async straight into the ring; anything
+// else (a ragged or unaligned edge, a column of ones, and at bf16 f32 scratch) travels
+// through registers and is stored after the slab before it is summed. Each layout pair (A
+// stored [m][k] or [k][m], B [k][n] or [n][k]) is its own compiled loop. T picks the product:
 //
-// f32 (T = float): f32 FMAs on the CUDA cores. Each thread holds 4 x 4 outputs; the A and
-//   B slabs are staged in shared memory as f32, double-buffered, the next slab's loads in
-//   flight in registers while the current one is summed. Every output is summed by one
-//   thread in a fixed k order, no split of a sum across CTAs. What bounds it: 67 TFLOP/s.
-// bf16 (T = __nv_bfloat16): the tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32
-//   (mma_sm90.cuh), each warp a 16 x 32 quarter of the tile. Operands are staged in shared
-//   memory as bf16 in a ring of kStages slabs, one barrier a slab: a bf16 call tensor row
-//   that is 16-byte aligned arrives by cp.async, anything else (f32 scratch, a ragged or
-//   unaligned edge, a column of ones) through registers, stored after the slab before it
-//   is summed. An f32 scratch operand enters as two bf16 halves, hi = bf16(v) and lo =
-//   bf16(v - hi) (split_bf16): hi B + lo B against a bf16 B, hi hi + hi lo + lo hi where
-//   both are f32. A product so keeps about 16 bits of each f32 operand, and its output
-//   stays within about one bf16 ulp of the f32 instantiation's, rounded. ldmatrix (.trans
-//   for the layouts whose rows do not run along k) feeds the fragments; each layout pair
-//   is its own compiled loop, and the pad of 8 values a row keeps ldmatrix's 8 row reads
-//   on distinct banks. 64-row tiles were slower at R = 256 and no faster at 4096 (H100).
-//   A job may split its sum over k into `split` chunks of `krows` (the backward's X^T G
-//   over all R rows): each chunk's CTAs write f32 partials, which a later launch adds in a
-//   fixed order, so a repeated call stays bit-identical.
+// f32 (T = float): 3xTF32, m16n8k8 tf32 x tf32 -> f32. The ring holds f32; the fragments are
+//   read with 32-bit shared loads (ldmatrix is 16-bit only), each row padded so that a warp's
+//   32 reads hit 32 banks, and each value v is split in registers into big = tf32(v) and
+//   small = tf32(v - big) (split_tf32). Every 8-deep step sums small A big B, big A small B,
+//   then big A big B (mma_3xtf32) into a zeroed f32 sum, which is added to the tile's f32
+//   sums, rounded to nearest: about 21-22 bits of each operand, where one tf32 pass keeps
+//   11, and running sums that round as f32 FMAs' do. What bounds it: three tf32 passes, 3 x the
+//   operations at 495 TFLOP/s, and per slab the fragment loads, splits and step sums the
+//   warp issues itself (a 32-deep slab: 48 mma, 48 shared loads, 96 conversions a warp;
+//   166 registers a thread, so 3 CTAs an SM). On an NVIDIA H100 80GB HBM3 at 700.00 W
+//   (chip_ab.py, in turns with the f32 FMA tile this replaced): #4 0.0723 ms at R = 256
+//   against 0.1066, #5 0.1472 against 0.2221; at R = 4096 0.2478 and 0.6977 against
+//   0.3554 and 1.2228, below cuBLAS-based plain versions (0.3246, 1.7471).
+// bf16 (T = __nv_bfloat16): mma.sync m16n8k16 bf16 x bf16 -> f32, the ring in bf16, the
+//   fragments through ldmatrix (.trans for the layouts whose rows do not run along k), the
+//   pad of 8 values a row keeping ldmatrix's 8 row reads on distinct banks. An f32 scratch
+//   operand enters as two bf16 halves, hi = bf16(v) and lo = bf16(v - hi) (split_bf16): hi B
+//   + lo B against a bf16 B, hi hi + hi lo + lo hi where both are f32. A product so keeps
+//   about 16 bits of each f32 operand, and its output stays within about one bf16 ulp of the
+//   f32 instantiation's, rounded. 64-row tiles were slower at R = 256 and no faster at 4096
+//   (H100).
+// A job may split its sum over k into `split` chunks of `krows` (the backward's X^T G over
+// all R rows): each chunk's CTAs write f32 partials, which a later launch adds in a fixed
+// order, so a repeated call stays bit-identical.
 //
 // A product's operands are the call's tensors (T) or f32 scratch, fixed where the job is
 // made: each job has a kind, a Types naming the storage of its operands, and a launch of
 // step_products<Tag, T, Kinds...> holds jobs of the kinds it names. A CTA picks its job's
 // kind once and runs that kind's product, whose loads and stores are typed at compile
 // time. The sums are f32; an output is rounded to its type once, where it is stored. With
-// T = float every kind is all-f32, the same product as before the kernels took bf16.
+// T = float every kind is all-f32.
 
 #pragma once
 
@@ -65,12 +76,14 @@ __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-
 
 // ---- the tiled product: C[M, N] = sum_s A_s B_s (+ bias) (+ C) ----
 
-constexpr int kBM = 32, kBN = 64, kBK = 32;
-constexpr int kProdThreads = kBM * kBN / 16;           // f32: 4 x 4 outputs a thread
-constexpr int kLoadA = kBM * kBK / kProdThreads;       // slab values a thread loads
-constexpr int kLoadB = kBK * kBN / kProdThreads;
+constexpr int kBM = 32, kBN = 64, kBK = 32;   // a CTA's tile of rows x columns; a slab's depth
+constexpr int kProdThreads = 128;             // 4 warps, 2 x 2 over the tile
+constexpr int kMI = kBM / 32;                 // m16 blocks of a warp: each warp kBM/2 x 32
+constexpr int kStages = 3;                    // the ring's slabs: two in flight while one is summed
 constexpr int kMaxSeg = 3;
 constexpr int kMaxJobs = 22;
+static_assert(kProdThreads == 128 && kBK == 32 && kBN == 64 && kBM % 32 == 0,
+              "4 warps, whole mma steps, 16-byte chunks");
 
 struct Seg {
   const void* a;     // A(m, k) = a[m*lda + k], or a[k*lda + m] with trans_a; nullptr: all ones
@@ -86,7 +99,7 @@ struct Job {
   const void* bias;      // [N], or nullptr
   int kind;              // the position of the job's Types in its launch's Kinds
   int n_seg, trans_a, trans_b, ldc, accumulate, M, N, tile0, tiles_n;
-  int split, krows;      // chunk i of the k sum covers [i krows, (i + 1) krows) (bf16 only)
+  int split, krows;      // chunk i of the k sum covers [i krows, (i + 1) krows)
 };
 
 struct Jobs {
@@ -107,10 +120,9 @@ struct Types {
 template <class T> using Proj = Types<T, T, T, float>;           // call tensors -> f32 scratch
 template <class T> using ProjC = Types<T, float, T, float>;      // [x|c] wi: x, then scratch c
 template <class T> using Back = Types<float, float, T, float>;   // scratch x weights -> scratch
-template <class T> using GradX = Types<T, T, float, T>;          // X^T G for a call tensor X
-template <class T> using GradS = Types<float, float, float, T>;  // X^T G for scratch (or ones) X
-template <class T> using GradXPart = Types<T, T, float, float>;  // GradX's split partials (bf16)
-using GradSPart = Types<float, float, float, float>;             // GradS's split partials (bf16)
+template <class T> using GradXPart = Types<T, T, float, float>;  // X^T G's split partials, X a
+                                                                 // call tensor
+using GradSPart = Types<float, float, float, float>;             // X f32 scratch (or ones)
 
 // The position of Ty among Kinds (its first, where a kind repeats, as all do at f32).
 template <class Ty, class... Kinds> struct KindOf;
@@ -121,12 +133,7 @@ template <class Ty, class Other, class... Rest> struct KindOf<Ty, Other, Rest...
   static constexpr int value = 1 + KindOf<Ty, Rest...>::value;
 };
 
-// The f32 product's slab travels from global memory as raw 32-bit words (an f32's bits)
-// and is stored to shared memory after the slab before it has been summed, so no
-// instruction waits on the loads in between.
-struct Slab {
-  unsigned a[kLoadA], b[kLoadB];
-};
+template <class S> constexpr bool kIsF32 = std::is_same<S, float>::value;
 
 // A value's raw bits: an f32's, or a bf16's 16 as loaded as an unsigned short.
 template <class R>
@@ -138,178 +145,210 @@ __device__ __forceinline__ unsigned raw_bits(R v) {
   }
 }
 
-// The A values of the f32 slab at depth k0; ragged edges read as 0, a missing A (a bias
-// sum's ones column) as 1.
-__device__ __forceinline__ void load_a(const Job& J, const Seg& S, int k0, int m0,
-                                       unsigned (&ra)[kLoadA]) {
-  const float* a = static_cast<const float*>(S.a);
-  const unsigned one = float_bits(1.f);
-#pragma unroll
-  for (int i = 0; i < kLoadA; ++i) {
-    const int e = threadIdx.x + i * kProdThreads;
-    const int m = J.trans_a ? e % kBM : e / kBK, k = J.trans_a ? e / kBM : e % kBK;
-    const int gm = m0 + m, gk = k0 + k;
-    unsigned v = 0u;
-    if (gm < J.M && gk < S.k) {
-      if (a == nullptr) v = one;
-      else v = raw_bits(J.trans_a ? a[(size_t)gk * S.lda + gm] : a[(size_t)gm * S.lda + gk]);
+// p can be read 16 bytes at a time along rows of ld values, `per16` values to 16 bytes.
+__device__ __forceinline__ bool aligned16(const void* p, int ld, int per16) {
+  return p != nullptr && (reinterpret_cast<size_t>(p) & 15) == 0 && ld % per16 == 0;
+}
+
+// A CTA's tile, read out of the shared Job once so that the slab loop keeps it in registers.
+struct Tile {
+  int m0, n0, M, N, kbeg, krows, n_seg;
+};
+
+// The slab a tile's k walk is at: its segment's fields, in registers, and its depth.
+struct Cursor {
+  const void* a;
+  const void* b;
+  int lda, ldb, sg, k0, kend;
+  bool a_aligned, b_aligned;
+};
+
+// Cursor c onto segment sg's first slab of the tile's k range, or past the last segment;
+// segments with nothing in the range are skipped. Per16: the operands' values to 16 bytes.
+template <int Per16>
+__device__ __forceinline__ void enter_segment(const Job& J, const Tile& t, int sg, Cursor& c) {
+  for (; sg < t.n_seg; ++sg) {
+    const Seg& S = J.seg[sg];
+    c.kend = min(S.k, t.kbeg + t.krows);
+    if (c.kend > t.kbeg) {
+      c.a = S.a;
+      c.b = S.b;
+      c.lda = S.lda;
+      c.ldb = S.ldb;
+      c.a_aligned = aligned16(S.a, S.lda, Per16);
+      c.b_aligned = aligned16(S.b, S.ldb, Per16);
+      break;
     }
-    ra[i] = v;
   }
+  c.sg = sg;
+  c.k0 = t.kbeg;
 }
 
-// The B values of the f32 slab at depth k0.
-__device__ __forceinline__ void load_b(const Job& J, const Seg& S, int k0, int n0,
-                                       unsigned (&rb)[kLoadB]) {
-  const float* b = static_cast<const float*>(S.b);
+template <int Per16>
+__device__ __forceinline__ void next_slab(const Job& J, const Tile& t, Cursor& c) {
+  c.k0 += kBK;
+  if (c.k0 >= c.kend) enter_segment<Per16>(J, t, c.sg + 1, c);
+}
+
+// ---- the f32 product: 3xTF32 ----
+
+// A slab's shared layout (f32), by whether the operand is stored transposed: A [m][k] or
+// A^T [k][m], B [k][n] or B^T [n][k]; kLd32 is a row's length, rows run along the operand's
+// contiguous dimension. A row along k is read 4 values deep (t) in 8 rows (g), so its
+// length is 4 past a multiple of 32; a row along m or n 8 values wide (g) in 4 rows (t), so
+// 8 past one: either way a warp's 32 fragment reads hit 32 banks.
+template <bool TA> constexpr int kLdA32 = TA ? kBM + 8 : kBK + 4;
+template <bool TB> constexpr int kLdB32 = TB ? kBK + 4 : kBN + 8;
+constexpr int kTileA32 = kBM * kLdA32<false> > kBK * kLdA32<true> ? kBM * kLdA32<false>
+                                                                 : kBK * kLdA32<true>;
+constexpr int kTileB32 = kBK * kLdB32<false> > kBN * kLdB32<true> ? kBK * kLdB32<false>
+                                                                 : kBN * kLdB32<true>;
+constexpr int kChunksA32 = kBM * kBK / 4 / kProdThreads;   // 4-value chunks a thread fetches
+constexpr int kChunksB32 = kBK * kBN / 4 / kProdThreads;
+
+struct alignas(16) TfShared {                  // an f32 CTA's dynamic shared memory
+  float a[kStages][kTileA32];
+  float b[kStages][kTileB32];
+  Job job;
+};
+
+// v as big + small, each the bits of a tf32: big = tf32(v), small = tf32(v - big). v - big is
+// exact, so big + small is v to about 2^-22 of |v|.
+__device__ __forceinline__ void split_tf32(float v, unsigned& big, unsigned& small) {
+  big = to_tf32(v);
+  small = to_tf32(v - bits_float(big));
+}
+
+// d += a b for f32 fragments given as their tf32 splits: small a big b, big a small b, then
+// big a big b, into the f32 sums; small a small b (about 2^-22 of a b) is left out.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&a_big)[4],
+                                           const unsigned (&a_small)[4],
+                                           const unsigned (&b_big)[2],
+                                           const unsigned (&b_small)[2]) {
+  mma_tf32_1688(d, a_small, b_big);
+  mma_tf32_1688(d, a_big, b_small);
+  mma_tf32_1688(d, a_big, b_big);
+}
+
+// A chunk of 4 f32 values of a slab that travels through registers (their bits), landed in
+// the ring after the slab before it is summed.
+struct Staged32 {
+  unsigned v[4];
+  float* at;                 // where it lands; nullptr: nothing staged (none, or by cp.async)
+};
+
+// The 4 values at (outer, inner .. inner + 3) of an f32 operand, row-major along `outer`
+// with leading dimension ld, into the ring at `at`: a 16-byte aligned chunk that lies
+// wholly inside by cp.async; else through registers, values past the operand's edge
+// (outer_ok false, or inner + j at inner_lim or beyond) 0 and a missing operand's (base
+// nullptr: a bias sum's ones column) 1.
+__device__ __forceinline__ void fetch_chunk32(const void* base, int ld, bool aligned, int outer,
+                                              bool outer_ok, int inner, int inner_lim,
+                                              float* at, Staged32& st) {
+  const float* b = static_cast<const float*>(base) + (size_t)outer * ld + inner;
+  if (aligned && outer_ok && inner + 4 <= inner_lim) {
+    cp_async_16(at, b);
+    st.at = nullptr;
+    return;
+  }
+  st.at = at;
 #pragma unroll
-  for (int i = 0; i < kLoadB; ++i) {
-    const int e = threadIdx.x + i * kProdThreads;
-    const int n = J.trans_b ? e / kBK : e % kBN, k = J.trans_b ? e % kBK : e / kBN;
-    const int gn = n0 + n, gk = k0 + k;
+  for (int j = 0; j < 4; ++j) {
     unsigned v = 0u;
-    if (gn < J.N && gk < S.k)
-      v = raw_bits(J.trans_b ? b[(size_t)gn * S.ldb + gk] : b[(size_t)gk * S.ldb + gn]);
-    rb[i] = v;
+    if (outer_ok && inner + j < inner_lim) v = base == nullptr ? float_bits(1.f) : float_bits(b[j]);
+    st.v[j] = v;
   }
 }
 
-// The f32 slab of segment `sg` at depth k0 into registers. Each operand is walked along its
-// contiguous dimension, so a warp's loads coalesce.
-__device__ __forceinline__ void load_slab(const Job& J, int sg, int k0, int m0, int n0,
-                                          Slab& r) {
-  const Seg& S = J.seg[sg];
-  load_a(J, S, k0, m0, r.a);
-  load_b(J, S, k0, n0, r.b);
+__device__ __forceinline__ void land(const Staged32& st) {
+  if (st.at != nullptr) *reinterpret_cast<uint4*>(st.at) = make_uint4(st.v[0], st.v[1], st.v[2],
+                                                                        st.v[3]);
 }
 
-// The slab into shared memory.
-__device__ __forceinline__ void store_slab(const Job& J, const Slab& r, float (*s_a)[kBM + 1],
-                                           float (*s_b)[kBN + 1]) {
+// The f32 slab at cursor c into ring stage `stage`: A's chunks of 4 values kChunksA32 a
+// thread, B's kChunksB32, each along its operand's contiguous dimension, so a warp's
+// copies coalesce. st[0, kChunksA32) take A's chunks and the rest B's where they travel
+// through registers.
+template <class Ty, bool TA, bool TB>
+__device__ __forceinline__ void fetch_slab(const Tile& t, const Cursor& c, int stage,
+                                           TfShared& sh, Staged32 (&st)[kChunksA32 + kChunksB32]) {
+  constexpr int a_row = TA ? kBM / 4 : kBK / 4, b_row = TB ? kBK / 4 : kBN / 4;   // chunks
 #pragma unroll
-  for (int i = 0; i < kLoadA; ++i) {
-    const int e = threadIdx.x + i * kProdThreads;
-    const int m = J.trans_a ? e % kBM : e / kBK, k = J.trans_a ? e / kBM : e % kBK;
-    s_a[k][m] = bits_float(r.a[i]);
+  for (int i = 0; i < kChunksA32; ++i) {
+    const int e = threadIdx.x + i * kProdThreads, row = e / a_row, col = (e % a_row) * 4;
+    const int outer = TA ? c.k0 + row : t.m0 + row, inner = TA ? t.m0 + col : c.k0 + col;
+    fetch_chunk32(c.a, c.lda, c.a_aligned, outer, outer < (TA ? c.kend : t.M), inner,
+                  TA ? t.M : c.kend, sh.a[stage] + row * kLdA32<TA> + col, st[i]);
   }
 #pragma unroll
-  for (int i = 0; i < kLoadB; ++i) {
-    const int e = threadIdx.x + i * kProdThreads;
-    const int n = J.trans_b ? e / kBK : e % kBN, k = J.trans_b ? e % kBK : e / kBN;
-    s_b[k][n] = bits_float(r.b[i]);
+  for (int i = 0; i < kChunksB32; ++i) {
+    const int e = threadIdx.x + i * kProdThreads, row = e / b_row, col = (e % b_row) * 4;
+    const int outer = TB ? t.n0 + row : c.k0 + row, inner = TB ? c.k0 + col : t.n0 + col;
+    fetch_chunk32(c.b, c.ldb, c.b_aligned, outer, outer < (TB ? t.N : c.kend), inner,
+                  TB ? c.kend : t.N, sh.b[stage] + row * kLdB32<TB> + col, st[kChunksA32 + i]);
   }
 }
 
-// The CTA's 4 x 4 outputs a thread: + bias, + the output's old value where the job
-// accumulates, stored.
-template <class Ty>
-__device__ __forceinline__ void store_tile(const Job& J, const float (&acc)[4][4], int m0,
-                                           int n0, int tx, int ty) {
-  using C = typename Ty::C;
-  C* c = static_cast<C*>(J.c);
-  const typename Ty::B* bias = static_cast<const typename Ty::B*>(J.bias);
+// A warp's (16 kMI) x 32 part of the tile over one f32 slab: per 8-deep step kMI A fragments
+// and four B fragments, each value read from the ring and split, then mma_3xtf32 into a
+// zeroed f32 sum of the step, added to the f32 sums acc[m16 block][n8 block][fragment]. The
+// tensor cores do not round their sums to nearest (they truncate as they align), so summed
+// in place their error would grow with the running sum over every step of a long k walk;
+// a step's own sum bounds it by that step's 8 products, and the running sums round to
+// nearest as an f32 FMA's do.
+template <bool TA, bool TB>
+__device__ __forceinline__ void mma_slab32(const TfShared& sh, int stage,
+                                           float (&acc)[kMI][4][4]) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = (warp / 2) * 16 * kMI, wn = (warp % 2) * 32, g = lane / 4, t = lane % 4;
+  const float* sa = sh.a[stage];
+  const float* sb = sh.b[stage];
+  auto at_a = [&](int m, int k) { return TA ? sa[k * kLdA32<TA> + m] : sa[m * kLdA32<TA> + k]; };
+  auto at_b = [&](int k, int n) { return TB ? sb[n * kLdB32<TB> + k] : sb[k * kLdB32<TB> + n]; };
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 8 * i;
-    if (m >= J.M) continue;
+  for (int kk = 0; kk < kBK; kk += 8) {
+    unsigned a_big[kMI][4], a_small[kMI][4];
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int f = 0; f < 4; ++f)        // a[f]: row g (+8 for f odd), col t (+4 from f = 2)
+        split_tf32(at_a(wm + 16 * mi + g + 8 * (f % 2), kk + t + 4 * (f / 2)), a_big[mi][f],
+                   a_small[mi][f]);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= J.N) continue;
-      float v = acc[i][j];
-      if (bias != nullptr) v += to_f32(bias[n]);
-      C* out = c + (size_t)m * J.ldc + n;
-      if (J.accumulate) v = to_f32(*out) + v;
-      *out = from_f32<C>(v);
+      const int n = wn + 8 * j + g;
+      unsigned b_big[2], b_small[2];
+      split_tf32(at_b(kk + t, n), b_big[0], b_small[0]);
+      split_tf32(at_b(kk + t + 4, n), b_big[1], b_small[1]);
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi) {
+        float step[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(step, a_big[mi], a_small[mi], b_big, b_small);
+#pragma unroll
+        for (int f = 0; f < 4; ++f) acc[mi][j][f] += step[f];
+      }
     }
   }
 }
 
-// The CTA's f32 tile of a job of kind Ty, its slabs double-buffered in s_a, s_b.
-template <class Ty>
-__device__ __forceinline__ void product_tile(const Job& J, float (*s_a)[kBK][kBM + 1],
-                                             float (*s_b)[kBK][kBN + 1]) {
-  const int local = blockIdx.x - J.tile0;
-  const int m0 = (local / J.tiles_n) * kBM, n0 = (local % J.tiles_n) * kBN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+// ---- the bf16 product ----
 
-  int n_slabs = 0;
-  for (int s = 0; s < J.n_seg; ++s) n_slabs += (J.seg[s].k + kBK - 1) / kBK;
-  int sg = 0, k0 = 0;                     // the next slab to load
-  auto skip_done = [&]() {
-    while (sg < J.n_seg && k0 >= J.seg[sg].k) {
-      k0 = 0;
-      ++sg;
-    }
-  };
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  Slab slab;
-
-  skip_done();
-  if (n_slabs > 0) {
-    load_slab(J, sg, k0, m0, n0, slab);
-    k0 += kBK;
-    skip_done();
-    store_slab(J, slab, s_a[0], s_b[0]);
-  }
-  __syncthreads();
-  for (int t = 0; t < n_slabs; ++t) {
-    const int buf = t & 1;
-    const bool more = t + 1 < n_slabs;
-    if (more) {
-      load_slab(J, sg, k0, m0, n0, slab);
-      k0 += kBK;
-      skip_done();
-    }
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = s_a[buf][kk][ty + 8 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = s_b[buf][kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (more) store_slab(J, slab, s_a[buf ^ 1], s_b[buf ^ 1]);
-    __syncthreads();
-  }
-  store_tile<Ty>(J, acc, m0, n0, tx, ty);
-}
-
-// ---- the bf16 product on the tensor cores ----
-
-constexpr int kMmaBM = 32;                     // rows of a bf16 tile (kBN columns, kBK-deep slabs)
-constexpr int kMI = kMmaBM / 32;               // m16 blocks of a warp: 2 x 2 warps of kMmaBM/2 x 32
-constexpr int kStages = 3;                     // the ring's slabs: two in flight while one is summed
 constexpr int kPad = 8;                        // values a shared row is padded by (16 bytes)
-// A slab's shared layout (bf16), by whether the operand is stored transposed: A [m][k] or
-// A^T [k][m], B [k][n] or B^T [n][k]; kLd is a row's length, rows run along the operand's
-// contiguous dimension.
-template <bool TA> constexpr int kLdA = TA ? kMmaBM + kPad : kBK + kPad;
+// A slab's shared layout (bf16), as the f32 one's.
+template <bool TA> constexpr int kLdA = TA ? kBM + kPad : kBK + kPad;
 template <bool TB> constexpr int kLdB = TB ? kBK + kPad : kBN + kPad;
-constexpr int kTileA = kMmaBM * kLdA<false> > kBK * kLdA<true> ? kMmaBM * kLdA<false>
-                                                               : kBK * kLdA<true>;
+constexpr int kTileA = kBM * kLdA<false> > kBK * kLdA<true> ? kBM * kLdA<false>
+                                                            : kBK * kLdA<true>;
 constexpr int kTileB = kBK * kLdB<false> > kBN * kLdB<true> ? kBK * kLdB<false>
                                                             : kBN * kLdB<true>;
-constexpr int kChunksA = kMmaBM * kBK / 8 / kProdThreads;   // 8-value chunks a thread fetches
+constexpr int kChunksA = kBM * kBK / 8 / kProdThreads;   // 8-value chunks a thread fetches
 constexpr int kChunksB = kBK * kBN / 8 / kProdThreads;
-static_assert(kProdThreads == 128 && kBK == 32 && kBN == 64 && kMmaBM % 32 == 0,
-              "4 warps, 16-deep mma steps, 8-value chunks");
 
-struct alignas(16) MmaShared {                 // a bf16 CTA's dynamic shared memory
+struct alignas(16) Bf16Shared {                // a bf16 CTA's dynamic shared memory
   unsigned short a[kStages][2][kTileA];        // [stage][hi, lo][slab]
   unsigned short b[kStages][2][kTileB];
   Job job;
 };
-
-template <class S> constexpr bool kIsF32 = std::is_same<S, float>::value;
 
 __device__ __forceinline__ unsigned bf16_bits(__nv_bfloat16 v) {
   unsigned short u;
@@ -394,55 +433,13 @@ __device__ __forceinline__ void land(const Staged& st) {
   *reinterpret_cast<uint4*>(st.hi) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
 }
 
-__device__ __forceinline__ bool aligned16(const void* p, int ld) {
-  return p != nullptr && (reinterpret_cast<size_t>(p) & 15) == 0 && ld % 8 == 0;
-}
-
-// A CTA's tile, read out of the shared Job once so that the slab loop keeps it in registers.
-struct Tile {
-  int m0, n0, M, N, kbeg, krows, n_seg;
-};
-
-// The slab a tile's k walk is at: its segment's fields, in registers, and its depth.
-struct Cursor {
-  const void* a;
-  const void* b;
-  int lda, ldb, sg, k0, kend;
-  bool a_aligned, b_aligned;
-};
-
-// Cursor c onto segment sg's first slab of the tile's k range, or past the last segment;
-// segments with nothing in the range are skipped.
-__device__ __forceinline__ void enter_segment(const Job& J, const Tile& t, int sg, Cursor& c) {
-  for (; sg < t.n_seg; ++sg) {
-    const Seg& S = J.seg[sg];
-    c.kend = min(S.k, t.kbeg + t.krows);
-    if (c.kend > t.kbeg) {
-      c.a = S.a;
-      c.b = S.b;
-      c.lda = S.lda;
-      c.ldb = S.ldb;
-      c.a_aligned = aligned16(S.a, S.lda);
-      c.b_aligned = aligned16(S.b, S.ldb);
-      break;
-    }
-  }
-  c.sg = sg;
-  c.k0 = t.kbeg;
-}
-
-__device__ __forceinline__ void next_slab(const Job& J, const Tile& t, Cursor& c) {
-  c.k0 += kBK;
-  if (c.k0 >= c.kend) enter_segment(J, t, c.sg + 1, c);
-}
-
-// The slab at cursor c into ring stage `stage`: A's chunks of 8 values kChunksA a thread,
-// B's kChunksB, each along its operand's contiguous dimension. st[0, kChunksA) take A's
-// chunks and the rest B's where they travel through registers.
+// The bf16 slab at cursor c into ring stage `stage`: A's chunks of 8 values kChunksA a
+// thread, B's kChunksB, each along its operand's contiguous dimension. st[0, kChunksA) take
+// A's chunks and the rest B's where they travel through registers.
 template <class Ty, bool TA, bool TB>
 __device__ __forceinline__ void fetch_slab(const Tile& t, const Cursor& c, int stage,
-                                           MmaShared& sh, Staged (&st)[kChunksA + kChunksB]) {
-  constexpr int a_row = TA ? kMmaBM / 8 : kBK / 8, b_row = TB ? kBK / 8 : kBN / 8;  // chunks
+                                           Bf16Shared& sh, Staged (&st)[kChunksA + kChunksB]) {
+  constexpr int a_row = TA ? kBM / 8 : kBK / 8, b_row = TB ? kBK / 8 : kBN / 8;  // chunks
 #pragma unroll
   for (int i = 0; i < kChunksA; ++i) {
     const int e = threadIdx.x + i * kProdThreads, row = e / a_row, col = (e % a_row) * 8;
@@ -470,13 +467,13 @@ __device__ __forceinline__ void fetch_slab(const Tile& t, const Cursor& c, int s
   }
 }
 
-// A warp's (16 kMI) x 32 part of the tile over one slab: per 16-deep step kMI A fragments
-// and four B fragments (two ldmatrix.x4), hi and, for an f32 operand, lo; then hi hi, hi lo
-// (f32 B) and lo hi (f32 A) into the f32 sums acc[m16 block][n8 block][fragment]. The pairs
-// of a fragment run along k, a shared row of A [m][k] and of B^T [n][k]; the other layouts
-// are read with ldmatrix's .trans.
+// A warp's (16 kMI) x 32 part of the tile over one bf16 slab: per 16-deep step kMI A
+// fragments and four B fragments (two ldmatrix.x4), hi and, for an f32 operand, lo; then hi
+// hi, hi lo (f32 B) and lo hi (f32 A) into the f32 sums acc[m16 block][n8 block][fragment].
+// The pairs of a fragment run along k, a shared row of A [m][k] and of B^T [n][k]; the
+// other layouts are read with ldmatrix's .trans.
 template <bool TA, bool TB>
-__device__ __forceinline__ void mma_slab(const MmaShared& sh, int stage, bool a_lo, bool b_lo,
+__device__ __forceinline__ void mma_slab(const Bf16Shared& sh, int stage, bool a_lo, bool b_lo,
                                          float (&acc)[kMI][4][4]) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int wm = (warp / 2) * 16 * kMI, wn = (warp % 2) * 32;
@@ -520,10 +517,12 @@ __device__ __forceinline__ void mma_slab(const MmaShared& sh, int stage, bool a_
   }
 }
 
+// ---- a CTA's tile, either type ----
+
 // The warp's outputs of the tile: + bias, + the output's old value where the job
 // accumulates, stored; a split job's chunk stores its f32 partial.
 template <class Ty>
-__device__ __forceinline__ void store_mma(const Job& J, const float (&acc)[kMI][4][4], int m0,
+__device__ __forceinline__ void store_tile(const Job& J, const float (&acc)[kMI][4][4], int m0,
                                           int n0, int chunk) {
   using C = typename Ty::C;
   C* c = static_cast<C*>(J.c) + (size_t)chunk * J.M * J.ldc;
@@ -547,21 +546,24 @@ __device__ __forceinline__ void store_mma(const Job& J, const float (&acc)[kMI][
       }
 }
 
-// The CTA's bf16 tile of a job of kind Ty (of its k chunk, for a split job), its operands
-// stored transposed or not as TA, TB say, its slabs in a ring of kStages: slab s + 2 is
-// fetched while slab s is summed, and what travels through registers lands after that.
-template <class Ty, bool TA, bool TB>
-__device__ void product_tile_mma(const Job& J, MmaShared& sh) {
+// The CTA's tile of a job of kind Ty (of its k chunk, for a split job), its operands
+// stored transposed or not as TA, TB say, its slabs in a ring of kStages in shared memory Sh
+// (TfShared: the f32 product, Bf16Shared: the bf16 one): slab s + 2 is fetched while slab s
+// is summed, and what travels through registers lands after that.
+template <class Ty, bool TA, bool TB, class Sh>
+__device__ void product_tile(const Job& J, Sh& sh) {
   static_assert(kStages == 3, "slab s + 2 is fetched into the stage slab s - 1 freed");
-  const int tiles_n = J.tiles_n, tiles = ((J.M + kMmaBM - 1) / kMmaBM) * tiles_n;
+  constexpr bool tf32 = std::is_same<Sh, TfShared>::value;
+  constexpr int per16 = tf32 ? 4 : 8;           // a ring chunk's values
+  const int tiles_n = J.tiles_n, tiles = ((J.M + kBM - 1) / kBM) * tiles_n;
   const int local = blockIdx.x - J.tile0, chunk = local / tiles, tile = local % tiles;
-  const Tile t{(tile / tiles_n) * kMmaBM, (tile % tiles_n) * kBN, J.M, J.N, chunk * J.krows,
+  const Tile t{(tile / tiles_n) * kBM, (tile % tiles_n) * kBN, J.M, J.N, chunk * J.krows,
                J.krows, J.n_seg};
   int n_slabs = 0;
   for (int s = 0; s < t.n_seg; ++s)
     n_slabs += (max(min(J.seg[s].k, t.kbeg + t.krows) - t.kbeg, 0) + kBK - 1) / kBK;
   Cursor fetch{}, sum{};                 // the next slab to fetch, and to sum
-  enter_segment(J, t, 0, fetch);
+  enter_segment<per16>(J, t, 0, fetch);
   sum = fetch;
   float acc[kMI][4][4];
 #pragma unroll
@@ -570,13 +572,14 @@ __device__ void product_tile_mma(const Job& J, MmaShared& sh) {
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int f = 0; f < 4; ++f) acc[mi][j][f] = 0.f;
-  Staged st[kChunksA + kChunksB];
+  typename std::conditional<tf32, Staged32[kChunksA32 + kChunksB32],
+                            Staged[kChunksA + kChunksB]>::type st;
 
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_slabs) {
       fetch_slab<Ty, TA, TB>(t, fetch, s, sh, st);
       for (auto& x : st) land(x);
-      next_slab(J, t, fetch);
+      next_slab<per16>(J, t, fetch);
     }
     cp_async_commit();
   }
@@ -587,21 +590,28 @@ __device__ void product_tile_mma(const Job& J, MmaShared& sh) {
     const bool more = s + kStages - 1 < n_slabs;
     if (more) {
       fetch_slab<Ty, TA, TB>(t, fetch, stage == 0 ? kStages - 1 : stage - 1, sh, st);
-      next_slab(J, t, fetch);
+      next_slab<per16>(J, t, fetch);
     }
     cp_async_commit();
-    const bool a_lo = sum.sg == 0 ? kIsF32<typename Ty::A0> : kIsF32<typename Ty::A>;
-    mma_slab<TA, TB>(sh, stage, a_lo, kIsF32<typename Ty::B>, acc);
-    next_slab(J, t, sum);
+    if constexpr (tf32) {
+      mma_slab32<TA, TB>(sh, stage, acc);
+    } else {
+      const bool a_lo = sum.sg == 0 ? kIsF32<typename Ty::A0> : kIsF32<typename Ty::A>;
+      mma_slab<TA, TB>(sh, stage, a_lo, kIsF32<typename Ty::B>, acc);
+    }
+    next_slab<per16>(J, t, sum);
     if (more)
       for (auto& x : st) land(x);
     stage = stage == kStages - 1 ? 0 : stage + 1;
   }
   cp_async_wait<0>();
-  store_mma<Ty>(J, acc, t.m0, t.n0, chunk);
+  store_tile<Ty>(J, acc, t.m0, t.n0, chunk);
 }
 
 // ---- the launch ----
+
+// A CTA's dynamic shared memory at storage type T.
+template <class T> using Ring = typename std::conditional<kIsF32<T>, TfShared, Bf16Shared>::type;
 
 // The CTA's job (the one whose tiles hold blockIdx.x), copied out of the parameter space
 // once: the slab loop then reads its fields from shared memory (6 % less time a call than
@@ -615,50 +625,32 @@ __device__ __forceinline__ void load_job(const Jobs& jobs, Job& J) {
   __syncthreads();
 }
 
-// The CTA's job through its kind's product_tile; a kind that repeats an earlier one
-// (every kind at f32) is never taken, so its copy is dead code.
-template <class... Kinds, size_t... I>
-__device__ __forceinline__ void run_kind(const Job& J, float (*s_a)[kBK][kBM + 1],
-                                         float (*s_b)[kBK][kBN + 1], std::index_sequence<I...>) {
-  ((KindOf<Kinds, Kinds...>::value == (int)I && J.kind == (int)I
-        ? product_tile<Kinds>(J, s_a, s_b)
-        : void()),
-   ...);
-}
-
-// At bf16, through product_tile_mma of its kind and of its operands' layouts.
-template <class Ty>
-__device__ __forceinline__ void run_layout(const Job& J, MmaShared& sh) {
+// Through product_tile of the job's kind and of its operands' layouts. A kind that
+// repeats an earlier one (every kind at f32) is never taken, so its copy is dead code.
+template <class Ty, class Sh>
+__device__ __forceinline__ void run_layout(const Job& J, Sh& sh) {
   if (J.trans_a) {
-    if (J.trans_b) product_tile_mma<Ty, true, true>(J, sh);
-    else product_tile_mma<Ty, true, false>(J, sh);
+    if (J.trans_b) product_tile<Ty, true, true>(J, sh);
+    else product_tile<Ty, true, false>(J, sh);
   } else {
-    if (J.trans_b) product_tile_mma<Ty, false, true>(J, sh);
-    else product_tile_mma<Ty, false, false>(J, sh);
+    if (J.trans_b) product_tile<Ty, false, true>(J, sh);
+    else product_tile<Ty, false, false>(J, sh);
   }
 }
 
-template <class... Kinds, size_t... I>
-__device__ __forceinline__ void run_kind_mma(const Job& J, MmaShared& sh,
-                                             std::index_sequence<I...>) {
-  ((J.kind == (int)I ? run_layout<Kinds>(J, sh) : void()), ...);
+template <class... Kinds, class Sh, size_t... I>
+__device__ __forceinline__ void run_kind(const Job& J, Sh& sh, std::index_sequence<I...>) {
+  ((KindOf<Kinds, Kinds...>::value == (int)I && J.kind == (int)I ? run_layout<Kinds>(J, sh)
+                                                                 : void()),
+   ...);
 }
 
 template <class Tag, class T, class... Kinds>
 __global__ void __launch_bounds__(kProdThreads) step_products(const __grid_constant__ Jobs jobs) {
-  if constexpr (kIsF32<T>) {
-    // +1 columns: a slab stored along k (row-major A, transposed B) hits 32 banks.
-    __shared__ float s_a[2][kBK][kBM + 1];
-    __shared__ float s_b[2][kBK][kBN + 1];
-    __shared__ Job J;
-    load_job(jobs, J);
-    run_kind<Kinds...>(J, s_a, s_b, std::index_sequence_for<Kinds...>{});
-  } else {
-    extern __shared__ float smem[];
-    MmaShared& sh = *reinterpret_cast<MmaShared*>(smem);
-    load_job(jobs, sh.job);
-    run_kind_mma<Kinds...>(sh.job, sh, std::index_sequence_for<Kinds...>{});
-  }
+  extern __shared__ float smem[];
+  Ring<T>& sh = *reinterpret_cast<Ring<T>*>(smem);
+  load_job(jobs, sh.job);
+  run_kind<Kinds...>(sh.job, sh, std::index_sequence_for<Kinds...>{});
 }
 
 // ---- per world: the A x A attention ----
@@ -764,15 +756,13 @@ struct Products {
   }
 
   cudaError_t launch(cudaStream_t stream) {
-    constexpr bool mma = !kIsF32<T>;
-    constexpr int tile_m = mma ? kMmaBM : kBM;
-    constexpr size_t smem = mma ? sizeof(MmaShared) : 0;
+    constexpr size_t smem = sizeof(Ring<T>);
     int tiles = 0;
     for (int i = 0; i < jobs.n_jobs; ++i) {
       Job& j = jobs.job[i];
       j.tile0 = tiles;
       j.tiles_n = (j.N + kBN - 1) / kBN;
-      tiles += j.split * ((j.M + tile_m - 1) / tile_m) * j.tiles_n;
+      tiles += j.split * ((j.M + kBM - 1) / kBM) * j.tiles_n;
     }
     auto kernel = step_products<Tag, T, Kinds...>;
     cudaError_t e = allow_smem((const void*)kernel, smem);

@@ -200,7 +200,7 @@ SPLIT_ROWS, MAX_SPLIT = 256, 16    # csrc/tarmac_step_bwd.cu's kSplitRows, kMaxS
 
 def split_chunks(rows):
     """The row chunks each weight gradient's sum over ``rows`` rows is split
-    into at bf16 (``csrc/tarmac_step_bwd.cu:split_chunks``)."""
+    into (``csrc/tarmac_step_bwd.cu:split_chunks``)."""
     return max(1, min(MAX_SPLIT, -(-rows // SPLIT_ROWS)))
 
 
@@ -214,13 +214,10 @@ def bwd_scratch_floats(rows, hidden, msg, key, n_act, bf16=False):
     """Floats of the scratch buffer ``tarmac_step_bwd``'s launches hand on to
     each other: per row dpre_r|dpre_z|dpre_n|dhn, c, h2, dv, ds, dq, dadv,
     dvh, v|s|q, the GRU's two pre-activations gi and gh, and dc; at bf16 also
-    the f32 sums of dx and dh, and each weight gradient's f32 partials, one
+    the f32 sums of dx and dh; then each weight gradient's f32 partials, one
     per row chunk."""
-    per_row = rows * (11 * hidden + 4 * msg + 4 * key + n_act + 1)
-    if not bf16:
-        return per_row
-    return per_row + 2 * rows * hidden + split_chunks(rows) * weight_floats(hidden, msg, key,
-                                                                            n_act)
+    per_row = rows * (11 * hidden + 4 * msg + 4 * key + n_act + 1 + (2 * hidden if bf16 else 0))
+    return per_row + split_chunks(rows) * weight_floats(hidden, msg, key, n_act)
 
 
 def tarmac_step_bwd(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
