@@ -31,8 +31,15 @@ GATv2 kernels run at the 8-UBS width (4 heads of 64) for the 'seen' GT slots
 (M = 50, D = 4) and the 'near' UBS slots (M = 7, D = 2), at N = 256 rows (the
 update), 320 (serving 40 worlds) and 4096, each with slots valid at the share
 ``chip_smoke.py`` measures in the update's inputs (``UPDATE_VALID``) and at
-70 % (its kernel cases); the backward gets the plain forward's statistics and
-a random cotangent, without ``dx`` (as in training). The forward also runs at
+70 % (its kernel cases), and at ``bench.py``'s rows (``BENCH_GAT_ROWS``: B·A =
+2,048 of its ``per_step`` update and B·(T+1)·A = 104,448 of its ``hoisted``
+one, at B = 256) at its 70 % (``BENCH_VALID``); the backward gets the plain
+forward's statistics and a random cotangent, without ``dx`` (as in
+training), and its plain version is timed up to ``PLAIN_BYTES`` of [N, M, HF]
+f32. Both run again on the same inputs rounded to bf16 where the old source
+has the bf16 launchers (the backward's statistics from the plain bf16
+forward), with each version's error against the f64 referee up to N = 4,096
+(``REFEREE_ROWS``). The forward also runs at
 the classic host loop's rows (``HOST_GAT``: exp1's one UBS, N = 1, and one
 4-UBS world, N = 4), with its plain ms and bound. ``flash_gat`` runs at the
 4-UBS DiscreteComm width (4 heads of 64) at N = 160 rows (serving 40 worlds),
@@ -59,7 +66,8 @@ from uav_bs_ctrl_tpu_torch.ops import build, gat_kernels, step_kernels  # noqa: 
 
 PLAIN = {"tarmac_step": (step_kernels.tarmac_step_plain, chip_smoke.step_cost),
          "tarmac_step_bwd": (step_kernels.tarmac_step_bwd_plain, chip_smoke.step_bwd_cost),
-         "flash_gat_fused": (gat_kernels.flash_gat_fused_plain, chip_smoke.gat_cost)}
+         "flash_gat_fused": (gat_kernels.flash_gat_fused_plain, chip_smoke.gat_cost),
+         "flash_gat_fused_bwd": (gat_kernels.flash_gat_fused_bwd_plain, chip_smoke.gat_bwd_cost)}
 KERNELS = {  # name: (wrapper, ctypes signatures)
     "flash_gat": (gat_kernels.flash_gat, gat_kernels._FLASH_SIGNATURES),
     "tarmac_step": (step_kernels.tarmac_step, step_kernels._SIGNATURES),
@@ -70,6 +78,10 @@ KERNELS = {  # name: (wrapper, ctypes signatures)
 STEP_WORLDS = {"tarmac_step": (32, 40, 256, 512), "tarmac_step_bwd": (32, 256, 512)}
 HOST_STEP = (1, 4)                 # the classic host loop's TarMAC step: one 4-UBS world
 GAT_ROWS = (256, 320, 4096)
+BENCH_GAT_ROWS = (2048, 104448)    # bench.py at B = 256: B·A (per_step), B·(T+1)·A (hoisted)
+BENCH_VALID = 0.7                  # its synthetic masks' valid share (chip_smoke.bench_synth_obs)
+REFEREE_ROWS = 4096                # the f64 referee's rows at most (104,448 'seen' in f64 is GBs)
+PLAIN_BYTES = 2 << 30              # the plain backward's [N, M, HF] f32 temporaries, at most
 GAT_SLOTS = {"seen": (50, 4), "near": (7, 2)}        # M, D
 UPDATE_VALID = {"seen": 0.32, "near": 1.0}           # valid share of the update's masks
 # The classic host loop's #2 calls (N, M, D, valid share): exp1's one UBS over its 10 GTs,
@@ -124,24 +136,30 @@ def step_cases(name, rng):
             args + (a, 16, False)
 
 
-def gat_cases(name, rng):
-    """(label, wrapper arguments) of the GATv2 kernel ``name``."""
-    for n in GAT_ROWS:
-        for slots, (m, d) in GAT_SLOTS.items():
-            for valid in (UPDATE_VALID[slots], 0.7):
-                c = chip_smoke.gat_case(rng, n, m, d, 256, 4, [1, 5, n - 1], valid)
-                args = (c["x"], c["w"], c["b"], c["er"], c["attn"], c["mask"])
-                if name == "flash_gat_fused_bwd":
-                    args += gat_kernels.flash_gat_fused_plain(*args, 4) + \
-                        (torch.randn((n, 256), device="cuda"),)
-                share = (c["mask"] > 0).float().mean().item()
-                yield f"N={n} {slots} (M={m}, D={d}) valid {share:.3f}", args + (4,)
+def gat_cases(name, rng, dtype=torch.float32):
+    """(label, wrapper arguments) of the GATv2 kernel ``name``, the inputs
+    rounded to ``dtype``."""
+    shapes = [(n, slots, valid) for n in GAT_ROWS for slots in GAT_SLOTS
+              for valid in (UPDATE_VALID[slots], 0.7)]
+    shapes += [(n, slots, BENCH_VALID) for n in BENCH_GAT_ROWS for slots in GAT_SLOTS]
+    suffix = " bf16" if dtype == torch.bfloat16 else ""
+    for n, slots, valid in shapes:
+        m, d = GAT_SLOTS[slots]
+        c = chip_smoke.gat_case(rng, n, m, d, 256, 4, [1, 5, n - 1], valid)
+        args = tuple(c[k].to(dtype) for k in ("x", "w", "b", "er", "attn", "mask"))
+        if name == "flash_gat_fused_bwd":
+            args += gat_kernels.flash_gat_fused_plain(*args, 4) + \
+                (torch.randn((n, 256), device="cuda").to(dtype), 4, 0.2, False)
+        else:
+            args += (4,)
+        share = (c["mask"] > 0).float().mean().item()
+        yield f"N={n} {slots} (M={m}, D={d}) valid {share:.3f}{suffix}", args
     if name == "flash_gat_fused":
         for n, m, d, valid in HOST_GAT:
             c = chip_smoke.gat_case(rng, n, m, d, 256, 4, [], valid)
-            args = (c["x"], c["w"], c["b"], c["er"], c["attn"], c["mask"], 4)
+            args = tuple(c[k].to(dtype) for k in ("x", "w", "b", "er", "attn", "mask")) + (4,)
             share = (c["mask"] > 0).float().mean().item()
-            yield f"N={n} (M={m}, D={d}) valid {share:.3f}, the host loop's", args
+            yield f"N={n} (M={m}, D={d}) valid {share:.3f}, the host loop's{suffix}", args
 
 
 def flash_cases():
@@ -188,8 +206,12 @@ def main():
         if hasattr(old, f"{next(iter(signatures))}_bf16"):       # and the bf16 launchers
             cases += [(f"{label} bf16", tuple(t.to(torch.bfloat16) if torch.is_tensor(t) else t
                                               for t in args)) for label, args in cases]
+    elif name == "flash_gat":
+        cases = flash_cases()
     else:
-        cases = flash_cases() if name == "flash_gat" else gat_cases(name, rng)
+        cases = list(gat_cases(name, rng))
+        if hasattr(old, f"{next(iter(signatures))}_bf16"):
+            cases += list(gat_cases(name, rng, torch.bfloat16))
     for label, args in cases:
         def call(lib):
             if lib is old and unscratched:
@@ -212,13 +234,19 @@ def main():
               f"bit-identical {same}", flush=True)
         if name in PLAIN:
             plain, cost = PLAIN[name]
+            x = args[0]
+            big = name == "flash_gat_fused_bwd" and \
+                x.shape[0] * x.shape[1] * args[1].shape[1] * 4 > PLAIN_BYTES
             with torch.no_grad():
-                plain_ms = chip_smoke.time_cuda(lambda: plain(*args))
+                plain_ms = None if big else chip_smoke.time_cuda(lambda: plain(*args))
                 bound_ms, bound_by = chip_smoke.bound(*cost(args))
-                line = f"{name} {label}: plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms " \
+                plain_txt = "not measured" if plain_ms is None else f"{plain_ms:.4f} ms"
+                line = f"{name} {label}: plain {plain_txt}, bound {bound_ms:.6f} ms " \
                     f"({bound_by})"
-                if args[0].dtype == torch.bfloat16:
-                    ref = plain(*(t.double() if torch.is_tensor(t) else t for t in args))
+                if x.dtype == torch.bfloat16 and (name in STEP_WORLDS
+                                                  or x.shape[0] <= REFEREE_ROWS):
+                    ref = [r for r in plain(*(t.double() if torch.is_tensor(t) else t
+                                              for t in args)) if r is not None]
                     errs = [max(chip_smoke.referee_err(g, r) for g, r in zip(outs, ref))
                             for outs in (want, got)]
                     line += f"; max |kernel - f64 referee| / max(1, max |referee|): " \

@@ -4,8 +4,10 @@
 Run from anywhere: ``python3 chip_smoke.py``. Phases, each printed with its wall
 time: the device; the nvcc build of every kernel (one nvcc per source, in
 parallel); the tensor-core (HMMA) instructions that ``cuobjdump -sass`` finds
-in every product kernel of the step kernels, f32 (3xTF32) and bf16; each of the
-five kernels against its plain PyTorch version on the card; serving the committed exp3 8-UBS TarMAC policy (40 worlds, one 50-step
+in every product kernel of the step kernels and every slot-tile kernel of
+#2/#3, f32 (3xTF32) and bf16; each of the five kernels against its plain
+PyTorch version on the card (#2/#3 at 'seen' shapes, which take the slot tiles,
+and at 'near' ones, which take the warp-per-(row, head) body); serving the committed exp3 8-UBS TarMAC policy (40 worlds, one 50-step
 episode) through the kernels, with every step's Q checked against the plain
 path; serving the committed exp3 4-UBS DiscreteComm policy with
 ``gat_backend='pallas'`` (``flash_gat``), every step's Q checked against the
@@ -252,10 +254,22 @@ def max_err(got, want, what):
     return worst
 
 
+def body_of(m, hf=256, heads=4):
+    """The body #2/#3 take for rows of ``m`` slots at ``heads`` heads of ``hf``
+    columns in all, as their library routes them."""
+    from uav_bs_ctrl_tpu_torch.ops import build, gat_kernels
+    lib = build.load("flash_gat_fused", gat_kernels._SIGNATURES)
+    return ("slot tiles" if lib.flash_gat_fused_uses_tiles(m, hf, heads)
+            else "warp-per-(row, head) body")
+
+
 def gat_peak(dtype):
-    """The peak FLOP/s of a GATv2 kernel's operations: bf16's on the tensor
-    cores, f32's outside them."""
-    return BF16_PEAK_FLOPS if dtype == torch.bfloat16 else F32_PEAK_FLOPS
+    """The peak FLOP/s of a GATv2 kernel's (#2, #3) operations: their
+    projections run on the tensor cores, as the step kernels' products do, so
+    ``step_peak``'s rates (bf16's, and 3xTF32's at f32); the operations beside
+    the projections are counted at that rate too, so the bound stays one that
+    the kernel cannot beat."""
+    return step_peak(dtype)
 
 
 def gat_cost(args):
@@ -396,12 +410,19 @@ def time_case(what, inputs, fn, plain, args, cost, **timing):
     return dict(inputs=inputs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+HMMA_KERNELS = {"tarmac_step": "step_products",                 # a word in the name of each
+                "tarmac_step_bwd": "step_products",             # library's kernels whose
+                "flash_gat_fused": "flash_gat_fused_fwd_tiles",  # products run on the
+                "flash_gat_fused_bwd": "flash_gat_fused_bwd_tiles"}   # tensor cores
+
+
 def hmma_counts(libraries, cuda_bin):
     """{library: {"bf16": [kernels, HMMA instructions, kernels without one],
-    "f32": [...]}}: the HMMA (tensor-core) instructions in the step_products
-    kernels of each built library, by storage type, from ``cuobjdump -sass``
-    (beside nvcc in ``cuda_bin``, else on PATH; raises without it). A bf16
-    kernel's name holds ``__nv_bfloat16``."""
+    "f32": [...]}}: the HMMA (tensor-core) instructions in each built
+    library's product kernels (``HMMA_KERNELS``: the step kernels'
+    step_products, #2/#3's slot tiles), by storage type, from ``cuobjdump
+    -sass`` (beside nvcc in ``cuda_bin``, else on PATH; raises without it). A
+    bf16 kernel's name holds ``__nv_bfloat16``."""
     tool = Path(cuda_bin) / "cuobjdump"
     if not tool.is_file():
         found = shutil.which("cuobjdump")
@@ -415,7 +436,7 @@ def hmma_counts(libraries, cuda_bin):
         found = {"bf16": [0, 0, 0], "f32": [0, 0, 0]}
         for block in sass.split("Function : ")[1:]:
             fn = block.split(None, 1)[0]
-            if "step_products" not in fn:
+            if HMMA_KERNELS[name] not in fn:
                 continue
             kind = found["bf16" if "__nv_bfloat16" in fn else "f32"]
             hmma = sum(1 for line in block.splitlines() if "HMMA" in line)
@@ -423,8 +444,8 @@ def hmma_counts(libraries, cuda_bin):
             kind[1] += hmma
             kind[2] += hmma == 0
         if not found["bf16"][0] or not found["f32"][0]:
-            raise AssertionError(f"{name}: no step_products kernel of one type in the SASS "
-                                 f"({found})")
+            raise AssertionError(f"{name}: no {HMMA_KERNELS[name]} kernel of one type in the "
+                                 f"SASS ({found})")
         counts[name] = found
     return counts
 
@@ -2335,13 +2356,13 @@ def main():
         print(f"  the C++ env core: {native_build.build(verbose=True).relative_to(ROOT)}",
               flush=True)
 
-    with phase("the step products on the tensor cores (cuobjdump -sass)"):
-        hmma = hmma_counts({k: built[k] for k in ("tarmac_step", "tarmac_step_bwd")},
-                           Path(build.find_nvcc()).parent)
+    with phase("the products on the tensor cores (cuobjdump -sass)"):
+        hmma = hmma_counts({k: built[k] for k in HMMA_KERNELS}, Path(build.find_nvcc()).parent)
         for name, c in hmma.items():
-            print(f"  {name}: HMMA instructions in its f32 step_products kernels {c['f32'][1]} "
-                  f"(of {c['f32'][0]} kernels, {c['f32'][2]} without one), in its bf16 ones "
-                  f"{c['bf16'][1]} (of {c['bf16'][0]}, {c['bf16'][2]} without one)", flush=True)
+            print(f"  {name}: HMMA instructions in its f32 {HMMA_KERNELS[name]} kernels "
+                  f"{c['f32'][1]} (of {c['f32'][0]} kernels, {c['f32'][2]} without one), in its "
+                  f"bf16 ones {c['bf16'][1]} (of {c['bf16'][0]}, {c['bf16'][2]} without one)",
+                  flush=True)
             if c["bf16"][2] or c["f32"][2]:
                 raise AssertionError(f"{name}: every f32 and bf16 product kernel must run on "
                                      "the tensor cores")
@@ -2380,7 +2401,8 @@ def main():
             zero = got[0][[1, 5, n - 1]].abs().max().item()
             if zero != 0.0:
                 raise AssertionError(f"flash_gat_fused {label}: fully masked rows gave {zero}")
-            print(f"  flash_gat_fused {label} N={n} M={m} D={d}: max abs err {err:.3e}", flush=True)
+            print(f"  flash_gat_fused {label} N={n} M={m} D={d} ({body_of(m)}): max abs err "
+                  f"{err:.3e}", flush=True)
             worst["flash_gat_fused"] = max(worst["flash_gat_fused"], err)
         for w in (40, 512):
             for dueling in (False, True):
@@ -2413,7 +2435,7 @@ def main():
                 for need_dx in (False, True):
                     bwd_args = args + (out, mstat, lstat, g, 4, 0.2, need_dx)
                     got = flash_gat_fused_bwd(*bwd_args)
-                    what = f"flash_gat_fused_bwd N={n} M={m} D={d} dx={need_dx}"
+                    what = f"flash_gat_fused_bwd N={n} M={m} D={d} dx={need_dx} ({body_of(m)})"
                     err = rel_err(got, flash_gat_fused_bwd_plain(*bwd_args), what)
                     zero = got[3][[1, 5, n - 1]].abs().max().item()
                     if zero != 0.0:

@@ -140,15 +140,18 @@ def test_hmma_counts_refuses_a_library_without_one_type(tmp_path):
 
 def test_f32_step_bound_is_three_tf32_passes_at_the_tf32_peak():
     """An f32 step kernel's operations are bound at 3xTF32's rate on the tensor
-    cores, below the CUDA cores' f32 time; bf16's at the bf16 peak; an f32
-    GATv2 kernel's at the CUDA cores' f32 peak."""
+    cores, below the CUDA cores' f32 time; bf16's at the bf16 peak; the fused
+    GATv2 pair (#2, #3), whose projections run on the tensor cores too, at the
+    step kernels' rates; ``flash_gat`` (#1) at the CUDA cores' f32 peak."""
     import torch
     f32, bf16 = chip_smoke.step_peak(torch.float32), chip_smoke.step_peak(torch.bfloat16)
     assert chip_smoke.bound(495e9, 0.0, f32) == (pytest.approx(3.0), "operations")
     assert chip_smoke.bound(989e9, 0.0, bf16) == (pytest.approx(1.0), "operations")
+    assert chip_smoke.gat_peak(torch.float32) == f32
+    assert chip_smoke.gat_peak(torch.bfloat16) == bf16
     ops = 7.475e8                                       # #5 at R = 256, the 8-UBS width
-    gat = chip_smoke.gat_peak(torch.float32)
-    assert chip_smoke.bound(ops, 0.0, f32)[0] < chip_smoke.bound(ops, 0.0, gat)[0]
+    flash = chip_smoke.flash_gat_cost(torch.zeros((1, 1, 64)), torch.ones((1, 1)), 1)[2]
+    assert chip_smoke.bound(ops, 0.0, f32)[0] < chip_smoke.bound(ops, 0.0, flash)[0]
     assert chip_smoke.bound(1.0, 3.35e9, f32) == (pytest.approx(1.0), "bytes")
 
 

@@ -58,7 +58,17 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetLastError() { return 0; }
+// An emulated card of two SMs, each holding one CTA of any kernel: a kernel that sizes its
+// grid to the card runs two CTAs, each over many rows.
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 2; return 0; }
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 1;
+  return 0;
+}
 inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 struct emu_dim3 { unsigned x = 0, y = 0, z = 0; };
@@ -210,6 +220,8 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   w->barrier.arrive_and_wait();
   return bits;
 }
+template <class T>
+T __shfl_sync(unsigned, T v, int src) { return emu::exchange(v, src & 31); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu::current->warp->barrier.arrive_and_wait(); }
 #define threadIdx (emu::current->thread_idx)
@@ -219,6 +231,7 @@ inline void __syncwarp(unsigned = 0xffffffffu) { emu::current->warp->barrier.arr
 #define __syncthreads() emu::block_barrier->arrive_and_wait()
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __grid_constant__
 #define __launch_bounds__(...)
@@ -355,6 +368,25 @@ inline void mma_tf32_1688(float (&d)[4], const unsigned (&a)[4], const unsigned 
     }
   }
 }
+inline void mma_tf32_1684(float (&d)[4], const unsigned (&a)[2], const unsigned (&b)[1]) {
+  const unsigned mine[3] = {a[0], a[1], b[0]};
+  unsigned all[32][3];
+  emu::gather(mine, all);
+  float A[16][4], B[4][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l / 4, t = l % 4;
+    A[g][t] = emu_tf32(all[l][0]);
+    A[g + 8][t] = emu_tf32(all[l][1]);
+    B[t][g] = emu_tf32(all[l][2]);
+  }
+  const int g = emu::lane_id() / 4, t = emu::lane_id() % 4;
+  for (int f = 0; f < 4; ++f) {
+    const int m = g + 8 * (f / 2), n = 2 * t + f % 2;
+    const float p[4] = {A[m][0] * B[0][n], A[m][1] * B[1][n], A[m][2] * B[2][n],
+                        A[m][3] * B[3][n]};
+    d[f] = emu_hmma_block(d[f], p);
+  }
+}
 inline unsigned to_tf32(float v) {
   unsigned u;
   std::memcpy(&u, &v, sizeof u);
@@ -381,6 +413,14 @@ inline void cp_async_16(void* shared, const void* global) {
   emu_aligned(shared);
   emu_aligned(global);
   std::memcpy(shared, global, 16);
+  ++emu_cp_async_calls;
+}
+inline void cp_async_4(void* shared, const void* global, int bytes) {
+  if (reinterpret_cast<std::uintptr_t>(shared) % 4 != 0 ||
+      reinterpret_cast<std::uintptr_t>(global) % 4 != 0 || bytes < 1 || bytes > 4)
+    std::abort();
+  std::memset(shared, 0, 4);
+  std::memcpy(shared, global, bytes);
   ++emu_cp_async_calls;
 }
 inline void cp_async_commit() {}

@@ -3,10 +3,12 @@
 // Every kernel of #2-#5 is a template on its storage type T. A load widens to f32
 // (to_f32), every softmax, row statistic, GRU gate, sum and cross-CTA partial is f32, and
 // so is every scratch buffer; a store rounds to T to nearest even (from_f32). With T =
-// float both are the identity. The products are f32 FMAs in every kernel but the step
-// kernels' (#4/#5, tarmac_step_common.cuh), which run on the tensor cores with f32 sums: f32
-// operands as 3xTF32 (each split into two tf32 parts), bf16 operands as they are, an f32
-// scratch operand of a bf16 call as a bf16 hi/lo pair.
+// float both are the identity. The products run on the tensor cores with f32 sums in the
+// step kernels (#4/#5, tarmac_step_common.cuh: f32 operands as 3xTF32, each split into two
+// tf32 parts, bf16 operands as they are, an f32 scratch operand of a bf16 call as a bf16
+// hi/lo pair) and in #2/#3's slot tiles (flash_gat_tile.cuh: tf32, a bf16 operand exact in
+// one pass, an f32 one split); they are f32 FMAs in #1 and in #2/#3's warp-per-(row, head)
+// body.
 
 #pragma once
 #include <cuda_bf16.h>

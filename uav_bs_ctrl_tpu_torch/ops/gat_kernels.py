@@ -40,6 +40,7 @@ _BWD_ARGS = (_I, [_P] * 16 + [_I] * 5 + [ctypes.c_float, _P])
 _SIGNATURES = {
     "flash_gat_fused_forward": _FWD_ARGS,
     "flash_gat_fused_forward_bf16": _FWD_ARGS,
+    "flash_gat_fused_uses_tiles": (_I, [_I] * 3),
     "flash_gat_fused_error_string": (ctypes.c_char_p, [_I]),
 }
 _BWD_SIGNATURES = {
