@@ -7,7 +7,12 @@ parallel); the tensor-core (HMMA) instructions that ``cuobjdump -sass`` finds
 in every product kernel of the step kernels and every slot-tile kernel of
 #2/#3, f32 (3xTF32) and bf16; each of the five kernels against its plain
 PyTorch version on the card (#2/#3 at 'seen' shapes, which take the slot tiles,
-and at 'near' ones, which take the warp-per-(row, head) body); serving the committed exp3 8-UBS TarMAC policy (40 worlds, one 50-step
+and at 'near' ones, which take the warp-per-(row, head) body); the device
+env's scheduler ``env_schedule`` against its plain version on every step of
+recorded rollouts (``env_schedule_phase``: 8-UBS at 40 and 512 worlds,
+4-UBS, DenseHotSpotV2, swarm64), its launches held to the env steps taken on
+the card there and in serving, ``rollout``, vec_run and the timed
+collections; serving the committed exp3 8-UBS TarMAC policy (40 worlds, one 50-step
 episode) through the kernels, with every step's Q checked against the plain
 path; serving the committed exp3 4-UBS DiscreteComm policy with
 ``gat_backend='pallas'`` (``flash_gat``), every step's Q checked against the
@@ -113,7 +118,9 @@ REPLACES = {"flash_gat": "uav_bs_ctrl_tpu/ops/pallas_kernels.py:138",
             "flash_gat_fused": "uav_bs_ctrl_tpu/ops/pallas_kernels.py:329",
             "flash_gat_fused_bwd": "uav_bs_ctrl_tpu/ops/pallas_kernels.py:623",
             "tarmac_step": "uav_bs_ctrl_tpu/ops/step_kernels.py:314",
-            "tarmac_step_bwd": "uav_bs_ctrl_tpu/ops/step_kernels.py:379"}
+            "tarmac_step_bwd": "uav_bs_ctrl_tpu/ops/step_kernels.py:379",
+            "env_schedule": "no pallas_call: the fori_loop over the GTs, "
+                            "uav_bs_ctrl_tpu/envs/jax_env.py:184"}
 BWD_RTOL = 1e-4           # backward kernel vs plain: of each output's largest entry
 UPDATE_LOSS_RTOL = 1e-5   # one update, kernels vs plain path: LossQ
 UPDATE_GRAD_RTOL = 1e-4   # clipped grads, of the group's largest raw-gradient entry
@@ -145,6 +152,11 @@ UPDATE_EDGES = 1_680_640  # bench.py:64's edges of an update at B = 32, T = 50, 
 PARALLEL_FUSED = dict(n_worlds=8, capacity_chunks=16, updates_per_iter=2, interleave=2,
                       n_layouts=16)
 PARALLEL_RTOL, PARALLEL_ATOL, PARALLEL_PARAMS_RTOL = 1e-5, 2e-5, 1e-3
+# env_schedule against the scatter body: (map, worlds) of each recorded rollout, and its steps
+# where not the map's episode (swarm64's plain body makes some two dozen launches a GT, 800 GTs).
+ENV_SHAPES = (("8ubs", N_WORLDS), ("8ubs", 512), ("4ubs", N_WORLDS), ("hotspot_v2", N_WORLDS),
+              ("swarm64", 4))
+ENV_STEPS = {"hotspot_v2": 50, "swarm64": 3}
 
 
 @contextlib.contextmanager
@@ -1813,8 +1825,9 @@ def slice13_phases(ctx):
     core (built, and used by ``test_series``, whose committed 4-UBS and exp1
     rows must reproduce; host env ms per step with the core and with NumPy);
     every ``ops/segment.py`` op on the card against the CPU on one update's
-    1,680,640 edges. ``ctx`` as for :func:`exp1_phases`; returns the
-    figures."""
+    1,680,640 edges. ``ctx`` as for :func:`exp1_phases`, with ``check_env``
+    (``env_schedule``'s launches against the env steps on the card);
+    returns the figures."""
     from functools import partial
     from uav_bs_ctrl_tpu_torch import serve, test_policies
     from uav_bs_ctrl_tpu_torch.algos import collect
@@ -1852,6 +1865,7 @@ def slice13_phases(ctx):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ctx.phase_launches["vec_run"] = counts()
+        ctx.check_env("vec_run: the chunks, their resets and the test episodes")
         T, B = learner.max_seq_len, learner.batch_size
         n_chunks = VEC_CUTS["steps_per_epoch"] * VEC_CUTS["epochs"] // (VEC_WORLDS * T)
         n_upd = n_chunks * VEC_WORLDS
@@ -1921,6 +1935,7 @@ def slice13_phases(ctx):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = ctx.phase_launches["rollout"] = counts()
+        ctx.check_env(f"rollout, {T} steps")
         torch_env.step = recording_step
         try:
             recorded.append([])
@@ -2042,6 +2057,115 @@ def slice13_phases(ctx):
                                  f"dense_to_edges {exact}")
     shutil.rmtree(scratch)
     return out
+
+
+def env_schedule_phase(ctx):
+    """``env_schedule`` (``ops/env_kernels.py``, ``csrc/env_schedule.cu``)
+    against its plain version, ``torch_env._schedule_body_scatter``, on the
+    card: each step of a recorded rollout (``ENV_SHAPES``: the committed 8-UBS
+    policy at 40 and 512 worlds, eps 0.05; random moves on the 4-UBS map,
+    DenseHotSpotV2 and swarm64, from layouts with each UBS on a GT) fed to
+    both, so that one near-tie does not spread; held to
+    ``env_kernels.compare_schedules`` (the same UBS and RB for every GT, rates
+    within ``RATE_RTOL`` of the world's largest, any parting an interference
+    tie, which is printed); a repeat bit for bit; the kernel's launches equal
+    to the rollouts' env steps; the kernel timed with CUDA events and the
+    plain body by host wall time beside the bound. ``ctx`` carries
+    ``reset_counts`` and ``check_env``; returns the ``env_schedule`` cases."""
+    from unittest import mock
+    from uav_bs_ctrl_tpu_torch import serve
+    from uav_bs_ctrl_tpu_torch.algos import collect
+    from uav_bs_ctrl_tpu_torch.envs import maps, torch_env
+    from uav_bs_ctrl_tpu_torch.ops import env_kernels
+    kernel = env_kernels.schedule_and_rate
+    agent, config = serve.load_policy(RUN_DIR, DEVICE)
+    cases, ties_all, worst_err, worst_abs = [], [], 0.0, 0.0
+    with phase(f"env_schedule against the scatter body on recorded rollouts: {ENV_SHAPES}"), \
+            mock.patch.dict(maps.MAPS, {"hotspot_v2": maps.DenseHotSpotV2()}):
+        for map_id, n_worlds in ENV_SHAPES:
+            params = torch_env.make_params(map_id)
+            gen = torch.Generator().manual_seed(n_worlds)
+            pool = collect.make_layout_pool(map_id, 64, seed=1)
+            states = collect.reset_worlds(params, pool, gen, n_worlds, DEVICE)
+            recorded, schedule = [], torch_env._schedule
+
+            def recording(p, d, g, prior):
+                recorded.append((d.clone(), g.clone(), prior.clone()))
+                return schedule(p, d, g, prior)
+
+            n_steps = ENV_STEPS.get(map_id, params.episode_limit)
+            ctx.reset_counts()
+            torch_env._schedule = recording
+            try:
+                if map_id == config["map_id"]:
+                    h0 = torch.zeros((n_worlds, params.n_ubs, agent.hidden), device=DEVICE)
+                    torch_env.rollout(params, agent, states, h0, gen, n_steps, eps=EPS)
+                else:        # each UBS on a GT, then one random move in four a step
+                    take = torch.randperm(params.n_gts, generator=gen)[:params.n_ubs]
+                    states = torch_env.reset_from_positions(
+                        params, states.pos_gts[:, take.to(DEVICE)] + 20.0, states.pos_gts,
+                        states.prior_gts)
+                    for _ in range(n_steps):
+                        moves = torch.randint(0, params.n_actions, (n_worlds, params.n_ubs),
+                                              generator=gen)
+                        moves[torch.rand(moves.shape, generator=gen) >= 0.25] = 0
+                        states = torch_env.step(params, states, moves.to(DEVICE))[0]
+            finally:
+                torch_env._schedule = schedule
+            torch.cuda.synchronize()
+            label = f"{map_id} (N, M, R) = {(params.n_ubs, params.n_gts, params.n_rbs)}, " \
+                f"{n_worlds} worlds"
+            ctx.check_env(f"the recorded rollout, {label}")
+            served, ties, err, abs_err = 0, [], 0.0, 0.0
+            for step, (d, g, prior) in enumerate(recorded):
+                rate_gt, rate_ubs, assign = kernel(params, d, g, prior, with_assignment=True)
+                sched, plain_gt, plain_ubs = torch_env._schedule_body_scatter(params, d, g, prior)
+                res = env_kernels.compare_schedules(
+                    params, d, g, prior, (assign, rate_gt, rate_ubs),
+                    (env_kernels.schedule_assignment(sched), plain_gt, plain_ubs))
+                if res["faults"] or res["err"] > env_kernels.RATE_RTOL:
+                    raise AssertionError(f"env_schedule, {label}, step {step}: max rate error "
+                                         f"{res['err']:.3e} of the world's largest rate "
+                                         f"(limit {env_kernels.RATE_RTOL}); faults "
+                                         f"{res['faults'][:3]}")
+                ties += [dict(t, step=step) for t in res["ties"]]
+                err, abs_err = max(err, res["err"]), max(abs_err, res["abs_err"])
+                served += int((assign >= 0).sum())
+                if step == 0:
+                    again = kernel(params, d, g, prior, with_assignment=True)
+                    if not all(torch.equal(a, b) for a, b in
+                               zip(again, (rate_gt, rate_ubs, assign))):
+                        raise AssertionError(f"env_schedule, {label}: a repeat differs")
+            d, g, prior = recorded[len(recorded) // 2]
+            ms = time_cuda(lambda: kernel(params, d, g, prior))
+            plain_ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                torch_env._schedule_body_scatter(params, d, g, prior)
+                torch.cuda.synchronize()
+                plain_ms.append((time.perf_counter() - t0) * 1e3)
+            nbytes = (d.numel() + g.numel()) * 4 + prior.numel() * 8 + \
+                n_worlds * (params.n_gts + params.n_ubs) * 4
+            bound_ms, bound_by = bound(0, nbytes, F32_PEAK_FLOPS)
+            staged = env_kernels.staged(params.n_ubs, params.n_gts)
+            case = dict(inputs=label, steps=len(recorded), ms=ms,
+                        ms_per_gt=ms / params.n_gts, plain_ms=statistics.median(plain_ms),
+                        bound_ms=bound_ms, bound_by=bound_by, max_rel_err=err,
+                        max_abs_err=abs_err, ties=len(ties), staged=staged,
+                        served_share=served / (len(recorded) * n_worlds * params.n_gts))
+            cases.append(case)
+            ties_all += ties
+            worst_err, worst_abs = max(worst_err, err), max(worst_abs, abs_err)
+            print(f"  {label}: {len(recorded)} steps, {100 * case['served_share']:.1f} % of "
+                  f"the GTs served; max rate error {err:.3e} of the world's largest "
+                  f"({abs_err:.3e} Mbps), near-ties {len(ties)} {ties[:3]}; a repeat bit for "
+                  f"bit; {'staged in shared memory' if staged else 'read from device memory'}"
+                  f"; kernel {ms:.4f} ms ({1e3 * case['ms_per_gt']:.3f} us a GT), plain "
+                  f"{case['plain_ms']:.2f} ms host wall, bound {bound_ms:.6f} ms ({bound_by}: "
+                  f"{nbytes} bytes)", flush=True)
+        ctx.reset_counts()             # the comparisons' launches are not the main path's
+    return SimpleNamespace(cases=cases, ties=ties_all, err=worst_err, abs_err=worst_abs)
 
 
 def per_update_launches(T):
@@ -2315,6 +2439,7 @@ def main():
     from uav_bs_ctrl_tpu_torch.envs import torch_env
     from uav_bs_ctrl_tpu_torch.models.modules import gumbel_noise
     from uav_bs_ctrl_tpu_torch.ops import build
+    from uav_bs_ctrl_tpu_torch.ops.env_kernels import schedule_and_rate
     from uav_bs_ctrl_tpu_torch.native import build as native_build
     from uav_bs_ctrl_tpu_torch.ops.gat_kernels import (
         flash_gat, flash_gat_fused, flash_gat_fused_bwd, flash_gat_fused_bwd_plain,
@@ -2329,9 +2454,33 @@ def main():
     all_kernels = {name: table[name] for name in REPLACES
                    for table in (kernels, bwd_kernels) if name in table}
 
+    # env_schedule launches once an env step (each torch_env._transmit, the reset's included)
+    # of worlds on the card: its launches are held to the env steps counted here.
+    env_steps = collections.Counter()
+    transmit = torch_env._transmit
+
+    def counted_transmit(params, state):
+        env_steps[state.pos_ubs.device.type] += 1
+        return transmit(params, state)
+
+    torch_env._transmit = counted_transmit
+
     def reset_counts():
         for fn, _ in all_kernels.values():
             fn.launches = fn.launches_bf16 = 0
+        schedule_and_rate.launches = 0
+        env_steps.clear()
+
+    def check_env(what):
+        """env_schedule's launches since the last reset_counts against the env
+        steps on the card since then: equal, and not 0."""
+        launches, steps = schedule_and_rate.launches, env_steps["cuda"]
+        print(f"  env_schedule: {launches} launches over {steps} env steps on the card "
+              f"({what})", flush=True)
+        if launches != steps or steps == 0:
+            raise AssertionError(f"env_schedule launched {launches} times over {steps} env "
+                                 f"steps on the card ({what})")
+        return launches
 
     def counts():
         return {name: fn.launches for name, (fn, _) in all_kernels.items()}
@@ -2352,7 +2501,7 @@ def main():
               f"nvidia-smi: {card}", flush=True)
 
     with phase("build"):
-        built = build.build(list(all_kernels))
+        built = build.build(list(all_kernels) + ["env_schedule"])
         print(f"  the C++ env core: {native_build.build(verbose=True).relative_to(ROOT)}",
               flush=True)
 
@@ -2465,6 +2614,8 @@ def main():
             print(f"  {what}: max rel err {err:.3e}", flush=True)
             worst["tarmac_step_bwd"] = max(worst["tarmac_step_bwd"], err)
 
+    env_sched = env_schedule_phase(SimpleNamespace(reset_counts=reset_counts, check_env=check_env))
+
     with phase(f"serve {RUN_DIR.name}: {N_WORLDS} worlds, one episode, eps={EPS}"):
         reset_counts()
         t0 = time.perf_counter()
@@ -2473,6 +2624,7 @@ def main():
         serve_s = time.perf_counter() - t0
         serve_launches = counts()
         steps = torch_env.make_params("8ubs").episode_limit
+        serve_env_launches = check_env(f"serving, {steps} steps and the reset")
         print(f"  launches on the serving path: {serve_launches} over {steps} env steps "
               f"({serve_s:.2f} s, loading included)", flush=True)
         want = dict(dict.fromkeys(all_kernels, 0), flash_gat_fused=2 * steps, tarmac_step=steps)
@@ -2524,6 +2676,7 @@ def main():
         disc_s = time.perf_counter() - t0
         disc_launches = counts()
         disc_steps = torch_env.make_params("4ubs").episode_limit
+        check_env(f"serving, {disc_steps} steps and the reset")
         print(f"  launches on the serving path: {disc_launches} over {disc_steps} env steps "
               f"({disc_s:.2f} s, loading included)", flush=True)
         want = dict(dict.fromkeys(all_kernels, 0), flash_gat=2 * disc_steps)
@@ -2603,6 +2756,7 @@ def main():
         # The 'pallas' policy launches flash_gat x2 and tarmac_step per step; the
         # fused reference beside it flash_gat_fused x2 and tarmac_step.
         pallas_launches = counts()
+        check_env(f"serving, {steps} steps and the reset")
         want = dict(dict.fromkeys(all_kernels, 0), flash_gat=2 * steps,
                     flash_gat_fused=2 * steps, tarmac_step=2 * steps)
         worst_q, worst_h = max(e[0] for e in perrs), max(e[1] for e in perrs)
@@ -2929,7 +3083,7 @@ def main():
     bench = bench_phases(SimpleNamespace(counts=counts, counts_bf16=counts_bf16,
                                          reset_counts=reset_counts))
     slice13_phases(SimpleNamespace(counts=counts, reset_counts=reset_counts,
-                                   phase_launches=phase_launches))
+                                   phase_launches=phase_launches, check_env=check_env))
     parallel_phases(SimpleNamespace(batch=batch, phase_launches=phase_launches))
 
     record = []
@@ -3060,11 +3214,13 @@ def main():
                  disc_steps)):
             for n_worlds in (N_WORLDS, 512):
                 generator = torch.Generator().manual_seed(1)
+                reset_counts()
                 t0 = time.perf_counter()
                 collect.evaluate_policy(env, pol, pool, hidden, generator, n_worlds,
                                         device, EPS)
                 torch.cuda.synchronize()
                 dt = time.perf_counter() - t0
+                check_env(f"{label}, {n_worlds} worlds")
                 batched_ms[label, n_worlds] = dt * 1e3 / n_steps
                 print(f"  {label}: {n_worlds} worlds x {n_steps} steps with the policy in the "
                       f"loop: {dt:.3f} s, {n_worlds * n_steps / dt:.1f} env steps/s "
@@ -3094,6 +3250,14 @@ def main():
               f"card in {card_noise_ms:.3f} ms; drawn on the host and copied, as before, "
               f"{host_noise_ms:.3f} ms), so about {step_ms - pol_ms:.2f} ms for the env step "
               f"and the exploration draws", flush=True)
+
+        record.append({
+            "name": "env_schedule", "route": "cuda",
+            "source": "uav_bs_ctrl_tpu_torch/ops/csrc/env_schedule.cu",
+            "replaces": REPLACES["env_schedule"], "launches": serve_env_launches,
+            "max_abs_err": env_sched.abs_err, "max_rel_err": env_sched.err,
+            **{k: env_sched.cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "near_ties": len(env_sched.ties), "cases": env_sched.cases})
 
     print(json.dumps({"kernels": record + bench.records}))
     print(card)

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: both backwards,
-``flash_gat``, ``flash_gat_fused`` and ``tarmac_step``.
+``flash_gat``, ``flash_gat_fused``, ``tarmac_step`` and the env scheduler
+``env_schedule`` (held to ``env_kernels.compare_schedules``, its own rule).
 
 This file imports neither JAX nor the JAX package, so it also runs on a GPU
 machine that has no JAX: ``python -m pytest --noconftest
@@ -13,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from uav_bs_ctrl_tpu_torch.ops import gat_kernels, step_kernels
+from env_schedule_cases import SHAPES, WORLDS, edge_outcomes, make_case, params_of
+from uav_bs_ctrl_tpu_torch.envs import torch_env
+from uav_bs_ctrl_tpu_torch.ops import env_kernels, gat_kernels, step_kernels
 
 GAT_ORDER = ("x", "w", "b", "er", "attn", "mask")
 STEP_ORDER = ("wv", "bv", "ws", "bs", "wq", "bq", "wi", "wh", "bi", "bh",
@@ -218,3 +221,35 @@ def test_autograd_functions_launch_the_kernels(cuda_device):
                                               8, 16, False)
     got = [a.grad for i, a in enumerate(args) if i != 2]
     _assert_close_to_scale(got, want, "tarmac_step_train")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_env_schedule_kernel_matches_scatter_body_and_repeats(cuda_device, name):
+    """One launch for every world, held to the scatter body on the same inputs:
+    the same serving UBS and RB for every GT, rates within 1e-6 of the world's
+    largest rate, the edge cases of ``env_schedule_cases.py``; a repeat bit
+    for bit."""
+    params = params_of(torch_env, name)
+    case = make_case(params, WORLDS[name], seed=len(name) + 20)
+    args = [torch.from_numpy(case[k]).to(cuda_device) for k in ("d", "gain", "prior")]
+    before = env_kernels.schedule_and_rate.launches
+    rate_gt, rate_ubs, assign = env_kernels.schedule_and_rate(params, *args,
+                                                              with_assignment=True)
+    assert env_kernels.schedule_and_rate.launches == before + 1
+    sched, plain_gt, plain_ubs = torch_env._schedule_body_scatter(params, *args)
+    res = env_kernels.compare_schedules(params, *args, (assign, rate_gt, rate_ubs),
+                                        (env_kernels.schedule_assignment(sched), plain_gt,
+                                         plain_ubs))
+    assert not res["faults"] and res["err"] <= env_kernels.RATE_RTOL, res
+    outcomes = edge_outcomes(params, case, assign.cpu())
+    assert all(outcomes.values()), outcomes
+    again = env_kernels.schedule_and_rate(params, *args, with_assignment=True)
+    assert all(torch.equal(a, b) for a, b in zip(again, (rate_gt, rate_ubs, assign)))
+    rates = torch_env._schedule(params, *args)
+    assert rates[0] is None and torch.equal(rates[1], rate_gt)
+    with pytest.raises(ValueError, match="not contiguous"):
+        env_kernels.schedule_and_rate(params, args[0].transpose(1, 2).contiguous()
+                                      .transpose(1, 2), *args[1:])
+    with pytest.raises(TypeError, match="int64"):
+        env_kernels.schedule_and_rate(params, args[0], args[1], args[2].to(torch.int32))

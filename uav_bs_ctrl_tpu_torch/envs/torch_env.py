@@ -11,6 +11,9 @@ Scheduling (reference ``envs/mubs_cov/mubs_cov.py:172-200``): GTs are visited
 in priority order; each attaches to its nearest in-range UBS with a free RB,
 on the idle RB with the least accumulated interference; the serving UBS then
 radiates interference on that RB to every GT in its coverage but the served one.
+On a CPU tensor that loop runs in Python (``_schedule_body_scatter`` or
+``_schedule_body_onehot``, by ``SCHEDULE_IMPL``); on the card it runs with the
+rates as one kernel launch for every world (``ops/env_kernels.py``).
 """
 
 import math
@@ -18,9 +21,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from uav_bs_ctrl_tpu_torch.envs.common import AirToGroundChannel
 from uav_bs_ctrl_tpu_torch.envs.maps import MAPS
+from uav_bs_ctrl_tpu_torch.ops import env_kernels
 
 _INF = float("inf")
 
@@ -129,8 +134,29 @@ def _norm(diff):
 
 
 def _schedule(params: EnvParams, d_u2g, gain, prior_gts):
-    """Priority/interference-aware RB assignment: the JAX scatter formulation,
-    looped over the M GTs in Python, every world at once."""
+    """Priority/interference-aware RB assignment (sequential over GTs), every
+    world at once: ``(sched [W, N, M, R], rate_per_gt [W, M], rate_per_ubs
+    [W, N])``.
+
+    On a CPU tensor, the plain body that ``SCHEDULE_IMPL`` names, as in the
+    JAX package: 'scatter' (the default; indexed updates) or 'onehot'
+    (one-hot mask algebra). On a CUDA tensor, always the kernel
+    (``ops/env_kernels.py:schedule_and_rate``, one launch for the loop and the
+    rates of every world), which writes no schedule: ``sched`` is None there.
+    """
+    if d_u2g.device.type != "cpu":
+        return (None,) + env_kernels.schedule_and_rate(params, d_u2g, gain, prior_gts)
+    if SCHEDULE_IMPL == "onehot":
+        return _schedule_body_onehot(params, d_u2g, gain, prior_gts)
+    return _schedule_body_scatter(params, d_u2g, gain, prior_gts)
+
+
+SCHEDULE_IMPL = "scatter"
+
+
+def _schedule_body_scatter(params: EnvParams, d_u2g, gain, prior_gts):
+    """The JAX scatter formulation, looped over the M GTs in Python, every
+    world at once: the plain version of ``csrc/env_schedule.cu``."""
     n_w = d_u2g.shape[0]
     N, M, R = params.n_ubs, params.n_gts, params.n_rbs
     dev = d_u2g.device
@@ -159,6 +185,44 @@ def _schedule(params: EnvParams, d_u2g, gain, prior_gts):
         row = radiated[w, i].clone()                                 # [W, M]
         row[w, m] = 0.0
         p_itf[w, i, :, c] = torch.where(ok[:, None], row, p_itf[w, i, :, c])
+    return _rates_from_schedule(params, gain, p_itf, sched)
+
+
+def _schedule_body_onehot(params: EnvParams, d_u2g, gain, prior_gts):
+    """The JAX one-hot formulation (``jax_env.py:188-222``): scatter-free mask
+    algebra over the whole state each GT, every world at once."""
+    n_w = d_u2g.shape[0]
+    N, M, R = params.n_ubs, params.n_gts, params.n_rbs
+    dev, dt = d_u2g.device, d_u2g.dtype
+    prior_oh = F.one_hot(prior_gts, M).to(dt)                        # [W, M, M]
+    used_rbs = torch.zeros((n_w, N), dtype=torch.int32, device=dev)
+    rb_occ = torch.zeros((n_w, N, R), dtype=torch.bool, device=dev)
+    p_itf = torch.zeros((n_w, N, M, R), dtype=torch.float32, device=dev)
+    sched = torch.zeros((n_w, N, M, R), dtype=torch.bool, device=dev)
+    for pm in range(M):
+        m_oh = prior_oh[:, pm]                                       # [W, M] one-hot of GT m
+        d_col = torch.einsum("wnm,wm->wn", d_u2g, m_oh)              # [W, N]
+        eligible = (used_rbs < R) & (d_col <= params.r_cov)
+        i = torch.where(eligible, d_col, _INF).argmin(-1)            # nearest eligible
+        ok = eligible.any(-1)
+        i_oh = F.one_hot(i, N).to(dt) * ok[:, None]                  # [W, N]
+
+        itf_per_chan = torch.einsum("wnmr,wm->wr", p_itf, m_oh)      # [W, R]
+        occ_i = torch.einsum("wnr,wn->wr", rb_occ.to(dt), i_oh)      # [W, R]
+        c = torch.where(occ_i > 0, _INF, itf_per_chan).argmin(-1)
+        c_oh = F.one_hot(c, R).to(dt)                                # [W, R]
+
+        hit_nr = i_oh[:, :, None] * c_oh[:, None, :]                 # [W, N, R]
+        sched = sched | (hit_nr[:, :, None, :] * m_oh[:, None, :, None] > 0)
+        rb_occ = rb_occ | (hit_nr > 0)
+        used_rbs = used_rbs + (i_oh > 0)
+
+        # UBS i radiates on RB c to covered GTs, except the served one.
+        d_i = torch.einsum("wnm,wn->wm", d_u2g, i_oh)                # [W, M]
+        g_i = torch.einsum("wnm,wn->wm", gain.to(dt), i_oh)
+        row = torch.where(d_i <= params.r_cov, params.p_tx * g_i, 0.0) * (1 - m_oh)
+        mask3 = hit_nr[:, :, None, :]                                # [W, N, 1, R]
+        p_itf = p_itf * (1 - mask3) + mask3 * row[:, None, :, None]
     return _rates_from_schedule(params, gain, p_itf, sched)
 
 
