@@ -67,8 +67,14 @@ the one card over gloo: ``graft_entry.dryrun_multichip(4)`` (dp = 2, mp = 2,
 the toy and flagship cases against single-rank updates), a gp = 2 flagship
 step, the dp = 2 fused trainer against the single-rank one and a dp = 2
 update of the committed checkpoint through the update gates, with each
-rank's launches, ms per sharded update and collectives' share; and timings
-(``exp1_times`` adds exp1's kernels, updates and collection).
+rank's launches, ms per sharded update and collectives' share; the mp
+compute split (``mp_split_phases``): the column-split #4/#5 against their
+plain versions and, at the whole columns, #4/#5 bit for bit, #2/#3 at a
+rank's heads, the split entry points timed, and one update of the committed
+checkpoint on dims (1, mp, 1) for mp = 1, 2, 4 at f32 and bf16 (ranks on the
+one card over gloo) against the single rank's and the f64 referee's, with
+each rank's busy ms, launches, heads and GRU columns and collectives; and
+timings (``exp1_times`` adds exp1's kernels, updates and collection).
 Any failed phase exits non-zero with no result line. The last line is the
 JSON device record.
 """
@@ -121,6 +127,10 @@ REPLACES = {"flash_gat": "uav_bs_ctrl_tpu/ops/pallas_kernels.py:138",
             "tarmac_step_bwd": "uav_bs_ctrl_tpu/ops/step_kernels.py:379",
             "env_schedule": "no pallas_call: the fori_loop over the GTs, "
                             "uav_bs_ctrl_tpu/envs/jax_env.py:184"}
+SPLIT_KERNELS = {"tarmac_step_cols": "tarmac_step", "tarmac_step_head": "tarmac_step",
+                 "tarmac_step_bwd_cols": "tarmac_step_bwd",      # the column split of #4/#5,
+                 "tarmac_step_bwd_rest": "tarmac_step_bwd"}      # by the kernel each splits
+MP_SPLITS = (2, 4)        # the mp phases' meshes (1, mp, 1), beside the single rank (mp = 1)
 BWD_RTOL = 1e-4           # backward kernel vs plain: of each output's largest entry
 UPDATE_LOSS_RTOL = 1e-5   # one update, kernels vs plain path: LossQ
 UPDATE_GRAD_RTOL = 1e-4   # clipped grads, of the group's largest raw-gradient entry
@@ -968,6 +978,7 @@ def zeroed_gat_dw(gat_kernels):
         dx, dw, db, der, dattn = kernel(*args, **kwargs)
         return dx, torch.zeros_like(dw), db, der, dattn
     zeroed.launches, zeroed.launches_bf16 = kernel.launches, kernel.launches_bf16  # counted
+    zeroed.shapes = kernel.shapes                            # and recorded
     gat_kernels.flash_gat_fused_bwd = zeroed                 # through the module's name
     try:
         yield
@@ -2199,6 +2210,434 @@ def summed(ranks):
     return {k: sum(x["launches"][k] for x in ranks) for k in ranks[0]["launches"]}
 
 
+def rank_launches(want, split=False):
+    """A rank's launches (``parallel.workers.counts``: #1-#5 and the split
+    #4/#5) from ``want``, #1-#5's: with ``split`` (an mp rank's update through
+    the kernels) #4's launches are the column split's forward pair and #5's
+    its backward pair."""
+    out = dict(want, **dict.fromkeys(SPLIT_KERNELS, 0))
+    if split:
+        for name, whole in SPLIT_KERNELS.items():
+            out[name] = want[whole]
+        out.update(tarmac_step=0, tarmac_step_bwd=0)
+    return out
+
+
+def step_cols_cost(args):
+    """(operations, bytes, peak FLOP/s) of one ``tarmac_step_cols`` call: v|s|q
+    and the attention whole, the GRU's products and gates on its w columns of
+    each gate; x, h, adjf, the v|s|q weights and the columns of wi, wh, bi, bh
+    read once, h2's columns (f32) written once."""
+    x, h, adjf, wv, bv, ws, bs, wq, bq = args[:9]
+    lo, hi = args[15]
+    w, (rows, hid), msg, key = hi - lo, x.shape, wv.shape[1], ws.shape[1]
+    edges = float((adjf > 0).sum())
+    ops = (rows * 2 * 2 * hid * (msg + 2 * key) + edges * (2 * key + 3 + 2 * msg)
+           + rows * 2 * 3 * w * (2 * hid + msg) + rows * w * 10)
+    nbytes = x.element_size() * (sum(t.numel() for t in args[:9]) + 3 * w * (2 * hid + msg + 2)) \
+        + 4 * rows * w
+    return ops, nbytes, step_peak(x.dtype)
+
+
+def step_head_cost(args):
+    """(operations, bytes, peak FLOP/s) of one ``tarmac_step_head`` call: the
+    head's sums; h2 (f32) and the head's weights read once, q and h2 written."""
+    h2f, wo, bo, wvh, bvh = args[:5]
+    rows, hid = h2f.shape
+    n_act = wo.shape[1]
+    ops = rows * 2 * hid * (n_act + 1) + rows * (n_act + 3)
+    nbytes = 4 * h2f.numel() + wo.element_size() * (
+        sum(t.numel() for t in args[1:5]) + rows * (n_act + hid))
+    return ops, nbytes, step_peak(wo.dtype)
+
+
+def step_bwd_cols_cost(args):
+    """(operations, bytes, peak FLOP/s) of one ``tarmac_step_bwd_cols`` call:
+    the recompute (v|s|q and the attention whole, the GRU on the w columns),
+    the head's dh2 and the GRU backward on the columns, and the products of
+    dgi and dgh of the columns into full-width partials of dx, dc and dh;
+    inputs read once, ``red`` (f32) written once."""
+    x, h, adjf, wv, bv, ws, bs, wq, bq = args[:9]
+    lo, hi = args[22]
+    w, (rows, hid), msg, key, n_act = hi - lo, x.shape, wv.shape[1], ws.shape[1], \
+        args[13].shape[1]
+    edges = float((adjf > 0).sum())
+    gru = rows * 2 * 3 * w * (2 * hid + msg)
+    ops = (rows * 2 * 2 * hid * (msg + 2 * key) + edges * (2 * key + 3 + 2 * msg) + 2 * gru
+           + rows * w * (2 * (n_act + 1) + 22))
+    nbytes = x.element_size() * (sum(t.numel() for t in args[:9]) + 3 * w * (2 * hid + msg + 2)
+                                 + w * (n_act + 1) + args[17].numel() + args[18].numel()) \
+        + 4 * rows * (2 * hid + msg)
+    return ops, nbytes, step_peak(x.dtype)
+
+
+def step_bwd_rest_cost(args):
+    """(operations, bytes, peak FLOP/s) of one ``tarmac_step_bwd_rest`` call:
+    the attention backward, dx += [dv|ds|dq] [wv|ws|wq]^T, the v|s|q weight
+    gradients whole and the columns' share of the GRU's and the head's; red
+    and the first half's per-row scratch (f32) read once, with x, h, adjf and
+    the v|s|q weights; dx, dh and the gradients' entries it computes written
+    once."""
+    x, h, adjf, wv, bv, ws, bs, wq, bq = args[:9]
+    lo, hi = args[22]
+    w, (rows, hid), msg, key, n_act = hi - lo, x.shape, wv.shape[1], ws.shape[1], \
+        args[13].shape[1]
+    edges = float((adjf > 0).sum())
+    vsq = rows * 2 * 2 * hid * (msg + 2 * key)
+    ops = (edges * (4 * msg + 4 * key + 4) + vsq // 2 + vsq + rows * 2 * 3 * w * (2 * hid + msg)
+           + rows * 2 * w * (n_act + 1) + rows * (6 * w + msg + 2 * key + n_act + 1))
+    grads = (2 * hid + 1) * (msg + 2 * key) + 3 * w * (2 * hid + msg + 2) + w * (n_act + 1) \
+        + n_act + 1
+    nbytes = 4 * (args[17].numel() + rows * (11 * w + 3 * msg + 4 * key + n_act + 1)) \
+        + x.element_size() * (x.numel() + h.numel() + adjf.numel() + wv.numel() + ws.numel()
+                              + wq.numel() + 2 * rows * hid + grads)
+    return ops, nbytes, step_peak(x.dtype)
+
+
+def split_step(args, a, dueling, cols, plain=False):
+    """The column-split wrappers (``plain``: their plain versions) over
+    simulated ranks on one device: h2's columns gathered, the head; each
+    rank's backward from ``red`` summed over the ranks (a copy each, as an
+    all-reduce gives it). Returns ``((q, h2), [each rank's (dx, dh, 14
+    gradients)])``."""
+    from uav_bs_ctrl_tpu_torch.ops import step_kernels as sk
+    fn = lambda name: getattr(sk, name + ("_plain" if plain else ""))
+    h2f = torch.cat([fn("tarmac_step_cols")(*args[:13], a, 16, c) for c in cols], 1)
+    out = fn("tarmac_step_head")(h2f, *args[13:17], dueling)
+    halves = [fn("tarmac_step_bwd_cols")(*args, a, 16, dueling, c) for c in cols]
+    red = sum(r for r, _ in halves)
+    return out, [fn("tarmac_step_bwd_rest")(*args[:17], red.clone(), saved, a, 16, dueling, c)
+                 for (_, saved), c in zip(halves, cols)]
+
+
+def split_entry_errs(args, a, dueling, cols, what):
+    """Each column-split entry point against its plain version on the same
+    inputs, for every simulated rank of ``cols``: ``tarmac_step_cols``' h2
+    columns, ``tarmac_step_head``'s q and h2 (on the kernels' gathered h2),
+    ``tarmac_step_bwd_cols``' ``red``, and ``tarmac_step_bwd_rest``'s dx, dh
+    and 14 gradients (on the same summed ``red``, each from its own first
+    half's saved tensors). Returns each entry's max |kernel - plain|; raises
+    beyond ``max_err``'s tolerances (forward) or ``BWD_RTOL`` of max(1, max
+    |plain|) (backward)."""
+    from uav_bs_ctrl_tpu_torch.ops import step_kernels as sk
+    abs_err = lambda got, want: max((g - w).abs().max().item() for g, w in zip(got, want))
+    errs = {}
+    h2c = [sk.tarmac_step_cols(*args[:13], a, 16, c) for c in cols]
+    errs["tarmac_step_cols"] = max(
+        max_err((h,), (sk.tarmac_step_cols_plain(*args[:13], a, 16, c),),
+                f"{what} tarmac_step_cols {c}") for c, h in zip(cols, h2c))
+    h2f = torch.cat(h2c, 1)
+    errs["tarmac_step_head"] = max_err(sk.tarmac_step_head(h2f, *args[13:17], dueling),
+                                       sk.tarmac_step_head_plain(h2f, *args[13:17], dueling),
+                                       f"{what} tarmac_step_head")
+    halves = [sk.tarmac_step_bwd_cols(*args, a, 16, dueling, c) for c in cols]
+    plains = [sk.tarmac_step_bwd_cols_plain(*args, a, 16, dueling, c) for c in cols]
+    for c, (red, _), (red_p, _) in zip(cols, halves, plains):
+        rel_err((red,), (red_p,), f"{what} tarmac_step_bwd_cols {c}")
+    errs["tarmac_step_bwd_cols"] = max(abs_err((r,), (p,)) for (r, _), (p, _) in
+                                       zip(halves, plains))
+    red = sum(r for r, _ in halves)
+    errs["tarmac_step_bwd_rest"] = 0.0
+    for c, (_, saved), (_, saved_p) in zip(cols, halves, plains):   # the rest adds into red
+        got = sk.tarmac_step_bwd_rest(*args[:17], red.clone(), saved, a, 16, dueling, c)
+        want = sk.tarmac_step_bwd_rest_plain(*args[:17], red.clone(), saved_p, a, 16, dueling, c)
+        rel_err(got, want, f"{what} tarmac_step_bwd_rest {c}")
+        errs["tarmac_step_bwd_rest"] = max(errs["tarmac_step_bwd_rest"], abs_err(got, want))
+    return errs
+
+
+def referee_of(ref):
+    """``ref`` (an f32 learner holding a bf16 learner's weights) made its f64
+    referee: net params rounded to bf16, then every module in f64, computing
+    in f64 (on the plain path, as the caller runs it)."""
+    for net in (ref.net, ref.target_net):
+        for p in net.parameters():
+            p.data = p.data.to(torch.bfloat16).double()
+    for mod in (ref.mixer, ref.target_mixer):
+        if mod is not None:
+            mod.double()
+    ref.compute_dtype = torch.float64
+    return ref
+
+
+def mp_split_phases(ctx):
+    """The mp compute split (``parallel/mp_split.py``). First the column-split
+    #4/#5 on the card at the 8-UBS update's shapes (R = 256, hidden 256, msg
+    64, key 16, 9 actions): every rank of mp = 2 and 4 simulated on the one
+    device against the plain split versions (f32; bf16 against their f64
+    referee), the whole columns (0, H) against #4/#5 bit for bit at both
+    types, and #2/#3 at a rank's heads (2 or 1 of 4, F = 64) against their
+    plain versions with the body each takes; each split entry point timed
+    beside its plain version and bound. Then one update of the committed
+    8-UBS TarMAC+QMIX checkpoint on ``ctx.batch`` (B = 32) on dims (1, mp, 1)
+    for mp = 1 (this process, a group of one), 2 and 4 (ranks sharing the
+    card over gloo), f32 and bf16: each mp rank's f32 update held to the
+    single rank's through :func:`check_update`'s gates, its bf16 update to
+    the f64 referee's (LossQ, the mean Q, the clipped gradients) and, every
+    rank's mp = 1 included, to the bench's leaf rule against the plain bf16
+    path (each leaf within ``LEAF_RATIO`` x the plain path's error +
+    ``BF16_TOL``) on the raw gradients, with #3's dW zeroed as a planted fault
+    the rule must catch; its launches held to the split's, its recorded
+    shapes to its share. Prints per rank the card's busy ms (profiler), ms per update,
+    launches, heads and GRU columns, and the collectives' count and host ms.
+    Returns the split entry points' record entries for the kernels line."""
+    from uav_bs_ctrl_tpu_torch import serve
+    from uav_bs_ctrl_tpu_torch.algos.buffer import tree_map
+    from uav_bs_ctrl_tpu_torch.algos.madrqn import fused
+    from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
+    from uav_bs_ctrl_tpu_torch.config import make_args
+    from uav_bs_ctrl_tpu_torch.envs import torch_env
+    from uav_bs_ctrl_tpu_torch.ops import gat_kernels, step_kernels as sk
+    from uav_bs_ctrl_tpu_torch.parallel import launch, workers
+    rng = np.random.default_rng(23)
+    A, H = 8, 256
+    worst = dict.fromkeys(SPLIT_KERNELS, 0.0)
+    timed = {}
+
+    with phase("mp split: the column-split #4/#5 and #2/#3 at a rank's heads against their "
+               "plain versions, the whole columns against #4/#5 bit for bit"):
+        print(f"  {card_line()}", flush=True)
+        for dueling in (False, True):
+            args = tuple(step_case(rng, 32, A, H, 64, 16, 9).values())
+            args += (torch.randn((32 * A, 9), device=DEVICE),
+                     torch.randn((32 * A, H), device=DEVICE))
+            for mp in MP_SPLITS:
+                cols = [(r * H // mp, (r + 1) * H // mp) for r in range(mp)]
+                what = f"split #4/#5 mp={mp} dueling={dueling}"
+                entry = split_entry_errs(args, A, dueling, cols, what)
+                worst.update((k, max(worst[k], v)) for k, v in entry.items())
+                (q, h2), ranks = split_step(args, A, dueling, cols)
+                ferr = max_err((q, h2), sk.tarmac_step_plain(*args[:17], A, 16, dueling), what)
+                _, plain = split_step(args, A, dueling, cols, plain=True)
+                whole = sk.tarmac_step_bwd_plain(*args, A, 16, dueling)
+                shares = {8, 9, 10, 11, 12, 14}    # wi, wh, bi, bh, wo, wvh: summed over ranks
+                summed_grads = [sum(x[i] for x in ranks) if i in shares else ranks[0][i]
+                                for i in range(len(whole))]
+                err = max(rel_err(g, p, f"{what} rank {r}") for r, (g, p) in
+                          enumerate(zip(ranks, plain)))
+                err = max(err, rel_err(summed_grads, whole, f"{what}, the ranks' sum"))
+                args16 = tuple(t.to(torch.bfloat16) for t in args)
+                out16, ranks16 = split_step(args16, A, dueling, cols)
+                out64, ranks64 = split_step(tuple(t.double() for t in args16), A, dueling, cols,
+                                            plain=True)
+                err16 = max(referee_err(g, r) for g, r in zip(out16 + tuple(
+                    t for x in ranks16 for t in x), out64 + tuple(t for x in ranks64 for t in x)))
+                print(f"  {what}: each entry point's max abs err against its plain version "
+                      f"on the same inputs {entry}; the joined q, h2 {ferr:.3e} against "
+                      f"tarmac_step_plain; every rank's backward and their sum {err:.3e} of "
+                      f"max(1, max |plain|) from the plain split versions and "
+                      f"tarmac_step_bwd_plain (limit {BWD_RTOL}); bf16 "
+                      f"{err16:.3e} of the f64 referee (limit {BF16_TOL})", flush=True)
+                if err16 > BF16_TOL:
+                    raise AssertionError(f"{what} bf16: {err16:.3e} from the referee")
+            for dtype in (torch.float32, torch.bfloat16):
+                a16 = tuple(t.to(dtype) for t in args)
+                (q, h2), (grads,) = split_step(a16, A, dueling, [(0, H)])
+                same = all(torch.equal(g.view(torch.int16 if dtype == torch.bfloat16 else
+                                              torch.int32),
+                                       w.view(torch.int16 if dtype == torch.bfloat16 else
+                                              torch.int32))
+                           for g, w in zip((q, h2, *grads),
+                                           sk.tarmac_step(*a16[:17], A, 16, dueling)
+                                           + sk.tarmac_step_bwd(*a16, A, 16, dueling)))
+                print(f"  columns (0, {H}), {dtype}, dueling={dueling}: the split pairs' q, h2 "
+                      f"and 16 gradients bit-identical to #4/#5: {same}", flush=True)
+                if not same:
+                    raise AssertionError("the whole columns differ from #4/#5")
+        for heads, hf in ((2, 128), (1, 64)):
+            for m, d, rel in ((50, 4, "seen"), (7, 2, "near")):
+                c = gat_case(rng, 256, m, d, hf, heads, masked_rows=[1, 5, 255])
+                fwd = (c["x"], c["w"], c["b"], c["er"], c["attn"], c["mask"], heads)
+                out = gat_kernels.flash_gat_fused(*fwd)
+                err = max_err(out, gat_kernels.flash_gat_fused_plain(*fwd), f"#2 {rel} H={heads}")
+                g = torch.randn(out[0].shape, device=DEVICE)
+                bwd = fwd[:6] + out + (g, heads, 0.2, False)
+                berr = rel_err(gat_kernels.flash_gat_fused_bwd(*bwd),
+                               gat_kernels.flash_gat_fused_bwd_plain(*bwd), f"#3 {rel} H={heads}")
+                print(f"  a rank's heads (mp = {4 // heads}): #2/#3 '{rel}' N=256 M={m} "
+                      f"{heads} head(s) of 64 ({body_of(m, hf, heads)}): #2 max abs err "
+                      f"{err:.3e}, #3 max rel err {berr:.3e}", flush=True)
+
+    with phase("mp split: the column-split #4/#5 timed at the update's R = 256"):
+        print(f"  {card_line()}", flush=True)
+        args = tuple(step_case(rng, 32, A, H, 64, 16, 9).values()) + (
+            torch.randn((32 * A, 9), device=DEVICE), torch.randn((32 * A, H), device=DEVICE))
+        for dtype in (torch.float32, torch.bfloat16):
+            a16 = tuple(t.to(dtype) for t in args)
+            for mp in MP_SPLITS:
+                cols = (0, H // mp)
+                h2f = torch.cat([sk.tarmac_step_cols(*a16[:13], A, 16, (r * H // mp,
+                                                                        (r + 1) * H // mp))
+                                 for r in range(mp)], 1)
+                red, saved = sk.tarmac_step_bwd_cols(*a16, A, 16, True, cols)
+                _, saved_plain = sk.tarmac_step_bwd_cols_plain(*a16, A, 16, True, cols)
+                rest_plain = lambda *a: sk.tarmac_step_bwd_rest_plain(  # the plain first
+                    *a[:18], saved_plain, *a[19:])                    # half's saved tensors
+                calls = {   # the rest sums into its red: timing repeats add to red's dx
+                    "tarmac_step_cols": (a16[:13] + (A, 16, cols), step_cols_cost,
+                                         sk.tarmac_step_cols_plain),
+                    "tarmac_step_head": ((h2f,) + a16[13:17] + (True,), step_head_cost,
+                                         sk.tarmac_step_head_plain),
+                    "tarmac_step_bwd_cols": (a16 + (A, 16, True, cols), step_bwd_cols_cost,
+                                             sk.tarmac_step_bwd_cols_plain),
+                    "tarmac_step_bwd_rest": (a16[:17] + (red, saved, A, 16, True, cols),
+                                             step_bwd_rest_cost, rest_plain)}
+                for name, (kargs, cost, plain) in calls.items():
+                    timed.setdefault(name, []).append(time_case(
+                        f"{name} {dtype} mp={mp} columns {cols}", f"R=256 mp={mp} {dtype}",
+                        getattr(sk, name), plain, kargs, cost(kargs)))
+
+    run = json.loads((RUN_DIR / "config.json").read_text())
+    ckpt = serve.latest_checkpoint(RUN_DIR)
+    env = torch_env.make_params(run["map_id"])
+    env_info = dict(obs_shape=fused.obs_shape(env, "gnn"), state_shape=fused.state_shape(env),
+                    n_actions=env.n_actions, n_agents=env.n_ubs, episode_limit=env.episode_limit)
+    out_ranks = {}
+    with phase(f"mp split: one update of {ckpt.name} at B = 32 on dims (1, mp, 1), mp = 1 (this "
+               f"process), 2 and 4 (ranks sharing the card over gloo), f32 and bf16"):
+        print(f"  {card_line()}", flush=True)
+        batch = tree_map(lambda x: x.cpu().numpy(), ctx.batch)
+        groups = ("net", "mixer")
+        tasks = {dt: dict(cfg=dict(run["args"], compute_dtype=dt), env_info=env_info,
+                          batch=batch, ckpt=str(ckpt), profile=True)
+                 for dt in ("float32", "bfloat16")}
+        t0 = time.perf_counter()
+        spent = {}
+        with tempfile.TemporaryDirectory() as tmp:      # mp = 1: this process, a group of one
+            torch.distributed.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                                                 rank=0, world_size=1)
+            try:
+                out_ranks[1] = {dt: [workers.learner_update(0, 1, torch.device(DEVICE),
+                                                            dims=(1, 1, 1), **kw)]
+                                for dt, kw in tasks.items()}
+            finally:
+                torch.distributed.destroy_process_group()
+        spent[1] = time.perf_counter() - t0
+        for mp in MP_SPLITS:
+            t1 = time.perf_counter()
+            out_ranks[mp] = dict(zip(tasks, launch.spawn(mp, [
+                (workers.learner_update, dict(kw, dims=(1, mp, 1))) for kw in tasks.values()],
+                DEVICE)))
+            spent[mp] = time.perf_counter() - t1
+        print("  wall s, the single rank and each spawn: " + ", ".join(
+            f"mp = {mp} {sec:.2f} (the first update {[round(x['ms_first']) for x in out_ranks[mp]['float32']]} "
+            f"and {[round(x['ms_first']) for x in out_ranks[mp]['bfloat16']]} ms, the profiled one "
+            f"{[round(x['profile_s'], 2) for dt in tasks for x in out_ranks[mp][dt]]} s)"
+            for mp, sec in spent.items()), flush=True)
+        names = list(out_ranks[1]["float32"][0]["grads"])
+        as_ref = lambda x: (
+            x["loss"], [torch.from_numpy(x["grads"][n]).to(DEVICE) for n in names],
+            [torch.from_numpy(x["grads"][n]).to(DEVICE).clamp(-1.0, 1.0) if n.startswith("net.")
+             else torch.from_numpy(x["grads"][n]).to(DEVICE) for n in names],
+            {("" if what == "params" else "target_") + g:
+             {k[len(g) + 1:]: torch.from_numpy(v).to(DEVICE)
+              for k, v in x[what].items() if k.startswith(g + ".")}
+             for what in ("params", "targets") for g in groups})
+        single = as_ref(out_ranks[1]["float32"][0])
+        T = ctx.batch["act"].shape[1]
+        # the f64 referee of the bf16 update (LossQ, Q, clipped grads), and the leaf rule's
+        # raw gradients: the bench's rule (each leaf within LEAF_RATIO x the plain bf16
+        # path's error + BF16_TOL) before the clip. This checkpoint's raw gradients reach
+        # hundreds and the clip cuts nearly every net leaf to [-1, 1]: a clipped entry near
+        # the bound then errs by up to 1 of the clipped scale from a raw error of about 1 %
+        # (chip_bf16_leaves.py); the bench's gradients stay inside the bound.
+        args16 = make_args(dict(run["args"], compute_dtype="bfloat16"), DEVICE)
+        learner16 = MultiAgentQLearner(env_info, args16, seed=0)
+        learner16.load_checkpoint(ckpt)
+        ref = MultiAgentQLearner(env_info, make_args(dict(run["args"]), DEVICE), seed=0)
+        ref.load_checkpoint(ckpt)
+        ref_loss, ref_q, ref_grads = loss_q_grads(referee_of(ref), referee_batch(ctx.batch),
+                                                  False)
+        ref_clipped = clip_like_update(ref, ref_grads)
+        gscale = max(g.abs().max().item() for g in ref_clipped)
+        cut = [n for n, g in zip(names, ref_grads) if n.startswith("net.") and g.abs().max() > 1]
+        plain_leaves = leaf_errs(loss_q_grads(learner16, ctx.batch, False)[2], ref_grads, gscale)
+        with zeroed_gat_dw(gat_kernels):    # the rule's power: #3's dW zeroed must fail it
+            fault = leaf_errs(loss_q_grads(learner16, ctx.batch, True)[2], ref_grads, gscale)
+        caught = [(n, round(k, 4)) for n, k, p in zip(names, fault, plain_leaves)
+                  if k > LEAF_RATIO * p + BF16_TOL]
+        print(f"  the bf16 leaf rule on the raw gradients (the clip cuts {len(cut)} of "
+              f"{sum(n.startswith('net.') for n in names)} net leaves: largest raw referee entry "
+              f"{max(g.abs().max().item() for g in ref_grads):.4g}), each leaf on its own scale "
+              f"(max |referee|, at least {LEAF_FLOOR} of the largest clipped entry "
+              f"{gscale:.4g}) against the plain bf16 path's (limit {LEAF_RATIO} x plain + "
+              f"{BF16_TOL}); planted fault, #3's dW zeroed in this process's kernel update: the "
+              f"rule fails on {caught}", flush=True)
+        if not caught:
+            raise AssertionError("the mp phase's leaf rule missed a zeroed GATv2 dW")
+        worst5 = lambda errs, base: "; ".join(
+            f"{names[i]} {errs[i]:.2e} vs {base[i]:.2e}"
+            for i in sorted(range(len(names)), key=lambda i: -errs[i])[:5])
+        del ref, learner16
+        for mp in (1,) + MP_SPLITS:
+            for dt in ("float32", "bfloat16"):
+                ranks = out_ranks[mp][dt]
+                print(f"  mp = {mp}, {dt}:", flush=True)
+                for r, x in enumerate(ranks):
+                    coll = x["collectives"]
+                    print(f"    rank {r}: card busy {x['device_ms']} ms (profiler), "
+                          f"{x['ms']:.2f} ms per update; launches {x['launches']}; #2/#3 at "
+                          f"(heads, H*F) {x['shapes']['flash_gat_fused']}, the split #4/#5 on "
+                          f"GRU columns {x['shapes']['tarmac_step_cols']}; {coll['calls']} "
+                          f"collectives, {coll['ms']:.2f} ms host ({coll['split']})", flush=True)
+                    want = rank_launches(per_update_launches(T), split=mp > 1)
+                    if x["launches"] != want:
+                        raise AssertionError(f"mp = {mp} {dt} rank {r}: launches "
+                                             f"{x['launches']}, expected {want}")
+                    if mp > 1:
+                        lo, c = r * H // mp, H // mp
+                        if (x["shapes"]["flash_gat_fused"] != [(4 // mp, c)] or
+                                x["shapes"]["tarmac_step_cols"] != [(lo, lo + c, H)]):
+                            raise AssertionError(f"mp = {mp} rank {r} ran {x['shapes']}")
+                    got = as_ref(x)
+                    if dt == "float32":
+                        loss_err, grad_err, param_err, loose, loose_err, n_entries, _ = \
+                            update_gate_errors(got, single, names, groups)
+                        print(f"      against the single rank: LossQ rel diff {loss_err:.2e} "
+                              f"(limit {UPDATE_LOSS_RTOL}), clipped grads {grad_err:.2e} "
+                              f"(limit {UPDATE_GRAD_RTOL}), params and targets {param_err:.2e} "
+                              f"where resolved (limit {UPDATE_PARAM_ATOL}; {loose} of "
+                              f"{n_entries} unresolved within {loose_err:.2e})", flush=True)
+                        if not (math.isfinite(x["loss"]) and loss_err <= UPDATE_LOSS_RTOL and
+                                grad_err <= UPDATE_GRAD_RTOL and param_err <= UPDATE_PARAM_ATOL):
+                            raise AssertionError(f"mp = {mp} rank {r}: the f32 update "
+                                                 "disagrees with the single rank's")
+                    else:
+                        errs = {"LossQ": abs(x["loss"] - ref_loss) / max(1.0, abs(ref_loss)),
+                                "mean Q": abs(x["qvals"] - ref_q.mean().item())
+                                / max(1.0, ref_q.abs().max().item()),
+                                "clipped grads": max(referee_err(a, b, gscale)
+                                                     for a, b in zip(got[2], ref_clipped))}
+                        leaves = leaf_errs(got[1], ref_grads, gscale)
+                        leaf_fail = [n for n, k, p in zip(names, leaves, plain_leaves)
+                                     if k > LEAF_RATIO * p + BF16_TOL]
+                        print(f"      against the f64 referee: " + ", ".join(
+                            f"{k} {v:.2e}" for k, v in errs.items()) + f" (limit {BF16_TOL}); "
+                            f"leaves beyond {LEAF_RATIO} x the plain bf16 path's + {BF16_TOL}: "
+                            f"{leaf_fail}; the worst five against the plain path's: "
+                            f"{worst5(leaves, plain_leaves)}", flush=True)
+                        if max(errs.values()) > BF16_TOL or leaf_fail or \
+                                not math.isfinite(x["loss"]):
+                            raise AssertionError(f"mp = {mp} rank {r}: the bf16 update fails "
+                                                 "its referee gates")
+                ctx.phase_launches[f"mp_split_{mp}_{dt}"] = summed(ranks)
+        for mp in MP_SPLITS:
+            print(f"  {out_ranks[mp]['float32'][0]['plan_line']}", flush=True)
+
+    launches = out_ranks[2]["float32"][0]["launches"]
+    return [{
+        "name": name, "route": "cuda",
+        "source": f"uav_bs_ctrl_tpu_torch/ops/csrc/{SPLIT_KERNELS[name]}.cu",
+        "replaces": REPLACES[SPLIT_KERNELS[name]], "launches": launches[name],
+        "max_abs_err": worst[name],
+        "ms": statistics.mean(c["ms"] for c in rows),
+        "plain_ms": statistics.mean(c["plain_ms"] for c in rows),
+        "bound_ms": statistics.mean(c["bound_ms"] for c in rows),
+        "bound_by": rows[0]["bound_by"], "library_ms": None, "cases": rows,
+        "phase_launches": {k: v.get(name, 0) for k, v in ctx.phase_launches.items()}}
+        for name, rows in timed.items()]
+
+
 def parallel_phases(ctx):
     """Slice 14, the parallel layer on ``torch.distributed``, ranks sharing
     the one card (gloo; NCCL refuses two ranks on one GPU), spawned by
@@ -2215,7 +2654,9 @@ def parallel_phases(ctx):
     :func:`check_update`'s gates against the single-rank kernel update.
     Prints the backend and, per rank, the launches, ms per sharded update and
     the collectives' share; adds each phase's launches (summed over the
-    ranks) to ``ctx.phase_launches``."""
+    ranks) to ``ctx.phase_launches``. The dry run's flagship ranks split their
+    work over mp (#2/#3 on 2 of the 4 heads, the column-split #4/#5 on 128 of
+    the 256 GRU columns)."""
     from uav_bs_ctrl_tpu_torch import graft_entry, serve, train
     from uav_bs_ctrl_tpu_torch.algos.buffer import tree_map
     from uav_bs_ctrl_tpu_torch.algos.madrqn import fused
@@ -2232,7 +2673,7 @@ def parallel_phases(ctx):
             print(f"  {label}:", flush=True)
             rank_lines(ranks)
             case = graft_entry.CASES[label]
-            want = per_update_launches(case["T"])
+            want = rank_launches(per_update_launches(case["T"]), split=True)
             if not case["kernels"]:          # the toy's F = 8 heads: the plain path
                 want = dict.fromkeys(want, 0)
             if any(x["launches"] != want for x in ranks):
@@ -2288,7 +2729,7 @@ def parallel_phases(ctx):
         ctx.phase_launches["parallel_gp_step"] = summed(gp_step)
 
         T = single.T
-        want = fused_launches(T)
+        want = rank_launches(fused_launches(T))
         print(f"  dp = 2 fused trainer: single-rank warm-up {json.dumps(ref_metrics[0])}, "
               f"iteration {json.dumps(ref_metrics[1])}", flush=True)
         # Entries whose raw gradient was resolved in every update (check_update's rule):
@@ -2350,7 +2791,7 @@ def parallel_phases(ctx):
                     and grad_err <= UPDATE_GRAD_RTOL and param_err <= UPDATE_PARAM_ATOL):
                 raise AssertionError(f"the dp = 2 update of rank {r} disagrees with the "
                                      "single-rank kernel update")
-            if x["launches"] != per_update_launches(T):
+            if x["launches"] != rank_launches(per_update_launches(T)):
                 raise AssertionError(f"dp update rank {r}: launches {x['launches']}")
         rank_lines(dp_update)
         ctx.phase_launches["parallel_update_dp2"] = summed(dp_update)
@@ -3085,6 +3526,7 @@ def main():
     slice13_phases(SimpleNamespace(counts=counts, reset_counts=reset_counts,
                                    phase_launches=phase_launches, check_env=check_env))
     parallel_phases(SimpleNamespace(batch=batch, phase_launches=phase_launches))
+    split_records = mp_split_phases(SimpleNamespace(batch=batch, phase_launches=phase_launches))
 
     record = []
     with phase("times"):
@@ -3259,7 +3701,7 @@ def main():
             **{k: env_sched.cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None, "near_ties": len(env_sched.ties), "cases": env_sched.cases})
 
-    print(json.dumps({"kernels": record + bench.records}))
+    print(json.dumps({"kernels": record + split_records + bench.records}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

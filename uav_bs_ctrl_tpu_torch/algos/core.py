@@ -60,8 +60,11 @@ dp rows of the global batch, :meth:`draw_noise` draws the global batch's
 noise and keeps the same rows, the dp group averages the raw gradients and
 the metrics before the clip, and AdamW, the clip and Polyak run on the
 rank's mp shards (``sharding.masters``), all-gathered into the modules after
-the step; :meth:`save_checkpoint` gathers the AdamW moments and rank 0
-alone writes the file.
+the step; over mp the loss runs inside ``sharding.split_compute()``, so that
+the planned modules run the rank's share (``parallel/mp_split.py``), and the
+reduction sums their gradients over mp into JAX's raw gradients;
+:meth:`save_checkpoint` gathers the AdamW moments and rank 0 alone writes
+the file.
 
 The classic host loop (``algos/madrqn/run.py``, ``algos/drqn/run.py``) acts
 with :meth:`init_hidden` and :meth:`act` on one host world, as JAX's
@@ -73,6 +76,7 @@ returns, in JAX's order; DiscreteComm's Gumbel noise comes from the
 learner's generator, where JAX splits its own key.
 """
 
+import contextlib
 import copy
 
 import numpy as np
@@ -379,7 +383,9 @@ class RecurrentQLearner:
             noise = self.draw_noise(batch)
         for p in self.parameters():       # the optimizer's may be a sharding's masters
             p.grad = None
-        loss, qvals = self._loss(batch, use_kernels, noise)
+        with (contextlib.nullcontext() if self.sharding is None
+              else self.sharding.split_compute(use_kernels)):
+            loss, qvals = self._loss(batch, use_kernels, noise)
         loss.backward()
         metrics = dict(LossQ=loss.detach(), QVals=qvals.detach().mean())
         return metrics if self.sharding is None else self.sharding.reduce(metrics)

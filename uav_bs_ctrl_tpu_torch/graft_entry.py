@@ -6,7 +6,10 @@ args. ``dryrun_multichip(n)`` spawns ``n`` ranks on JAX's mesh rule, shards
 the full training update (BPTT, double-Q, QMIX, AdamW, Polyak) over them,
 and holds each rank's update against a single-rank one on the same batch,
 with JAX's tolerances; a ``'graph_parallel'`` fallback to dense fails it.
-Run it as ``python -m uav_bs_ctrl_tpu_torch.graft_entry [n] [--device cpu]``.
+Over ``mp > 1`` the sharded update splits its work (``parallel/mp_split.py``):
+the flagship case's ranks run #2/#3 on their heads and the column-split
+#4/#5 on their hidden columns. Run it as ``python -m
+uav_bs_ctrl_tpu_torch.graft_entry [n] [--dims DP MP GP] [--device cpu]``.
 """
 
 import argparse
@@ -125,7 +128,7 @@ def run_case(rank, world, device, label, dims):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             loss, grads, params = _update(learner, local, c["kernels"])
-            launches = workers.counts()
+            launches, shapes = workers.counts(), workers.shapes()
             ms, coll = workers.timed_update(learner, local, c["kernels"])
     finally:
         set_graph_parallel_mesh(None)
@@ -140,8 +143,9 @@ def run_case(rank, world, device, label, dims):
     for a, b in zip(params_single, params):
         np.testing.assert_allclose(b, a, atol=c["params_atol"], rtol=PARAMS_RTOL)
     return dict(label=label, dims=dims, backend=torch.distributed.get_backend(), loss=loss,
-                loss_single=loss_single, launches=launches, ms=ms, collective_ms=coll["ms"],
-                collective_calls=coll["calls"],
+                loss_single=loss_single, launches=launches, shapes=shapes,
+                plan=learner.sharding.plan, plan_line=learner.sharding.plan_line, ms=ms,
+                collective_ms=coll["ms"], collective_calls=coll["calls"],
                 grad_err=max(float(np.abs(a - b).max()) for a, b in zip(grads_single, grads)),
                 params_err=max(float(np.abs(a - b).max())
                                for a, b in zip(params_single, params)))
@@ -157,13 +161,14 @@ def _update(learner, batch, use_kernels):
             [p.detach().cpu().numpy().copy() for p in learner.parameters()])
 
 
-def dryrun_multichip(n_devices, device=None, cases=tuple(CASES)):
+def dryrun_multichip(n_devices, device=None, cases=tuple(CASES), dims=None):
     """Spawn ``n_devices`` ranks (NCCL with a card each, else gloo: on the
     CPU, or with several ranks on one card), run ``cases`` on JAX's mesh
-    rule and print one line each; returns ``{label: [each rank's numbers]}``.
-    Raises when a rank fails or disagrees with the single-rank update."""
+    rule (or ``dims`` = (dp, mp, gp)) and print one line each; returns
+    ``{label: [each rank's numbers]}``. Raises when a rank fails or
+    disagrees with the single-rank update."""
     device = resolve_device(device)
-    dims = mesh_dims(n_devices)
+    dims = tuple(dims) if dims is not None else mesh_dims(n_devices)
     results = launch.spawn(n_devices, [(run_case, dict(label=label, dims=dims))
                                        for label in cases], device)
     out = {}
@@ -177,6 +182,11 @@ def dryrun_multichip(n_devices, device=None, cases=tuple(CASES)):
               f"{r0['loss']:.6f} == single-rank {r0['loss_single']:.6f} (grads max |diff| "
               f"{max(r['grad_err'] for r in ranks):.2e}, params "
               f"{max(r['params_err'] for r in ranks):.2e}) OK", flush=True)
+        if dims[1] > 1 and c["kernels"]:
+            for r, x in enumerate(ranks):
+                print(f"  rank {r}: #2/#3 at (heads, H*F) {x['shapes']['flash_gat_fused']}, the "
+                      f"split #4/#5 on GRU columns (lo, hi, H) {x['shapes']['tarmac_step_cols']}",
+                      flush=True)
         out[label] = ranks
     return out
 
@@ -185,6 +195,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("n_devices", type=int, nargs="?", default=None,
                         help="ranks (default: the cards, at most 8)")
+    parser.add_argument("--dims", type=int, nargs=3, default=None, metavar=("DP", "MP", "GP"),
+                        help="the mesh (default: JAX's rule for the ranks)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     cli = parser.parse_args()
     device = resolve_device(cli.device)
@@ -194,7 +206,7 @@ def main():
     print(f"entry forward: q {tuple(q.shape)}, h {tuple(h.shape)}", flush=True)
     n = cli.n_devices or min(8, max(1, torch.cuda.device_count() if device.type == "cuda"
                                     else 1))
-    dryrun_multichip(n, device)
+    dryrun_multichip(n, device, dims=cli.dims)
 
 
 if __name__ == "__main__":

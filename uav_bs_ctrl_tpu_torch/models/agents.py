@@ -24,6 +24,8 @@ attention edge-partitioned); the CUDA kernels on a card, their plain
 versions on the CPU. Every other step runs on plain torch modules, as the JAX
 step does under ``step_backend='xla'``. ``use_kernels=False`` takes the
 unfused module path, whose autograd is the independent reference.
+Inside an mp-split update the fused step of a GRU with an ``mp_share`` runs
+``parallel.mp_split.tarmac_step_cols_train`` (the column-split #4/#5).
 """
 
 import torch
@@ -35,6 +37,7 @@ from uav_bs_ctrl_tpu_torch.models.encoders import (DenseObservationEncoder, GATv
 from uav_bs_ctrl_tpu_torch.models.heads import DuelingLayer
 from uav_bs_ctrl_tpu_torch.models.modules import GRUCell, Linear
 from uav_bs_ctrl_tpu_torch.ops.step_kernels import tarmac_step_train
+from uav_bs_ctrl_tpu_torch.parallel import mp_split
 
 
 def _head(hidden, n_actions, dueling):
@@ -87,6 +90,25 @@ class GnnAgent(nn.Module):
         self.f_out = _head(args.hidden_size, n_actions, self.dueling)
         self.fused_step = args.c == "tarmac" and args.n_rounds == 1
 
+    def mp_plan(self, mp):
+        """The modules whose work splits over ``mp`` ranks inside an update
+        (``parallel/mp_split.py``): ``({module path: (unit, whole)}, {the
+        params whose gradient is a rank's share})``. The graph encoder's
+        (:meth:`GraphObservationEncoder.mp_plan`), and the fused TarMAC step's
+        GRU by hidden columns when ``mp`` divides ``hidden``: the column-split
+        #4/#5 give the rank's columns of wi, wh, bi, bh and, from its columns
+        of h2, its rows of the head's weights."""
+        units, partial = {}, set()
+        if isinstance(self.enc, GraphObservationEncoder):
+            enc_units, enc_partial = self.enc.mp_plan(mp)
+            units.update((f"enc.{k}", v) for k, v in enc_units.items())
+            partial.update(f"enc.{name}" for name in enc_partial)
+        if self.fused_step and self.f_comm.backend != "graph_parallel" and self.hidden % mp == 0:
+            units["f_comm.f_udt"] = ("columns", self.hidden)
+            partial.update(f"f_comm.f_udt.{n}" for n in ("wi", "wh", "bi", "bh"))
+            partial.update(("f_out.adv.w", "f_out.v.w") if self.dueling else ("f_out.w",))
+        return units, partial
+
     def encode(self, obs, use_kernels=True):
         return self.enc(obs, use_kernels)                  # [..., A, hidden]
 
@@ -121,12 +143,16 @@ class GnnAgent(nn.Module):
             bvh = torch.zeros((1,), dtype=x.dtype, device=x.device)
         c = self.f_comm
         c.warn_fallback()
-        q, h_new = tarmac_step_train(
-            x.reshape(-1, hidden).contiguous(), h.reshape(-1, hidden).contiguous(),
-            adjf.to(x.dtype).contiguous(),
-            c.f_val.w, c.f_val.b, c.f_sign.w, c.f_sign.b, c.f_que.w, c.f_que.b,
-            c.f_udt.wi, c.f_udt.wh, c.f_udt.bi, c.f_udt.bh,
-            wo, bo, wvh, bvh, a, self.key_size, self.dueling)
+        args = (x.reshape(-1, hidden).contiguous(), h.reshape(-1, hidden).contiguous(),
+                adjf.to(x.dtype).contiguous(),
+                c.f_val.w, c.f_val.b, c.f_sign.w, c.f_sign.b, c.f_que.w, c.f_que.b,
+                c.f_udt.wi, c.f_udt.wh, c.f_udt.bi, c.f_udt.bh,
+                wo, bo, wvh, bvh, a, self.key_size, self.dueling)
+        share = mp_split.active_share(c.f_udt)
+        if share is not None:
+            q, h_new = mp_split.tarmac_step_cols_train(share, *args)
+        else:
+            q, h_new = tarmac_step_train(*args)
         return q.reshape(lead + (a, -1)), h_new.reshape(lead + (a, hidden))
 
 

@@ -13,6 +13,10 @@ runs ``gatv2_graph_parallel`` on the slot axis padded to the group's size,
 whatever ``use_kernels`` says (JAX's path is plain too); with none it runs as
 the dense backend does, after a one-time ``RuntimeWarning`` per slot count
 with the JAX package's text (``models/encoders.py:31-50``).
+
+Inside an mp-split update (``parallel/mp_split.py``) a GATv2 with an
+``mp_share`` runs the rank's heads and the encoder's ``aggr`` runs
+row-parallel; elsewhere, and with ``use_kernels=False``, the whole modules.
 """
 
 import math
@@ -23,9 +27,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from uav_bs_ctrl_tpu_torch.models.modules import MLP, Linear
+from uav_bs_ctrl_tpu_torch.models.modules import MLP, Linear, linear
 from uav_bs_ctrl_tpu_torch.ops.gat_kernels import flash_gat, flash_gat_fused_train
 from uav_bs_ctrl_tpu_torch.ops.masked import masked_softmax
+from uav_bs_ctrl_tpu_torch.parallel import mp_split
 from uav_bs_ctrl_tpu_torch.parallel.graph_parallel import (
     gatv2_graph_parallel, get_graph_parallel_group, pad_slot_axis)
 
@@ -63,6 +68,14 @@ class GATv2(nn.Module):
         self.attn = nn.Parameter(torch.empty(n_heads, feats_per_head).uniform_(-k, k))
         self.res_fc = Linear(d_dst, out) if d_dst != out else None
 
+    def mp_plan(self, mp):
+        """The unit this module's work splits by over ``mp`` ranks: its heads,
+        ``('heads', n_heads)``, when ``mp`` divides them and the backend runs
+        #2/#3; else None (computed whole)."""
+        if self.backend in ("pallas", "graph_parallel") or self.n_heads % mp:
+            return None
+        return "heads", self.n_heads
+
     def forward(self, x_src, x_dst, mask, use_kernels=True):
         """x_src: [..., M, d_src], x_dst: [..., d_dst], mask: [..., M] bool.
 
@@ -79,10 +92,20 @@ class GATv2(nn.Module):
                 return gatv2_graph_parallel(self, x_src, x_dst, mask, self.n_heads, group,
                                             self.negative_slope)
             _warn_graph_parallel_fallback(x_src.shape[-2])
-        res = self.res_fc(x_dst) if self.res_fc is not None else x_dst
+        # inside an mp-split update: the rank's heads, their columns of each
+        # projection and rows of attn (the kernels run on n_heads = hi - lo)
+        share = mp_split.active_share(self) if use_kernels else None
+        if share is None:
+            heads, cols = self.n_heads, slice(None)
+            proj = lambda fc: fc(x_dst)
+        else:
+            f = self.attn.shape[1]
+            heads, cols = share.hi - share.lo, slice(share.lo * f, share.hi * f)
+            proj = lambda fc: linear(x_dst, fc.w[:, cols], fc.b[cols])
+        res = proj(self.res_fc) if self.res_fc is not None else x_dst[..., cols]
         if x_src.shape[-2] == 0:          # no slots at all: residual only
             return torch.relu(res)
-        er = self.fc_dst(x_dst)                                   # [..., H*F]
+        er = proj(self.fc_dst)                                    # [..., H*F]
         hf = er.shape[-1]
         if use_kernels:
             batch = x_src.shape[:-2]
@@ -95,9 +118,12 @@ class GATv2(nn.Module):
                 ft = flash_gat(el.contiguous(), er2, self.attn, mask2, self.n_heads,
                                self.negative_slope)
             else:
-                ft = flash_gat_fused_train(
-                    x_src.reshape(-1, m, d).contiguous(), self.fc_src.w, self.fc_src.b, er2,
-                    self.attn, mask2, self.n_heads, self.negative_slope)
+                w, b, attn = self.fc_src.w, self.fc_src.b, self.attn
+                if share is not None:     # contiguous copies; autograd zeros the rest
+                    w, b = w[:, cols].contiguous(), b[cols].contiguous()
+                    attn = attn[share.lo:share.hi].contiguous()
+                ft = flash_gat_fused_train(x_src.reshape(-1, m, d).contiguous(), w, b, er2,
+                                           attn, mask2, heads, self.negative_slope)
             rst = ft.reshape(batch + (hf,))
         else:
             feats = hf // self.n_heads
@@ -130,10 +156,26 @@ class GraphObservationEncoder(nn.Module):
         self.near = GATv2(obs_shape["ubs"], obs_shape["agent"], n_heads, f, backend=backend)
         self.aggr = Linear(2 * hidden, hidden)
 
+    def mp_plan(self, mp):
+        """``({submodule: (unit, whole)}, {params whose gradient is a rank's
+        share})`` over ``mp`` ranks: both relations by heads and ``aggr`` by
+        the matching rows of ``aggr.w``, or nothing when the heads do not split."""
+        unit = self.seen.mp_plan(mp)
+        if unit is None:                  # 'near' has the same heads and backend
+            return {}, set()
+        hidden = self.aggr.w.shape[1]
+        units = {"seen": unit, "near": unit, "aggr": ("rows", hidden)}
+        partial = {f"{rel}.{name}" for rel in ("seen", "near")
+                   for name, _ in self.get_submodule(rel).named_parameters()}
+        return units, partial | {"aggr.w"}
+
     def forward(self, obs, use_kernels=True):
         gt, ubs = obs["gt"], obs["ubs"]
         x_gt = self.seen(gt[..., 1:], obs["agent"], gt[..., 0] > 0, use_kernels)
         x_ubs = self.near(ubs[..., 1:], obs["agent"], ubs[..., 0] > 0, use_kernels)
+        share = mp_split.active_share(self.aggr)
+        if share is not None and use_kernels:         # x_gt, x_ubs: the rank's heads
+            return torch.relu(mp_split.aggr_rows(self.aggr, x_gt, x_ubs, share))
         return torch.relu(self.aggr(torch.cat([x_gt, x_ubs], dim=-1)))
 
 

@@ -38,6 +38,14 @@
 //       shuffles), so a repeated call is bit-identical.
 // Any A and any R work; R = 0 launches nothing.
 //
+// Column split (tarmac_step_forward_cols, then tarmac_step_forward_head): an mp rank's share
+// of the GRU. The first runs (a) and (b) whole, (c) on the hidden columns [lo, hi) of each
+// gate only (tarmac_step_common.cuh:launch_gate_cols) and (d)'s gates on those columns,
+// writing h2's columns in f32; the caller all-gathers them over the mp ranks into the full
+// f32 h2, from which the second launch computes the head, q, and h2 in T. With lo = 0,
+// hi = H the pair's q and h2 are tarmac_step_forward's bit for bit: the same products, the
+// same gates, and the head summed in the same order from the same unrounded h2.
+//
 // Storage types (storage.cuh): every kernel is a template on the type T of x, h, adjf, the
 // weights, q and h2, float (tarmac_step_forward) or __nv_bfloat16 (tarmac_step_forward_bf16),
 // as JAX's kernel widens every bf16 input to f32 inside (step_kernels.py:126-137). The
@@ -54,31 +62,16 @@ constexpr int kHeadRows = 4;        // rows per CTA in (d): 64 CTAs at R = 256
 constexpr int kHeadSplit = 8;       // chunks of k per head output
 constexpr int kHeadThreads = 256;
 
-// (d) h2 = GRU gates of (gi, gh, h), and q from h2, for the CTA's rows.
+// The head of the CTA's rows from their f32 h2 in shared memory (s_h2 [rows, H]): q =
+// h2 wo + bo, or with dueling (h2 wvh + bvh) + adv - mean(adv). Each sum is split into
+// kHeadSplit chunks of k whose partials are added in a fixed order.
 template <class T>
-__global__ void __launch_bounds__(kHeadThreads) tarmac_step_fwd_head(
-    const T* __restrict__ h, const float* __restrict__ gi, const float* __restrict__ gh,
-    const T* __restrict__ wo, const T* __restrict__ bo, const T* __restrict__ wvh,
-    const T* __restrict__ bvh, T* __restrict__ q_out, T* __restrict__ h2_out, int R, int H,
-    int NACT, int dueling) {
-  extern __shared__ float smem[];
+__device__ void head_rows(const float* s_h2, float* s_part, float* s_out,
+                          const T* __restrict__ wo, const T* __restrict__ bo,
+                          const T* __restrict__ wvh, const T* __restrict__ bvh,
+                          T* __restrict__ q_out, int row0, int rows, int H, int NACT,
+                          int dueling) {
   const int O = NACT + (dueling ? 1 : 0);               // the advantages, then the value
-  float* s_h2 = smem;                                    // [rows, H]
-  float* s_part = s_h2 + kHeadRows * H;                  // [rows, O, kHeadSplit]
-  float* s_out = s_part + kHeadRows * O * kHeadSplit;    // [rows, O]
-  const int row0 = blockIdx.x * kHeadRows;
-  const int rows = min(kHeadRows, R - row0);
-
-  for (int i = threadIdx.x; i < rows * H; i += blockDim.x) {
-    const int j = i % H;
-    const size_t row = (size_t)row0 + i / H;
-    const Gates g = gru_gates(gi + row * 3 * H, gh + row * 3 * H, j, H);
-    const float h2 = (1.f - g.z) * g.n + g.z * to_f32(h[row * H + j]);
-    s_h2[i] = h2;
-    h2_out[row * H + j] = from_f32<T>(h2);
-  }
-  __syncthreads();
-
   const int chunk = (H + kHeadSplit - 1) / kHeadSplit;
   for (int i = threadIdx.x; i < rows * O * kHeadSplit; i += blockDim.x) {
     const int s = i % kHeadSplit, o = (i / kHeadSplit) % O, r = i / (kHeadSplit * O);
@@ -115,6 +108,74 @@ __global__ void __launch_bounds__(kHeadThreads) tarmac_step_fwd_head(
   }
 }
 
+// (d) h2 = GRU gates of (gi, gh, h), and q from h2, for the CTA's rows.
+template <class T>
+__global__ void __launch_bounds__(kHeadThreads) tarmac_step_fwd_head(
+    const T* __restrict__ h, const float* __restrict__ gi, const float* __restrict__ gh,
+    const T* __restrict__ wo, const T* __restrict__ bo, const T* __restrict__ wvh,
+    const T* __restrict__ bvh, T* __restrict__ q_out, T* __restrict__ h2_out, int R, int H,
+    int NACT, int dueling) {
+  extern __shared__ float smem[];
+  const int O = NACT + (dueling ? 1 : 0);
+  float* s_h2 = smem;                                    // [rows, H]
+  float* s_part = s_h2 + kHeadRows * H;                  // [rows, O, kHeadSplit]
+  float* s_out = s_part + kHeadRows * O * kHeadSplit;    // [rows, O]
+  const int row0 = blockIdx.x * kHeadRows;
+  const int rows = min(kHeadRows, R - row0);
+
+  for (int i = threadIdx.x; i < rows * H; i += blockDim.x) {
+    const int j = i % H;
+    const size_t row = (size_t)row0 + i / H;
+    const float h2 = gru_out(gru_gates(gi + row * 3 * H, gh + row * 3 * H, j, H),
+                             to_f32(h[row * H + j]));
+    s_h2[i] = h2;
+    h2_out[row * H + j] = from_f32<T>(h2);
+  }
+  __syncthreads();
+  head_rows(s_h2, s_part, s_out, wo, bo, wvh, bvh, q_out, row0, rows, H, NACT, dueling);
+}
+
+// A column split's (d), first half: h2's columns [lo, lo + w) in f32, h2c [R, w], from gi
+// and gh [R, 3w]; a thread an entry.
+template <class T>
+__global__ void __launch_bounds__(kHeadThreads) tarmac_step_fwd_gates(
+    const T* __restrict__ h, const float* __restrict__ gi, const float* __restrict__ gh,
+    float* __restrict__ h2c, int R, int H, int lo, int w) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)R * w) return;
+  const size_t row = i / w;
+  const int j = (int)(i % w);
+  h2c[i] = gru_out(gru_gates(gi + row * 3 * w, gh + row * 3 * w, j, w),
+                   to_f32(h[row * H + lo + j]));
+}
+
+// A column split's (d), second half: q and h2 in T from the gathered f32 h2 [R, H].
+template <class T>
+__global__ void __launch_bounds__(kHeadThreads) tarmac_step_fwd_head_of(
+    const float* __restrict__ h2f, const T* __restrict__ wo, const T* __restrict__ bo,
+    const T* __restrict__ wvh, const T* __restrict__ bvh, T* __restrict__ q_out,
+    T* __restrict__ h2_out, int R, int H, int NACT, int dueling) {
+  extern __shared__ float smem[];
+  const int O = NACT + (dueling ? 1 : 0);
+  float* s_h2 = smem;
+  float* s_part = s_h2 + kHeadRows * H;
+  float* s_out = s_part + kHeadRows * O * kHeadSplit;
+  const int row0 = blockIdx.x * kHeadRows;
+  const int rows = min(kHeadRows, R - row0);
+  for (int i = threadIdx.x; i < rows * H; i += blockDim.x) {
+    const float h2 = h2f[(size_t)row0 * H + i];
+    s_h2[i] = h2;
+    h2_out[(size_t)row0 * H + i] = from_f32<T>(h2);
+  }
+  __syncthreads();
+  head_rows(s_h2, s_part, s_out, wo, bo, wvh, bvh, q_out, row0, rows, H, NACT, dueling);
+}
+
+size_t head_smem(int H, int NACT, int dueling) {
+  const int O = NACT + (dueling ? 1 : 0);
+  return sizeof(float) * (size_t)kHeadRows * (H + O * (kHeadSplit + 1));
+}
+
 template <class T>
 cudaError_t forward(const T* x, const T* h, const T* adjf, const T* wv, const T* bv,
                     const T* ws, const T* bs, const T* wq, const T* bq, const T* wi,
@@ -132,8 +193,7 @@ cudaError_t forward(const T* x, const T* h, const T* adjf, const T* wv, const T*
                                                          wi, wh, bi, bh, vsq, c, gi, gh, W, A,
                                                          H, MSG, K, key_size, stream);
   if (e != cudaSuccess) return e;
-  const int O = NACT + (dueling ? 1 : 0);
-  const size_t smem = sizeof(float) * (size_t)kHeadRows * (H + O * (kHeadSplit + 1));
+  const size_t smem = head_smem(H, NACT, dueling);
   auto head = tarmac_step_fwd_head<T>;
   if ((e = allow_smem((const void*)head, smem)) != cudaSuccess) return e;
   const unsigned blocks = (unsigned)((R + kHeadRows - 1) / kHeadRows);
@@ -142,7 +202,50 @@ cudaError_t forward(const T* x, const T* h, const T* adjf, const T* wv, const T*
   return cudaGetLastError();
 }
 
+template <class T>
+cudaError_t forward_cols(const T* x, const T* h, const T* adjf, const T* wv, const T* bv,
+                         const T* ws, const T* bs, const T* wq, const T* bq, const T* wi,
+                         const T* wh, const T* bi, const T* bh, float* h2c, float* scratch,
+                         int W, int A, int H, int MSG, int K, int lo, int hi, float key_size,
+                         cudaStream_t stream) {
+  const int R = W * A, w = hi - lo;
+  if (lo < 0 || hi > H || w <= 0) return cudaErrorInvalidValue;
+  if (R == 0) return cudaSuccess;
+  float* vsq = scratch;
+  float* c = vsq + (size_t)R * (MSG + 2 * K);
+  float* gi = c + (size_t)R * MSG;
+  float* gh = gi + (size_t)R * 3 * w;
+  cudaError_t e = launch_attend<tarmac_step_fwd, T>(x, h, adjf, wv, bv, ws, bs, wq, bq, vsq, c,
+                                                    W, A, H, MSG, K, key_size, stream);
+  if (e != cudaSuccess) return e;
+  if ((e = launch_gate_cols<tarmac_step_fwd, T>(x, h, c, wi, wh, bi, bh, gi, gh, R, H, MSG, lo,
+                                                w, stream)) != cudaSuccess)
+    return e;
+  const size_t n = (size_t)R * w;
+  auto gates = tarmac_step_fwd_gates<T>;
+  gates<<<(unsigned)((n + kHeadThreads - 1) / kHeadThreads), kHeadThreads, 0, stream>>>(
+      h, gi, gh, h2c, R, H, lo, w);
+  return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t forward_head(const float* h2f, const T* wo, const T* bo, const T* wvh,
+                         const T* bvh, T* q_out, T* h2_out, int R, int H, int NACT,
+                         int dueling, cudaStream_t stream) {
+  if (R == 0) return cudaSuccess;
+  const size_t smem = head_smem(H, NACT, dueling);
+  auto head = tarmac_step_fwd_head_of<T>;
+  cudaError_t e = allow_smem((const void*)head, smem);
+  if (e != cudaSuccess) return e;
+  const unsigned blocks = (unsigned)((R + kHeadRows - 1) / kHeadRows);
+  head<<<blocks, kHeadThreads, smem, stream>>>(h2f, wo, bo, wvh, bvh, q_out, h2_out, R, H,
+                                               NACT, dueling);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+typedef __nv_bfloat16 bf16;
 
 // scratch: R * (MSG + 2K + MSG + 6H) floats (v|s|q, c, gi, gh).
 extern "C" int tarmac_step_forward(
@@ -159,17 +262,49 @@ extern "C" int tarmac_step_forward(
 }
 
 extern "C" int tarmac_step_forward_bf16(
-    const __nv_bfloat16* x, const __nv_bfloat16* h, const __nv_bfloat16* adjf,
-    const __nv_bfloat16* wv, const __nv_bfloat16* bv, const __nv_bfloat16* ws,
-    const __nv_bfloat16* bs, const __nv_bfloat16* wq, const __nv_bfloat16* bq,
-    const __nv_bfloat16* wi, const __nv_bfloat16* wh, const __nv_bfloat16* bi,
-    const __nv_bfloat16* bh, const __nv_bfloat16* wo, const __nv_bfloat16* bo,
-    const __nv_bfloat16* wvh, const __nv_bfloat16* bvh, __nv_bfloat16* q_out,
-    __nv_bfloat16* h2_out, float* scratch, int W, int A, int H, int MSG, int K, int NACT,
-    int dueling, float key_size, cudaStream_t stream) {
-  return forward<__nv_bfloat16>(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo,
-                                wvh, bvh, q_out, h2_out, scratch, W, A, H, MSG, K, NACT,
-                                dueling, key_size, stream);
+    const bf16* x, const bf16* h, const bf16* adjf, const bf16* wv, const bf16* bv,
+    const bf16* ws, const bf16* bs, const bf16* wq, const bf16* bq, const bf16* wi,
+    const bf16* wh, const bf16* bi, const bf16* bh, const bf16* wo, const bf16* bo,
+    const bf16* wvh, const bf16* bvh, bf16* q_out, bf16* h2_out, float* scratch, int W, int A,
+    int H, int MSG, int K, int NACT, int dueling, float key_size, cudaStream_t stream) {
+  return forward<bf16>(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, wo, bo, wvh, bvh,
+                       q_out, h2_out, scratch, W, A, H, MSG, K, NACT, dueling, key_size,
+                       stream);
+}
+
+// A column split's first launch group: h2c [R, hi - lo] f32 from the columns [lo, hi) of
+// each gate. scratch: R * (MSG + 2K + MSG + 6 (hi - lo)) floats (v|s|q, c, gi, gh).
+extern "C" int tarmac_step_forward_cols(
+    const float* x, const float* h, const float* adjf, const float* wv, const float* bv,
+    const float* ws, const float* bs, const float* wq, const float* bq, const float* wi,
+    const float* wh, const float* bi, const float* bh, float* h2c, float* scratch, int W,
+    int A, int H, int MSG, int K, int lo, int hi, float key_size, cudaStream_t stream) {
+  return forward_cols<float>(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, h2c, scratch,
+                             W, A, H, MSG, K, lo, hi, key_size, stream);
+}
+
+extern "C" int tarmac_step_forward_cols_bf16(
+    const bf16* x, const bf16* h, const bf16* adjf, const bf16* wv, const bf16* bv,
+    const bf16* ws, const bf16* bs, const bf16* wq, const bf16* bq, const bf16* wi,
+    const bf16* wh, const bf16* bi, const bf16* bh, float* h2c, float* scratch, int W, int A,
+    int H, int MSG, int K, int lo, int hi, float key_size, cudaStream_t stream) {
+  return forward_cols<bf16>(x, h, adjf, wv, bv, ws, bs, wq, bq, wi, wh, bi, bh, h2c, scratch,
+                            W, A, H, MSG, K, lo, hi, key_size, stream);
+}
+
+// A column split's second launch: q and h2 in T from the gathered f32 h2f [R, H].
+extern "C" int tarmac_step_forward_head(const float* h2f, const float* wo, const float* bo,
+                                        const float* wvh, const float* bvh, float* q_out,
+                                        float* h2_out, int R, int H, int NACT, int dueling,
+                                        cudaStream_t stream) {
+  return forward_head<float>(h2f, wo, bo, wvh, bvh, q_out, h2_out, R, H, NACT, dueling, stream);
+}
+
+extern "C" int tarmac_step_forward_head_bf16(const float* h2f, const bf16* wo, const bf16* bo,
+                                             const bf16* wvh, const bf16* bvh, bf16* q_out,
+                                             bf16* h2_out, int R, int H, int NACT, int dueling,
+                                             cudaStream_t stream) {
+  return forward_head<bf16>(h2f, wo, bo, wvh, bvh, q_out, h2_out, R, H, NACT, dueling, stream);
 }
 
 extern "C" const char* tarmac_step_error_string(int err) {

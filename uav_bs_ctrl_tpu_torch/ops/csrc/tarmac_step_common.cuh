@@ -5,6 +5,9 @@
 //   (a) products   [v|s|q] = [x|h] [wv|ws|wq] + b                      -> vsq [R, MSG + 2K]
 //   (b) per world  scores, masked softmax over sources, c = alpha^T v  -> c   [R, MSG]
 //   (c) products   gi = [x|c] wi + bi, gh = h wh + bh                  -> gi, gh [R, 3H]
+// A column-split call (an mp rank's share of the GRU, hidden columns [lo, hi) of each gate)
+// runs (a) and (b) whole and (c) on its columns only (launch_gate_cols): gi, gh [R, 3w] for
+// w = hi - lo, gate g's columns at g w.
 // Rows are (world, agent), world-major, R = W*A. Only the A x A attention is tied to a
 // world; every dense product runs over all R rows through one generic kernel driven by a
 // job table (a job is C = sum over up to 3 segments of A_s B_s, + bias, + C), each launch
@@ -724,6 +727,11 @@ __device__ __forceinline__ Gates gru_gates(const float* gi, const float* gh, int
   return g;
 }
 
+// The GRU's output of one column: h2 = (1 - z) n + z h.
+__device__ __forceinline__ float gru_out(const Gates& g, float h) {
+  return (1.f - g.z) * g.n + g.z * h;
+}
+
 // ---- host side ----
 
 cudaError_t allow_smem(const void* kernel, size_t smem) {
@@ -788,16 +796,14 @@ void add_seg(Job& j, const TA* a, int lda, const typename Ty::B* b, int ldb, int
 }
 
 
-// Launches (a), (b) and (c) for R = W*A > 0 rows, into vsq [R, MSG + 2K], c [R, MSG],
-// gi and gh [R, 3H] (f32 scratch).
+// Launches (a) and (b) for R = W*A > 0 rows, into vsq [R, MSG + 2K] and c [R, MSG] (f32
+// scratch).
 template <class Tag, class T>
-cudaError_t launch_up_to_gates(const T* x, const T* h, const T* adjf, const T* wv,
-                               const T* bv, const T* ws, const T* bs, const T* wq,
-                               const T* bq, const T* wi, const T* wh, const T* bi,
-                               const T* bh, float* vsq, float* c, float* gi, float* gh,
-                               int W, int A, int H, int MSG, int K, float key_size,
-                               cudaStream_t stream) {
-  const int R = W * A, H3 = 3 * H, P = MSG + 2 * K;
+cudaError_t launch_attend(const T* x, const T* h, const T* adjf, const T* wv, const T* bv,
+                          const T* ws, const T* bs, const T* wq, const T* bq, float* vsq,
+                          float* c, int W, int A, int H, int MSG, int K, float key_size,
+                          cudaStream_t stream) {
+  const int R = W * A, P = MSG + 2 * K;
   cudaError_t e;
   {  // (a) [v|s|q] = [x|h] [wv|ws|wq] + [bv|bs|bq]
     Products<Tag, T, Proj<T>> p;
@@ -811,21 +817,49 @@ cudaError_t launch_up_to_gates(const T* x, const T* h, const T* adjf, const T* w
     }
     if ((e = p.launch(stream)) != cudaSuccess) return e;
   }
-  {  // (b) alpha and c, per world
-    const size_t smem = sizeof(float) * (size_t)A * (P + A);
-    auto attend = step_attend<Tag, T>;
-    if ((e = allow_smem((const void*)attend, smem)) != cudaSuccess) return e;
-    attend<<<W, kWorldThreads, smem, stream>>>(adjf, vsq, c, A, MSG, K, key_size);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  }
-  // (c) gi = [x|c] wi + bi, gh = h wh + bh
+  // (b) alpha and c, per world
+  const size_t smem = sizeof(float) * (size_t)A * (P + A);
+  auto attend = step_attend<Tag, T>;
+  if ((e = allow_smem((const void*)attend, smem)) != cudaSuccess) return e;
+  attend<<<W, kWorldThreads, smem, stream>>>(adjf, vsq, c, A, MSG, K, key_size);
+  return cudaGetLastError();
+}
+
+// (c) on the hidden columns [lo, lo + w) of each gate, into gi and gh [R, 3w] (f32 scratch):
+// gi[:, g w + j] = ([x|c] wi + bi)[:, g H + lo + j], gh likewise from h wh + bh, for the
+// gates g = r, z, n. All H columns (w = H) are the whole products, one job each; a slice
+// is a job a gate and pre-activation, whose B starts at column g H + lo of wi or wh.
+template <class Tag, class T>
+cudaError_t launch_gate_cols(const T* x, const T* h, const float* c, const T* wi,
+                             const T* wh, const T* bi, const T* bh, float* gi, float* gh,
+                             int R, int H, int MSG, int lo, int w, cudaStream_t stream) {
+  const int H3 = 3 * H;
+  const int gates = w == H ? 1 : 3, n = w == H ? H3 : w;
   Products<Tag, T, ProjC<T>> p;
-  Job& jgi = p.template add<ProjC<T>>(gi, H3, R, H3, 0, 0, bi, 0);
-  add_seg<ProjC<T>>(jgi, x, H, wi, H3, H);
-  add_seg<ProjC<T>>(jgi, (const float*)c, MSG, wi + (size_t)H * H3, H3, MSG);
-  Job& jgh = p.template add<ProjC<T>>(gh, H3, R, H3, 0, 0, bh, 0);
-  add_seg<ProjC<T>>(jgh, h, H, wh, H3, H);
+  for (int g = 0; g < gates; ++g) {
+    const int col = g * H + lo;
+    Job& jgi = p.template add<ProjC<T>>(gi + g * w, 3 * w, R, n, 0, 0, bi + col, 0);
+    add_seg<ProjC<T>>(jgi, x, H, wi + col, H3, H);
+    add_seg<ProjC<T>>(jgi, c, MSG, wi + (size_t)H * H3 + col, H3, MSG);
+    Job& jgh = p.template add<ProjC<T>>(gh + g * w, 3 * w, R, n, 0, 0, bh + col, 0);
+    add_seg<ProjC<T>>(jgh, h, H, wh + col, H3, H);
+  }
   return p.launch(stream);
+}
+
+// Launches (a), (b) and (c) for R = W*A > 0 rows, into vsq [R, MSG + 2K], c [R, MSG],
+// gi and gh [R, 3H] (f32 scratch).
+template <class Tag, class T>
+cudaError_t launch_up_to_gates(const T* x, const T* h, const T* adjf, const T* wv,
+                               const T* bv, const T* ws, const T* bs, const T* wq,
+                               const T* bq, const T* wi, const T* wh, const T* bi,
+                               const T* bh, float* vsq, float* c, float* gi, float* gh,
+                               int W, int A, int H, int MSG, int K, float key_size,
+                               cudaStream_t stream) {
+  cudaError_t e = launch_attend<Tag, T>(x, h, adjf, wv, bv, ws, bs, wq, bq, vsq, c, W, A, H,
+                                        MSG, K, key_size, stream);
+  if (e != cudaSuccess) return e;
+  return launch_gate_cols<Tag, T>(x, h, c, wi, wh, bi, bh, gi, gh, W * A, H, MSG, 0, H, stream);
 }
 
 }  // namespace

@@ -18,6 +18,8 @@ rounds the scores' input and the softmax weights to bf16 before its dots,
 ``pallas_fused`` does not (``tests/test_torch_bf16.py`` judges both packages
 against an f64 referee). Each wrapper counts its launches (``launches``) and
 its bf16 launches (``launches_bf16``). ``flash_gat`` (#1) is float32 only.
+The fused pair records the ``(n_heads, H*F)`` of its calls in ``shapes``
+(an mp rank's GATv2 runs it on its heads).
 """
 
 import ctypes
@@ -180,6 +182,7 @@ def flash_gat_fused(x, w, b, er, attn, mask, n_heads, negative_slope=0.2):
     kernel of its dtype (float32 or bfloat16, one for every operand,
     contiguous, H*F <= 1024, F a multiple of 32) or raises.
     """
+    flash_gat_fused.shapes.add((n_heads, w.shape[1]))
     if x.device.type == "cpu":
         return flash_gat_fused_plain(x, w, b, er, attn, mask, n_heads, negative_slope)
     n, m, d = _check_shapes("flash_gat_fused", x, w, b, er, attn, mask, n_heads)
@@ -200,6 +203,7 @@ def flash_gat_fused(x, w, b, er, attn, mask, n_heads, negative_slope=0.2):
 
 
 flash_gat_fused.launches = flash_gat_fused.launches_bf16 = 0
+flash_gat_fused.shapes = set()
 
 
 def leaky_grad(z, negative_slope):
@@ -255,6 +259,7 @@ def flash_gat_fused_bwd(x, w, b, er, attn, mask, out, mstat, lstat, g, n_heads,
     Its scratch is one f32 partial row of (D+2)*H*F a CTA, ``min(N,
     MAX_CTAS)`` rows.
     """
+    flash_gat_fused_bwd.shapes.add((n_heads, w.shape[1]))
     if x.device.type == "cpu":
         return flash_gat_fused_bwd_plain(x, w, b, er, attn, mask, out, mstat, lstat, g,
                                          n_heads, negative_slope, need_dx)
@@ -285,6 +290,7 @@ def flash_gat_fused_bwd(x, w, b, er, attn, mask, out, mstat, lstat, g, n_heads,
 
 
 flash_gat_fused_bwd.launches = flash_gat_fused_bwd.launches_bf16 = 0
+flash_gat_fused_bwd.shapes = set()
 
 
 class _FlashGatFusedFn(torch.autograd.Function):
@@ -315,3 +321,4 @@ def flash_gat_fused_train(x, w, b, er, attn, mask, n_heads, negative_slope=0.2):
     package's ``need_dx``). The mask gets no gradient.
     """
     return _FlashGatFusedFn.apply(x, w, b, er, attn, mask, n_heads, negative_slope)
+

@@ -7,19 +7,30 @@
   NCCL-only). The loss is a plain mean over equal shards, so the mean of the
   ranks' gradients is the global gradient. The value clip then runs on the
   reduced gradient: clipping does not commute with the mean.
-- ``mp``: parameter and optimizer-state sharding. Params, targets and AdamW
-  moments whose last axis divides ``mp`` (JAX's shape rule) are kept as
-  last-axis shards; each rank clips, steps AdamW and Polyak-averages only its
-  own shard (all elementwise, so the single-device math), and the mp group
-  all-gathers the shards into the modules before the next forward. Each mp
-  rank runs the whole forward and backward of its dp rows: the compute is
-  not split, as XLA splits matmuls over ``mp``, which would need
-  column-split variants of kernels #2-#5 (ROADMAP.md Queue 1).
+- ``mp``, storage: params, targets and AdamW moments whose last axis
+  divides ``mp`` (JAX's shape rule) are kept as last-axis shards; each rank
+  clips, steps AdamW and Polyak-averages only its own shard (all
+  elementwise, so the single-device math), and the mp group all-gathers the
+  shards into the modules before the next forward.
+- ``mp``, compute (:func:`compute_plan`, ``sharding.plan``): where XLA
+  partitions JAX's products over ``mp``, the port splits the work of the
+  modules whose kernels it can split (``parallel/mp_split.py``). The agent
+  says which (``GnnAgent.mp_plan``, beside the routing that runs them):
+  each relation's GATv2 by heads when ``mp`` divides ``n_heads`` (#2/#3 on
+  the rank's heads), the encoder's ``aggr`` by rows with it, and the
+  one-round TarMAC step's GRU by hidden columns when ``mp`` divides
+  ``hidden`` (the column-split #4/#5). A module whose widths do not divide
+  ``mp``, a gp-routed or ``'pallas'`` GATv2, the other protocols, the mixer
+  and the loss compute whole on every rank. ``reduce`` sums the split
+  gradients over mp, each replicated one from mp rank 0 alone, fused with
+  the dp sum.
 - ``gp``: ``distribute_learner(..., graph_parallel=True)`` registers the
   ``gp`` group, so that ``gat_backend``/``comm_backend='graph_parallel'`` run
   the edge-partitioned functions of :mod:`.graph_parallel`; they give every
   gp rank the dense gradient, so nothing is reduced over ``gp``.
 """
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -27,6 +38,7 @@ from torch import nn
 from torch.distributed.device_mesh import init_device_mesh
 
 from uav_bs_ctrl_tpu_torch.algos.buffer import tree_map
+from uav_bs_ctrl_tpu_torch.parallel import mp_split
 from uav_bs_ctrl_tpu_torch.parallel.dist import all_gather, all_reduce
 from uav_bs_ctrl_tpu_torch.parallel.graph_parallel import set_graph_parallel_mesh
 
@@ -81,11 +93,28 @@ def shard_batch(batch, mesh):
     return tree_map(rows, batch)
 
 
+def compute_plan(agent, mesh):
+    """The modules of ``agent`` that split their work over the mesh's ``mp``
+    axis, as the agent plans them (its ``mp_plan``), with this rank's share:
+    ``({module path: Share}, {the params whose gradient is the rank's
+    share})``; empty when ``mp`` is 1 or the agent splits nothing."""
+    mp, rank, group = _coords(mesh, "mp")
+    if mp == 1 or not hasattr(agent, "mp_plan"):
+        return {}, set()
+    units, split = agent.mp_plan(mp)
+    shares = {path: mp_split.Share(unit, rank * whole // mp, (rank + 1) * whole // mp, whole,
+                                   group)
+              for path, (unit, whole) in units.items()}
+    return shares, split
+
+
 class LearnerSharding:
     """What :func:`distribute_learner` adds to a ``RecurrentQLearner``
     (``learner.sharding``): the dp reduction of each update's gradients and
-    metrics, and the mp shards (``masters``, ``target_masters``) that AdamW
-    steps and Polyak reads, all-gathered into the modules after each step."""
+    metrics, the mp shards (``masters``, ``target_masters``) that AdamW
+    steps and Polyak reads, all-gathered into the modules after each step,
+    and the mp compute split (``plan``: ``{module: its share, or
+    'replicated'}``; ``split``: per param, whether its gradient is a share)."""
 
     def __init__(self, learner, mesh):
         self.mesh = mesh
@@ -102,6 +131,24 @@ class LearnerSharding:
                         for p, s in zip(self.params, self.sliced)]
         self.target_masters = [self._shard(t) if s else t
                                for t, s in zip(self.targets, self.sliced)]
+        shares, split = compute_plan(learner.net, mesh)
+        for net in (learner.net, learner.target_net):
+            for path, share in shares.items():
+                net.get_submodule(path).mp_share = share
+        self.split = [name.startswith("net.") and name[len("net."):] in split for name in named]
+        self.split_active = False
+        self.plan = {f"net.{path}": repr(share) for path, share in shares.items()}
+        split_modules = tuple(f"net.{path}" for path in shares)
+        replicated = sorted({name.rsplit(".", 1)[0] for name in named
+                             if not name.startswith(split_modules)})
+        self.plan.update({module: "replicated" for module in replicated})
+        self.plan_line = (
+            f"mp compute split (mp = {self.mp}, updates through the kernels): " + (", ".join(
+                f"net.{path} {share.hi - share.lo} of {share.whole} {share.unit}"
+                for path, share in shares.items()) or "none") +
+            "; computed whole on every mp rank: " + ", ".join(replicated))
+        if self.rank == 0 and self.mp > 1:
+            print(self.plan_line, flush=True)
         optimizer = learner._make_optimizer(self.masters)
         for p, m, s in zip(self.params, self.masters, self.sliced):
             if p in learner.optimizer.state:
@@ -118,18 +165,43 @@ class LearnerSharding:
         ``b`` dp rows."""
         return self.dp_rank * b, (self.dp_rank + 1) * b, b * self.dp
 
+    def split_compute(self, use_kernels=True):
+        """The span in which the planned modules run their shares (an update's
+        loss); with ``use_kernels=False`` every module runs whole, and
+        :meth:`reduce` sums over dp only."""
+        self.split_active = bool(use_kernels) and any(self.split)
+        return mp_split.splitting() if self.split_active else contextlib.nullcontext()
+
     def reduce(self, metrics):
         """The dp mean of the module params' raw gradients (in ``.grad``) and
-        of ``metrics`` (0-d tensors), by one sum and a division by dp."""
+        of ``metrics`` (0-d tensors), by one sum and a division by dp. Under
+        the compute split the sum also runs over mp, where a split gradient
+        is the rank's share and a replicated one (and the metrics) comes from
+        mp rank 0 alone: one collective over dp x mp (over mp, then dp, when
+        the mesh also has a gp axis)."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if self.dp == 1:
+        split = self.split_active
+        if self.dp == 1 and not split:
             return metrics
         keys = list(metrics)
-        flat = torch.cat([p.grad.reshape(-1) for p in self.params] +
-                         [metrics[k].reshape(1).to(self.params[0].dtype) for k in keys])
-        flat = all_reduce(flat, self.dp_group) / self.dp
+        grads = [p.grad.reshape(-1) for p in self.params]
+        values = [metrics[k].reshape(1).to(self.params[0].dtype) for k in keys]
+        if split and self.mp_rank != 0:
+            grads = [g if s else torch.zeros_like(g) for g, s in zip(grads, self.split)]
+            values = [torch.zeros_like(v) for v in values]
+        flat = torch.cat(grads + values)
+        if not split:
+            groups = [self.dp_group]
+        elif "gp" in self.mesh.mesh_dim_names:      # dp x mp is not every rank
+            groups = [self.mp_group] + ([self.dp_group] if self.dp > 1 else [])
+        else:
+            groups = [None]                          # every rank: dp x mp
+        for group in groups:
+            flat = all_reduce(flat, group)
+        if self.dp > 1:
+            flat = flat / self.dp
         parts = torch.split(flat, [p.numel() for p in self.params] + [1] * len(keys))
         for p, g in zip(self.params, parts):
             p.grad.copy_(g.reshape(p.shape))
@@ -176,7 +248,11 @@ def distribute_learner(learner, mesh, graph_parallel=False):
 
     ``graph_parallel=True`` also registers the mesh's ``gp`` axis, so that
     ``'graph_parallel'`` backends route the GATv2 slot aggregation and the
-    TarMAC talk attention through :mod:`.graph_parallel` inside the update."""
+    TarMAC talk attention through :mod:`.graph_parallel` inside the update.
+
+    Over ``mp > 1`` the update also splits its work (:func:`compute_plan`;
+    ``learner.sharding.plan``, and one line on rank 0 naming each split
+    module, its share and what stays whole)."""
     dp = mesh.size(mesh.mesh_dim_names.index("dp"))
     assert learner.batch_size % dp == 0, \
         f"batch_size={learner.batch_size} must divide dp={dp}"

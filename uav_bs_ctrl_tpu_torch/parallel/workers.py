@@ -12,13 +12,17 @@ this module imports neither the tests nor JAX, so that the ranks stay light.
 - :func:`stats_probe` and :func:`logger_probe`: the cross-rank statistics
   and the rank-0 logger.
 
-Every rank also returns the launches of kernels #1-#5 in its work (0 on the
-CPU, where the wrappers run their plain versions) and the host time of its
-collectives (``parallel.dist.COLLECTIVES``).
+Every rank also returns the launches of kernels #1-#5 and of #4/#5's
+column-split entry points in its work (0 on the CPU, where the wrappers run
+their plain versions), the shapes #2/#3 and the split #4/#5 ran at
+(``shapes``: heads and width, the GRU's columns) and the host time of its
+collectives (``parallel.dist.COLLECTIVES``; ``parallel.mp_split``'s own by
+kind).
 """
 
 import contextlib
 import time
+import warnings
 from types import SimpleNamespace as SN
 
 import torch
@@ -31,6 +35,7 @@ from uav_bs_ctrl_tpu_torch.models.encoders import GATv2
 from uav_bs_ctrl_tpu_torch.ops import gat_kernels, step_kernels
 from uav_bs_ctrl_tpu_torch.parallel import dist as pdist
 from uav_bs_ctrl_tpu_torch.parallel import graph_parallel as gpl
+from uav_bs_ctrl_tpu_torch.parallel import mp_split
 from uav_bs_ctrl_tpu_torch.parallel.mesh import (distribute_learner, make_mesh, shard_batch,
                                                  shard_params_spec)
 from uav_bs_ctrl_tpu_torch.utils.convert import params_from_jax
@@ -39,16 +44,30 @@ from uav_bs_ctrl_tpu_torch.utils.logx import EpochLogger, proc_id
 KERNELS = {"flash_gat": gat_kernels.flash_gat, "flash_gat_fused": gat_kernels.flash_gat_fused,
            "flash_gat_fused_bwd": gat_kernels.flash_gat_fused_bwd,
            "tarmac_step": step_kernels.tarmac_step,
-           "tarmac_step_bwd": step_kernels.tarmac_step_bwd}
+           "tarmac_step_bwd": step_kernels.tarmac_step_bwd,
+           "tarmac_step_cols": step_kernels.tarmac_step_cols,
+           "tarmac_step_head": step_kernels.tarmac_step_head,
+           "tarmac_step_bwd_cols": step_kernels.tarmac_step_bwd_cols,
+           "tarmac_step_bwd_rest": step_kernels.tarmac_step_bwd_rest}
+SHAPED = ("flash_gat_fused", "flash_gat_fused_bwd", "tarmac_step_cols", "tarmac_step_bwd_cols")
 
 
 def reset_counts():
-    for fn in KERNELS.values():
+    for name, fn in KERNELS.items():
         fn.launches = fn.launches_bf16 = 0
+        if name in SHAPED:
+            fn.shapes.clear()
+    mp_split.reset_collectives()
 
 
 def counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def shapes():
+    """The shapes #2/#3 ran at, ``(n_heads, H*F)``, and the split #4/#5's
+    GRU columns, ``(lo, hi, H)``, since :func:`reset_counts`."""
+    return {name: sorted(KERNELS[name].shapes) for name in SHAPED}
 
 
 def _sync(device):
@@ -62,12 +81,32 @@ def timed_update(learner, batch, use_kernels=True, noise=None):
     device = learner.device
     _sync(device)
     pdist.reset_collectives()
+    mp_split.reset_collectives()
     t0 = time.perf_counter()
     with torch.enable_grad():
         learner.update_on_batch(batch, use_kernels, noise)
     _sync(device)
     ms = (time.perf_counter() - t0) * 1e3
-    return ms, dict(ms=pdist.COLLECTIVES["seconds"] * 1e3, calls=pdist.COLLECTIVES["calls"])
+    return ms, dict(ms=pdist.COLLECTIVES["seconds"] * 1e3, calls=pdist.COLLECTIVES["calls"],
+                    split=dict(mp_split.COLLECTIVES))
+
+
+def device_ms(learner, batch, use_kernels=True, noise=None):
+    """The card's busy ms in one more update on ``batch`` (``torch.profiler``'s
+    device-side events; None off the card or when it records none)."""
+    if torch.device(learner.device).type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _sync(learner.device)
+    with warnings.catch_warnings(), torch.enable_grad(), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        warnings.filterwarnings("ignore", ".*Profiler clears events")
+        learner.update_on_batch(batch, use_kernels, noise)
+        _sync(learner.device)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return busy or None
 
 
 def _numpy(tensors):
@@ -135,7 +174,7 @@ def _named(learner, tensors):
 
 
 def learner_update(rank, world, device, cfg, env_info, batch, dims, tree=None, ckpt=None,
-                   graph_parallel=False, noise=None, save=None):
+                   graph_parallel=False, noise=None, save=None, profile=False):
     """One update of a ``MultiAgentQLearner`` (``DEFAULT_CONFIG`` overlaid
     with ``cfg``; weights from the JAX tree ``tree`` or the checkpoint
     ``ckpt``, else seed 0's) distributed over a ``dims`` = (dp, mp, gp)
@@ -143,8 +182,10 @@ def learner_update(rank, world, device, cfg, env_info, batch, dims, tree=None, c
     ``noise`` (the global batch's per-step noise) the update takes its rows;
     ``drawn`` is what ``draw_noise`` gives this rank first. ``save`` writes
     the checkpoint after the update. Returns the dp-mean raw gradients, the
-    params and targets after, as full tensors keyed by name, then times one
-    more update (``ms``, ``collectives``)."""
+    params and targets after, as full tensors keyed by name, the launches,
+    shapes and mp plan of the update, then times one more update (``ms``,
+    ``collectives``) and, with ``profile``, takes the card's busy ms of
+    another (``device_ms``)."""
     args = check_args_sanity(SN(**{**DEFAULT_CONFIG, **cfg, "device": str(device)}))
     learner = MultiAgentQLearner(env_info, args, seed=0)
     if tree is not None:
@@ -170,6 +211,8 @@ def learner_update(rank, world, device, cfg, env_info, batch, dims, tree=None, c
             learner.apply_grads()
         _sync(device)
         out = dict(ms_first=(time.perf_counter() - t0) * 1e3, launches=counts(),
+                   shapes=shapes(), plan=learner.sharding.plan,
+                   plan_line=learner.sharding.plan_line,
                    loss=float(metrics["LossQ"]), qvals=float(metrics["QVals"]), spec=spec,
                    backend=torch.distributed.get_backend(),
                    grads=_numpy(_named(learner, grads)),
@@ -179,6 +222,10 @@ def learner_update(rank, world, device, cfg, env_info, batch, dims, tree=None, c
         if save is not None:
             learner.save_checkpoint(save, dict(epoch=1, t=0))
         out["ms"], out["collectives"] = timed_update(learner, local, noise=noise)
+        if profile:
+            t0 = time.perf_counter()
+            out["device_ms"] = device_ms(learner, local, noise=noise)
+            out["profile_s"] = time.perf_counter() - t0
     finally:
         gpl.set_graph_parallel_mesh(None)
     return out
