@@ -82,6 +82,8 @@ JSON device record.
 import collections
 import contextlib
 import faulthandler
+import functools
+import gc
 import json
 import math
 import shutil
@@ -90,6 +92,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -97,7 +100,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-WATCHDOG_S = 900
+WATCHDOG_S = 1100          # a hung phase ends the run before the 1200 s the smoke is given
 ATOL = RTOL = 1e-4        # f32 kernel vs plain version, full width
 F32_PEAK_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores (data sheet)
 BF16_PEAK_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense (data sheet)
@@ -622,6 +625,103 @@ def kernel_label(name):
     return name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
 
 
+# The CUDA kernel that each call of a wrapper launches exactly once, by function name: a
+# call of #1-#3 runs the row or the tile body, #4 ends in its head, #5 in its finish, and
+# env_schedule is one kernel.
+CALL_MARKS = {"flash_gat": ("flash_gat_rows",),
+              "flash_gat_fused": ("flash_gat_fused_fwd_rows", "flash_gat_fused_fwd_tiles"),
+              "flash_gat_fused_bwd": ("flash_gat_fused_bwd_rows", "flash_gat_fused_bwd_tiles"),
+              "tarmac_step": ("tarmac_step_fwd_head",),
+              "tarmac_step_bwd": ("tarmac_step_bwd_finish",),
+              "env_schedule": ("schedule_kernel",)}
+
+
+def wrapper_counts():
+    """``({name: launches}, {name: bf16 launches})`` of every wrapper in ``CALL_MARKS``."""
+    from uav_bs_ctrl_tpu_torch.ops import env_kernels, gat_kernels, step_kernels
+    fns = {name: getattr(gat_kernels, name, None) or getattr(step_kernels, name, None)
+           for name in CALL_MARKS if name != "env_schedule"}
+    fns["env_schedule"] = env_kernels.schedule_and_rate
+    return ({k: fn.launches for k, fn in fns.items()},
+            {k: getattr(fn, "launches_bf16", 0) for k, fn in fns.items()})
+
+
+def trace_padding(n=64):
+    """Kernels of no wrapper at a trace's ends, then a pause: the profiler can
+    miss the first kernel events of a trace (the smoke saw a window that
+    began with #2 lose two of its calls)."""
+    pad = torch.zeros(1, device=DEVICE)
+    for _ in range(n):
+        pad.add_(1)
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+
+
+_REPLAY_CALLS = weakref.WeakKeyDictionary()    # a captured graph -> the calls of a replay
+
+
+def replay_calls(graph, replay):
+    """Replay ``graph`` (by ``replay``) under the profiler and return
+    ``({name: calls}, {name: bf16 calls})`` of ``CALL_MARKS``' kernels in the
+    replay's CUDA kernel events: each wrapper call launches its mark once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    marks = {m: name for name, ms in CALL_MARKS.items() for m in ms}
+    calls, calls16 = collections.Counter(), collections.Counter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace_padding()
+        replay(graph)
+        torch.cuda.synchronize()
+        trace_padding()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        label = kernel_label(e.name())
+        name = marks.get(label.split("<")[0])
+        if name is not None:
+            calls[name] += 1
+            calls16[name] += "bfloat16" in label
+    return calls, calls16
+
+
+@contextlib.contextmanager
+def card_launches():
+    """The calls of each kernel that ran on the card inside the block: the
+    wrappers' launches (the eager path's, and each program's first call,
+    which runs eagerly) and, for every replay of a captured graph, the calls
+    in that graph. A replay passes no wrapper, so a graph's calls are counted
+    in the profiler's CUDA kernel events of its first replay in any block
+    (``replay_calls``; a graph replays the same kernels every time), and each
+    replay adds them. Yields a namespace whose ``calls`` and ``calls_bf16``
+    (#1-#5, ``{name: n}``) and ``env`` (env_schedule's calls) are set when
+    the block ends."""
+    seen = SimpleNamespace(calls=None, calls_bf16=None, env=None)
+    replayed, replayed16 = collections.Counter(), collections.Counter()
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(graph):
+        if graph in _REPLAY_CALLS:
+            replay(graph)
+        else:
+            _REPLAY_CALLS[graph] = replay_calls(graph, replay)
+        replayed.update(_REPLAY_CALLS[graph][0])
+        replayed16.update(_REPLAY_CALLS[graph][1])
+
+    before = wrapper_counts()
+    torch.cuda.CUDAGraph.replay = counted
+    try:
+        yield seen
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    after = wrapper_counts()
+    calls = {k: after[0][k] - before[0][k] + replayed[k] for k in CALL_MARKS}
+    calls16 = {k: after[1][k] - before[1][k] + replayed16[k] for k in CALL_MARKS}
+    seen.env = calls.pop("env_schedule")
+    calls16.pop("env_schedule")
+    seen.calls, seen.calls_bf16 = calls, calls16
+
+
 def profile_updates(learner, batch, n, ms_per_update, calls_per_update):
     """Device time of ``n`` kernel-path updates by kernel, from
     ``torch.profiler`` (device-side events only, so no kernel is counted twice
@@ -1122,7 +1222,7 @@ def bench_phases(ctx):
                 raise AssertionError(f"bf16 {s}: expected {want} bf16 launches and no f32 one, "
                                      f"got {launched16} of {launched}")
 
-    out = SimpleNamespace(records=[], ms={}, launches={})
+    out = SimpleNamespace(records=[], ms={}, launches={}, card_launches={}, graph_ms={})
     with phase(f"bench workload: times at B = {BENCH_B}, f32 and bf16 x per_step, hoisted, "
                f"merged ({edges} message-passing edges an update, bench.py:64)"):
         print(f"  card: {card_line()}", flush=True)
@@ -1131,27 +1231,42 @@ def bench_phases(ctx):
             for s in BENCH_SCHEDULES:
                 learner = learners[dt, s]
                 snap = learner.state_dict()
-                with torch.enable_grad():
-                    learner.update_on_batch(batch)           # warm, and sizes the allocator
-                torch.cuda.synchronize()
                 reset_counts()
-                with torch.enable_grad():
-                    learner.update_on_batch(batch)
+                with torch.enable_grad():     # the program's first call: eager, then captured
+                    learner.update_on_batch(batch)           # (and it sizes the allocator)
                 torch.cuda.synchronize()
                 launches = counts() if dt == "float32" else counts_bf16()
-                if launches != bench_per_update(s) or (dt == "bfloat16" and launches != counts()):
+                wrapped = counts(), counts_bf16()
+                with card_launches() as card, torch.enable_grad():   # a replay
+                    learner.update_on_batch(batch)
+                replayed = card.calls if dt == "float32" else card.calls_bf16
+                if bench_per_update(s) != launches or launches != wrapped[0] or \
+                        replayed != launches or replayed != card.calls:
                     raise AssertionError(f"{dt} {s}: expected {bench_per_update(s)} launches "
-                                         f"of that type, got {counts()}, bf16 {counts_bf16()}")
+                                         f"of that type, got {wrapped[0]}, bf16 {wrapped[1]} "
+                                         f"from the wrappers; on the card a replay made "
+                                         f"{card.calls}, bf16 {card.calls_bf16}")
                 learner.load_state_dict(snap)
                 ms = ms_per_update(learner, batch, n=3)
                 print(f"  {dt} {s}: {ms:.2f} ms per update, {1e3 / ms:.2f} updates/s, "
                       f"{edges * 1e3 / ms:.4g} edges/s; wrapper launches per update "
-                      f"{launches}", flush=True)
+                      f"{launches}, the same calls in a replay on the card", flush=True)
                 cuda_launches = profile_updates(learner, batch, 2, ms,
                                                 {k: launches[k] for k in kernel_names})
                 learner.load_state_dict(snap)
+                if s == "hoisted":      # the update's CUDA graph against its eager twin
+                    runs = {True: [ms], False: []}
+                    for graphs_on in (False, True, False):
+                        learner.graphs = graphs_on
+                        runs[graphs_on].append(ms_per_update(learner, batch, n=3))
+                    learner.graphs = True
+                    out.graph_ms[dt] = {k: statistics.mean(v) for k, v in runs.items()}
+                    print(f"  {dt} {s}: ms an update, graph {out.graph_ms[dt][True]:.2f} (runs "
+                          f"{[round(x, 2) for x in runs[True]]}), eager "
+                          f"{out.graph_ms[dt][False]:.2f} (runs "
+                          f"{[round(x, 2) for x in runs[False]]})", flush=True)
                 out.ms[dt, s] = ms
-                out.launches[dt, s] = launches
+                out.launches[dt, s], out.card_launches[dt, s] = launches, replayed
                 if s in ("per_step", "hoisted"):
                     with torch.enable_grad():
                         calls, _ = capture_backward_calls(learner, batch,
@@ -1283,6 +1398,7 @@ def bench_phases(ctx):
                 "source": f"uav_bs_ctrl_tpu_torch/ops/csrc/{name}.cu",
                 "replaces": REPLACES[name],
                 "launches": out.launches["bfloat16", "per_step"][name],
+                "card_launches": out.card_launches["bfloat16", "per_step"][name],
                 "max_abs_err": worst["bfloat16"][name][1],
                 "max_rel_err": worst["bfloat16"][name][0],
                 "plain_bf16_max_rel_err": worst["bfloat16"][name][2],
@@ -1474,18 +1590,17 @@ def exp1_phases(ctx):
         # The policy unrolls L + 1 steps and the target L; without double-Q the
         # policy's last step feeds no loss term, so autograd runs L backward steps.
         per_update = dict(zero, flash_gat_fused=2 * tr.L + 1, flash_gat_fused_bwd=tr.L)
-        with torch.enable_grad():
-            reset_counts()
+        with torch.enable_grad(), card_launches() as card:   # the updates replay
             t0 = time.perf_counter()
             metrics = tr.run_iteration(EPS)
             torch.cuda.synchronize()
             out.iteration_s = time.perf_counter() - t0
-            launches = ctx.phase_launches["exp1_train_iteration"] = counts()
+        launches = ctx.phase_launches["exp1_train_iteration"] = card.calls
         losses = tr.last_losses.tolist()
         print(f"  one iteration ({tr.n_worlds} worlds x {T} steps, {tr.updates_per_iter} "
               f"updates): {out.iteration_s:.2f} s, {json.dumps(metrics)}; LossQ of the first "
               f"and last 5 updates {[round(v, 5) for v in losses[:5] + losses[-5:]]}; "
-              f"launches {launches}", flush=True)
+              f"calls on the card {launches}", flush=True)
         want = {k: tr.updates_per_iter * v for k, v in per_update.items()}
         want["flash_gat_fused"] += T
         if launches != want or len(losses) != tr.updates_per_iter \
@@ -1504,8 +1619,7 @@ def exp1_phases(ctx):
         resume_dir.mkdir()
         shutil.copy(EXP1_GNN_DIR / f"checkpoint_epoch{EXP1_EPOCH}.pt", resume_dir)
         saved_t = int(checkpoint.load(EXP1_GNN_DIR / f"checkpoint_epoch{EXP1_EPOCH}.pt")["t"])
-        with torch.enable_grad():
-            reset_counts()
+        with torch.enable_grad(), card_launches() as card:   # the updates replay
             t0 = time.perf_counter()
             resumed = run_fast.train_fast_exp1(
                 env_kwargs, seed=gnn_config["seed"], n_worlds=8,
@@ -1515,7 +1629,7 @@ def exp1_phases(ctx):
                 resume=True)
             torch.cuda.synchronize()
             resume_s = time.perf_counter() - t0
-            launches = ctx.phase_launches["exp1_run_fast_resumed"] = counts()
+        launches = ctx.phase_launches["exp1_run_fast_resumed"] = card.calls
         rl = resumed.learner
         head, rows = progress_rows(resume_dir)
         n_upd = resumed.updates_per_iter
@@ -1528,7 +1642,7 @@ def exp1_phases(ctx):
               f"{rl.lr_scale}; row: Epoch {rows[0]['Epoch']}, TotalEnvInteracts "
               f"{rows[0]['TotalEnvInteracts']}, LossQ {rows[0]['LossQ']}, AverageEpRet "
               f"{rows[0]['AverageEpRet']}, AverageTestEpRet {rows[0]['AverageTestEpRet']}; "
-              f"launches {launches}", flush=True)
+              f"calls on the card {launches}", flush=True)
         if head != columns or len(rows) != 1 or rows[0]["Epoch"] != str(EXP1_EPOCH + 1) \
                 or int(rows[0]["TotalEnvInteracts"]) != saved_t + 1600 \
                 or not math.isfinite(float(rows[0]["LossQ"])) or n_upd != 160:
@@ -1683,16 +1797,15 @@ def host_loop_phases(ctx):
     with phase(f"run_classic: exp3 preset, 4ubs TarMAC+QMIX at full width, one epoch of "
                f"{CLASSIC_STEPS} steps, one update gated against the plain path"):
         print(f"  {card_line()}", flush=True)
-        reset_counts()
         t0 = time.perf_counter()
-        with torch.enable_grad():
+        with torch.enable_grad(), card_launches() as card:   # the updates replay
             learner = run_classic.main(
                 ["--exp", "exp3", "--map", "4ubs", "--c", "tarmac", "--mixer", "--device",
                  DEVICE, "--epochs", "1", "--steps-per-epoch", str(CLASSIC_STEPS),
                  "--update-after", "0", "--data-dir", str(classic_dir)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = ctx.phase_launches["host_run_classic"] = counts()
+        launches = ctx.phase_launches["host_run_classic"] = card.calls
         T, B = learner.max_seq_len, learner.batch_size
         run_dir = next(classic_dir.glob("*/*_s0"))
         head, rows = progress_rows(run_dir)
@@ -1708,7 +1821,7 @@ def host_loop_phases(ctx):
         cols = ("Epoch", "TotalEnvInteracts", "LossQ", "AverageEpRet", "AverageTestEpRet",
                 "TimeActMs", "TimeEnvMs", "TimeUpdateMs", "Time")
         print(f"  {wall:.2f} s; B={B}, T={T}: {taken:.0f} updates; row "
-              f"{ {c: rows[0][c] for c in cols} }; launches {launches}", flush=True)
+              f"{ {c: rows[0][c] for c in cols} }; calls on the card {launches}", flush=True)
         out.classic = {c: float(rows[0][c]) for c in cols}
         if len(rows) != 1 or rows[0]["TotalEnvInteracts"] != str(CLASSIC_STEPS) \
                 or not math.isfinite(float(rows[0]["LossQ"])) or taken != n_upd:
@@ -1869,13 +1982,13 @@ def slice13_phases(ctx):
               f"episodes; random weights from seed 0", flush=True)
         reset_counts()
         t0 = time.perf_counter()
-        with torch.enable_grad():
+        with torch.enable_grad(), card_launches() as card:   # the updates replay
             learner = vec_run.train_vectorized(
                 "8ubs", seed=0, train_kwargs=kw, n_worlds=VEC_WORLDS,
                 logger_kwargs=dict(output_dir=str(scratch / "vec"), exp_name="chip_smoke_vec"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = ctx.phase_launches["vec_run"] = counts()
+        launches = ctx.phase_launches["vec_run"] = card.calls
         ctx.check_env("vec_run: the chunks, their resets and the test episodes")
         T, B = learner.max_seq_len, learner.batch_size
         n_chunks = VEC_CUTS["steps_per_epoch"] * VEC_CUTS["epochs"] // (VEC_WORLDS * T)
@@ -1892,7 +2005,7 @@ def slice13_phases(ctx):
                                                    "TimeUpdateMs", "LossQ", "AverageEpRet",
                                                    "AverageTestEpRet")}
         print(f"  {wall:.2f} s; {n_chunks} chunks of {VEC_WORLDS} x {T} env steps, {taken:.0f} "
-              f"updates at B={B}; {out.vec}; launches {launches}, per chunk "
+              f"updates at B={B}; {out.vec}; calls on the card {launches}, per chunk "
               f"{ {k: v / n_chunks for k, v in launches.items()} }", flush=True)
         if [(r["Epoch"], r["TotalEnvInteracts"]) for r in rows] != \
                 [("1", str(n_chunks * VEC_WORLDS * T))] or taken != n_upd \
@@ -2685,7 +2798,9 @@ def parallel_phases(ctx):
         print(f"  {card_line()}", flush=True)
         trainer_kw = dict(PARALLEL_FUSED, seed=run["seed"])
         with torch.enable_grad():
-            single = train.build_trainer(RUN_DIR, DEVICE, **PARALLEL_FUSED)
+            # The eager path, whose apply_grads sees each update's raw gradients (a
+            # replayed program's stay in its graph); a replay gives the same bits.
+            single = train.build_trainer(RUN_DIR, DEVICE, graphs=False, **PARALLEL_FUSED)
             raws, apply = [], single.learner.apply_grads
 
             def apply_and_keep():          # each update's raw gradients, for the gate below
@@ -2798,6 +2913,511 @@ def parallel_phases(ctx):
         del single, learner
 
 
+# The programs (graph_phases): each CUDA-graph path held to its eager twin, bit for bit.
+GRAPH_SCHEDULES = ("per_step", "hoisted")
+GRAPH_TRAINER = {}        # build_trainer's sizes for the full iteration: the run's own
+GRAPH_DISC_TRAINER = dict(updates_per_iter=4, interleave=2, capacity_chunks=2 * N_WORLDS)
+GRAPH_SERVE_WORLDS = (N_WORLDS, 512)
+ADAMW_PARAM_ULPS = 0      # the update against one through torch's own AdamW: the params' ulps
+                          # (of each leaf's largest |p|) apart; 0 on the card, bit for bit
+
+
+def with_torch_adamw(learner):
+    """Make ``learner``'s eager update take ``torch.optim.AdamW``'s own step
+    (the learning rate set, then ``optimizer.step()``) in place of
+    ``_prepare_step``/``_adamw``, whose arithmetic the port keeps; undone by
+    deleting the two attributes."""
+    def prepare():
+        for group in learner.optimizer.param_groups:
+            group["lr"] = learner.lr * learner.lr_scale
+    learner._prepare_step, learner._adamw = prepare, learner.optimizer.step
+
+
+def learner_bits(learner):
+    """Params, targets, AdamW's state and ``.grad`` of a learner, in order, cloned."""
+    out = []
+    for p, t in zip(learner.parameters(), learner.target_parameters()):
+        out += [p, t, p.grad] + list(learner.optimizer.state[p].values())
+    return [None if x is None else x.detach().clone() for x in out]
+
+
+def bits_differ(got, want):
+    """The count of leaves of two lists (or dicts) of tensors that are not
+    equal bit for bit (a missing leaf counts)."""
+    if isinstance(got, dict):
+        if got.keys() != want.keys():
+            return max(len(got), len(want))
+        got, want = list(got.values()), [want[k] for k in got]
+    if len(got) != len(want):
+        return max(len(got), len(want))
+    return sum(not (a is None and b is None) and (
+        a is None or b is None or a.dtype != b.dtype or not torch.equal(a, b))
+        for a, b in zip(got, want))
+
+
+def hold_bits(what, against="the eager path", **pairs):
+    """Raise unless every ``name=(got, want)`` pair is equal bit for bit."""
+    bad = {name: bits_differ(*pair) for name, pair in pairs.items()}
+    bad = {k: v for k, v in bad.items() if v}
+    if bad:
+        raise AssertionError(f"{what}: the graph path differs from {against} in {bad}")
+    print(f"  {what}: the graph path equals {against} bit for bit ({', '.join(pairs)})",
+          flush=True)
+
+
+def busy_ms(fn, n):
+    """The card's busy ms a call of ``fn`` over ``n`` calls: the device time
+    of every kernel the profiler saw (graph replays' kernels too), or None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / n if total > 0 else None
+
+
+@contextlib.contextmanager
+def recording_steps(record):
+    """Append each env step's ``(actions, reward)`` to ``record``."""
+    from uav_bs_ctrl_tpu_torch.envs import torch_env
+    step = torch_env.step
+
+    def recorded(params, state, actions):
+        out = step(params, state, actions)
+        record.append((actions, out[2]))
+        return out
+
+    torch_env.step = recorded
+    try:
+        yield
+    finally:
+        torch_env.step = step
+
+
+_LAST_INPUTS = weakref.WeakKeyDictionary()     # a CPU rehearsal's programs' last inputs
+
+
+@contextlib.contextmanager
+def remembering_inputs():
+    """On the CPU, keep each program's last inputs, which are what a graph's
+    static buffers would hold, for :func:`stale_buffers`."""
+    from uav_bs_ctrl_tpu_torch import graphs
+    call = graphs.Program.__call__
+
+    def remembered(self, *inputs):
+        out = call(self, *inputs)
+        _LAST_INPUTS[self] = inputs
+        return out
+
+    graphs.Program.__call__ = remembered
+    try:
+        yield
+    finally:
+        graphs.Program.__call__ = call
+        _LAST_INPUTS.clear()
+
+
+@contextlib.contextmanager
+def stale_buffers():
+    """The planted fault: a program replays without refilling its static
+    buffers, so it runs on the inputs of its call before. On the card the
+    refill is skipped; on the CPU each program is handed the inputs of its
+    previous call, which :func:`remembering_inputs` keeps."""
+    from uav_bs_ctrl_tpu_torch import graphs
+    if DEVICE == "cpu":
+        name, call = "__call__", graphs.Program.__call__
+
+        def fault(self, *inputs):
+            return call(self, *_LAST_INPUTS.get(self, inputs))
+    else:
+        name, call = "_refill", graphs.Program.__dict__["_refill"]
+        fault = staticmethod(lambda cap, leaves: None)
+    setattr(graphs.Program, name, fault)
+    try:
+        yield
+    finally:
+        setattr(graphs.Program, name, call)
+
+
+def program_stats(*programs):
+    """Captured graphs, capture seconds and pool bytes over ``programs``."""
+    stats = [p.stats() for p in programs]
+    return {k: sum(s[k] for s in stats) for k in ("graphs", "capture_s", "pool_bytes")}
+
+
+def put_back(learner, bits):
+    """Copy :func:`learner_bits`' params, targets and AdamW state back into
+    the learner's own tensors, so its programs, which read those tensors,
+    stay captured (``load_state_dict`` drops them)."""
+    it = iter(bits)
+    with torch.no_grad():
+        for p, t in zip(learner.parameters(), learner.target_parameters()):
+            p.copy_(next(it))
+            t.copy_(next(it))
+            next(it)                                   # .grad, which the update remakes
+            for v in learner.optimizer.state[p].values():
+                v.copy_(next(it))
+
+
+def graph_phases(ctx):
+    """The programs (JAX's jits) against the eager path, on the card: each
+    graph path from the same state and seed as its eager twin, bit for bit.
+    A program's first call for a shape runs eagerly and is then captured, so
+    every comparison also holds a replay: one 8-UBS update (the committed
+    epoch-200 checkpoint, ``ctx.batch`` at B = 32) at f32 and bf16 under
+    ``per_step`` and ``hoisted``, its first call and a replay from the same
+    state; one full fused iteration of the 8-UBS run at its own sizes (two
+    warm-ups, 40 updates in 10 sub-iterations, the test episodes twice; the
+    whole ring compared); ``serve.evaluate``'s first call and its replay on
+    the kept program, and the 40- and 512-world served episode's actions
+    and rewards on a replay; the 4-UBS DiscreteComm+QMIX trainer
+    (collections and updates on pre-drawn Gumbel noise); the planted
+    stale-buffer fault, which must fail the comparison. The launches: the
+    eager twin's through the wrappers, the graph path's on the card
+    (:func:`card_launches`, replays included), each held to the other and to
+    202/100/101/50 an 8-UBS update and one env_schedule an env step. Times:
+    ms an update (wall, and the card's busy ms) graph against eager; the
+    iteration's wall time; ``serve.evaluate``'s first and later calls and
+    served env steps/s at 40 and 512 worlds; capture seconds and graph pool
+    bytes. ``ctx``: ``batch``, ``counts``, ``reset_counts``, ``check_env``.
+    Returns the times."""
+    with remembering_inputs() if DEVICE == "cpu" else contextlib.nullcontext():
+        return _graph_phases(ctx)
+
+
+def _graph_phases(ctx):
+    from uav_bs_ctrl_tpu_torch import serve, train
+    from uav_bs_ctrl_tpu_torch.algos import collect
+    from uav_bs_ctrl_tpu_torch.algos.buffer import tree_leaves
+    from uav_bs_ctrl_tpu_torch.algos.core import COMPUTE_DTYPES, apply_net
+    from uav_bs_ctrl_tpu_torch.algos.madrqn import fused
+    from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
+    from uav_bs_ctrl_tpu_torch.config import make_args
+    from uav_bs_ctrl_tpu_torch.envs import torch_env
+    from uav_bs_ctrl_tpu_torch import graphs
+    counts, reset_counts = ctx.counts, ctx.reset_counts
+    config = json.loads((RUN_DIR / "config.json").read_text())
+    env_params = torch_env.make_params(config["map_id"])
+    T = env_params.episode_limit
+    out = SimpleNamespace(update_ms={}, iteration_s={}, serve_steps_s={}, capture={},
+                          serve_s={})
+    zero = dict.fromkeys(per_update_launches(T), 0)
+    # what the wrappers count in a replay: nothing on the card (it passes no wrapper); on the
+    # CPU, where a rehearsal runs, a program's call is its body's
+    replayed = (lambda n: n) if DEVICE == "cpu" else (lambda n: dict(zero) if
+                                                        isinstance(n, dict) else 0)
+
+    def updated(learner, batch, graphs_on, noise=None):
+        """One update: its metrics, the learner's bits after, the wrappers'
+        launches and the calls on the card."""
+        learner.graphs = graphs_on
+        reset_counts()
+        with card_launches() as card, torch.enable_grad():
+            metrics = learner.update_on_batch(batch, noise=noise)
+        return ({k: v.clone() for k, v in metrics.items()}, learner_bits(learner), counts(),
+                card.calls)
+
+    with phase(f"graphs: one {config['map_id']} update at B = {ctx.batch['h'].shape[0]}, "
+               f"graph against eager, f32 and bf16 x {' and '.join(GRAPH_SCHEDULES)}"):
+        print(f"  card: {card_line()}", flush=True)
+        env_info = dict(obs_shape=fused.obs_shape(env_params, "gnn"),
+                        state_shape=fused.state_shape(env_params),
+                        n_actions=env_params.n_actions, n_agents=env_params.n_ubs,
+                        episode_limit=T)
+        for dt in ("float32", "bfloat16"):
+            for s in GRAPH_SCHEDULES:
+                learner = MultiAgentQLearner(env_info, make_args(
+                    dict(config["args"], compute_dtype=dt, bptt_encoder=s), DEVICE), seed=0)
+                learner.load_checkpoint(serve.latest_checkpoint(RUN_DIR))
+                snap, bits0 = learner.state_dict(), learner_bits(learner)
+                first = updated(learner, ctx.batch, True)        # eager, then captured
+                put_back(learner, bits0)
+                got = updated(learner, ctx.batch, True)          # a replay
+                learner.load_state_dict(snap)
+                want = updated(learner, ctx.batch, False)
+                learner.load_state_dict(snap)
+                hold_bits(f"{dt} {s} update", metrics=(got[0], want[0]),
+                          state=(got[1], want[1]))
+                hold_bits(f"{dt} {s} update, the program's first call", metrics=(first[0],
+                          want[0]), state=(first[1], want[1]))
+                with_torch_adamw(learner)
+                ref = updated(learner, ctx.batch, False)
+                del learner._prepare_step, learner._adamw
+                learner.load_state_dict(snap)
+                # learner_bits: each parameter's p, target, grad, step, exp_avg, exp_avg_sq
+                moved = [i for i in range(len(ref[1])) if i % 6 in (0, 1)]
+                ulps = max((got[1][i] - ref[1][i]).abs().max().item()
+                           / (2.0 ** -23 * max(ref[1][i].abs().max().item(), 1e-30))
+                           for i in moved)
+                hold_bits(f"{dt} {s} update, all but the params and targets",
+                          "the update through torch.optim.AdamW's own step",
+                          metrics=(got[0], ref[0]),
+                          state=([x for i, x in enumerate(got[1]) if i not in moved],
+                                 [x for i, x in enumerate(ref[1]) if i not in moved]))
+                print(f"  {dt} {s}: the params and targets {ulps:.2f} ulps (of each leaf's "
+                      f"largest) from torch's AdamW (limit {ADAMW_PARAM_ULPS})", flush=True)
+                if ulps > ADAMW_PARAM_ULPS:
+                    raise AssertionError(f"{dt} {s}: the update's AdamW step is not torch's")
+                per = per_update_launches(T)
+                if s == "hoisted":        # #2 once a relation and net, #3 once a relation
+                    per.update(flash_gat_fused=4, flash_gat_fused_bwd=2)
+                # eager: the wrappers' launches; the first call the same, as it runs eagerly;
+                # the replay: no wrapper launch, and the same calls on the card
+                if (want[2], want[3], first[2], first[3], got[2], got[3]) != \
+                        (per, per, per, per, replayed(per), per):
+                    raise AssertionError(
+                        f"{dt} {s}: launches (wrappers, card): eager {want[2:]}, the first "
+                        f"call {first[2:]}, a replay {got[2:]}; expected {per}")
+                ms = {}
+                for graphs_on in (False, True, True, False):
+                    learner.graphs = graphs_on
+                    ms.setdefault(graphs_on, []).append(ms_per_update(learner, ctx.batch, n=5))
+                busy = {}
+                for graphs_on in (True, False):
+                    learner.graphs = graphs_on
+                    with torch.enable_grad():
+                        busy[graphs_on] = busy_ms(
+                            lambda: learner.update_on_batch(ctx.batch), 2)
+                    if graphs_on:
+                        cap = program_stats(*learner._programs.values())
+                    learner.load_state_dict(snap)
+                out.update_ms[dt, s] = dict(graph=statistics.mean(ms[True]),
+                                            eager=statistics.mean(ms[False]),
+                                            graph_busy=busy[True], eager_busy=busy[False],
+                                            **cap)
+                r = out.update_ms[dt, s]
+                print(f"  {dt} {s}: ms an update, graph {r['graph']:.3f} (runs {ms[True]}), "
+                      f"eager {r['eager']:.3f} (runs {ms[False]}); the card busy "
+                      f"{r['graph_busy']} and {r['eager_busy']} ms; launches {want[2]}, the "
+                      f"same calls in a replay on the card; capture {cap['capture_s']:.3f} s, "
+                      f"graph pool {cap['pool_bytes']} bytes", flush=True)
+                del learner, snap, bits0
+        gc.collect()
+
+    with phase(f"graphs: one full fused iteration of {RUN_DIR.name} at its own sizes, graph "
+               f"against eager ({train.N_WARMUPS} warm-ups, the iteration, {N_WORLDS} test "
+               f"episodes twice)"):
+        runs = {}
+        for graphs_on in (True, False):
+            with torch.enable_grad():
+                tr = train.build_trainer(RUN_DIR, DEVICE, graphs=graphs_on, **GRAPH_TRAINER)
+                reset_counts()
+                with card_launches() if graphs_on else contextlib.nullcontext() as card:
+                    t0 = time.perf_counter()
+                    warm = [tr.run_iteration(EPS, warmup=True) for _ in range(train.N_WARMUPS)]
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    metrics = tr.run_iteration(EPS)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    test = [tr.evaluate(N_WORLDS, eps=EPS) for _ in range(2)]
+                    t3 = time.perf_counter()
+            if graphs_on:                    # the replays pass no wrapper: the card's count
+                launches, env = card.calls, card.env
+            else:
+                launches, env = counts(), ctx.check_env("the eager iteration")
+            runs[graphs_on] = SimpleNamespace(trainer=tr, warm=warm, metrics=metrics, test=test,
+                                              launches=launches, env=env,
+                                              times=(t1 - t0, t2 - t1, t3 - t2))
+            print(f"  {'graph' if graphs_on else 'eager'}: warm-ups {t1 - t0:.3f} s, the "
+                  f"iteration {t2 - t1:.3f} s, two test episodes {t3 - t2:.3f} s"
+                  f"; {tr.n_worlds} worlds, "
+                  f"interleave {tr.interleave}, {tr.updates_per_iter} updates at B = "
+                  f"{tr.learner.batch_size}; launches {launches}, env_schedule {env}"
+                  f"{' on the card' if graphs_on else ''}", flush=True)
+        g, e = runs[True], runs[False]
+        env_want = (train.N_WARMUPS + g.trainer.interleave + 2) * (T + 1)
+        if (g.warm, g.metrics, g.launches, g.env) != (e.warm, e.metrics, e.launches, e.env) \
+                or e.env != env_want or any(not np.array_equal(a[k], b[k])
+                                            for a, b in zip(g.test, e.test) for k in b):
+            raise AssertionError(f"graph {g.warm} {g.metrics} {g.launches} {g.env}, eager "
+                                 f"{e.warm} {e.metrics} {e.launches} {e.env} (env steps "
+                                 f"{env_want})")
+        gt, et = g.trainer, e.trainer
+        hold_bits("the iteration", ring=(tree_leaves(gt.replay), tree_leaves(et.replay)),
+                  losses=([gt.last_losses], [et.last_losses]),
+                  learner=(learner_bits(gt.learner), learner_bits(et.learner)),
+                  generator=([gt.generator.get_state()], [et.generator.get_state()]))
+        if (gt._ptr, gt._size) != (et._ptr, et._size):
+            raise AssertionError("the ring's books differ")
+        cap = program_stats(gt._collection, gt._episodes.program,
+                            *gt.learner._programs.values())
+        with torch.enable_grad():                  # every shape captured: replays only
+            t0 = time.perf_counter()
+            gt.run_iteration(EPS)
+            torch.cuda.synchronize()
+            again = time.perf_counter() - t0
+        out.iteration_s = dict(graph=g.times, eager=e.times, graph_again=again, **cap)
+        out.capture["iteration"] = cap
+        print(f"  the iteration {g.times[1]:.3f} s on the graph path (its first calls, "
+              f"captures and each graph's profiled first replay included), {e.times[1]:.3f} s "
+              f"eager; the next graph iteration "
+              f"{again:.3f} s; {cap['graphs']} graphs captured in {cap['capture_s']:.3f} s, "
+              f"pools {cap['pool_bytes']} bytes; metrics {json.dumps(g.metrics)}", flush=True)
+        del runs, g, e, gt, et, tr
+        gc.collect()
+
+    with phase(f"graphs: serve.evaluate, its first call and a replay of its kept program, "
+               f"against eager; the served {config['map_id']} episode at "
+               f"{' and '.join(map(str, GRAPH_SERVE_WORLDS))} worlds"):
+        per_episode = dict(zero, flash_gat_fused=2 * T, tarmac_step=T)
+        serve._served.clear()
+        calls = {}
+        for label in ("first", "kept", "eager"):
+            reset_counts()
+            with card_launches() if label == "kept" else contextlib.nullcontext() as card:
+                t0 = time.perf_counter()
+                stats = serve.evaluate(RUN_DIR, N_WORLDS, eps=EPS, seed=0, device=DEVICE,
+                                       graphs=label != "eager")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if label == "kept":              # a replay: no wrapper, its calls on the card
+                got = (counts(), card.calls, wrapper_counts()[0]["env_schedule"], card.env)
+                want = (replayed(per_episode), per_episode, replayed(T + 1), T + 1)
+            else:
+                got = (counts(), ctx.check_env(f"serve.evaluate, {label}"))
+                want = (per_episode, T + 1)
+            if got != want:
+                raise AssertionError(f"serve.evaluate, {label} call: launches {got}, "
+                                     f"expected {want}")
+            calls[label] = (stats, wall)
+        hold_bits(f"serve.evaluate, {N_WORLDS} worlds, its first call",
+                  stats=(calls["first"][0], calls["eager"][0]))
+        hold_bits(f"serve.evaluate, {N_WORLDS} worlds, a replay of its kept program",
+                  stats=(calls["kept"][0], calls["eager"][0]))
+        kept = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve.evaluate(RUN_DIR, N_WORLDS, eps=EPS, seed=0, device=DEVICE)
+            torch.cuda.synchronize()
+            kept.append(time.perf_counter() - t0)
+        out.serve_s = dict(first=calls["first"][1], kept=statistics.mean(kept),
+                           eager=calls["eager"][1])
+        print(f"  serve.evaluate at {N_WORLDS} worlds, loading included: the first call "
+              f"{out.serve_s['first']:.4f} s (an eager episode, then the capture: what "
+              f"serve.py's CLI makes), a later call {out.serve_s['kept']:.4f} s (runs "
+              f"{[round(x, 4) for x in kept]}; the kept program's replay), eager "
+              f"{out.serve_s['eager']:.4f} s", flush=True)
+        serve._served.clear()
+        agent, _ = serve.load_policy(RUN_DIR, DEVICE)
+        policy = collect.make_policy(functools.partial(
+            apply_net, agent, dtype=COMPUTE_DTYPES[config["args"]["compute_dtype"]]), "gnn")
+        pool = serve.test_pool(config["map_id"], 0)
+        noise_shape = lambda w: agent.noise_shape((w,), env_params.n_ubs)
+        episodes = collect.EpisodeProgram(env_params, policy, pool, agent.hidden, DEVICE,
+                                          noise_shape)
+        record = []
+
+        def recorded_body(draws, noise):
+            record.clear()
+            with recording_steps(record):
+                stats = episodes._body(draws, noise)
+            return stats, torch.stack([a for a, _ in record]), torch.stack([r for _, r in record])
+
+        recorded = graphs.Program(recorded_body, DEVICE, name="recorded episode")
+
+        def drawn(seed, n_worlds):
+            return collect.draw_episode(env_params, len(pool[0]),
+                                        torch.Generator().manual_seed(seed), n_worlds, EPS,
+                                        noise_shape(n_worlds), DEVICE)
+
+        for n_worlds in GRAPH_SERVE_WORLDS:
+            recorded(*drawn(7, n_worlds))                      # eager, then captured
+            stats_g, acts_g, rews_g = graphs.clone_tree(recorded(*drawn(0, n_worlds)))
+            eager_record = []
+            with recording_steps(eager_record):
+                stats_e = collect.evaluate_policy(env_params, policy, pool, agent.hidden,
+                                                  torch.Generator().manual_seed(0), n_worlds,
+                                                  DEVICE, EPS)
+            hold_bits(f"the served episode at {n_worlds} worlds, a replay",
+                      stats=(stats_g, stats_e),
+                      actions=([acts_g], [torch.stack([a for a, _ in eager_record])]),
+                      rewards=([rews_g], [torch.stack([r for _, r in eager_record])]))
+            episodes(torch.Generator().manual_seed(1), n_worlds, EPS)     # captured here
+            ms = {}
+            for graphs_on in (False, True, True, False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gen = torch.Generator().manual_seed(1)
+                if graphs_on:
+                    episodes(gen, n_worlds, EPS)
+                else:
+                    collect.evaluate_policy(env_params, policy, pool, agent.hidden, gen,
+                                            n_worlds, DEVICE, EPS)
+                torch.cuda.synchronize()
+                ms.setdefault(graphs_on, []).append(time.perf_counter() - t0)
+            out.serve_steps_s[n_worlds] = {
+                "graph": n_worlds * T / statistics.mean(ms[True]),
+                "eager": n_worlds * T / statistics.mean(ms[False])}
+            print(f"  {n_worlds} worlds x {T} steps: graph {out.serve_steps_s[n_worlds]['graph']:.1f} "
+                  f"env steps/s ({[round(x, 4) for x in ms[True]]} s an episode, the draws "
+                  f"included; replays of a kept program), eager "
+                  f"{out.serve_steps_s[n_worlds]['eager']:.1f} ({[round(x, 4) for x in ms[False]]}"
+                  f" s)", flush=True)
+        out.capture["episode"] = program_stats(episodes.program)
+        print(f"  the episode program: {json.dumps(out.capture['episode'])}", flush=True)
+
+        with stale_buffers():
+            stale = episodes(torch.Generator().manual_seed(4), N_WORLDS, EPS)
+        fresh = collect.evaluate_policy(env_params, policy, pool, agent.hidden,
+                                        torch.Generator().manual_seed(4), N_WORLDS, DEVICE, EPS)
+        try:
+            hold_bits("the planted fault: a replay on stale draw buffers", stats=(stale, fresh))
+        except AssertionError as err:
+            print(f"  the planted fault fails as it must: {err}", flush=True)
+        else:
+            raise AssertionError("a replay on stale draw buffers passed the graph-vs-eager check")
+        del episodes, recorded, agent
+
+    with phase(f"graphs: {DISC_QMIX_DIR.name} (DiscreteComm's Gumbel noise drawn before the "
+               f"replay), a warm-up and one iteration, graph against eager"):
+        runs = {}
+        for graphs_on in (True, False):
+            with torch.enable_grad():
+                tr = train.build_trainer(DISC_QMIX_DIR, DEVICE, graphs=graphs_on,
+                                         **GRAPH_DISC_TRAINER)
+                reset_counts()
+                with card_launches() if graphs_on else contextlib.nullcontext() as card:
+                    warm = tr.run_iteration(EPS, warmup=True)
+                    metrics = tr.run_iteration(EPS)
+                    torch.cuda.synchronize()
+            runs[graphs_on] = (tr, warm, metrics) + (
+                (card.calls, card.env) if graphs_on else
+                (counts(), ctx.check_env("4-UBS eager")))
+        (gt, *g), (et, *e) = runs[True], runs[False]
+        if g != e or e[3] != (1 + gt.interleave) * (gt.T + 1):
+            raise AssertionError(f"4-UBS DiscreteComm: graph {g}, eager {e} (the launches "
+                                 f"on the card and through the wrappers)")
+        hold_bits("the 4-UBS DiscreteComm collections and updates",
+                  ring=(tree_leaves(gt.replay), tree_leaves(et.replay)),
+                  learner=(learner_bits(gt.learner), learner_bits(et.learner)),
+                  noise=([gt.learner.noise_generator.get_state()],
+                         [et.learner.noise_generator.get_state()]))
+        print(f"  {gt.n_worlds} worlds, {gt.updates_per_iter} updates in {gt.interleave} "
+              f"sub-iterations at B = {gt.learner.batch_size}; metrics {json.dumps(g[1])}; "
+              f"launches {g[2]}, env_schedule {g[3]} on the card, as eager", flush=True)
+        with torch.enable_grad():
+            with stale_buffers():
+                gt.run_iteration(EPS)
+            et.run_iteration(EPS)
+        try:
+            hold_bits("the planted fault: an iteration replayed on stale index and draw buffers",
+                      learner=(learner_bits(gt.learner), learner_bits(et.learner)))
+        except AssertionError as err:
+            print(f"  the planted fault fails as it must: {err}", flush=True)
+        else:
+            raise AssertionError("an iteration on stale buffers passed the graph-vs-eager check")
+        del runs, gt, et, tr
+        gc.collect()
+    return out
+
+
 def exp1_times(e1):
     """exp1's times: #2 and #3 at exp1's shapes with their bounds, ms per
     update (gnn through the kernels and on the plain path, rnn), the
@@ -2896,12 +3516,15 @@ def main():
                    for table in (kernels, bwd_kernels) if name in table}
 
     # env_schedule launches once an env step (each torch_env._transmit, the reset's included)
-    # of worlds on the card: its launches are held to the env steps counted here.
+    # of worlds on the card: its launches are held to the env steps counted here. A step
+    # recorded into a graph's capture runs nothing and is not counted, as its launch is not;
+    # the steps a replay runs pass no Python, and card_launches counts their env_schedule.
     env_steps = collections.Counter()
     transmit = torch_env._transmit
 
     def counted_transmit(params, state):
-        env_steps[state.pos_ubs.device.type] += 1
+        if DEVICE == "cpu" or not torch.cuda.is_current_stream_capturing():
+            env_steps[state.pos_ubs.device.type] += 1
         return transmit(params, state)
 
     torch_env._transmit = counted_transmit
@@ -2915,7 +3538,7 @@ def main():
     def check_env(what):
         """env_schedule's launches since the last reset_counts against the env
         steps on the card since then: equal, and not 0."""
-        launches, steps = schedule_and_rate.launches, env_steps["cuda"]
+        launches, steps = schedule_and_rate.launches, env_steps[device.type]
         print(f"  env_schedule: {launches} launches over {steps} env steps on the card "
               f"({what})", flush=True)
         if launches != steps or steps == 0:
@@ -3059,18 +3682,22 @@ def main():
 
     with phase(f"serve {RUN_DIR.name}: {N_WORLDS} worlds, one episode, eps={EPS}"):
         reset_counts()
-        t0 = time.perf_counter()
-        stats = serve.evaluate(RUN_DIR, N_WORLDS, eps=EPS, seed=0, device=DEVICE)
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
+        with card_launches() as serve_card:
+            t0 = time.perf_counter()
+            stats = serve.evaluate(RUN_DIR, N_WORLDS, eps=EPS, seed=0, device=DEVICE)
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
         serve_launches = counts()
         steps = torch_env.make_params("8ubs").episode_limit
         serve_env_launches = check_env(f"serving, {steps} steps and the reset")
         print(f"  launches on the serving path: {serve_launches} over {steps} env steps "
-              f"({serve_s:.2f} s, loading included)", flush=True)
+              f"({serve_s:.2f} s, loading and the capture included); on the card "
+              f"{serve_card.calls}, env_schedule {serve_card.env}", flush=True)
         want = dict(dict.fromkeys(all_kernels, 0), flash_gat_fused=2 * steps, tarmac_step=steps)
-        if serve_launches != want:
-            raise AssertionError(f"expected {want} launches, got {serve_launches}")
+        if serve_launches != want or serve_card.calls != want \
+                or serve_card.env != serve_env_launches:
+            raise AssertionError(f"expected {want} launches, got {serve_launches} from the "
+                                 f"wrappers and {serve_card.calls} on the card")
         for key, v in stats.items():
             if tuple(v.shape) != (N_WORLDS,) or not torch.isfinite(v).all():
                 raise AssertionError(f"{key}: shape {tuple(v.shape)} or non-finite values")
@@ -3110,19 +3737,22 @@ def main():
     with phase(f"serve {DISC_DIR.name} with gat_backend='pallas': {N_WORLDS} worlds, one "
                f"episode, eps={EPS}"):
         reset_counts()
-        t0 = time.perf_counter()
-        disc_stats = serve.evaluate(DISC_DIR, N_WORLDS, eps=EPS, seed=0, device=DEVICE,
-                                    gat_backend="pallas")
-        torch.cuda.synchronize()
-        disc_s = time.perf_counter() - t0
+        with card_launches() as disc_card:
+            t0 = time.perf_counter()
+            disc_stats = serve.evaluate(DISC_DIR, N_WORLDS, eps=EPS, seed=0, device=DEVICE,
+                                        gat_backend="pallas")
+            torch.cuda.synchronize()
+            disc_s = time.perf_counter() - t0
         disc_launches = counts()
         disc_steps = torch_env.make_params("4ubs").episode_limit
-        check_env(f"serving, {disc_steps} steps and the reset")
+        disc_env = check_env(f"serving, {disc_steps} steps and the reset")
         print(f"  launches on the serving path: {disc_launches} over {disc_steps} env steps "
-              f"({disc_s:.2f} s, loading included)", flush=True)
+              f"({disc_s:.2f} s, loading and the capture included); on the card "
+              f"{disc_card.calls}, env_schedule {disc_card.env}", flush=True)
         want = dict(dict.fromkeys(all_kernels, 0), flash_gat=2 * disc_steps)
-        if disc_launches != want:
-            raise AssertionError(f"expected {want} launches, got {disc_launches}")
+        if disc_launches != want or disc_card.calls != want or disc_card.env != disc_env:
+            raise AssertionError(f"expected {want} launches, got {disc_launches} from the "
+                                 f"wrappers and {disc_card.calls} on the card")
         for key, v in disc_stats.items():
             if tuple(v.shape) != (N_WORLDS,) or not torch.isfinite(v).all():
                 raise AssertionError(f"{key}: shape {tuple(v.shape)} or non-finite values")
@@ -3229,23 +3859,28 @@ def main():
                   f"{learner.optimizer.state[learner.parameters()[0]]['step'].item():.0f}",
                   flush=True)
             reset_counts()
-            t1 = time.perf_counter()
-            warm = [trainer.run_iteration(EPS, warmup=True) for _ in range(train.N_WARMUPS)]
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            metrics = trainer.run_iteration(EPS)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            test = trainer.evaluate(N_WORLDS, eps=EPS)
-            train_launches = counts()
+            with card_launches() as window:
+                t1 = time.perf_counter()
+                warm = [trainer.run_iteration(EPS, warmup=True)
+                        for _ in range(train.N_WARMUPS)]
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                metrics = trainer.run_iteration(EPS)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                test = trainer.evaluate(N_WORLDS, eps=EPS)
+            train_launches, train_card = counts(), window.calls
         losses = trainer.last_losses.tolist()
         print(f"  load {t1 - t0:.2f} s, {train.N_WARMUPS} warm-ups {t2 - t1:.2f} s, iteration "
-              f"{t3 - t2:.2f} s (eps {EPS})", flush=True)
+              f"{t3 - t2:.2f} s (eps {EPS}; each graph's first replay profiled)", flush=True)
         print(f"  warm-up episode stats: {json.dumps(warm)}")
         print(f"  LossQ per update: {json.dumps([round(v, 4) for v in losses])}")
         print(f"  iteration: {json.dumps(metrics)}")
         print(f"  test episodes: {json.dumps({k: float(v.mean()) for k, v in test.items()})}")
-        print(f"  launches on the training path: {train_launches}", flush=True)
+        print(f"  on the training path: calls on the card {train_card}; launches by the "
+              f"wrappers {train_launches} (each program's first call runs eagerly, then is "
+              f"captured; its replays pass no wrapper); env_schedule {window.env} calls",
+              flush=True)
         if len(losses) != n_updates or not all(np.isfinite(losses)):
             raise AssertionError(f"expected {n_updates} finite LossQ values, got {losses}")
         chunks = (train.N_WARMUPS + 1) * trainer.n_worlds
@@ -3258,8 +3893,12 @@ def main():
         want = {k: n_updates * v for k, v in per_update.items()}
         want["flash_gat_fused"] += 2 * policy_steps
         want["tarmac_step"] += policy_steps
-        if train_launches != want:
-            raise AssertionError(f"expected {want} launches, got {train_launches}")
+        episodes = train.N_WARMUPS + trainer.interleave + 1
+        if train_card != want or window.env != episodes * (T + 1) or not all(
+                train_launches[k] for k in want if want[k]):
+            raise AssertionError(f"expected {want} calls on the card, {episodes * (T + 1)} of "
+                                 f"env_schedule, and a wrapper launch of each kernel; got "
+                                 f"{train_card}, {window.env}, {train_launches}")
 
     run_config = json.loads((RUN_DIR / "config.json").read_text())
     columns, jax_rows = progress_rows(RUN_DIR)       # run_fast.py's columns, in its order
@@ -3275,8 +3914,7 @@ def main():
     with phase(f"run_fast: a fresh start of the {run_config['map_id']} TarMAC+QMIX run, 2 epochs "
                f"of 2000 steps, {N_WORLDS} worlds, interleave {run_config['interleave']}"):
         fresh_dir = scratch / "fresh"
-        with torch.enable_grad():
-            reset_counts()
+        with torch.enable_grad(), card_launches() as window:   # the programs replay
             t0 = time.perf_counter()
             fresh = run_fast.train_fast(
                 "exp3", run_config["map_id"], seed=0, n_worlds=N_WORLDS,
@@ -3286,13 +3924,13 @@ def main():
                 logger_kwargs=dict(output_dir=str(fresh_dir), exp_name="chip_smoke_fresh"))
             torch.cuda.synchronize()
             fresh_s = time.perf_counter() - t0
-            phase_launches["fresh"] = counts()
+        phase_launches["fresh"] = window.calls
         head, rows = progress_rows(fresh_dir)
         losses = [float(r["LossQ"]) for r in rows]
         print(f"  {fresh_s:.2f} s; rows (Epoch, TotalEnvInteracts, LossQ, AverageEpRet, "
               f"AverageTestEpRet): {[(r['Epoch'], r['TotalEnvInteracts'], r['LossQ'], r['AverageEpRet'], r['AverageTestEpRet']) for r in rows]}",
               flush=True)
-        print(f"  launches: {phase_launches['fresh']}", flush=True)
+        print(f"  calls on the card: {phase_launches['fresh']}", flush=True)
         ckpts = sorted(p.name for p in fresh_dir.glob("checkpoint_epoch*.pt"))
         if head != columns or [r["Epoch"] for r in rows] != ["1", "2"] \
                 or [r["TotalEnvInteracts"] for r in rows] != ["2000", "4000"]:
@@ -3320,8 +3958,7 @@ def main():
         saved = checkpoint.load(RUN_DIR / "checkpoint_epoch200.pt")
         count0 = int(checkpoint.find_state(saved["optimizer_state_dict"],
                                            "ScaleByAdamState").args[0])
-        with torch.enable_grad():
-            reset_counts()
+        with torch.enable_grad(), card_launches() as window:   # the programs replay
             t0 = time.perf_counter()
             resumed = run_fast.train_fast(
                 run_config["exp"], run_config["map_id"], seed=run_config["seed"],
@@ -3332,7 +3969,7 @@ def main():
                 resume=True)
             torch.cuda.synchronize()
             resume_s = time.perf_counter() - t0
-            phase_launches["resume"] = counts()
+        phase_launches["resume"] = window.calls
         rl = resumed.learner
         step = rl.optimizer.state[rl.parameters()[0]]["step"].item()
         head, rows = progress_rows(resume_dir)
@@ -3343,7 +3980,7 @@ def main():
               f"{rows[0]['AverageEpRet']}, AverageTestEpRet {rows[0]['AverageTestEpRet']} (the "
               f"JAX run's epoch 201, 30,000 steps: LossQ {jax_201['LossQ']}, AverageEpRet "
               f"{jax_201['AverageEpRet']})", flush=True)
-        print(f"  launches: {phase_launches['resume']}", flush=True)
+        print(f"  calls on the card: {phase_launches['resume']}", flush=True)
         if (count0, step, rl.lr_scale, rl._epoch) != (119_600, 119_600 + resumed.updates_per_iter,
                                                        0.4, 201):
             raise AssertionError(f"AdamW step {count0} -> {step}, lr_scale {rl.lr_scale}, "
@@ -3388,17 +4025,17 @@ def main():
             t0 = time.perf_counter()
             tr = train.build_trainer(run_dir, DEVICE)
             lr = tr.learner
-            reset_counts()
-            t1 = time.perf_counter()
-            for _ in range(train.N_WARMUPS):
-                tr.run_iteration(EPS, warmup=True)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            metrics = tr.run_iteration(EPS)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            test = tr.evaluate(N_WORLDS, eps=EPS)
-            launches = counts()
+            with card_launches() as card:                   # the programs replay
+                t1 = time.perf_counter()
+                for _ in range(train.N_WARMUPS):
+                    tr.run_iteration(EPS, warmup=True)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                metrics = tr.run_iteration(EPS)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                test = tr.evaluate(N_WORLDS, eps=EPS)
+            launches = card.calls
         phase_launches[label] = launches
         losses = tr.last_losses.tolist()
         print(f"  {type(lr.net).__name__}, {tr.n_worlds} worlds, interleave {tr.interleave}, "
@@ -3411,7 +4048,7 @@ def main():
         print(f"  LossQ per update: {json.dumps([round(v, 4) for v in losses])}")
         print(f"  iteration: {json.dumps(metrics)}")
         print(f"  test episodes: {json.dumps({k: float(v.mean()) for k, v in test.items()})}")
-        print(f"  launches: {launches}", flush=True)
+        print(f"  calls on the card: {launches}", flush=True)
         if len(losses) != tr.updates_per_iter or not all(np.isfinite(losses)):
             raise AssertionError(f"expected {tr.updates_per_iter} finite LossQ values, "
                                  f"got {losses}")
@@ -3527,6 +4164,8 @@ def main():
                                    phase_launches=phase_launches, check_env=check_env))
     parallel_phases(SimpleNamespace(batch=batch, phase_launches=phase_launches))
     split_records = mp_split_phases(SimpleNamespace(batch=batch, phase_launches=phase_launches))
+    graph_phases(SimpleNamespace(batch=batch, counts=counts, reset_counts=reset_counts,
+                                 check_env=check_env))
 
     record = []
     with phase("times"):
@@ -3592,12 +4231,13 @@ def main():
         # Each kernel's launches on its main path: flash_gat's the 4-UBS 'pallas'
         # serving, the others' the training path.
         path_launches = dict(train_launches, flash_gat=disc_launches["flash_gat"])
+        card_path = dict(train_card, flash_gat=disc_card.calls["flash_gat"])
         for name, rows in timed.items():
             record.append({
                 "name": name, "route": "cuda",
                 "source": f"uav_bs_ctrl_tpu_torch/ops/csrc/{name}.cu",
                 "replaces": REPLACES[name], "launches": path_launches[name],
-                "max_abs_err": worst[name],
+                "card_launches": card_path[name], "max_abs_err": worst[name],
                 "ms": statistics.mean(r["ms"] for r in rows),
                 "plain_ms": statistics.mean(r["plain_ms"] for r in rows),
                 "bound_ms": statistics.mean(r["bound_ms"] for r in rows),
@@ -3697,6 +4337,7 @@ def main():
             "name": "env_schedule", "route": "cuda",
             "source": "uav_bs_ctrl_tpu_torch/ops/csrc/env_schedule.cu",
             "replaces": REPLACES["env_schedule"], "launches": serve_env_launches,
+            "card_launches": serve_card.env,
             "max_abs_err": env_sched.abs_err, "max_rel_err": env_sched.err,
             **{k: env_sched.cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None, "near_ties": len(env_sched.ties), "cases": env_sched.cases})

@@ -169,9 +169,37 @@ class DeviceRing:
     def sample_batch(self):
         """B chunks drawn with replacement from the ``size`` written ones (a
         sharded ring: this rank's rows of them)."""
-        idx = torch.randint(0, self._size, (self.learner.batch_size,),
-                            generator=self.generator)
+        idx = self._draw_sample()
         if self.ring_shard is not None:
             return self.ring_shard.fetch(self.replay, idx)
         idx = idx.to(self.device)
         return tree_map(lambda store: store[idx], self.replay)
+
+    def _draw_sample(self):
+        """A batch's ring slots [B], drawn on the host from ``generator``."""
+        return torch.randint(0, self._size, (self.learner.batch_size,),
+                             generator=self.generator)
+
+    # A program writes by slot index (a slice at the host's ``ptr`` would be
+    # frozen into a captured graph): ``_claim`` keeps the books of a write of
+    # ``n`` chunks as ``_write`` does and returns its slots, the program's
+    # input, and ``_write_slots`` writes there. Unsharded rings only.
+
+    def _make_ring(self, layout):
+        """The ring from ``layout``, a tree of ``(chunk shape, dtype)``."""
+        self.replay = tree_map(lambda spec: torch.zeros(
+            (self.capacity,) + tuple(spec[0]), dtype=spec[1], device=self.device), layout)
+
+    def _claim(self, n):
+        """The slots [n] (int64, on the host) of a write of ``n`` chunks at
+        ``ptr``; ``ptr`` and ``size`` advance as ``_write``'s."""
+        if self._ptr + n > self.capacity:
+            raise AssertionError("a ring write must not wrap")
+        slots = torch.arange(self._ptr, self._ptr + n)
+        self._size = min(self._size + n, self.capacity)
+        self._ptr = (self._ptr + n) % self.capacity
+        return slots
+
+    def _write_slots(self, chunk, slots):
+        """Write ``chunk`` (leaves [n, ...]) into the ring at ``slots`` [n]."""
+        tree_map(lambda store, x: store.index_copy_(0, slots, x), self.replay, chunk)

@@ -15,11 +15,25 @@ stream as it was.
 ``algos/madrqn/fused.py``): every draw is made at the full ``W`` worlds, as
 one rank makes it, and the block's rows are kept, so the generator advances
 as the single-rank run's and the block's worlds are that run's.
+
+The programs (JAX jits ``collect_chunk`` and ``eval_rollout``,
+``collect.py:55``, ``:117``): :func:`draw_episode` makes every draw of one
+episode up front, by the eager path's calls in its order (:func:`draw_reset`,
+then each step's :func:`draw_seed` when the policy reads a key and
+:func:`draw_explore`), into one ``[W, K]`` int64 tensor, and the steps'
+Gumbel noise from their seeds on the device; :func:`episode_body` plays the
+episode on them (the layouts gathered from a pool on the device), so a
+``graphs.Program`` of it draws nothing and gives the eager episode's bits.
+:class:`EpisodeProgram` is ``evaluate_policy`` so; the fused trainer's
+collection is one too (``algos/madrqn/fused.py``).
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from uav_bs_ctrl_tpu_torch import graphs
 from uav_bs_ctrl_tpu_torch.envs import torch_env
 from uav_bs_ctrl_tpu_torch.envs.maps import MAPS
 from uav_bs_ctrl_tpu_torch.models.modules import gumbel_noise
@@ -39,12 +53,32 @@ def make_layout_pool(map_id, n_layouts, seed=0):
     return np.stack(ubs), np.stack(gts)
 
 
+def draw_reset(n_gts, n_layouts, generator, n_worlds):
+    """A reset's draws: each world's pool layout [W], then its GT priority
+    permutation [W, M] (the argsort, on the host, of uniform draws)."""
+    idx = torch.randint(0, n_layouts, (n_worlds,), generator=generator)
+    prior = torch.argsort(torch.rand((n_worlds, n_gts), generator=generator), dim=-1)
+    return idx, prior
+
+
+def draw_seed(generator):
+    """A step's policy key: a seed for the Gumbel noise of that step."""
+    return int(torch.randint(0, 2**62, (), generator=generator))
+
+
+def draw_explore(generator, shape, n_actions, eps):
+    """A step's exploration: random actions of ``shape`` ([W, A]), then one
+    coin a world, True (explore) below ``eps``."""
+    rand = torch.randint(0, n_actions, shape, generator=generator)
+    explore = torch.rand((shape[0], 1), generator=generator) < eps
+    return rand, explore
+
+
 def reset_worlds(params, pool, generator, n_worlds, device, rows=None):
     """Reset ``n_worlds`` worlds from random pool layouts, each with a random
     GT priority permutation (with ``rows``, worlds ``[lo, hi)`` of them)."""
     pool_ubs, pool_gts = (torch.as_tensor(a) for a in pool)
-    idx = torch.randint(0, pool_ubs.shape[0], (n_worlds,), generator=generator)
-    prior = torch.argsort(torch.rand((n_worlds, params.n_gts), generator=generator), dim=-1)
+    idx, prior = draw_reset(params.n_gts, pool_ubs.shape[0], generator, n_worlds)
     if rows is not None:
         idx, prior = idx[rows[0]:rows[1]], prior[rows[0]:rows[1]]
     return torch_env.reset_from_positions(params, pool_ubs[idx].to(device),
@@ -84,7 +118,7 @@ class StepKey:
 
     def __int__(self):
         if self._seed is None:
-            self._seed = int(torch.randint(0, 2**62, (), generator=self._generator))
+            self._seed = draw_seed(self._generator)
         return self._seed
 
     def noise(self, shape, device):
@@ -94,17 +128,68 @@ class StepKey:
         return gumbel_noise((total,) + tuple(shape[1:]), int(self), device)[lo:hi]
 
 
+class DrawnKey:
+    """One step's policy key in a program: the Gumbel noise drawn before the
+    replay from the step's seed (what ``StepKey.noise`` draws)."""
+
+    def __init__(self, noise):
+        self._noise = noise
+
+    def noise(self, shape, device):
+        if tuple(shape) != tuple(self._noise.shape):
+            raise ValueError(f"the step reads noise of shape {tuple(shape)}, drawn "
+                             f"{tuple(self._noise.shape)}")
+        return self._noise
+
+    def __int__(self):
+        raise RuntimeError("a program draws nothing: its policy reads the noise drawn "
+                           "before the replay (key.noise), not a seed")
+
+
+class _DrawAsYouGo:
+    """The eager path's draws: each made from ``generator`` as the step runs."""
+
+    def __init__(self, generator, eps, n_actions, rows=None):
+        self.generator, self.eps, self.n_actions, self.rows = generator, eps, n_actions, rows
+
+    def key(self, t):
+        return StepKey(self.generator, self.rows)
+
+    def choose(self, t, greedy):
+        n = greedy.shape[0] if self.rows is None else self.rows[2]
+        rand, explore = draw_explore(self.generator, (n,) + tuple(greedy.shape[1:]),
+                                     self.n_actions, self.eps)
+        if self.rows is not None:
+            lo, hi = self.rows[:2]
+            rand, explore = rand[lo:hi], explore[lo:hi]
+        return torch.where(explore.to(greedy.device), rand.to(greedy.device), greedy)
+
+
+class _DrawnBefore:
+    """A program's draws, made before it runs: ``rand`` [T, W, A] and
+    ``explore`` [T, W, 1] on the device, ``noise`` [T, ...] or None."""
+
+    def __init__(self, rand, explore, noise):
+        self.rand, self.explore, self.noise = rand, explore, noise
+
+    def key(self, t):
+        return None if self.noise is None else DrawnKey(self.noise[t])
+
+    def choose(self, t, greedy):
+        return torch.where(self.explore[t], self.rand[t], greedy)
+
+
 def _act(policy, obs, h, generator, eps, n_actions, rows=None):
     """Joint epsilon-greedy actions [W, A] and the next hidden state;
     ``policy(obs, h, key=...)`` gets the step's ``StepKey``."""
-    q, h2 = policy(obs, h, key=StepKey(generator, rows))
-    greedy = q.argmax(-1)                                       # [W, A]
-    n = greedy.shape[0] if rows is None else rows[2]
-    rand = torch.randint(0, n_actions, (n,) + tuple(greedy.shape[1:]), generator=generator)
-    explore = torch.rand((n, 1), generator=generator) < eps
-    if rows is not None:
-        rand, explore = rand[rows[0]:rows[1]], explore[rows[0]:rows[1]]
-    return torch.where(explore.to(h.device), rand.to(h.device), greedy), h2
+    return _act_on(policy, obs, h, _DrawAsYouGo(generator, eps, n_actions, rows), 0)
+
+
+def _act_on(policy, obs, h, draws, t):
+    """Step ``t``'s actions and next hidden state, the policy's key and the
+    exploration taken from ``draws``."""
+    q, h2 = policy(obs, h, key=draws.key(t))
+    return draws.choose(t, q.argmax(-1)), h2                    # [W, A]
 
 
 def episode_stats(states, prefix=""):
@@ -126,13 +211,18 @@ def collect_chunk(env_params, policy, states, h0, n_steps, generator, eps, rows=
     ``bad_mask == done``: the stored ``done`` is identically zero, so TD
     targets always bootstrap.
     """
+    return _collect(env_params, policy, states, h0, n_steps,
+                    _DrawAsYouGo(generator, eps, env_params.n_actions, rows))
+
+
+def _collect(env_params, policy, states, h0, n_steps, draws):
     obs_seq, state_seq, h_pair, acts_seq, rew_seq, done_seq = [], [], [h0], [], [], []
     h = h0
     obs = torch_env.get_obs(env_params, states)
-    for _ in range(n_steps):
+    for t in range(n_steps):
         obs_seq.append(obs)
         state_seq.append(torch_env.get_state_vec(env_params, states))
-        acts, h = _act(policy, obs, h, generator, eps, env_params.n_actions, rows)
+        acts, h = _act_on(policy, obs, h, draws, t)
         if len(h_pair) == 1:
             h_pair.append(h)
         states, obs, rew, done = torch_env.step(env_params, states, acts)
@@ -152,10 +242,15 @@ def collect_chunk(env_params, policy, states, h0, n_steps, generator, eps, rows=
 def eval_rollout(env_params, policy, states, h0, n_steps, generator, eps):
     """Roll ``n_steps`` steps of every world with ``policy(obs, h, key) -> (q, h')``
     choosing epsilon-greedy actions; returns the episode statistics [W]."""
+    return _play(env_params, policy, states, h0, n_steps,
+                 _DrawAsYouGo(generator, eps, env_params.n_actions))
+
+
+def _play(env_params, policy, states, h0, n_steps, draws):
     h = h0
     obs = torch_env.get_obs(env_params, states)
-    for _ in range(n_steps):
-        acts, h = _act(policy, obs, h, generator, eps, env_params.n_actions)
+    for t in range(n_steps):
+        acts, h = _act_on(policy, obs, h, draws, t)
         states, obs, _, _ = torch_env.step(env_params, states, acts)
     return episode_stats(states, "Test")
 
@@ -167,3 +262,109 @@ def evaluate_policy(env_params, policy, pool, hidden_size, generator, n_episodes
     h0 = torch.zeros((n_episodes, env_params.n_ubs, hidden_size), device=device)
     return eval_rollout(env_params, policy, states, h0, env_params.episode_limit,
                         generator, eps)
+
+
+# --------------------------------------------------------------------------- #
+# Episodes as programs: the draws made first, then the episode on them.
+
+def draw_episode(env_params, n_layouts, generator, n_worlds, eps, noise_shape, device,
+                 slots=None):
+    """Every draw of one episode of ``n_worlds`` worlds from a pool of
+    ``n_layouts``, made by the eager path's calls in its order: the reset's,
+    then each step's seed (only when ``noise_shape``, the shape of one step's
+    Gumbel noise, is not None: the policy reads a key), random actions and
+    coin. Returns ``(draws, noise)``: ``draws`` [W, K] int64 on the host
+    (pinned for a CUDA ``device``), each world's row its layout, priority
+    permutation, T x A random actions, T coins and, with ``slots`` [W], its
+    ring slot (:func:`unpack_draws` reads them); ``noise`` [T, ...] each
+    step's noise drawn on ``device`` from its seed, as ``StepKey.noise``
+    draws it, or None."""
+    T, A = env_params.episode_limit, env_params.n_ubs
+    idx, prior = draw_reset(env_params.n_gts, n_layouts, generator, n_worlds)
+    seeds, rand, explore = [], [], []
+    for _ in range(T):
+        if noise_shape is not None:
+            seeds.append(draw_seed(generator))
+        r, e = draw_explore(generator, (n_worlds, A), env_params.n_actions, eps)
+        rand.append(r)
+        explore.append(e)
+    cols = [idx[:, None], prior, torch.stack(rand, 1).reshape(n_worlds, T * A),
+            torch.cat(explore, 1).to(torch.int64)]
+    if slots is not None:
+        cols.append(slots[:, None])
+    draws = torch.cat(cols, 1)
+    if torch.device(device).type == "cuda":
+        draws = draws.pin_memory()
+    noise = None if noise_shape is None else torch.stack(
+        [gumbel_noise(noise_shape, seed, device) for seed in seeds])
+    return draws, noise
+
+
+def unpack_draws(draws, env_params):
+    """:func:`draw_episode`'s draws, on the device: ``idx`` [W], ``prior``
+    [W, M], ``rand`` [T, W, A], ``explore`` [T, W, 1] bool and ``slot`` [W]
+    (None without slots)."""
+    T, A, M = env_params.episode_limit, env_params.n_ubs, env_params.n_gts
+    n_worlds, o = draws.shape[0], 1 + M + T * A
+    return SimpleNamespace(
+        idx=draws[:, 0], prior=draws[:, 1:1 + M].contiguous(),
+        rand=draws[:, 1 + M:o].reshape(n_worlds, T, A).transpose(0, 1),
+        explore=(draws[:, o:o + T] != 0).transpose(0, 1)[..., None],
+        slot=draws[:, o + T].contiguous() if draws.shape[1] > o + T else None)
+
+
+def reset_on_draws(env_params, pool, d):
+    """The worlds of unpacked draws ``d``, from ``pool``, a pair of device
+    tensors (ubs [P, N, 2], gts [P, M, 2]): :func:`reset_worlds`'s states."""
+    return torch_env.reset_from_positions(env_params, pool[0][d.idx], pool[1][d.idx], d.prior)
+
+
+def collect_on_draws(env_params, policy, pool, hidden_size, draws, noise):
+    """:func:`reset_worlds` and :func:`collect_chunk` of one episode on
+    :func:`draw_episode`'s draws (the eager pair's bits); returns ``(chunk,
+    stats, slots)``."""
+    d = unpack_draws(draws, env_params)
+    h0 = torch.zeros((draws.shape[0], env_params.n_ubs, hidden_size), device=draws.device)
+    chunk, _, stats = _collect(env_params, policy, reset_on_draws(env_params, pool, d), h0,
+                               env_params.episode_limit, _DrawnBefore(d.rand, d.explore, noise))
+    return chunk, stats, d.slot
+
+
+def episode_body(env_params, policy, pool, hidden_size, draws, noise):
+    """:func:`evaluate_policy` on :func:`draw_episode`'s draws: its stats [W]."""
+    d = unpack_draws(draws, env_params)
+    h0 = torch.zeros((draws.shape[0], env_params.n_ubs, hidden_size), device=draws.device)
+    return _play(env_params, policy, reset_on_draws(env_params, pool, d), h0,
+                 env_params.episode_limit, _DrawnBefore(d.rand, d.explore, noise))
+
+
+def pool_on(pool, device):
+    """A layout pool's (ubs, gts) arrays as tensors on ``device``."""
+    return tuple(torch.as_tensor(a).to(device) for a in pool)
+
+
+class EpisodeProgram:
+    """:func:`evaluate_policy` as a program (JAX jits ``eval_rollout``):
+    ``program(generator, n_episodes, eps)`` makes the episode's draws with
+    :func:`draw_episode` and runs :func:`episode_body` on them, a replayed
+    CUDA graph on the card (one per ``n_episodes``). ``noise_shape(W)`` is
+    the shape of one step's Gumbel noise at W worlds, or None when the
+    policy reads no key (an agent's ``noise_shape((W,), n_agents)``). The
+    stats are the eager call's, and ``generator`` ends where it would."""
+
+    def __init__(self, env_params, policy, pool, hidden_size, device, noise_shape):
+        self.env_params, self.policy, self.hidden_size = env_params, policy, hidden_size
+        self.device, self.noise_shape = torch.device(device), noise_shape
+        self.pool = pool_on(pool, device)
+        self.n_layouts = self.pool[0].shape[0]
+        self.program = graphs.Program(self._body, device, name="episode")
+
+    def __call__(self, generator, n_episodes, eps=0.05):
+        draws, noise = draw_episode(self.env_params, self.n_layouts, generator, n_episodes,
+                                    eps, self.noise_shape(n_episodes), self.device)
+        return graphs.clone_tree(self.program(draws, noise))
+
+    @torch.no_grad()
+    def _body(self, draws, noise):
+        return episode_body(self.env_params, self.policy, self.pool, self.hidden_size,
+                            draws, noise)

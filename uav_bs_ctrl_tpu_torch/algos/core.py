@@ -46,6 +46,29 @@ and ``update_on_batch`` also take that noise, so that two paths (or the two
 packages) can be given the same draws; every schedule reads the same noise
 at the same step.
 
+The update is a program (JAX's ``_update_jit``, ``core.py:113``, jits it with
+its state donated): with ``graphs`` (the default) :meth:`update_on_batch`
+runs :meth:`_update_body` (the backward, the clip, AdamW and Polyak) as a
+``graphs.Program``, on the card one CUDA graph per batch shape (the
+shape's first update runs eagerly, then is captured), replayed after the
+batch and the noise are copied into its static buffers; the noise
+is drawn first, by :meth:`draw_noise`, as on the eager path. AdamW's step
+inside it is :meth:`_adamw`: ``torch.optim.AdamW``'s foreach arithmetic op
+for op, with the three scalars that depend on the step count and the
+learning rate computed on the host by torch's own float64 formulas before
+each step (:meth:`_prepare_step`, outside any graph) and read from a device
+tensor; so the step can be captured, on the card it gives torch's AdamW
+bits (on the CPU the last op may round one ulp apart), the step counts stay
+on the host, and AdamW's state and checkpoints are torch's. The gradients a captured backward makes
+live in the graph's memory pool: after each replay ``.grad`` points at them
+again, so it holds that update's clipped gradients as on the eager path, and
+an eager update in between (``graphs=False``, or :meth:`backward` and
+:meth:`apply_grads`) leaves the graph's state untouched, since both update
+the same params and AdamW tensors in place. Loading params or AdamW state
+(:meth:`load_params`, :meth:`load_adam_state`, :meth:`load_state_dict`)
+drops the programs, which read the old optimizer's tensors; the next update
+captures anew. A sharded learner (``sharding`` set) runs eagerly.
+
 :meth:`load_checkpoint` resumes a JAX checkpoint as the JAX package's does:
 params, mixer, LR scale and the AdamW state. The optax chain's
 ``ScaleByAdamState(count, mu, nu)`` comes out of the numpy-only unpickler's
@@ -83,6 +106,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from uav_bs_ctrl_tpu_torch import graphs as programs
 from uav_bs_ctrl_tpu_torch.algos.buffer import SequenceReplayBuffer, tree_map
 from uav_bs_ctrl_tpu_torch.config import check_training_args
 from uav_bs_ctrl_tpu_torch.models.modules import gumbel_draw
@@ -141,9 +165,13 @@ def apply_net(net, obs, h, use_kernels=True, key=None, dtype=torch.float32):
 class RecurrentQLearner:
     """Shared core for the recurrent Q-learners (MADRQN with mixer/double-Q)."""
 
-    def __init__(self, env_info, args, agent, mixer=None, seed=0):
+    def __init__(self, env_info, args, agent, mixer=None, seed=0, graphs=True):
         check_training_args(args)
         self.device = args.device
+        self.graphs = graphs                    # updates as programs (CUDA graphs on the card)
+        self._programs = {}
+        # 1 - lr wd, -lr / (1 - beta1^t), sqrt(1 - beta2^t): the step's scalars (_prepare_step)
+        self._adam_scalars = torch.zeros(3, dtype=torch.float32, device=self.device)
         self.n_agents = env_info.get("n_agents", 1)
         self.n_actions = env_info["n_actions"]
         self.noise_generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -173,6 +201,8 @@ class RecurrentQLearner:
         self.sharding = None                    # parallel.mesh.LearnerSharding
 
     def _make_optimizer(self, params=None):
+        """AdamW over ``params`` (default :meth:`parameters`): it holds the
+        state and the hyperparameters; :meth:`_adamw` takes its step."""
         return torch.optim.AdamW(self.parameters() if params is None else params, lr=self.lr,
                                  betas=BETAS, eps=ADAM_EPS, weight_decay=WEIGHT_DECAY)
 
@@ -318,7 +348,10 @@ class RecurrentQLearner:
         "targ": [T, ...]}`` drawn from the learner's generator, or None (and
         nothing drawn) when the agent reads no key. A sharded learner draws
         the global batch's noise and keeps its own rows."""
-        b, _, a = batch["h"].shape[:3]
+        return self.draw_noise_for(*batch["h"].shape[:3:2])
+
+    def draw_noise_for(self, b, a):
+        """:meth:`draw_noise` for a batch of ``b`` chunks of ``a`` agents."""
         lo, hi = 0, b
         if self.sharding is not None:
             lo, hi, b = self.sharding.rows(b)
@@ -371,16 +404,57 @@ class RecurrentQLearner:
     def update_on_batch(self, batch, use_kernels=True, noise=None):
         """One update from a batch on the device; returns ``{LossQ, QVals}`` as
         0-d tensors (no host sync). The clipped gradients stay in ``.grad``.
-        ``noise`` is :meth:`draw_noise`'s, drawn here when not given."""
-        metrics = self.backward(batch, use_kernels, noise)
-        self.apply_grads()
-        return metrics
+        ``noise`` is :meth:`draw_noise`'s, drawn here when not given. With
+        ``graphs`` (and no sharding) the update is a program's replay."""
+        if noise is None:
+            noise = self.draw_noise(batch)
+        if not self.graphs or self.sharding is not None:
+            metrics = self._backward(batch, use_kernels, noise)
+            self.apply_grads()
+            return metrics
+        program = self.program(("batch", use_kernels), self._update_body, use_kernels)
+        return self.replay_update(program, batch, noise)
+
+    def program(self, name, fn, *extra):
+        """The update program ``name``, made on first use: ``fn(*inputs,
+        *extra)`` must end in :meth:`_update_body` and return its result.
+        Every program that updates this learner is kept here, so that
+        loading new optimizer state drops them all (:meth:`drop_programs`)."""
+        if name not in self._programs:
+            self._programs[name] = programs.Program(fn, self.device, f"update {name}", extra)
+        return self._programs[name]
+
+    def drop_programs(self):
+        for program in self._programs.values():
+            program.drop()
+        self._programs.clear()
+
+    def replay_update(self, program, *inputs):
+        """Run an update program on ``inputs``: AdamW's step prepared first,
+        ``.grad`` pointed at the update's clipped gradients after; returns
+        the metrics, cloned (the next replay overwrites the graph's)."""
+        self._prepare_step()
+        metrics, grads = program(*inputs)
+        for p, g in zip(self.parameters(), grads):
+            p.grad = g
+        return {k: v.clone() for k, v in metrics.items()}
+
+    def _update_body(self, batch, noise, use_kernels):
+        """One update, the program's body: backward, clip, AdamW, Polyak;
+        draws nothing and reads AdamW's scalars from the device. Returns the
+        metrics and the clipped gradients."""
+        metrics = self._backward(batch, use_kernels, noise)
+        self._step()
+        return metrics, [p.grad for p in self.parameters()]
 
     def backward(self, batch, use_kernels=True, noise=None):
         """The loss and its raw gradients in ``.grad`` (no clip, no step); a
         sharded learner's are the dp means (``batch`` holds this rank's rows)."""
         if noise is None:
             noise = self.draw_noise(batch)
+        return self._backward(batch, use_kernels, noise)
+
+    def _backward(self, batch, use_kernels, noise):
         for p in self.parameters():       # the optimizer's may be a sharding's masters
             p.grad = None
         with (contextlib.nullcontext() if self.sharding is None
@@ -394,6 +468,64 @@ class RecurrentQLearner:
         """Clip the net's ``.grad`` to [-1, 1], step AdamW at ``lr * lr_scale``
         and Polyak-average the targets (a sharded learner: its shards, then
         gathered into the modules)."""
+        self._prepare_step()
+        self._step()
+
+    def _prepare_step(self):
+        """The host's part of AdamW's step, outside any graph, as
+        ``torch.optim.AdamW`` (not capturable) takes it: the learning rate
+        ``lr * lr_scale``, the state made where there is none (``step`` a
+        CPU tensor), every ``step`` counted up, and the step's scalars
+        ``1 - lr wd``, ``-lr / (1 - beta1^t)`` and ``sqrt(1 - beta2^t)``
+        computed in float64 and filled into ``_adam_scalars``."""
+        lr = self.lr * self.lr_scale
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self._update_lr = np.float32(self.lr) * np.float32(self.lr_scale)  # f32, as JAX
+        group = self.optimizer.param_groups[0]
+        (beta1, beta2), params = group["betas"], group["params"]
+        for p in params:
+            if p not in self.optimizer.state:
+                self.optimizer.state[p] = {
+                    "step": torch.tensor(0.0, dtype=torch.float32),
+                    "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                    "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
+        steps = [self.optimizer.state[p]["step"] for p in params]
+        torch._foreach_add_(steps, torch.tensor(1.0), alpha=1.0)
+        counts = {float(step) for step in steps}
+        if len(counts) != 1:
+            raise ValueError(f"AdamW's parameters are at different steps {sorted(counts)}")
+        t = counts.pop()
+        scalars = (1 - lr * group["weight_decay"], (lr / (1 - beta1 ** t)) * -1,
+                   (1 - beta2 ** t) ** 0.5)
+        for i, value in enumerate(scalars):
+            self._adam_scalars[i].fill_(value)
+
+    def _adamw(self):
+        """AdamW's step on the device (decoupled weight decay, no amsgrad),
+        ``torch.optim.AdamW``'s foreach arithmetic op for op with its
+        step's scalars read from ``_adam_scalars``; the last op, a product
+        added per parameter (``addcmul_``), rounds as torch's
+        ``_foreach_addcdiv_`` does (bit for bit on the card)."""
+        group = self.optimizer.param_groups[0]
+        (beta1, beta2), params = group["betas"], group["params"]
+        grads = [p.grad for p in params]
+        exp_avgs = [self.optimizer.state[p]["exp_avg"] for p in params]
+        exp_avg_sqs = [self.optimizer.state[p]["exp_avg_sq"] for p in params]
+        decay, step_size, bc2_sqrt = self._adam_scalars.unbind()
+        with torch.no_grad():
+            torch._foreach_mul_(params, decay)
+            torch._foreach_lerp_(exp_avgs, grads, 1 - beta1)
+            torch._foreach_mul_(exp_avg_sqs, beta2)
+            torch._foreach_addcmul_(exp_avg_sqs, grads, grads, 1 - beta2)
+            denom = torch._foreach_sqrt(exp_avg_sqs)
+            torch._foreach_div_(denom, bc2_sqrt)
+            torch._foreach_add_(denom, group["eps"])
+            for p, ratio in zip(params, torch._foreach_div(exp_avgs, denom)):
+                p.addcmul_(ratio, step_size)
+
+    def _step(self):
+        """The clip, AdamW's step and Polyak, with the step prepared."""
         for p in self.parameters():       # optax updates (and decays) every leaf
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -403,10 +535,7 @@ class RecurrentQLearner:
             self.sharding.take_grads()
             params, targets = self.sharding.masters, self.sharding.target_masters
         torch.nn.utils.clip_grad_value_(params[:n_net], CLIP_VALUE)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr * self.lr_scale
-        self.optimizer.step()
-        self._update_lr = np.float32(self.lr) * np.float32(self.lr_scale)  # f32, as JAX
+        self._adamw()
         with torch.no_grad():
             for t, p in zip(targets, params):
                 t.mul_(self.polyak).add_(p, alpha=1.0 - self.polyak)
@@ -452,6 +581,7 @@ class RecurrentQLearner:
 
     def load_state_dict(self, state: dict):
         self._unsharded("load_state_dict")
+        self.drop_programs()
         state = copy.deepcopy(state)
         for name in ("net", "target_net", "mixer", "target_mixer"):
             if name in state:
@@ -466,6 +596,7 @@ class RecurrentQLearner:
         targets become copies and AdamW starts afresh (as optax's ``init``).
         A learner sharded over mp loads before ``distribute_learner``."""
         self._unsharded("load_params")
+        self.drop_programs()
         loaded = learner_params_from_jax(tree, self.net, self.mixer)
         self.net.load_state_dict(loaded["net"])
         self.target_net.load_state_dict(loaded["net"])
@@ -479,6 +610,7 @@ class RecurrentQLearner:
         """AdamW's state from optax's ``ScaleByAdamState``: ``mu``/``nu`` trees
         ``{"net": ...[, "mixer": ...]}`` carried by the params' key mapping,
         ``count`` as every parameter's step."""
+        self.drop_programs()
         moments = [learner_params_from_jax(tree, self.net, self.mixer) for tree in (mu, nu)]
         step = torch.tensor(float(count), dtype=torch.float32)
         for group, params in self._by_group(lambda p: p).items():

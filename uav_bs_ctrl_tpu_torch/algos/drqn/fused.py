@@ -14,6 +14,10 @@ draws from one CPU ``torch.Generator`` seeded with ``seed``.
 The 'rnn' agent's policy and ring see the flat observation ``[agent | gt]``
 (``collect_subs.flatten_obs``), as the JAX trainer's ``_agent_apply`` and
 ``_collect``.
+
+Each update is the learner's program (with ``graphs``, the default: a
+replayed CUDA graph on the card); the collection and the test episodes run
+eagerly.
 """
 
 from types import SimpleNamespace as SN
@@ -39,7 +43,7 @@ class FusedDrqnTrainer(DeviceRing):
     """Device replay ring + on-device collection and updates (exp1)."""
 
     def __init__(self, env_kwargs=None, train_kwargs=None, n_worlds=8, capacity_chunks=None,
-                 updates_per_iter=None, n_layouts=256, seed=0):
+                 updates_per_iter=None, n_layouts=256, seed=0, graphs=True):
         cfg = dict(DEFAULT_CONFIG)
         cfg.update(train_kwargs or {})
         self.args = args = check_args(SN(**cfg))
@@ -58,7 +62,7 @@ class FusedDrqnTrainer(DeviceRing):
 
         env_info = dict(obs_shape=obs_shape(self.env_params, args.agent),
                         n_actions=self.env_params.n_actions, episode_limit=self.T)
-        self.learner = QLearner(env_info, args, seed=seed)
+        self.learner = QLearner(env_info, args, seed=seed, graphs=graphs)
         # Collection and test episodes at the compute dtype (JAX ``_agent_apply``).
         self.policy = collect_subs.make_policy(self.learner._apply_net, args.agent)
 

@@ -3,10 +3,21 @@
 An iteration runs ``interleave`` sub-iterations of [collect ``n_worlds/S``
 episodes on the device -> write them into the device replay ring -> ``K/S``
 updates, each on B chunks drawn with replacement from the ring]. Experience,
-ring and updates stay on the device; the host schedules and makes the random
-draws, from one CPU ``torch.Generator`` (resets, exploration, sample
-indices) moved to the device, so a seed gives the same run on the CPU and on
-the card.
+ring and updates stay on the device. Every random draw (resets,
+exploration, sample indices) comes from one CPU ``torch.Generator`` in a
+fixed order, so a seed gives the same run on the CPU and on the card.
+
+The iteration runs as programs (JAX jits it whole, ``_iter_jit`` and
+``_collect_jit``, ``fused.py:124-125``): with ``graphs`` (the default) each
+collection, its ring write included, is one ``graphs.Program`` (on the card
+a CUDA graph for each number of worlds) and each update another (the
+learner's, gathering its batch from the ring by slot index). Before each
+collection's replay the host makes all of its draws (``collect.draw_episode``,
+the eager path's calls in its order) and hands them over in one copy; before
+a sub-iteration's updates it draws their ``[K/S, B]`` sample indices, and
+before each update the learner draws its noise. The test episodes are
+``collect.EpisodeProgram``. The eager path (``graphs=False``) makes the same
+draws as it goes and gives the same bits; a dp ``mesh`` runs it.
 
 ``mesh`` (a ``DeviceMesh`` of ``parallel.mesh.make_mesh``; JAX
 ``fused.py:97-119``) shards the whole loop over ``dp``: rank r collects its
@@ -30,8 +41,9 @@ from types import SimpleNamespace as SN
 
 import torch
 
+from uav_bs_ctrl_tpu_torch import graphs as programs
 from uav_bs_ctrl_tpu_torch.algos import collect
-from uav_bs_ctrl_tpu_torch.algos.buffer import DeviceRing, RingShard
+from uav_bs_ctrl_tpu_torch.algos.buffer import DeviceRing, RingShard, tree_map
 from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
 from uav_bs_ctrl_tpu_torch.config import DEFAULT_CONFIG, check_args_sanity
 from uav_bs_ctrl_tpu_torch.envs import torch_env
@@ -59,7 +71,8 @@ class FusedMadrqnTrainer(DeviceRing):
     """Device-resident replay ring + on-device collection and updates."""
 
     def __init__(self, map_id, train_kwargs=None, n_worlds=16, capacity_chunks=256,
-                 updates_per_iter=None, n_layouts=64, seed=0, interleave=1, mesh=None):
+                 updates_per_iter=None, n_layouts=64, seed=0, interleave=1, mesh=None,
+                 graphs=True):
         cfg = dict(DEFAULT_CONFIG)
         cfg.update(train_kwargs or {})
         self.args = args = check_args_sanity(SN(**cfg))
@@ -83,7 +96,7 @@ class FusedMadrqnTrainer(DeviceRing):
                         state_shape=state_shape(self.env_params),
                         n_actions=self.env_params.n_actions, n_agents=self.env_params.n_ubs,
                         episode_limit=self.T)
-        self.learner = MultiAgentQLearner(env_info, args, seed=seed)
+        self.learner = MultiAgentQLearner(env_info, args, seed=seed, graphs=graphs)
         # Collection and test episodes at the compute dtype (JAX ``_agent_apply``).
         self.policy = collect.make_policy(self.learner._apply_net, args.o)
 
@@ -104,6 +117,14 @@ class FusedMadrqnTrainer(DeviceRing):
             distribute_learner(self.learner, mesh)
             self.ring_shard = RingShard(capacity_chunks, dp, mesh.get_local_rank("dp"),
                                         mesh.get_group("dp"))
+        self.graphs = graphs and mesh is None
+        if self.graphs:
+            self._pool = collect.pool_on(self.pool, self.device)
+            self._collection = programs.Program(self._collect_body, self.device,
+                                                name="collection")
+            self._episodes = collect.EpisodeProgram(self.env_params, self.policy,
+                                                    self.test_pool, args.hidden_size,
+                                                    self.device, self._noise_shape)
 
     # ------------------------------------------------------------------ #
 
@@ -117,25 +138,114 @@ class FusedMadrqnTrainer(DeviceRing):
                          device=self.device)
         chunk, _, stats = collect.collect_chunk(self.env_params, self.policy, states, h0,
                                                 self.T, self.generator, eps, rows)
+        return self._ring_form(chunk), stats
+
+    def _ring_form(self, chunk):
+        """A collected chunk as the ring holds it: the flat observation under
+        ``o='mlp'``, the agents' mean reward with ``share_reward``."""
         if self.args.o == "mlp":
             chunk["obs"] = collect.flatten_obs(chunk["obs"])
         if self.learner.share_reward:
             chunk["rew"] = chunk["rew"].mean(-1, keepdim=True)
-        return chunk, stats
+        return chunk
+
+    def _noise_shape(self, n_worlds):
+        return self.learner.net.noise_shape((n_worlds,), self.env_params.n_ubs)
+
+    # ------------------------------------------------------------------ #
+    # The programs
+
+    def _chunk_layout(self):
+        """Each ring leaf's per-chunk shape and dtype, read off one world's
+        initial state on the host (nothing drawn, no env step taken)."""
+        p, T, A = self.env_params, self.T, self.env_params.n_ubs
+        state = torch_env.initial_state(p, torch.zeros((1, A, 2)), torch.zeros((1, p.n_gts, 2)),
+                                        torch.arange(p.n_gts)[None])
+        obs = torch_env.get_obs(p, state)
+        if self.args.o == "mlp":
+            obs = collect.flatten_obs(obs)
+        f32 = torch.float32
+        return dict(obs={k: ((T + 1,) + tuple(v.shape[1:]), v.dtype) for k, v in obs.items()},
+                    h=((2, A, self.args.hidden_size), f32),
+                    state=((T + 1, torch_env.get_state_vec(p, state).shape[-1]), f32),
+                    act=((T, A), torch.int32),
+                    rew=((T, 1 if self.learner.share_reward else A), f32),
+                    done=((T,), f32))
+
+    def _collect_replayed(self, eps, n_worlds):
+        """One collection of ``n_worlds`` episodes into the ring, as a
+        program: the ring's books kept and every draw made on the host, then
+        the replay; returns its stats [W] (cloned)."""
+        if self.replay is None:
+            self._make_ring(self._chunk_layout())
+        slots = self._claim(n_worlds)
+        draws, noise = collect.draw_episode(self.env_params, len(self.pool[0]),
+                                            self.generator, n_worlds, eps,
+                                            self._noise_shape(n_worlds), self.device, slots)
+        return programs.clone_tree(self._collection(draws, noise))
+
+    @torch.no_grad()
+    def _collect_body(self, draws, noise):
+        """The collection program: the episodes on ``draws``, written into
+        the ring at their slots; returns the episode stats."""
+        chunk, stats, slots = collect.collect_on_draws(self.env_params, self.policy,
+                                                       self._pool, self.args.hidden_size,
+                                                       draws, noise)
+        self._write_slots(self._ring_form(chunk), slots)
+        return stats
+
+    def _ring_update_body(self, idx, noise):
+        """The update program: the batch at ring slots ``idx`` [B], then the
+        learner's update body."""
+        batch = tree_map(lambda store: store[idx], self.replay)
+        return self.learner._update_body(batch, noise, True)
+
+    def _run_programs(self, eps, warmup):
+        """:meth:`run_iteration` as programs; one host sync, for the metrics."""
+        if warmup:
+            return self._host_means(self._collect_replayed(eps, self.n_worlds))
+        sub_worlds = self.n_worlds // self.interleave
+        k_sub = self.updates_per_iter // self.interleave
+        learner = self.learner
+        update = learner.program("ring", self._ring_update_body)
+        losses, all_stats = [], []
+        for _ in range(self.interleave):
+            all_stats.append(self._collect_replayed(eps, sub_worlds))
+            rows = torch.stack([self._draw_sample() for _ in range(k_sub)])   # [K/S, B]
+            if rows.device != torch.device(self.device):
+                rows = (rows.pin_memory() if torch.device(self.device).type == "cuda"
+                        else rows).to(self.device, non_blocking=True)
+            for k in range(k_sub):
+                noise = learner.draw_noise_for(learner.batch_size, self.env_params.n_ubs)
+                losses.append(learner.replay_update(update, rows[k], noise)["LossQ"])
+        stats = {k: torch.cat([s[k] for s in all_stats])
+                 for k in ("EpRet", "FairIdx", "AvgGlobalUtility")}
+        self.last_losses = torch.stack(losses)
+        return self._host_means(dict(LossQ=self.last_losses, **stats))
+
+    @staticmethod
+    def _host_means(stats):
+        """Each stat's mean, brought to the host in one copy."""
+        return dict(zip(stats, torch.stack([v.mean() for v in stats.values()]).tolist()))
 
     # ------------------------------------------------------------------ #
 
     @torch.no_grad()
     def evaluate(self, n_episodes=8, eps=0.05):
         """Test episodes on held-out layouts (the reference's test_agent)."""
-        stats = collect.evaluate_policy(self.env_params, self.policy, self.test_pool,
-                                        self.args.hidden_size, self.generator, n_episodes,
-                                        self.device, eps)
+        if self.graphs:
+            stats = self._episodes(self.generator, n_episodes, eps)
+        else:
+            stats = collect.evaluate_policy(self.env_params, self.policy, self.test_pool,
+                                            self.args.hidden_size, self.generator,
+                                            n_episodes, self.device, eps)
         return {k: v.cpu().numpy() for k, v in stats.items()}
 
     def run_iteration(self, eps, warmup=False):
         """One iteration; returns host-side metric floats. ``warmup=True``
         collects ``n_worlds`` episodes into the ring without updating."""
+        if self.graphs:
+            return self._run_programs(eps, warmup)
         if warmup:
             chunk, stats = self._collect(eps, self.n_worlds)
             self._write(chunk)

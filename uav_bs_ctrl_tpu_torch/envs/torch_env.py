@@ -16,6 +16,7 @@ On a CPU tensor that loop runs in Python (``_schedule_body_scatter`` or
 rates as one kernel launch for every world (``ops/env_kernels.py``).
 """
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -110,9 +111,17 @@ def make_params(map_id: str, fair_service=True, avoid_collision=True) -> EnvPara
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(value, dtype, device):
+    """A tensor of ``value`` (a number or nested tuples) on ``device``, made
+    once: an env step copies nothing from the host, so it can be captured
+    into a CUDA graph."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
 def _chan_gain(params: EnvParams, d_level):
     # A tensor numerator: ``float / tensor`` would round twice (reciprocal * float).
-    h_ubs = torch.tensor(params.h_ubs, dtype=d_level.dtype, device=d_level.device)
+    h_ubs = _constant(params.h_ubs, d_level.dtype, d_level.device)
     p_los = 1.0 / (1.0 + params.chan_a * torch.exp(
         -params.chan_b * (torch.arctan(h_ubs / (d_level + 1e-5))
                           - params.chan_a)))
@@ -182,8 +191,7 @@ def _schedule_body_scatter(params: EnvParams, d_u2g, gain, prior_gts):
         rb_occ[w, i, c] |= ok
         used_rbs[w, i] += ok.to(torch.int32)
         # UBS i radiates on RB c to covered GTs, except the served one.
-        row = radiated[w, i].clone()                                 # [W, M]
-        row[w, m] = 0.0
+        row = radiated[w, i].index_put((w, m), radiated.new_zeros(()))   # [W, M]
         p_itf[w, i, :, c] = torch.where(ok[:, None], row, p_itf[w, i, :, c])
     return _rates_from_schedule(params, gain, p_itf, sched)
 
@@ -276,11 +284,17 @@ def _reward(params: EnvParams, state: EnvState):
 def reset_from_positions(params: EnvParams, pos_ubs, pos_gts, prior_gts) -> EnvState:
     """W worlds from explicit positions [W, N, 2] / [W, M, 2] and GT priority
     permutations [W, M], then the initial service pass at t=0."""
+    return _transmit(params, initial_state(params, pos_ubs, pos_gts, prior_gts))
+
+
+def initial_state(params: EnvParams, pos_ubs, pos_gts, prior_gts) -> EnvState:
+    """:func:`reset_from_positions`'s state before its service pass: every
+    field at its shape, the rates and distances zero."""
     n_w = pos_ubs.shape[0]
     N, M = params.n_ubs, params.n_gts
     dev = pos_ubs.device
     zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
-    state = EnvState(
+    return EnvState(
         t=torch.zeros(n_w, dtype=torch.int32, device=dev),
         pos_ubs=pos_ubs.to(torch.float32), pos_gts=pos_gts.to(torch.float32),
         prior_gts=prior_gts.to(torch.int64),
@@ -289,7 +303,6 @@ def reset_from_positions(params: EnvParams, pos_ubs, pos_gts, prior_gts) -> EnvS
         mask_collision=torch.zeros((n_w, N), dtype=torch.bool, device=dev),
         fair_idx=zeros(n_w), global_util=zeros(n_w), avg_global_util=zeros(n_w),
         total_throughput=zeros(n_w), n_colls=zeros(n_w), ep_ret=zeros(n_w))
-    return _transmit(params, state)
 
 
 def reset(params: EnvParams, generator, device, n_worlds) -> EnvState:
@@ -325,8 +338,7 @@ def rollout(params: EnvParams, policy, state0, h0, generator, n_steps, eps=0.0):
 def step(params: EnvParams, state: EnvState, actions):
     """One step of every world; actions [W, N] int. Returns
     (state', obs, reward [W, N], done [W])."""
-    moves = torch.tensor(params.avail_moves, dtype=torch.float32,
-                         device=actions.device)[actions]
+    moves = _constant(params.avail_moves, torch.float32, actions.device)[actions]
     pos_ubs = torch.clamp(state.pos_ubs + moves, 0, params.range_pos)
     state = state._replace(t=state.t + 1, pos_ubs=pos_ubs)
     state = _transmit(params, state)
@@ -351,8 +363,10 @@ def get_state_vec(params: EnvParams, state: EnvState):
     return torch.cat([ubs, gts], -1)
 
 
+@functools.lru_cache(maxsize=None)
 def _others_index(n, device):
-    """[n, n-1] index of all agents but the row agent, in index order."""
+    """[n, n-1] index of all agents but the row agent, in index order, made
+    once for each device."""
     idx = np.arange(n)[None, :].repeat(n, 0)
     out = np.stack([np.delete(idx[i], i) for i in range(n)]) if n > 1 \
         else np.zeros((n, 0), np.int64)

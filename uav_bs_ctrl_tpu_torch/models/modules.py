@@ -12,7 +12,6 @@ without a checkpoint; served and trained weights come from a checkpoint.
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 
@@ -106,5 +105,7 @@ def gumbel_softmax(logits, tau=1.0, hard=False, seed=None, noise=None):
     y_soft = torch.softmax((logits + noise) / tau, dim=-1)
     if not hard:
         return y_soft
-    y_hard = F.one_hot(y_soft.argmax(-1), logits.shape[-1]).to(logits.dtype)
+    # The one-hot of the argmax by a scatter: ``F.one_hot`` checks its classes
+    # on the host (a sync) for a CPU tensor.
+    y_hard = torch.zeros_like(y_soft).scatter_(-1, y_soft.argmax(-1, keepdim=True), 1.0)
     return y_soft + (y_hard - y_soft).detach()

@@ -144,9 +144,14 @@ def pointers(device, tensors: dict, storage=torch.float32, f32=()) -> list:
     return ptrs
 
 
-def count_launch(fn, dtype):
+def count_launch(fn, dtype=torch.float32):
     """Add one to the wrapper ``fn``'s launch count, and to its bf16 count
-    for a bf16 launch (``fn.launches - fn.launches_bf16`` are f32 ones)."""
+    for a bf16 launch (``fn.launches - fn.launches_bf16`` are f32 ones). A
+    launch into a capturing stream (``graphs.Program``'s capture) records
+    the kernel and runs nothing, so it counts nothing: the graph's replays
+    launch it, and pass no wrapper."""
+    if torch.cuda.is_current_stream_capturing():
+        return
     fn.launches += 1
     if dtype == torch.bfloat16:
         fn.launches_bf16 += 1

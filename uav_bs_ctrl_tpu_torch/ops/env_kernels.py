@@ -62,7 +62,7 @@ def schedule_and_rate(params, d_u2g, gain, prior_gts, with_assignment=False):
     err = lib.env_schedule_forward(*ptrs, n_w, N, M, R, params.r_cov, params.p_tx,
                                    params.noise, params.bw, RATE_SCALE, build.stream_of(dev))
     build.check_launch(lib, "env_schedule_error_string", err, "env_schedule")
-    schedule_and_rate.launches += 1
+    build.count_launch(schedule_and_rate)
     return (rate_gt, rate_ubs) + ((assign,) if with_assignment else ())
 
 

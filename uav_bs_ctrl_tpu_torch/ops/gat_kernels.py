@@ -115,7 +115,7 @@ def flash_gat(el, er, attn, mask, n_heads, negative_slope=0.2):
     err = lib.flash_gat_forward(*ptrs, n, m, hf, n_heads, float(negative_slope),
                                 build.stream_of(el.device))
     build.check_launch(lib, "flash_gat_error_string", err, "flash_gat")
-    flash_gat.launches += 1
+    build.count_launch(flash_gat)
     return out
 
 

@@ -33,11 +33,12 @@ TINY_EXP1 = dict(n_worlds=2, updates_per_iter=1, batch_size=2, capacity_chunks=8
 
 
 def build_trainer(run_dir, device=None, n_layouts=N_LAYOUTS, n_worlds=None, interleave=None,
-                  updates_per_iter=None, batch_size=None, capacity_chunks=None):
+                  updates_per_iter=None, batch_size=None, capacity_chunks=None, graphs=True):
     """The run's fused trainer (:class:`FusedDrqnTrainer` for an exp1 run,
     else :class:`FusedMadrqnTrainer`) at the run's settings (``None`` keeps
     the run's value), loaded from the run's newest checkpoint. An exp1 run
-    takes no ``interleave``."""
+    takes no ``interleave``. ``graphs=False`` runs the trainer's eager path
+    instead of its programs (the reference the programs are held to)."""
     config = json.loads((Path(run_dir) / "config.json").read_text())
     kw = dict(config["args"], device=device or "cuda")
     if batch_size is not None:
@@ -50,7 +51,7 @@ def build_trainer(run_dir, device=None, n_layouts=N_LAYOUTS, n_worlds=None, inte
         trainer = FusedDrqnTrainer(config["env_kwargs"], train_kwargs=kw, n_worlds=n_worlds,
                                    capacity_chunks=capacity_chunks,
                                    updates_per_iter=updates_per_iter, n_layouts=n_layouts,
-                                   seed=config["seed"])
+                                   seed=config["seed"], graphs=graphs)
     else:
         if capacity_chunks is None:    # run_fast.py: replay_size rounded down to n_worlds
             capacity_chunks = kw["replay_size"] - kw["replay_size"] % n_worlds
@@ -58,7 +59,8 @@ def build_trainer(run_dir, device=None, n_layouts=N_LAYOUTS, n_worlds=None, inte
                                      capacity_chunks=capacity_chunks,
                                      updates_per_iter=updates_per_iter, n_layouts=n_layouts,
                                      seed=config["seed"],
-                                     interleave=interleave or config.get("interleave") or 1)
+                                     interleave=interleave or config.get("interleave") or 1,
+                                     graphs=graphs)
     trainer.learner.load_checkpoint(latest_checkpoint(run_dir))
     return trainer
 
