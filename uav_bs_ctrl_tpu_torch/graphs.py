@@ -41,14 +41,16 @@ import torch
 
 
 def _flatten(tree):
-    """``(leaves, spec)`` of a tree of dicts, lists, tuples, tensors and None."""
+    """``(leaves, spec)`` of a tree of dicts, lists, tuples (NamedTuples kept
+    by their class, so that an env state comes back with its fields),
+    tensors and None."""
     if isinstance(tree, dict):
         parts = [_flatten(v) for v in tree.values()]
         return [x for p in parts for x in p[0]], ("dict", tuple(tree), tuple(p[1] for p in parts))
     if isinstance(tree, (list, tuple)):
         parts = [_flatten(v) for v in tree]
-        return [x for p in parts for x in p[0]], (type(tree).__name__,
-                                                  tuple(p[1] for p in parts))
+        kind = type(tree) if hasattr(tree, "_fields") else type(tree).__name__
+        return [x for p in parts for x in p[0]], (kind, tuple(p[1] for p in parts))
     if tree is None:
         return [], None
     if not isinstance(tree, torch.Tensor):
@@ -68,6 +70,8 @@ def _unflatten(leaves, spec):
         if s[0] == "dict":
             return {k: build(v) for k, v in zip(s[1], s[2])}
         items = [build(v) for v in s[1]]
+        if isinstance(s[0], type):                   # a NamedTuple's class
+            return s[0](*items)
         return items if s[0] == "list" else tuple(items)
     return build(spec)
 
@@ -84,7 +88,7 @@ class Program:
     """``fn(*inputs)`` as a program on ``device``: on a CPU device a direct
     call; on a CUDA device one captured graph per input shape, replayed.
 
-    ``inputs`` are trees of tensors (dicts, lists, tuples, None); a CPU input
+    ``inputs`` are trees of tensors (dicts, lists, tuples, NamedTuples, None); a CPU input
     of a CUDA program is copied in from the host (pinned memory makes that
     copy asynchronous). ``extra`` are arguments fixed for the program, passed
     after the inputs. ``fn`` draws nothing and makes no host sync. It may be
