@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from uav_bs_ctrl_tpu_torch.envs.common import AirToGroundChannel
-from uav_bs_ctrl_tpu_torch.envs.torch_env import _chan_gain, _jain, _norm
+from uav_bs_ctrl_tpu_torch.envs.torch_env import _chan_gain, _constant, _jain, _norm
 
 
 class SubsParams(NamedTuple):
@@ -163,7 +163,7 @@ def reset_from_positions(params: SubsParams, pos_ubs, pos_gts, prior_gts) -> Sub
 def step(params: SubsParams, state: SubsState, action):
     """One step of every world; action [W] int. Returns
     (state', obs, reward [W], done [W])."""
-    move = torch.tensor(params.avail_moves, dtype=torch.float32, device=action.device)[action]
+    move = _constant(params.avail_moves, torch.float32, action.device)[action]
     pos = torch.clamp(state.pos_ubs + move, 0, params.range_pos)
     state = _transmit(params, state._replace(t=state.t + 1, pos_ubs=pos))
     rew = params.reward_scale_rate * state.global_util / params.max_rate
