@@ -73,8 +73,17 @@ plain versions and, at the whole columns, #4/#5 bit for bit, #2/#3 at a
 rank's heads, the split entry points timed, and one update of the committed
 checkpoint on dims (1, mp, 1) for mp = 1, 2, 4 at f32 and bf16 (ranks on the
 one card over gloo) against the single rank's and the f64 referee's, with
-each rank's busy ms, launches, heads and GRU columns and collectives; and
-timings (``exp1_times`` adds exp1's kernels, updates and collection).
+each rank's busy ms, launches, heads and GRU columns and collectives; the
+programs (``graph_phases``, ``program_phases``): each CUDA graph path
+against its eager twin bit for bit, its launches counted on the card (the
+8-UBS update, the fused iteration, ``serve.evaluate``, the 4-UBS
+DiscreteComm trainer; exp1's fused iteration resumed at full width, both
+exp1 runs served, a ``vec_run`` chunk and ``torch_env.rollout`` at 512
+worlds; the host loop's ``act`` in ``host_loop_phases``, whose ``test_series``
+summaries also equal the committed ``data/test_*`` rows of the exp1, 4-UBS
+and 8-UBS runs); and timings (``exp1_times`` adds exp1's kernels, updates
+and collection; ``bf16_table_cells`` the bf16 'near' #2/#3 and R = 4,096
+#4/#5 cells).
 Any failed phase exits non-zero with no result line. The last line is the
 JSON device record.
 """
@@ -1569,12 +1578,12 @@ def exp1_phases(ctx):
             t0 = time.perf_counter()
             tr = train.build_trainer(EXP1_GNN_DIR, DEVICE)
             lr = tr.learner
-            reset_counts()
             t1 = time.perf_counter()
-            warm = [tr.run_iteration(EPS, warmup=True) for _ in range(train.N_WARMUPS)]
-            torch.cuda.synchronize()
+            with card_launches() as card:       # the collection program: eager, then replays
+                warm = [tr.run_iteration(EPS, warmup=True) for _ in range(train.N_WARMUPS)]
+                torch.cuda.synchronize()
             t2 = time.perf_counter()
-            launches = ctx.phase_launches["exp1_train_warmups"] = counts()
+            launches = ctx.phase_launches["exp1_train_warmups"] = card.calls
         print(f"  {type(lr.net).__name__}, {tr.n_worlds} worlds, L = {tr.L} ({tr.n_slices} "
               f"slices an episode), {tr.updates_per_iter} updates an iteration at "
               f"B={lr.batch_size}; ring of {tr.capacity} chunks; lr {lr.lr} x {lr.lr_scale}; "
@@ -1713,7 +1722,7 @@ def host_loop_phases(ctx):
     counts, reset_counts = ctx.counts, ctx.reset_counts
     zero = dict.fromkeys(counts(), 0)
     scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_host_"))
-    out = SimpleNamespace(step_ms={}, kernel_cases={})
+    out = SimpleNamespace(step_ms={}, step_ms_eager={}, kernel_cases={})
     act_q = core.RecurrentQLearner._act_q
     errs, first = [], []
 
@@ -1732,29 +1741,53 @@ def host_loop_phases(ctx):
              f"checkpoint_epoch{EXP1_EPOCH}.pt", 200, dict(zero, flash_gat_fused=1)),
             ("4ubs", HOST_4UBS_DIR, serve.latest_checkpoint(HOST_4UBS_DIR).name,
              ROOT / "data" / "test_exp3_4ubs" / "test_summary.csv", "checkpoint_epoch100.pt",
+             50, dict(zero, flash_gat_fused=2, tarmac_step=1)),
+            ("8ubs", RUN_DIR, "checkpoint_epoch100.pt",
+             ROOT / "data" / "test_exp3_8ubs" / "test_summary.csv", "checkpoint_epoch100.pt",
              50, dict(zero, flash_gat_fused=2, tarmac_step=1)))
     for label, run_dir, ckpt, committed, committed_ckpt, steps, per_step in runs:
         with phase(f"test_policies on the card: {run_dir.name} at {ckpt}, {HOST_EPISODES} "
-                   f"episodes of {steps} steps, timed, then every step against the plain path"):
+                   f"episodes of {steps} steps, act as a program against eager, timed, then "
+                   f"every step against the plain path"):
             print(f"  {card_line()}", flush=True)
             n_steps = HOST_EPISODES * steps
-            timer = StepTimer()
-            reset_counts()
-            t0 = time.perf_counter()
-            summary = test_policies.test_series(
-                None, test_policies.METRICS, [str(run_dir)], ckpt, HOST_EPISODES,
-                str(scratch / label), device=DEVICE, timer=timer)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = ctx.phase_launches[f"host_test_series_{label}"] = counts()
-            times = timer.flush()
-            out.step_ms[label] = times
             want = {k: v * n_steps for k, v in per_step.items()}
-            print(f"  {wall:.2f} s (loading included); per host step: act {times['TimeActMs']:.3f}"
-                  f" ms, env {times['TimeEnvMs']:.3f} ms; launches {launches} over {n_steps} "
-                  f"steps", flush=True)
-            if launches != want:
-                raise AssertionError(f"expected {want} launches, got {launches}")
+            series = {}
+            for graphs_on in (True, False):
+                timer, act_ms = StepTimer(), []
+                reset_counts()
+                t0 = time.perf_counter()
+                with card_launches() as card, timing_calls(core.RecurrentQLearner, "act",
+                                                           act_ms):
+                    summary = test_policies.test_series(
+                        None, test_policies.METRICS, [str(run_dir)], ckpt, HOST_EPISODES,
+                        str(scratch / f"{label}_{graphs_on}"), device=DEVICE, timer=timer,
+                        graphs=graphs_on)
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                times = dict(timer.flush(), ActMedianMs=statistics.median(act_ms))
+                series[graphs_on] = (summary, card.calls, counts(), times)
+                print(f"  {'graph' if graphs_on else 'eager'}: {wall:.2f} s (loading included); "
+                      f"per host step: act {times['TimeActMs']:.3f} ms mean (the graph path's "
+                      f"first call captures), {times['ActMedianMs']:.4f} ms median, env "
+                      f"{times['TimeEnvMs']:.3f} ms; "
+                      f"launches {card.calls} over {n_steps} steps on the card, {counts()} "
+                      f"through the wrappers", flush=True)
+            (summary, launches, through, times), eager = series[True], series[False]
+            ctx.phase_launches[f"host_test_series_{label}"] = launches
+            out.step_ms[label] = times
+            out.step_ms_eager[label] = eager[3]
+            # the graph path's wrappers count act's first call only (its eager run)
+            if launches != want or eager[1] != want or eager[2] != want \
+                    or through != (want if DEVICE == "cpu" else per_step):
+                raise AssertionError(f"expected {want} launches (the program's wrappers "
+                                     f"{per_step}), got {launches} ({through}), eager "
+                                     f"{eager[1]} ({eager[2]})")
+            if summary != eager[0]:
+                raise AssertionError(f"act's program gives another summary than eager act: "
+                                     f"{summary} against {eager[0]}")
+            print(f"  the summary of act as a program equals eager act's bit for bit",
+                  flush=True)
             for key, v in summary.items():
                 if len(v) != HOST_EPISODES or not np.isfinite(np.asarray(v, float)).all():
                     raise AssertionError(f"{key}: {v}")
@@ -1764,21 +1797,23 @@ def host_loop_phases(ctx):
                 test_policies.test_series(None, test_policies.METRICS, [str(run_dir)],
                                           committed_ckpt, HOST_EPISODES,
                                           str(scratch / f"{label}_committed"), device=DEVICE)
-            same = rows_equal(scratch / (label if committed_ckpt == ckpt else
+            same = rows_equal(scratch / (f"{label}_True" if committed_ckpt == ckpt else
                                          f"{label}_committed") / "test_summary.csv",
                               committed, HOST_EPISODES)
             print(f"  at {committed_ckpt}, episodes whose row equals the committed "
                   f"{committed.relative_to(ROOT)} (the JAX harness, same seed; 1e-5 relative): "
                   f"{sum(same)} of {HOST_EPISODES} ({same})", flush=True)
+            if not all(same):
+                raise AssertionError(f"{label}: the committed rows are not reproduced: {same}")
 
             errs.clear()
             first.clear()
             core.RecurrentQLearner._act_q = checked
             try:
                 reset_counts()
-                again = test_policies.test_series(
+                again = test_policies.test_series(      # eager: the check syncs every step
                     None, test_policies.METRICS, [str(run_dir)], ckpt, HOST_EPISODES,
-                    str(scratch / f"{label}_checked"), device=DEVICE)
+                    str(scratch / f"{label}_checked"), device=DEVICE, graphs=False)
                 torch.cuda.synchronize()
             finally:
                 core.RecurrentQLearner._act_q = act_q
@@ -1835,11 +1870,11 @@ def host_loop_phases(ctx):
         print(f"  one classic update (kernels): {out.classic_update_ms:.2f} ms", flush=True)
 
     with phase("test_policies reads back the classic run's checkpoint_epoch1.pt"):
-        reset_counts()
-        summary = test_policies.test_series(None, test_policies.METRICS, [str(run_dir)],
-                                            "checkpoint_epoch1.pt", 1, str(scratch / "readback"),
-                                            device=DEVICE)
-        launches = counts()
+        with card_launches() as card:
+            summary = test_policies.test_series(None, test_policies.METRICS, [str(run_dir)],
+                                                "checkpoint_epoch1.pt", 1,
+                                                str(scratch / "readback"), device=DEVICE)
+        launches = card.calls
         print(f"  {json.dumps({f'{m}/{e}': float(np.mean(v)) for (m, e), v in summary.items()})};"
               f" launches {launches}", flush=True)
         if launches != dict(zero, flash_gat_fused=2 * T, tarmac_step=T) or not all(
@@ -1878,24 +1913,50 @@ def host_loop_phases(ctx):
     return out
 
 
+@contextlib.contextmanager
+def timing_calls(cls, name, ms):
+    """Append the host wall ms of each call of ``cls.name`` inside the block
+    to ``ms`` (a call that reads its result back to the host, as ``act``
+    does, includes its device time)."""
+    fn = getattr(cls, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(cls, name, timed)
+    try:
+        yield
+    finally:
+        setattr(cls, name, fn)
+
+
 def host_kernel_times(label, calls, cases):
-    """Times the kernel calls of one host step (one world: #2 at N = 1 or 4
-    rows, #4 at R = 4) against their plain versions, with their bounds, into
-    ``cases[name]``; measurement only, after the phase's launches are counted."""
+    """Times the kernel calls of one host step (one world: #2 at N = 1, 4 or
+    8 rows, #4 at R = 4 or 8) against their plain versions, with their
+    bounds, into ``cases[name]``, at f32 (the run's) and at bf16 (the same
+    inputs rounded: the cells a bf16 run's host loop would launch);
+    measurement only, after the phase's launches are counted."""
     from uav_bs_ctrl_tpu_torch.ops.gat_kernels import flash_gat_fused, flash_gat_fused_plain
     from uav_bs_ctrl_tpu_torch.ops.step_kernels import tarmac_step, tarmac_step_plain
     fns = {"flash_gat_fused": (flash_gat_fused, flash_gat_fused_plain),
            "tarmac_step": (tarmac_step, tarmac_step_plain)}
-    for name, args in calls:
+    for name, f32_args in calls:
         fn, plain = fns[name]
-        if name == "tarmac_step":
-            cost, shape = step_cost(args), f"R={args[0].shape[0]}"
-        else:
-            cost = gat_cost(args)
-            shape = f"N={args[0].shape[0]} M={args[0].shape[1]} D={args[0].shape[2]}"
-        cases.setdefault(name, []).append(time_case(
-            f"host loop {label} {name} {shape}", f"host loop {label}: {shape}", fn, plain, args,
-            cost))
+        for dt in (torch.float32, torch.bfloat16):
+            args = tuple(a.to(dt) if torch.is_tensor(a) and a.is_floating_point() else a
+                         for a in f32_args)
+            if name == "tarmac_step":
+                cost, shape = step_cost(args), f"R={args[0].shape[0]}"
+            else:
+                cost = gat_cost(args)
+                shape = f"N={args[0].shape[0]} M={args[0].shape[1]} D={args[0].shape[2]}"
+            tag = "" if dt == torch.float32 else " bf16"
+            cases.setdefault(name, []).append(time_case(
+                f"host loop {label} {name}{tag} {shape}", f"host loop {label}:{tag} {shape}",
+                fn, plain, args, cost))
 
 
 def committed_rows(path):
@@ -3418,6 +3479,316 @@ def _graph_phases(ctx):
     return out
 
 
+PROGRAM_VEC_CUTS = dict(steps_per_epoch=VEC_WORLDS * 50, epochs=1, replay_size=64,
+                        num_test_episodes=5)   # one chunk of 32 worlds x T = 50
+PROGRAM_VEC_UPDATES = 4   # the twin comparison's updates (each eager 8-UBS update about 0.25 s)
+
+
+def timed_runs(fns, order=(True, False, False, True)):
+    """``{key: [wall s, ...]}`` of ``fns[key]()`` in ``order``, the card idle
+    before and after each call."""
+    out = {}
+    for key in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[key]()
+        torch.cuda.synchronize()
+        out.setdefault(key, []).append(time.perf_counter() - t0)
+    return out
+
+
+def program_phases(ctx):
+    """Slice 21, the rest of JAX's single-card jits as programs, each against
+    its eager twin on the card, bit for bit: exp1's fused iteration (the
+    committed gnn run resumed at full width: two warm-ups, the 800-update
+    iteration, the test episodes twice; then a steady-state iteration);
+    both committed exp1 runs served at ``N_WORLDS`` worlds (``serve.evaluate``'s
+    first call and a replay of its kept program); a ``vec_run`` chunk at the
+    8-UBS run's width; ``torch_env.rollout`` of the 8-UBS policy at
+    ``ROLLOUT_WORLDS`` worlds, eps ``EPS``. The launches: the eager twin's
+    through the wrappers, the graph path's on the card (``card_launches``),
+    each held to the other and to its formula. Times, each against the eager
+    twin: an exp1 iteration, exp1's collection, vec_run's collection and the
+    rollout (env steps/s). ``ctx``: ``counts``, ``reset_counts``,
+    ``check_env``, ``phase_launches``. Returns the times."""
+    with remembering_inputs() if DEVICE == "cpu" else contextlib.nullcontext():
+        return _program_phases(ctx)
+
+
+def _program_phases(ctx):
+    from uav_bs_ctrl_tpu_torch import graphs, serve, train
+    from uav_bs_ctrl_tpu_torch.algos import collect
+    from uav_bs_ctrl_tpu_torch.algos.buffer import tree_leaves, tree_map
+    from uav_bs_ctrl_tpu_torch.algos.madrqn import vec_run
+    from uav_bs_ctrl_tpu_torch.envs import torch_env
+    counts, reset_counts = ctx.counts, ctx.reset_counts
+    zero = dict.fromkeys(counts(), 0)
+    out = SimpleNamespace(exp1={}, serve={}, vec={}, rollout={})
+    replayed = (lambda n: n) if DEVICE == "cpu" else (lambda n: dict(zero))
+
+    with phase(f"programs: exp1's fused iteration, {EXP1_GNN_DIR.name} resumed at full width, "
+               f"graph against eager ({train.N_WARMUPS} warm-ups, the iteration, {N_WORLDS} "
+               f"test episodes twice), then a steady-state iteration"):
+        print(f"  card: {card_line()}", flush=True)
+        runs = {}
+        for graphs_on in (True, False):
+            with torch.enable_grad():
+                tr = train.build_trainer(EXP1_GNN_DIR, DEVICE, graphs=graphs_on)
+                reset_counts()
+                with card_launches() if graphs_on else contextlib.nullcontext() as card:
+                    t0 = time.perf_counter()
+                    warm = [tr.run_iteration(EPS, warmup=True) for _ in range(train.N_WARMUPS)]
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    metrics = tr.run_iteration(EPS)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    test = [tr.evaluate(N_WORLDS, eps=EPS) for _ in range(2)]
+                    t3 = time.perf_counter()
+            launches = card.calls if graphs_on else counts()
+            runs[graphs_on] = SimpleNamespace(trainer=tr, warm=warm, metrics=metrics, test=test,
+                                              launches=launches, times=(t1 - t0, t2 - t1, t3 - t2))
+            print(f"  {'graph' if graphs_on else 'eager'}: warm-ups {t1 - t0:.3f} s, the "
+                  f"iteration {t2 - t1:.3f} s, two test episodes {t3 - t2:.3f} s; "
+                  f"{tr.n_worlds} worlds, {tr.updates_per_iter} updates at B = "
+                  f"{tr.learner.batch_size}; launches {launches}"
+                  f"{' on the card' if graphs_on else ''}", flush=True)
+        g, e = runs[True], runs[False]
+        gt, et = g.trainer, e.trainer
+        T, L, n_upd = gt.T, gt.L, gt.updates_per_iter
+        want = dict(zero, flash_gat_fused=(train.N_WARMUPS + 1 + 2) * T + n_upd * (2 * L + 1),
+                    flash_gat_fused_bwd=n_upd * L)
+        ctx.phase_launches["exp1_programs"] = g.launches
+        if (g.warm, g.metrics, g.launches) != (e.warm, e.metrics, e.launches) \
+                or e.launches != want or any(not np.array_equal(a[k], b[k])
+                                             for a, b in zip(g.test, e.test) for k in b):
+            raise AssertionError(f"exp1: graph {g.warm} {g.metrics} {g.launches}, eager "
+                                 f"{e.warm} {e.metrics} {e.launches} (expected {want})")
+        hold_bits("exp1's iteration", ring=(tree_leaves(gt.replay), tree_leaves(et.replay)),
+                  losses=([gt.last_losses], [et.last_losses]),
+                  learner=(learner_bits(gt.learner), learner_bits(et.learner)),
+                  generator=([gt.generator.get_state()], [et.generator.get_state()]))
+        if (gt._ptr, gt._size) != (et._ptr, et._size):
+            raise AssertionError("exp1: the ring's books differ")
+        cap = program_stats(gt._collection, gt._episodes.program,
+                            *gt.learner._programs.values())
+        with torch.enable_grad():                  # every shape captured: replays only
+            t0 = time.perf_counter()
+            steady = gt.run_iteration(EPS)
+            torch.cuda.synchronize()
+            again = time.perf_counter() - t0
+        collect_s = timed_runs({True: lambda: gt._collect_replayed(EPS),
+                                False: lambda: et._write(et._collect(EPS)[0])})
+        n_steps = gt.n_worlds * T
+        out.exp1 = dict(graph=g.times, eager=e.times, graph_again=again,
+                        collect_steps_s={k: n_steps / statistics.mean(v)
+                                         for k, v in collect_s.items()}, **cap)
+        print(f"  the iteration {g.times[1]:.3f} s on the graph path (its first calls and "
+              f"captures included), {e.times[1]:.3f} s eager; the next graph iteration "
+              f"{again:.3f} s (LossQ {steady['LossQ']:.5f}); {cap['graphs']} graphs captured in "
+              f"{cap['capture_s']:.3f} s, pools {cap['pool_bytes']} bytes; the collection "
+              f"({gt.n_worlds} x {T} steps, its ring write included) "
+              f"{out.exp1['collect_steps_s'][True]:.1f} env steps/s on the graph path (runs "
+              f"{[round(x, 4) for x in collect_s[True]]} s), eager "
+              f"{out.exp1['collect_steps_s'][False]:.1f} ({[round(x, 4) for x in collect_s[False]]}"
+              f" s); metrics {json.dumps(g.metrics)}", flush=True)
+        del runs, g, e, gt, et, tr
+        gc.collect()
+
+    with phase(f"programs: the committed exp1 gnn and rnn runs served at {N_WORLDS} worlds, "
+               f"serve.evaluate's first call and a replay of its kept program against eager"):
+        for label, run_dir in (("gnn", EXP1_GNN_DIR), ("rnn", EXP1_RNN_DIR)):
+            serve._served.clear()
+            T = json.loads((run_dir / "config.json").read_text())["env_kwargs"].get(
+                "episode_limit", 200)
+            per_episode = dict(zero, flash_gat_fused=T if label == "gnn" else 0)
+            calls = {}
+            for kind in ("first", "kept", "eager"):
+                reset_counts()
+                with card_launches() if kind == "kept" else contextlib.nullcontext() as card:
+                    t0 = time.perf_counter()
+                    stats = serve.evaluate(run_dir, N_WORLDS, eps=EPS, seed=0, device=DEVICE,
+                                           graphs=kind != "eager")
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                got = (counts(), card.calls) if kind == "kept" else counts()
+                want = (replayed(per_episode), per_episode) if kind == "kept" else per_episode
+                if got != want:
+                    raise AssertionError(f"exp1 {label} served, {kind} call: launches {got}, "
+                                         f"expected {want}")
+                calls[kind] = (stats, wall)
+            hold_bits(f"exp1 {label} served, its first call", stats=(calls["first"][0],
+                                                                    calls["eager"][0]))
+            hold_bits(f"exp1 {label} served, a replay of its kept program",
+                      stats=(calls["kept"][0], calls["eager"][0]))
+            kept = timed_runs({True: lambda: serve.evaluate(run_dir, N_WORLDS, eps=EPS, seed=0,
+                                                            device=DEVICE)}, (True, True))[True]
+            out.serve[label] = dict(first=calls["first"][1], kept=statistics.mean(kept),
+                                    eager=calls["eager"][1],
+                                    steps_s=N_WORLDS * T / statistics.mean(kept))
+            print(f"  {label}: the first call {calls['first'][1]:.4f} s (loading, an eager "
+                  f"episode, the capture), a later call {out.serve[label]['kept']:.4f} s "
+                  f"({out.serve[label]['steps_s']:.1f} env steps/s, loading included), eager "
+                  f"{calls['eager'][1]:.4f} s; launches an episode {per_episode}; TestEpRet "
+                  f"{float(calls['kept'][0]['TestEpRet'].mean()):.4f}", flush=True)
+        serve._served.clear()
+
+    run_args = json.loads((RUN_DIR / "config.json").read_text())["args"]
+    with phase(f"programs: a vec_run chunk at {RUN_DIR.parent.name}'s width ({VEC_WORLDS} "
+               f"worlds, {PROGRAM_VEC_UPDATES} updates), graph against eager"):
+        scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_programs_"))
+        kw = dict(run_args, device=DEVICE, save_freq=1, **PROGRAM_VEC_CUTS)
+        runs = {}
+        for graphs_on in (True, False):
+            reset_counts()
+            with torch.enable_grad(), card_launches() as card:
+                learner = vec_run.train_vectorized(
+                    "8ubs", seed=0, train_kwargs=kw, n_worlds=VEC_WORLDS,
+                    updates_per_chunk=PROGRAM_VEC_UPDATES, graphs=graphs_on,
+                    logger_kwargs=dict(output_dir=str(scratch / str(graphs_on)),
+                                       exp_name="chip_smoke_vec"))
+            torch.cuda.synchronize()
+            _, rows = progress_rows(scratch / str(graphs_on))
+            runs[graphs_on] = (learner, [{k: v for k, v in r.items()
+                                          if not k.startswith("Time") and k != "EnvStepsPerSec"}
+                                         for r in rows], card.calls, card.env)
+        (gl, g_rows, g_calls, g_env), (el, e_rows, e_calls, e_env) = runs[True], runs[False]
+        T = gl.max_seq_len
+        want = dict(zero, flash_gat_fused=2 * 2 * T + PROGRAM_VEC_UPDATES * 2 * (2 * T + 1),
+                    tarmac_step=2 * T + PROGRAM_VEC_UPDATES * (2 * T + 1),
+                    flash_gat_fused_bwd=PROGRAM_VEC_UPDATES * 2 * T,
+                    tarmac_step_bwd=PROGRAM_VEC_UPDATES * T)
+        ctx.phase_launches["vec_run_programs"] = g_calls
+        print(f"  rows {g_rows}; launches on the card {g_calls} (eager {e_calls}), "
+              f"env_schedule {g_env} (eager {e_env})", flush=True)
+        if g_rows != e_rows or (g_calls, g_env) != (e_calls, e_env) or e_calls != want \
+                or e_env != 2 * (T + 1):
+            raise AssertionError(f"vec_run: graph {g_rows} {g_calls} {g_env}, eager {e_rows} "
+                                 f"{e_calls} {e_env} (expected {want})")
+        hold_bits("the vec_run chunk", learner=(learner_bits(gl), learner_bits(el)),
+                  buffer=([torch.from_numpy(x) for x in tree_leaves(gl.buffer._storage)],
+                          [torch.from_numpy(x) for x in tree_leaves(el.buffer._storage)]))
+        # vec_run's collection alone, as train_vectorized runs it: the draws, the episode and
+        # the host's copy of the chunk
+        env_params = torch_env.make_params("8ubs")
+        policy = collect.make_policy(gl._apply_net, run_args["o"])
+        pool = collect.make_layout_pool("8ubs", 256, seed=0)
+        pool_dev = collect.pool_on(pool, DEVICE)
+        collection = graphs.Program(vec_run.collection_body, DEVICE, name="collection",
+                                    extra=(env_params, policy, pool_dev, gl.net.hidden,
+                                           run_args["o"]))
+        gen = torch.Generator().manual_seed(3)
+
+        def graph_chunk():
+            chunk, stats = collection(*collect.draw_episode(
+                env_params, 256, gen, VEC_WORLDS, EPS, None, DEVICE))
+            tree_map(lambda x: x.cpu().numpy(), chunk)
+
+        @torch.no_grad()
+        def eager_chunk():
+            states = collect.reset_worlds(env_params, pool, gen, VEC_WORLDS, DEVICE)
+            h0 = torch.zeros((VEC_WORLDS, env_params.n_ubs, gl.net.hidden), device=DEVICE)
+            chunk = collect.collect_chunk(env_params, policy, states, h0, T, gen, EPS)[0]
+            tree_map(lambda x: x.cpu().numpy(), chunk)
+
+        graph_chunk()                                       # the first call and the capture
+        chunk_s = timed_runs({True: graph_chunk, False: eager_chunk})
+        out.vec = {k: VEC_WORLDS * T / statistics.mean(v) for k, v in chunk_s.items()}
+        print(f"  vec_run's collection ({VEC_WORLDS} x {T} steps, the host copy included): "
+              f"{out.vec[True]:.1f} env steps/s on the graph path (runs "
+              f"{[round(x, 4) for x in chunk_s[True]]} s), eager {out.vec[False]:.1f} "
+              f"({[round(x, 4) for x in chunk_s[False]]} s)", flush=True)
+        shutil.rmtree(scratch)
+        del runs, gl, el, learner, collection
+
+    with phase(f"programs: torch_env.rollout of {RUN_DIR.name} at {ROLLOUT_WORLDS} worlds, "
+               f"eps {EPS}, graph against eager"):
+        agent, config = serve.load_policy(RUN_DIR, DEVICE)
+        params = torch_env.make_params(config["map_id"])
+        T = params.episode_limit
+        states = torch_env.reset(params, torch.Generator().manual_seed(0), DEVICE,
+                                 ROLLOUT_WORLDS)
+        h0 = torch.zeros((ROLLOUT_WORLDS, params.n_ubs, agent.hidden), device=DEVICE)
+        torch_env._rollouts.clear()
+
+        def roll(graphs_on, seed=1):
+            gen = torch.Generator().manual_seed(seed)
+            final, rews = torch_env.rollout(params, agent, states, h0, gen, T, EPS,
+                                            graphs=graphs_on)
+            return final, rews, gen.get_state()
+
+        per_rollout = dict(zero, flash_gat_fused=2 * T, tarmac_step=T)
+        res = {}
+        for kind in ("first", "replay", "eager"):
+            reset_counts()
+            with card_launches() if kind == "replay" else contextlib.nullcontext() as card:
+                res[kind] = roll(kind != "eager", 1 if kind != "first" else 2)
+                torch.cuda.synchronize()
+            got = (counts(), card.calls, card.env) if kind == "replay" else (
+                counts(), ctx.check_env(f"rollout, {kind}"))
+            want = (replayed(per_rollout), per_rollout, T) if kind == "replay" else (
+                per_rollout, T)
+            if got != want:
+                raise AssertionError(f"rollout, {kind}: launches {got}, expected {want}")
+        first_eager = roll(False, 2)
+        for kind, ref in (("first", first_eager), ("replay", res["eager"])):
+            hold_bits(f"rollout at {ROLLOUT_WORLDS} worlds, its {kind} call",
+                      state=(list(res[kind][0]), list(ref[0])), rewards=([res[kind][1]], [ref[1]]),
+                      generator=([res[kind][2]], [ref[2]]))
+        roll_s = timed_runs({True: lambda: roll(True), False: lambda: roll(False)})
+        out.rollout = {k: ROLLOUT_WORLDS * T / statistics.mean(v) for k, v in roll_s.items()}
+        (_, kept), = torch_env._rollouts.values()
+        print(f"  {ROLLOUT_WORLDS} worlds x {T} steps: {out.rollout[True]:.1f} env steps/s on "
+              f"the graph path (replays of the kept program, the draws included; runs "
+              f"{[round(x, 4) for x in roll_s[True]]} s), eager {out.rollout[False]:.1f} "
+              f"({[round(x, 4) for x in roll_s[False]]} s); launches a rollout {per_rollout}, "
+              f"one env_schedule a step; the program {json.dumps(program_stats(kept))}",
+              flush=True)
+        torch_env._rollouts.clear()
+        del agent
+    return out
+
+
+BF16_NEAR_ROWS = (256, 2048, 104_448)   # #2/#3's 'near' rows: B = 32 and 256 updates, hoisted
+
+
+def bf16_table_cells(rng, step_args):
+    """bf16 cells of the kernel table timed with their bounds: #2 and #3 on
+    'near' rows (M = 7 UBS slots of D = 2, every slot valid, as in an
+    update) at ``BF16_NEAR_ROWS``, and #4/#5 on ``step_args`` (R = 4,096, the
+    f32 case's inputs) rounded to bf16. Returns ``{kernel: [case, ...]}``."""
+    from uav_bs_ctrl_tpu_torch.ops import gat_kernels, step_kernels
+    bf16 = torch.bfloat16
+    cast = lambda args: tuple(a.to(bf16) if torch.is_tensor(a) and a.is_floating_point()
+                              else a for a in args)
+    cases = {}
+    for n in BF16_NEAR_ROWS:
+        c = gat_case(rng, n, 7, 2, 256, 4, masked_rows=[], valid=1.0)
+        args = cast((c["x"], c["w"], c["b"], c["er"], c["attn"], c["mask"], 4))
+        out, mstat, lstat = gat_kernels.flash_gat_fused(*args)
+        bwd_args = args[:6] + (out, mstat, lstat, torch.randn(out.shape, device=DEVICE).to(bf16),
+                               4, 0.2, False)
+        timing = dict(n_iter=5, reps=3) if n > 10_000 else {}
+        for name, fn, plain, kargs, cost in (
+                ("flash_gat_fused", gat_kernels.flash_gat_fused,
+                 gat_kernels.flash_gat_fused_plain, args, gat_cost(args)),
+                ("flash_gat_fused_bwd", gat_kernels.flash_gat_fused_bwd,
+                 gat_kernels.flash_gat_fused_bwd_plain, bwd_args, gat_bwd_cost(bwd_args))):
+            cases.setdefault(name, []).append(time_case(
+                f"bf16 {name} 'near' N={n} M=7 D=2, all valid", f"bf16 'near' N={n}", fn, plain,
+                kargs, cost, **timing))
+    bwd = cast(step_args)
+    fwd = bwd[:17] + bwd[19:]
+    for name, fn, plain, kargs, cost in (
+            ("tarmac_step", step_kernels.tarmac_step, step_kernels.tarmac_step_plain, fwd,
+             step_cost(fwd)),
+            ("tarmac_step_bwd", step_kernels.tarmac_step_bwd, step_kernels.tarmac_step_bwd_plain,
+             bwd, step_bwd_cost(bwd))):
+        cases[name] = [time_case(f"bf16 {name} R={bwd[0].shape[0]}",
+                                 f"bf16 512 worlds, R={bwd[0].shape[0]}", fn, plain, kargs, cost)]
+    return cases
+
+
 def exp1_times(e1):
     """exp1's times: #2 and #3 at exp1's shapes with their bounds, ms per
     update (gnn through the kernels and on the plain path, rnn), the
@@ -4166,6 +4537,8 @@ def main():
     split_records = mp_split_phases(SimpleNamespace(batch=batch, phase_launches=phase_launches))
     graph_phases(SimpleNamespace(batch=batch, counts=counts, reset_counts=reset_counts,
                                  check_env=check_env))
+    program_phases(SimpleNamespace(counts=counts, reset_counts=reset_counts,
+                                   check_env=check_env, phase_launches=phase_launches))
 
     record = []
     with phase("times"):
@@ -4221,12 +4594,14 @@ def main():
                                    torch.randn((512 * A, 256), device=device), A, 16, False)
         big_fwd = big[:17] + big[19:]
         big_cases = {
-            "tarmac_step_bwd": time_case("tarmac_step_bwd (4096, 256), 512 worlds",
-                                         "512 worlds, R=4096", tarmac_step_bwd,
-                                         tarmac_step_bwd_plain, big, step_bwd_cost(big)),
-            "tarmac_step": time_case("tarmac_step (4096, 256), 512 worlds", "512 worlds, R=4096",
-                                     tarmac_step, tarmac_step_plain, big_fwd,
-                                     step_cost(big_fwd))}
+            "tarmac_step_bwd": [time_case("tarmac_step_bwd (4096, 256), 512 worlds",
+                                          "512 worlds, R=4096", tarmac_step_bwd,
+                                          tarmac_step_bwd_plain, big, step_bwd_cost(big))],
+            "tarmac_step": [time_case("tarmac_step (4096, 256), 512 worlds",
+                                      "512 worlds, R=4096", tarmac_step, tarmac_step_plain,
+                                      big_fwd, step_cost(big_fwd))]}
+        for name, more in bf16_table_cells(rng, big).items():
+            big_cases.setdefault(name, []).extend(more)
         exp1_cases = exp1_times(e1)
         # Each kernel's launches on its main path: flash_gat's the 4-UBS 'pallas'
         # serving, the others' the training path.
@@ -4248,7 +4623,7 @@ def main():
             if name in exp1_cases:
                 record[-1]["cases"] = exp1_cases[name]
             if name in big_cases:
-                record[-1]["cases"] = [big_cases[name]]
+                record[-1].setdefault("cases", []).extend(big_cases[name])
             if name in host_loop.kernel_cases:
                 record[-1].setdefault("cases", []).extend(host_loop.kernel_cases[name])
 

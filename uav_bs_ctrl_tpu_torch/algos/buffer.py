@@ -180,6 +180,19 @@ class DeviceRing:
         return torch.randint(0, self._size, (self.learner.batch_size,),
                              generator=self.generator)
 
+    def _draw_rows(self, k):
+        """``k`` batches' ring slots [k, B], drawn on the host in
+        :meth:`sample_batch`'s order and copied to the device in one go."""
+        rows = torch.stack([self._draw_sample() for _ in range(k)])
+        if torch.device(self.device).type == "cuda":
+            rows = rows.pin_memory()
+        return rows.to(self.device, non_blocking=True)
+
+    @staticmethod
+    def _host_means(stats):
+        """Each stat's mean, brought to the host in one copy."""
+        return dict(zip(stats, torch.stack([v.mean() for v in stats.values()]).tolist()))
+
     # A program writes by slot index (a slice at the host's ``ptr`` would be
     # frozen into a captured graph): ``_claim`` keeps the books of a write of
     # ``n`` chunks as ``_write`` does and returns its slots, the program's

@@ -130,12 +130,16 @@ class StepKey:
 
 class DrawnKey:
     """One step's policy key in a program: the Gumbel noise drawn before the
-    replay from the step's seed (what ``StepKey.noise`` draws)."""
+    replay from the step's seed (what ``StepKey.noise`` draws), or None when
+    the policy reads no key (reading it then raises)."""
 
     def __init__(self, noise):
         self._noise = noise
 
     def noise(self, shape, device):
+        if self._noise is None:
+            raise RuntimeError("the policy reads a key, and no noise was drawn for it: give "
+                               "the program the shape of one step's noise")
         if tuple(shape) != tuple(self._noise.shape):
             raise ValueError(f"the step reads noise of shape {tuple(shape)}, drawn "
                              f"{tuple(self._noise.shape)}")
@@ -173,7 +177,7 @@ class _DrawnBefore:
         self.rand, self.explore, self.noise = rand, explore, noise
 
     def key(self, t):
-        return None if self.noise is None else DrawnKey(self.noise[t])
+        return DrawnKey(None if self.noise is None else self.noise[t])
 
     def choose(self, t, greedy):
         return torch.where(self.explore[t], self.rand[t], greedy)
@@ -267,6 +271,27 @@ def evaluate_policy(env_params, policy, pool, hidden_size, generator, n_episodes
 # --------------------------------------------------------------------------- #
 # Episodes as programs: the draws made first, then the episode on them.
 
+def n_agents_of(env_params):
+    """The agents of a world: the UBSs of the multi-UBS env, 1 for the
+    single-UBS (exp1) env, whose params have no ``n_ubs``."""
+    return getattr(env_params, "n_ubs", 1)
+
+
+def draw_steps(generator, n_steps, shape, n_actions, eps, reads_key):
+    """Each of ``n_steps`` steps' draws, by the eager path's calls in its
+    order: a seed when the policy ``reads_key``, then the random actions of
+    ``shape`` ([W, A]) and the coins. Returns ``(rand [W, T, A], explore
+    [W, T] bool, seeds)``."""
+    seeds, rand, explore = [], [], []
+    for _ in range(n_steps):
+        if reads_key:
+            seeds.append(draw_seed(generator))
+        r, e = draw_explore(generator, shape, n_actions, eps)
+        rand.append(r)
+        explore.append(e)
+    return torch.stack(rand, 1), torch.cat(explore, 1), seeds
+
+
 def draw_episode(env_params, n_layouts, generator, n_worlds, eps, noise_shape, device,
                  slots=None):
     """Every draw of one episode of ``n_worlds`` worlds from a pool of
@@ -275,23 +300,18 @@ def draw_episode(env_params, n_layouts, generator, n_worlds, eps, noise_shape, d
     Gumbel noise, is not None: the policy reads a key), random actions and
     coin. Returns ``(draws, noise)``: ``draws`` [W, K] int64 on the host
     (pinned for a CUDA ``device``), each world's row its layout, priority
-    permutation, T x A random actions, T coins and, with ``slots`` [W], its
-    ring slot (:func:`unpack_draws` reads them); ``noise`` [T, ...] each
-    step's noise drawn on ``device`` from its seed, as ``StepKey.noise``
-    draws it, or None."""
-    T, A = env_params.episode_limit, env_params.n_ubs
+    permutation, T x A random actions, T coins and, with ``slots`` ([W], or
+    [W, S] for S ring chunks a world), its ring slots (:func:`unpack_draws`
+    reads them); ``noise`` [T, ...] each step's noise drawn on ``device``
+    from its seed, as ``StepKey.noise`` draws it, or None. The single-UBS
+    env's episodes (``collect_subs``) draw the same with A = 1."""
+    T, A = env_params.episode_limit, n_agents_of(env_params)
     idx, prior = draw_reset(env_params.n_gts, n_layouts, generator, n_worlds)
-    seeds, rand, explore = [], [], []
-    for _ in range(T):
-        if noise_shape is not None:
-            seeds.append(draw_seed(generator))
-        r, e = draw_explore(generator, (n_worlds, A), env_params.n_actions, eps)
-        rand.append(r)
-        explore.append(e)
-    cols = [idx[:, None], prior, torch.stack(rand, 1).reshape(n_worlds, T * A),
-            torch.cat(explore, 1).to(torch.int64)]
+    rand, explore, seeds = draw_steps(generator, T, (n_worlds, A), env_params.n_actions, eps,
+                                      noise_shape is not None)
+    cols = [idx[:, None], prior, rand.reshape(n_worlds, T * A), explore.to(torch.int64)]
     if slots is not None:
-        cols.append(slots[:, None])
+        cols.append(slots.reshape(n_worlds, -1))
     draws = torch.cat(cols, 1)
     if torch.device(device).type == "cuda":
         draws = draws.pin_memory()
@@ -302,15 +322,15 @@ def draw_episode(env_params, n_layouts, generator, n_worlds, eps, noise_shape, d
 
 def unpack_draws(draws, env_params):
     """:func:`draw_episode`'s draws, on the device: ``idx`` [W], ``prior``
-    [W, M], ``rand`` [T, W, A], ``explore`` [T, W, 1] bool and ``slot`` [W]
-    (None without slots)."""
-    T, A, M = env_params.episode_limit, env_params.n_ubs, env_params.n_gts
+    [W, M], ``rand`` [T, W, A], ``explore`` [T, W, 1] bool and ``slot``
+    [W * S], world-major (None without slots)."""
+    T, A, M = env_params.episode_limit, n_agents_of(env_params), env_params.n_gts
     n_worlds, o = draws.shape[0], 1 + M + T * A
     return SimpleNamespace(
         idx=draws[:, 0], prior=draws[:, 1:1 + M].contiguous(),
         rand=draws[:, 1 + M:o].reshape(n_worlds, T, A).transpose(0, 1),
         explore=(draws[:, o:o + T] != 0).transpose(0, 1)[..., None],
-        slot=draws[:, o + T].contiguous() if draws.shape[1] > o + T else None)
+        slot=draws[:, o + T:].reshape(-1) if draws.shape[1] > o + T else None)
 
 
 def reset_on_draws(env_params, pool, d):
@@ -350,13 +370,17 @@ class EpisodeProgram:
     CUDA graph on the card (one per ``n_episodes``). ``noise_shape(W)`` is
     the shape of one step's Gumbel noise at W worlds, or None when the
     policy reads no key (an agent's ``noise_shape((W,), n_agents)``). The
-    stats are the eager call's, and ``generator`` ends where it would."""
+    stats are the eager call's, and ``generator`` ends where it would.
+    ``body`` plays the episode: :func:`episode_body`, or for exp1's
+    single-UBS env ``collect_subs.episode_body`` (its pool ``(pos_ubs [2],
+    gts [P, M, 2])``)."""
 
-    def __init__(self, env_params, policy, pool, hidden_size, device, noise_shape):
+    def __init__(self, env_params, policy, pool, hidden_size, device, noise_shape,
+                 body=episode_body):
         self.env_params, self.policy, self.hidden_size = env_params, policy, hidden_size
-        self.device, self.noise_shape = torch.device(device), noise_shape
+        self.device, self.noise_shape, self.body = torch.device(device), noise_shape, body
         self.pool = pool_on(pool, device)
-        self.n_layouts = self.pool[0].shape[0]
+        self.n_layouts = self.pool[1].shape[0]
         self.program = graphs.Program(self._body, device, name="episode")
 
     def __call__(self, generator, n_episodes, eps=0.05):
@@ -366,5 +390,4 @@ class EpisodeProgram:
 
     @torch.no_grad()
     def _body(self, draws, noise):
-        return episode_body(self.env_params, self.policy, self.pool, self.hidden_size,
-                            draws, noise)
+        return self.body(self.env_params, self.policy, self.pool, self.hidden_size, draws, noise)

@@ -9,12 +9,21 @@ trains on ``max_seq_len`` (L) steps, shorter than the T-step episode, so
 whose hidden-state pairs are taken at each slice's first two steps, which is
 what the reference's per-step ``cache()`` into its chunking buffer stores.
 Episodes end only by timeout, so the stored ``done`` is identically zero.
+
+The programs (JAX jits ``collect_episode_subs`` and ``eval_rollout_subs``,
+``collect_subs.py:55``, ``:128``): ``collect.draw_episode`` makes an
+episode's draws at A = 1 in :func:`reset_subs_worlds`' and ``collect._act``'s
+order (the layout index, the priority draws, then each step's random action
+and coin; neither exp1 agent reads a key), and :func:`collect_on_draws` and
+:func:`episode_body` play the episode on them, the layouts gathered from the
+pool on the device, so a ``graphs.Program`` of either draws nothing and gives
+the eager episode's bits (``algos/drqn/fused.py``, ``serve.py``).
 """
 
 import numpy as np
 import torch
 
-from uav_bs_ctrl_tpu_torch.algos.collect import _act
+from uav_bs_ctrl_tpu_torch.algos.collect import _act_on, _DrawAsYouGo, _DrawnBefore, unpack_draws
 from uav_bs_ctrl_tpu_torch.envs import torch_env_subs
 
 
@@ -75,16 +84,21 @@ def collect_episode_subs(env_params, policy, states, h0, T, L, generator, eps):
     next obs), ``h`` [W*S, 2, 1, H] (h at steps iL and iL+1), ``act``
     [W*S, L, 1] int32, ``rew`` [W*S, L, 1] and ``done`` [W*S, L].
     """
+    return _collect(env_params, policy, states, h0, T, L,
+                    _DrawAsYouGo(generator, eps, env_params.n_actions))
+
+
+def _collect(env_params, policy, states, h0, T, L, draws):
     if T % L:
         raise ValueError(f"episode_limit {T} must be a multiple of max_seq_len {L}")
     n_slices = T // L
     obs_seq, h_seq, acts_seq, rew_seq, done_seq = [], [], [], [], []
     h = h0
     obs = torch_env_subs.get_obs(env_params, states)
-    for _ in range(T):
+    for t in range(T):
         obs_seq.append(obs)
         h_seq.append(h)
-        acts, h = _act(policy, obs, h, generator, eps, env_params.n_actions)   # [W, 1]
+        acts, h = _act_on(policy, obs, h, draws, t)                           # [W, 1]
         states, obs, rew, done = torch_env_subs.step(env_params, states, acts[:, 0])
         acts_seq.append(acts)
         rew_seq.append(rew[:, None])
@@ -114,10 +128,15 @@ def collect_episode_subs(env_params, policy, states, h0, T, L, generator, eps):
 
 def eval_rollout_subs(env_params, policy, states, h0, T, generator, eps):
     """Roll T steps of every world epsilon-greedily; the episode statistics [W]."""
+    return _play(env_params, policy, states, h0, T,
+                 _DrawAsYouGo(generator, eps, env_params.n_actions))
+
+
+def _play(env_params, policy, states, h0, T, draws):
     h = h0
     obs = torch_env_subs.get_obs(env_params, states)
-    for _ in range(T):
-        acts, h = _act(policy, obs, h, generator, eps, env_params.n_actions)
+    for t in range(T):
+        acts, h = _act_on(policy, obs, h, draws, t)
         states, obs, _, _ = torch_env_subs.step(env_params, states, acts[:, 0])
     return episode_stats(states, "Test")
 
@@ -130,3 +149,37 @@ def evaluate_policy_subs(env_params, policy, pool, hidden_size, generator, n_epi
     h0 = torch.zeros((n_episodes, 1, hidden_size), device=device)
     return eval_rollout_subs(env_params, policy, states, h0, env_params.episode_limit,
                              generator, eps)
+
+
+# --------------------------------------------------------------------------- #
+# Episodes as programs (JAX jits ``collect_episode_subs`` and
+# ``eval_rollout_subs``): ``collect.draw_episode``'s draws at A = 1, made
+# first, then the episode on them.
+
+def reset_on_draws(env_params, pool, d):
+    """The worlds of unpacked draws ``d`` from ``pool``, a pair of device
+    tensors (pos_ubs [2], gts [P, M, 2]): :func:`reset_subs_worlds`'s states."""
+    pos_ubs, pool_gts = pool
+    return torch_env_subs.reset_from_positions(
+        env_params, pos_ubs.expand(d.idx.shape[0], 2), pool_gts[d.idx], d.prior)
+
+
+def collect_on_draws(env_params, policy, pool, hidden_size, L, draws, noise):
+    """:func:`reset_subs_worlds` and :func:`collect_episode_subs` of one
+    episode on ``collect.draw_episode``'s draws (the eager pair's bits);
+    returns ``(chunks, stats, slots)``, the slots [W * S] world-major."""
+    d = unpack_draws(draws, env_params)
+    h0 = torch.zeros((draws.shape[0], 1, hidden_size), device=draws.device)
+    chunks, _, stats = _collect(env_params, policy, reset_on_draws(env_params, pool, d), h0,
+                                env_params.episode_limit, L,
+                                _DrawnBefore(d.rand, d.explore, noise))
+    return chunks, stats, d.slot
+
+
+def episode_body(env_params, policy, pool, hidden_size, draws, noise):
+    """:func:`evaluate_policy_subs` on ``collect.draw_episode``'s draws: its
+    stats [W] (the body of exp1's ``collect.EpisodeProgram``)."""
+    d = unpack_draws(draws, env_params)
+    h0 = torch.zeros((draws.shape[0], 1, hidden_size), device=draws.device)
+    return _play(env_params, policy, reset_on_draws(env_params, pool, d), h0,
+                 env_params.episode_limit, _DrawnBefore(d.rand, d.explore, noise))

@@ -92,7 +92,10 @@ the file.
 The classic host loop (``algos/madrqn/run.py``, ``algos/drqn/run.py``) acts
 with :meth:`init_hidden` and :meth:`act` on one host world, as JAX's
 ``core.py:121-154``: the observation has no world axis, so :meth:`act` adds
-W = 1 for the agent and its kernels and strips it again. Its draws (the
+W = 1 for the agent and its kernels and strips it again. With ``graphs`` the
+policy step is a program (JAX's ``_act_jit``), one graph per observation
+shape; the host env's observations have fixed padded widths, so a run has
+one. Its draws (the
 epsilon coin, then the random actions) and :meth:`update`'s replay sample
 come from the NumPy stream it is given, the one ``config.set_rand_seed``
 returns, in JAX's order; DiscreteComm's Gumbel noise comes from the
@@ -168,8 +171,9 @@ class RecurrentQLearner:
     def __init__(self, env_info, args, agent, mixer=None, seed=0, graphs=True):
         check_training_args(args)
         self.device = args.device
-        self.graphs = graphs                    # updates as programs (CUDA graphs on the card)
+        self.graphs = graphs                    # updates and act as programs (CUDA graphs)
         self._programs = {}
+        self._staging = {}                      # act's host buffers, by name, shape and dtype
         # 1 - lr wd, -lr / (1 - beta1^t), sqrt(1 - beta2^t): the step's scalars (_prepare_step)
         self._adam_scalars = torch.zeros(3, dtype=torch.float32, device=self.device)
         self.n_agents = env_info.get("n_agents", 1)
@@ -229,19 +233,50 @@ class RecurrentQLearner:
         ``(actions list, h' [n_agents, hidden])``. The greedy actions and h'
         come from the policy on ``obs``/``h`` (no world axis); then one coin
         ``rng.random()`` (``rng`` default ``np.random``, as JAX) keeps them
-        when above ``eps_thres``, else ``rng.randint`` draws every agent's."""
+        when above ``eps_thres``, else ``rng.randint`` draws every agent's.
+
+        With ``graphs`` (and no sharding) the policy step is a program (JAX's
+        ``_act_jit``), on the card a CUDA graph for each observation shape:
+        DiscreteComm's Gumbel noise is drawn first, the observation and h go
+        in through pinned buffers, and the greedy actions and h' come back in
+        one copy; the eager path's bits."""
         rng = np.random if rng is None else rng
-        obs = {k: torch.tensor(np.asarray(v))[None].to(self.device) for k, v in obs.items()}
-        h = torch.tensor(np.asarray(h, np.float32))[None].to(self.device)
         shape = self.net.noise_shape((1,), self.n_agents)
         key = None if shape is None else gumbel_draw(shape, self.noise_generator, self.device)
-        q, h2 = self._act_q(obs, h, key)
-        greedy, h2 = q[0].argmax(-1).cpu().numpy(), h2[0].cpu().numpy()
+        if self.graphs and self.sharding is None:
+            out = self.program("act", self._act_body)(
+                {k: self._staged(k, v) for k, v in obs.items()},
+                self._staged("h", np.asarray(h, np.float32)), key).cpu().numpy()
+            greedy, h2 = out[:, 0].astype(np.int64), np.ascontiguousarray(out[:, 1:])
+        else:
+            obs = {k: torch.tensor(np.asarray(v))[None].to(self.device) for k, v in obs.items()}
+            h = torch.tensor(np.asarray(h, np.float32))[None].to(self.device)
+            q, h2 = self._act_q(obs, h, key)
+            greedy, h2 = q[0].argmax(-1).cpu().numpy(), h2[0].cpu().numpy()
         if rng.random() > eps_thres:
             acts = greedy
         else:
             acts = rng.randint(self.n_actions, size=(self.n_agents,))
         return acts.tolist(), h2
+
+    def _staged(self, name, value):
+        """``value`` (one world's array) with a world axis of 1, in a host
+        buffer kept for its name and shape (pinned when the learner is on
+        the card, so that the program's copy in is asynchronous)."""
+        value = np.asarray(value)
+        key = (name, value.shape, value.dtype)
+        buf = self._staging.get(key)
+        if buf is None:
+            buf = self._staging[key] = torch.from_numpy(value).new_empty(
+                (1,) + value.shape, pin_memory=torch.device(self.device).type == "cuda")
+        buf.numpy()[0] = value
+        return buf
+
+    def _act_body(self, obs, h, key):
+        """The act program: the greedy actions and h' of one world as one
+        tensor [n_agents, 1 + hidden] (the action as a float, exact)."""
+        q, h2 = self._act_q(obs, h, key)
+        return torch.cat([q[0].argmax(-1, keepdim=True).to(h2.dtype), h2[0]], -1)
 
     def _act_q(self, obs, h, key):
         """The policy's ``(Q, h')`` on one step of W = 1 worlds, through the kernels."""
@@ -416,12 +451,14 @@ class RecurrentQLearner:
         return self.replay_update(program, batch, noise)
 
     def program(self, name, fn, *extra):
-        """The update program ``name``, made on first use: ``fn(*inputs,
-        *extra)`` must end in :meth:`_update_body` and return its result.
-        Every program that updates this learner is kept here, so that
-        loading new optimizer state drops them all (:meth:`drop_programs`)."""
+        """The program ``name``, made on first use: an update program's
+        ``fn(*inputs, *extra)`` must end in :meth:`_update_body` and return
+        its result; ``"act"`` is :meth:`act`'s. Every program that reads this
+        learner's tensors is kept here, so that loading new params or
+        optimizer state drops them all (:meth:`drop_programs`)."""
         if name not in self._programs:
-            self._programs[name] = programs.Program(fn, self.device, f"update {name}", extra)
+            self._programs[name] = programs.Program(
+                fn, self.device, "act" if name == "act" else f"update {name}", extra)
         return self._programs[name]
 
     def drop_programs(self):

@@ -115,7 +115,7 @@ def train(env_fn, env_kwargs, seed, train_kwargs=dict(), logger_kwargs=dict()):
 
 
 def load_and_run_policy(model_path, env_fn, env_kwargs, seed, agent_kwargs, n_episodes,
-                        output_dir, device=None, timer=None):
+                        output_dir, device=None, timer=None, graphs=True):
     """``algos/madrqn/run.py:load_and_run_policy`` for the single-UBS DRQN."""
     rng = set_rand_seed(seed)
     timer = StepTimer() if timer is None else timer
@@ -128,7 +128,7 @@ def load_and_run_policy(model_path, env_fn, env_kwargs, seed, agent_kwargs, n_ep
 
     env = make_env(partial(env_fn, **env_kwargs, record=True, rng=rng), args)
     env_info = env.get_env_info()
-    learner = QLearner(env_info, args, seed=seed)
+    learner = QLearner(env_info, args, seed=seed, graphs=graphs)
     learner.load_checkpoint(model_path)
 
     rsts = {}

@@ -211,10 +211,7 @@ class FusedMadrqnTrainer(DeviceRing):
         losses, all_stats = [], []
         for _ in range(self.interleave):
             all_stats.append(self._collect_replayed(eps, sub_worlds))
-            rows = torch.stack([self._draw_sample() for _ in range(k_sub)])   # [K/S, B]
-            if rows.device != torch.device(self.device):
-                rows = (rows.pin_memory() if torch.device(self.device).type == "cuda"
-                        else rows).to(self.device, non_blocking=True)
+            rows = self._draw_rows(k_sub)                                      # [K/S, B]
             for k in range(k_sub):
                 noise = learner.draw_noise_for(learner.batch_size, self.env_params.n_ubs)
                 losses.append(learner.replay_update(update, rows[k], noise)["LossQ"])
@@ -222,11 +219,6 @@ class FusedMadrqnTrainer(DeviceRing):
                  for k in ("EpRet", "FairIdx", "AvgGlobalUtility")}
         self.last_losses = torch.stack(losses)
         return self._host_means(dict(LossQ=self.last_losses, **stats))
-
-    @staticmethod
-    def _host_means(stats):
-        """Each stat's mean, brought to the host in one copy."""
-        return dict(zip(stats, torch.stack([v.mean() for v in stats.values()]).tolist()))
 
     # ------------------------------------------------------------------ #
 

@@ -126,12 +126,13 @@ def train(env_fn, env_kwargs, seed, train_kwargs=dict(), logger_kwargs=dict()):
 
 
 def load_and_run_policy(model_path, env_fn, env_kwargs, seed, agent_kwargs, n_episodes,
-                        output_dir, device=None, timer=None):
+                        output_dir, device=None, timer=None, graphs=True):
     """Load a checkpoint and roll ``n_episodes`` test episodes (eps 0.05) on
     ``device`` (default ``cuda``; ``agent_kwargs``' own ``device`` is not
     read), each one's CSVs under ``output_dir/episode{n}/``. Returns the last
     step's info of every episode as ``{key: [value per episode]}``.
-    ``timer`` (a ``StepTimer``) gets the ``Act`` and ``Env`` phases."""
+    ``timer`` (a ``StepTimer``) gets the ``Act`` and ``Env`` phases;
+    ``graphs=False`` acts eagerly (the learner's switch)."""
 
     rng = set_rand_seed(seed)
     timer = StepTimer() if timer is None else timer
@@ -144,7 +145,7 @@ def load_and_run_policy(model_path, env_fn, env_kwargs, seed, agent_kwargs, n_ep
 
     env = make_env(partial(env_fn, **env_kwargs, record=True, rng=rng), args)
     env_info = env.get_env_info()
-    learner = MultiAgentQLearner(env_info, args, seed=seed)
+    learner = MultiAgentQLearner(env_info, args, seed=seed, graphs=graphs)
     learner.load_checkpoint(model_path)
 
     rsts = {}

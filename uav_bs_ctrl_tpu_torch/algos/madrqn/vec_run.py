@@ -15,6 +15,16 @@ Equivalences to the classic driver (``algos/madrqn/run.py``), as in JAX:
 - ``progress.txt`` has JAX's columns in JAX's order, with ``TimeCollectMs``,
   ``TimeUpdateMs`` and ``EnvStepsPerSec``.
 
+With ``graphs`` (the default) the collection, the updates and the test
+episodes are programs (JAX jits ``collect_chunk`` and ``eval_rollout``,
+``collect.py:55``, ``:117``), on the card CUDA graphs: before each
+collection the host makes all of its draws (``collect.draw_episode``, the
+eager path's calls in its order), the program plays the episode on them and
+returns the chunk, and the host copies the chunk into the replay buffer
+before the next replay overwrites it; the test episodes are a
+``collect.EpisodeProgram``. ``graphs=False`` runs the eager twin, with the
+same bits.
+
 ``max_seq_len`` must be the episode (chunk = episode). Runs on ``cuda``
 unless ``train_kwargs`` has ``device='cpu'``. The draws (layout picks, GT
 priorities, exploration, test episodes) come from one CPU
@@ -28,6 +38,7 @@ import time
 
 import torch
 
+from uav_bs_ctrl_tpu_torch import graphs as programs
 from uav_bs_ctrl_tpu_torch.algos import collect
 from uav_bs_ctrl_tpu_torch.algos.buffer import tree_map
 from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
@@ -55,9 +66,21 @@ def env_info(env_params, o, fair_service=True):
                 episode_limit=env_params.episode_limit)
 
 
+@torch.no_grad()
+def collection_body(draws, noise, env_params, policy, pool, hidden_size, o):
+    """The collection program: one episode of every world on
+    ``collect.draw_episode``'s draws; returns its chunk (the flat
+    observation under ``o='mlp'``) and stats."""
+    chunk, stats, _ = collect.collect_on_draws(env_params, policy, pool, hidden_size, draws,
+                                               noise)
+    if o == "mlp":
+        chunk["obs"] = collect.flatten_obs(chunk["obs"])
+    return chunk, stats
+
+
 def train_vectorized(map_id, seed=0, train_kwargs=dict(), logger_kwargs=dict(),
                      n_worlds=32, n_layouts=256, fair_service=True,
-                     avoid_collision=True, updates_per_chunk=None):
+                     avoid_collision=True, updates_per_chunk=None, graphs=True):
     """Train MADRQN with on-device vectorized collection on ``map_id``;
     returns the learner."""
     logger = EpochLogger(**logger_kwargs)
@@ -74,12 +97,20 @@ def train_vectorized(map_id, seed=0, train_kwargs=dict(), logger_kwargs=dict(),
         "vectorized path requires chunk == episode (max_seq_len=None)"
     args.max_seq_len = None
 
-    learner = MultiAgentQLearner(env_info(env_params, args.o, fair_service), args, seed=seed)
+    learner = MultiAgentQLearner(env_info(env_params, args.o, fair_service), args, seed=seed,
+                                 graphs=graphs)
     policy = collect.make_policy(learner._apply_net, args.o)
 
     pool = collect.make_layout_pool(map_id, n_layouts, seed=seed)
     test_pool = collect.make_layout_pool(map_id, n_layouts, seed=seed + 10_000)
     generator = torch.Generator().manual_seed(seed)
+    noise_shape = lambda w: learner.net.noise_shape((w,), env_params.n_ubs)
+    if graphs:
+        collection = programs.Program(
+            collection_body, device, name="collection",
+            extra=(env_params, policy, collect.pool_on(pool, device), args.hidden_size, args.o))
+        episodes = collect.EpisodeProgram(env_params, policy, test_pool, args.hidden_size,
+                                          device, noise_shape)
 
     total_steps = args.steps_per_epoch * args.epochs
     steps_per_chunk = n_worlds * T
@@ -98,15 +129,21 @@ def train_vectorized(map_id, seed=0, train_kwargs=dict(), logger_kwargs=dict(),
 
     for it in range(n_chunks):
         with timer.phase('Collect'), torch.no_grad():
-            states = collect.reset_worlds(env_params, pool, generator, n_worlds, device)
-            h0 = torch.zeros((n_worlds, env_params.n_ubs, args.hidden_size), device=device)
-            chunk, _, stats = collect.collect_chunk(env_params, policy, states, h0, T,
-                                                    generator, eps_thres(t_global))
+            if graphs:
+                chunk, stats = collection(*collect.draw_episode(
+                    env_params, len(pool[0]), generator, n_worlds, eps_thres(t_global),
+                    noise_shape(n_worlds), device))
+            else:
+                states = collect.reset_worlds(env_params, pool, generator, n_worlds, device)
+                h0 = torch.zeros((n_worlds, env_params.n_ubs, args.hidden_size), device=device)
+                chunk, _, stats = collect.collect_chunk(env_params, policy, states, h0, T,
+                                                        generator, eps_thres(t_global))
+                if args.o == "mlp":
+                    chunk["obs"] = collect.flatten_obs(chunk["obs"])
             stats = {k: v.cpu().numpy() for k, v in stats.items()}
 
         with timer.phase('Push'):
-            if args.o == "mlp":
-                chunk["obs"] = collect.flatten_obs(chunk["obs"])
+            # the host's copy, before the next replay overwrites the program's chunk
             chunk = tree_map(lambda x: x.cpu().numpy(), chunk)
             if learner.share_reward:
                 chunk["rew"] = chunk["rew"].mean(-1, keepdims=True)
@@ -132,9 +169,12 @@ def train_vectorized(map_id, seed=0, train_kwargs=dict(), logger_kwargs=dict(),
             # Test episodes on the device (eps=0.05, the reference test_agent)
             # on held-out layouts.
             with torch.no_grad():
-                test_stats = collect.evaluate_policy(
-                    env_params, policy, test_pool, args.hidden_size, generator,
-                    args.num_test_episodes, device)
+                if graphs:
+                    test_stats = episodes(generator, args.num_test_episodes)
+                else:
+                    test_stats = collect.evaluate_policy(
+                        env_params, policy, test_pool, args.hidden_size, generator,
+                        args.num_test_episodes, device)
             logger.store(**{k: v.cpu().numpy() for k, v in test_stats.items()})
 
             learner.step_lr_scheduler()

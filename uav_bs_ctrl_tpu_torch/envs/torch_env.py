@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from uav_bs_ctrl_tpu_torch import graphs as programs
 from uav_bs_ctrl_tpu_torch.envs.common import AirToGroundChannel
 from uav_bs_ctrl_tpu_torch.envs.maps import MAPS
 from uav_bs_ctrl_tpu_torch.ops import env_kernels
@@ -318,18 +319,64 @@ def reset(params: EnvParams, generator, device, n_worlds) -> EnvState:
                                 prior.to(device))
 
 
-def rollout(params: EnvParams, policy, state0, h0, generator, n_steps, eps=0.0):
+def rollout(params: EnvParams, policy, state0, h0, generator, n_steps, eps=0.0, *,
+            noise_shape=None, graphs=False):
     """``n_steps`` steps of every world with ``policy(obs, h, key=...) -> (q,
     h')`` in the loop (JAX ``rollout``, a scan there). Exploration is the
     reference's quirk, as in ``algos/collect.py``: one coin per world per
     step for all its agents, then uniform random actions, drawn from
-    ``generator``. Returns ``(final_state, rewards [W, T, N])``."""
-    from uav_bs_ctrl_tpu_torch.algos.collect import _act   # collect imports this module
+    ``generator``. Returns ``(final_state, rewards [W, T, N])``.
 
-    state, h, rewards = state0, h0, []
+    ``graphs=True`` runs it as a program (JAX's caller jits the scan), on
+    the card a CUDA graph kept for this policy, ``n_steps`` and the inputs'
+    shapes, so a second call replays it: each step's random actions and
+    coin (and, for a policy that reads a key, its seed and Gumbel noise of
+    ``noise_shape``, one step's shape at these worlds) are drawn first, by
+    the eager loop's calls in its order, and ``state0`` and ``h0`` are
+    inputs; the eager loop's bits, cloned. The policy must draw nothing and
+    make no host sync."""
+    from uav_bs_ctrl_tpu_torch.algos import collect   # collect imports this module
+
+    if not graphs:
+        return _roll(params, policy, state0, h0, n_steps,
+                     collect._DrawAsYouGo(generator, eps, params.n_actions))
+    device = h0.device
+    rand, explore, seeds = collect.draw_steps(generator, n_steps, tuple(h0.shape[:2]),
+                                              params.n_actions, eps, noise_shape is not None)
+    if device.type == "cuda":
+        rand, explore = rand.pin_memory(), explore.pin_memory()
+    noise = None if noise_shape is None else torch.stack(
+        [collect.gumbel_noise(noise_shape, seed, device) for seed in seeds])
+    key = (params, n_steps, str(device))
+    kept = _rollouts.get(key)
+    if kept is None or kept[0] is not policy:
+        _rollouts.clear()
+        kept = _rollouts[key] = (policy, programs.Program(
+            _rollout_body, device, name="rollout", extra=(params, policy)))
+    return programs.clone_tree(kept[1](state0, h0, rand, explore, noise))
+
+
+_rollouts = {}      # the kept rollout program: {(params, n_steps, device): (policy, Program)}
+
+@torch.no_grad()
+def _rollout_body(state0, h0, rand, explore, noise, params, policy):
+    """The rollout program: the eager loop on draws made before it,
+    ``rand`` [W, T, N] and ``explore`` [W, T]."""
+    from uav_bs_ctrl_tpu_torch.algos import collect
+
+    return _roll(params, policy, state0, h0, rand.shape[1], collect._DrawnBefore(
+        rand.transpose(0, 1), explore.transpose(0, 1)[..., None], noise))
+
+
+def _roll(params, policy, state, h, n_steps, draws):
+    """``n_steps`` steps, each step's key and exploration from ``draws``
+    (``collect``'s drawn-as-you-go or drawn-before)."""
+    from uav_bs_ctrl_tpu_torch.algos import collect
+
+    rewards = []
     obs = get_obs(params, state)
-    for _ in range(n_steps):
-        acts, h = _act(policy, obs, h, generator, eps, params.n_actions)
+    for t in range(n_steps):
+        acts, h = collect._act_on(policy, obs, h, draws, t)
         state, obs, rew, _ = step(params, state, acts)
         rewards.append(rew)
     return state, torch.stack(rewards, 1)

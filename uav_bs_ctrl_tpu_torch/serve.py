@@ -106,29 +106,41 @@ _served = {}      # the served episode program: {key: (agent, config, EpisodePro
 
 
 def episode_program(run_dir, device=None, checkpoint_path=None, gat_backend=None, seed=0):
-    """``(agent, config, collect.EpisodeProgram)`` of an exp2 or exp3 run on
-    its test pool of ``seed``, kept across calls: a second call with the same
-    run, checkpoint (path and modification time), device, backend and seed
-    returns the same program, whose captured episodes replay. One program is
-    kept: asking for another frees the last one and its graphs."""
+    """``(agent, config, collect.EpisodeProgram)`` of a run on its test pool
+    of ``seed`` (an exp1 run's plays ``collect_subs.episode_body``), kept
+    across calls: a second call with the same run, checkpoint (path and
+    modification time), device, backend and seed returns the same program,
+    whose captured episodes replay. One program is kept: asking for another
+    frees the last one and its graphs."""
     ckpt = Path(checkpoint_path or latest_checkpoint(run_dir)).resolve()
     key = (str(Path(run_dir).resolve()), str(ckpt), ckpt.stat().st_mtime_ns, device,
            gat_backend, seed)
     if key not in _served:
         _served.clear()
         agent, config = load_policy(run_dir, device, ckpt, gat_backend)
-        if is_exp1(config):
-            raise ValueError("an exp1 run plays its episodes eagerly (collect_subs)")
-        env_params = torch_env.make_params(config["map_id"])
-        net = functools.partial(apply_net, agent, dtype=COMPUTE_DTYPES[config["args"].get(
-            "compute_dtype", "float32")])
-        policy = collect.make_policy(net, config["args"].get("o", DEFAULT_CONFIG["o"]))
+        env_params, policy, pool, body = _episode_parts(agent, config, seed)
         episodes = collect.EpisodeProgram(
-            env_params, policy, test_pool(config["map_id"], seed), agent.hidden,
-            next(agent.parameters()).device,
-            lambda n_worlds: agent.noise_shape((n_worlds,), env_params.n_ubs))
+            env_params, policy, pool, agent.hidden, next(agent.parameters()).device,
+            lambda n_worlds: agent.noise_shape((n_worlds,), collect.n_agents_of(env_params)),
+            body)
         _served[key] = (agent, config, episodes)
     return _served[key]
+
+
+def _episode_parts(agent, config, seed):
+    """``(env params, policy, test pool, episode body)`` of a loaded run: the
+    policy at the run's compute dtype on its observation (``collect``'s or,
+    for an exp1 run, ``collect_subs``')."""
+    net = functools.partial(apply_net, agent, dtype=COMPUTE_DTYPES[config["args"].get(
+        "compute_dtype", "float32")])
+    if is_exp1(config):
+        return (torch_env_subs.make_params(**config["env_kwargs"]),
+                collect_subs.make_policy(net, config["args"].get(
+                    "agent", drqn_config.DEFAULT_CONFIG["agent"])),
+                test_pool_subs(config["env_kwargs"], seed), collect_subs.episode_body)
+    return (torch_env.make_params(config["map_id"]),
+            collect.make_policy(net, config["args"].get("o", DEFAULT_CONFIG["o"])),
+            test_pool(config["map_id"], seed), collect.episode_body)
 
 
 @torch.no_grad()
@@ -136,33 +148,26 @@ def evaluate(run_dir, n_episodes, eps=0.05, seed=0, device=None, checkpoint_path
              gat_backend=None, graphs=True):
     """Episode statistics ([n_episodes] tensors) of the run's policy playing
     ``n_episodes`` worlds, one episode each, in parallel. With ``graphs``
-    (the default) an exp2 or exp3 episode is :func:`episode_program`'s
-    (JAX jits ``eval_rollout``): every draw made first, then the episode, on
-    the card a CUDA graph, with the eager episode's stats. The program is
-    kept, so the first call with given arguments plays its episode eagerly
-    and captures it (the CLI's one call pays that), and a later call with
-    the same run, checkpoint, device, backend, seed and ``n_episodes``
-    replays it. ``graphs=False`` loads the policy and plays eagerly, as an
-    exp1 episode always is."""
+    (the default) the episode is :func:`episode_program`'s (JAX jits
+    ``eval_rollout`` and ``eval_rollout_subs``): every draw made first, then
+    the episode, on the card a CUDA graph, with the eager episode's stats.
+    The program is kept, so the first call with given arguments plays its
+    episode eagerly and captures it (the CLI's one call pays that), and a
+    later call with the same run, checkpoint, device, backend, seed and
+    ``n_episodes`` replays it. ``graphs=False`` loads the policy and plays
+    eagerly."""
     generator = torch.Generator().manual_seed(seed)
-    if graphs and not is_exp1(json.loads((Path(run_dir) / "config.json").read_text())):
+    if graphs:
         _, _, episodes = episode_program(run_dir, device, checkpoint_path, gat_backend, seed)
         return episodes(generator, n_episodes, eps)
     agent, config = load_policy(run_dir, device, checkpoint_path, gat_backend)
     device = next(agent.parameters()).device
-    net = functools.partial(apply_net, agent, dtype=COMPUTE_DTYPES[config["args"].get(
-        "compute_dtype", "float32")])
+    env_params, policy, pool, _ = _episode_parts(agent, config, seed)
     if is_exp1(config):
-        env_params = torch_env_subs.make_params(**config["env_kwargs"])
-        policy = collect_subs.make_policy(net, config["args"].get(
-            "agent", drqn_config.DEFAULT_CONFIG["agent"]))
-        return collect_subs.evaluate_policy_subs(
-            env_params, policy, test_pool_subs(config["env_kwargs"], seed), agent.hidden,
-            generator, n_episodes, device, eps)
-    env_params = torch_env.make_params(config["map_id"])
-    policy = collect.make_policy(net, config["args"].get("o", DEFAULT_CONFIG["o"]))
-    return collect.evaluate_policy(env_params, policy, test_pool(config["map_id"], seed),
-                                   agent.hidden, generator, n_episodes, device, eps)
+        return collect_subs.evaluate_policy_subs(env_params, policy, pool, agent.hidden,
+                                                 generator, n_episodes, device, eps)
+    return collect.evaluate_policy(env_params, policy, pool, agent.hidden, generator,
+                                   n_episodes, device, eps)
 
 
 def main(argv=None):

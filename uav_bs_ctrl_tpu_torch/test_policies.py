@@ -102,10 +102,11 @@ def write_summaries(dataset, metrics, output_dir):
 
 
 def test_series(algo_name, metrics, all_logdirs, checkpoint, n_episodes, output_dir,
-                device=None, timer=None):
+                device=None, timer=None, graphs=True):
     """Evaluate every run directory containing the requested checkpoint, on
     ``device`` (default ``cuda``); ``timer`` (a ``StepTimer``) gets every
-    step's ``Act`` and ``Env`` phases. Returns the summary's columns."""
+    step's ``Act`` and ``Env`` phases. ``act`` runs as a program unless
+    ``graphs`` is False. Returns the summary's columns."""
     dataset = {}
 
     for logdir in all_logdirs:
@@ -124,7 +125,8 @@ def test_series(algo_name, metrics, all_logdirs, checkpoint, n_episodes, output_
 
                 test_fn = TEST_FUNCTIONS[algo_name or algo]
                 test_rsts = test_fn(model_path, env_fn, env_kwargs, seed, args,
-                                    n_episodes, subdir, device=device, timer=timer)
+                                    n_episodes, subdir, device=device, timer=timer,
+                                    graphs=graphs)
                 dataset = insert_data(dataset, exp_name, test_rsts)
 
     return write_summaries(dataset, metrics, output_dir)
