@@ -174,6 +174,9 @@ UPDATE_EDGES = 1_680_640  # bench.py:64's edges of an update at B = 32, T = 50, 
 PARALLEL_FUSED = dict(n_worlds=8, capacity_chunks=16, updates_per_iter=2, interleave=2,
                       n_layouts=16)
 PARALLEL_RTOL, PARALLEL_ATOL, PARALLEL_PARAMS_RTOL = 1e-5, 2e-5, 1e-3
+# The dp = 2 programs beside their eager twins: the updates timed a rank (their median), and
+# one more iteration of each trainer timed after its results are taken.
+PARALLEL_TIMED = 5
 # env_schedule against the scatter body: (map, worlds) of each recorded rollout, and its steps
 # where not the map's episode (swarm64's plain body makes some two dozen launches a GT, 800 GTs).
 ENV_SHAPES = (("8ubs", N_WORLDS), ("8ubs", 512), ("4ubs", N_WORLDS), ("hotspot_v2", N_WORLDS),
@@ -2370,6 +2373,13 @@ def fused_launches(T):
     return want
 
 
+def fused_env_calls(T):
+    """env_schedule's calls in each rank of the dp fused trainer's warm-up and
+    iteration (``PARALLEL_FUSED``): one an env step of each collection, the
+    reset's included."""
+    return (1 + PARALLEL_FUSED["interleave"]) * (T + 1)
+
+
 def rank_lines(ranks, ms_key="ms", what="sharded update"):
     """One line a rank: its #1-#5 launches, ms per ``what`` and its collectives' share."""
     for r, x in enumerate(ranks):
@@ -2830,7 +2840,19 @@ def parallel_phases(ctx):
     the collectives' share; adds each phase's launches (summed over the
     ranks) to ``ctx.phase_launches``. The dry run's flagship ranks split their
     work over mp (#2/#3 on 2 of the 4 heads, the column-split #4/#5 on 128 of
-    the 256 GRU columns)."""
+    the 256 GRU columns), so their update stays eager and says why.
+
+    The dp = 2 fused trainer and the dp = 2 update also run as programs (CUDA
+    graphs; the collectives run by the host between replays), each beside
+    its eager twin in the same ranks and held to it bit for bit per rank
+    (metrics, ring shard, losses, params, generators; the update's LossQ,
+    ``.grad``, params, targets and AdamW state). The program trainer also
+    passes the single-rank gates, and the calls of #2-#5 and env_schedule on
+    the card, replays included, are counted in each rank by the profiler
+    (:func:`card_launches`). Per rank: the median ms of
+    ``PARALLEL_TIMED`` replayed updates against eager ones, the card's busy
+    ms of one, the collectives' calls and ms, the iterations' wall seconds
+    and ``Program.stats()``."""
     from uav_bs_ctrl_tpu_torch import graft_entry, serve, train
     from uav_bs_ctrl_tpu_torch.algos.buffer import tree_map
     from uav_bs_ctrl_tpu_torch.algos.madrqn import fused
@@ -2855,7 +2877,8 @@ def parallel_phases(ctx):
             ctx.phase_launches[f"parallel_dryrun_{label}"] = summed(ranks)
 
     with phase(f"parallel: 2 ranks, a gp = 2 flagship step, the dp = 2 fused trainer "
-               f"({PARALLEL_FUSED}) resumed from {ckpt.name}, a dp = 2 update of it at B = 32"):
+               f"({PARALLEL_FUSED}) resumed from {ckpt.name}, a dp = 2 update of it at B = 32, "
+               f"the trainer and the update eagerly and as programs"):
         print(f"  {card_line()}", flush=True)
         trainer_kw = dict(PARALLEL_FUSED, seed=run["seed"])
         with torch.enable_grad():
@@ -2884,16 +2907,20 @@ def parallel_phases(ctx):
                         n_actions=single.env_params.n_actions,
                         n_agents=single.env_params.n_ubs, episode_limit=single.T)
         batch = tree_map(lambda x: x.cpu().numpy(), ctx.batch)
+        fused_kw = dict(map_id=run["map_id"], train_kwargs=run["args"], trainer_kw=trainer_kw,
+                        ckpt=str(ckpt), schedule=[(EPS, True), (EPS, False)],
+                        timed=[(EPS, False)])
+        update_kw = dict(cfg=dict(run["args"]), env_info=env_info, batch=batch, dims=(2, 1, 1),
+                         ckpt=str(ckpt), n_timed=PARALLEL_TIMED, profile=True)
         t0 = time.perf_counter()
-        gp_step, dp_fused, dp_update = launch.spawn(2, [
+        gp_step, dp_fused, dp_fused_prog, dp_update, dp_update_prog = launch.spawn(2, [
             (graft_entry.run_case, dict(label="flagship-8ubs", dims=(1, 1, 2))),
-            (workers.fused_train, dict(map_id=run["map_id"], train_kwargs=run["args"],
-                                       trainer_kw=trainer_kw, ckpt=str(ckpt),
-                                       schedule=[(EPS, True), (EPS, False)])),
-            (workers.learner_update, dict(cfg=dict(run["args"]), env_info=env_info, batch=batch,
-                                          dims=(2, 1, 1), ckpt=str(ckpt)))],
+            (workers.fused_train, fused_kw),
+            (workers.fused_train, dict(fused_kw, graphs=True, launches=card_launches)),
+            (workers.learner_update, update_kw),
+            (workers.learner_update, dict(update_kw, graphs=True, launches=card_launches))],
             DEVICE)
-        print(f"  backend {gp_step[0]['backend']}; the spawn and the three tasks "
+        print(f"  backend {gp_step[0]['backend']}; the spawn and the five tasks "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
 
         print(f"  gp = 2 flagship step (plain torch: the edge-partitioned GATv2 and TarMAC "
@@ -2917,35 +2944,53 @@ def parallel_phases(ctx):
             resolved = [m & (r.abs() > RESOLVED_RTOL * scale[n.split(".")[0]])
                         for m, n, r in zip(resolved, names, raw)]
         resolved = [m.cpu().numpy() for m in resolved]
-        params_err, loose, loose_err = 0.0, 0, 0.0
-        for r, x in enumerate(dp_fused):
-            print(f"  rank {r}: warm-up {json.dumps(x['metrics'][0])}, iteration "
-                  f"{json.dumps(x['metrics'][1])}; ring {x['ring']} ({x['local_rows']} "
-                  f"local slots); {x['seconds']:.2f} s, {x['collectives']['ms']:.2f} ms in "
-                  f"{x['collectives']['calls']} collectives; launches {x['launches']}",
-                  flush=True)
-            for got, ref_m in zip(x["metrics"], ref_metrics):
-                for k in ("LossQ", "EpRet") if "LossQ" in ref_m else ref_m:
-                    if abs(got[k] - ref_m[k]) > PARALLEL_RTOL * abs(ref_m[k]):
-                        raise AssertionError(f"dp fused rank {r} {k}: {got[k]} vs {ref_m[k]}")
-            for (name, got), want_p, ok in zip(x["params"].items(), ref_params, resolved):
-                want_p = want_p.cpu().numpy()
-                diff = np.abs(got - want_p)
-                limit = PARALLEL_ATOL + PARALLEL_PARAMS_RTOL * np.abs(want_p)
-                params_err = max(params_err, float(diff[ok].max()) if ok.any() else 0.0)
-                loose += int((~ok).sum())
-                loose_err = max(loose_err, float(diff[~ok].max()) if (~ok).any() else 0.0)
-                if (diff[ok] > limit[ok]).any():
-                    raise AssertionError(f"dp fused rank {r} param {name}: max |diff| "
-                                         f"{diff[ok].max():.3e} where resolved")
-            if x["launches"] != want:
-                raise AssertionError(f"dp fused rank {r}: expected {want} launches")
-        print(f"  params max |diff| {params_err:.2e} where the raw gradient was resolved in "
-              f"both updates (limit {PARALLEL_ATOL} + {PARALLEL_PARAMS_RTOL} |p|); "
-              f"{loose // len(dp_fused)} entries a rank below {RESOLVED_RTOL} of their group's "
-              f"largest, which Adam moves by roundoff, differ by up to {loose_err:.2e}",
-              flush=True)
+        steps = fused_env_calls(T)
+        for label, ranks in (("eager", dp_fused), ("programs", dp_fused_prog)):
+            params_err, loose, loose_err = 0.0, 0, 0.0
+            for r, x in enumerate(ranks):
+                print(f"  {label}, rank {r}: warm-up {json.dumps(x['metrics'][0])}, iteration "
+                      f"{json.dumps(x['metrics'][1])}; ring {x['ring']} ({x['local_rows']} "
+                      f"local slots); {x['seconds']:.2f} s, {x['collectives']['ms']:.2f} ms in "
+                      f"{x['collectives']['calls']} collectives; launches {x['launches']}",
+                      flush=True)
+                for got, ref_m in zip(x["metrics"], ref_metrics):
+                    for k in ("LossQ", "EpRet") if "LossQ" in ref_m else ref_m:
+                        if abs(got[k] - ref_m[k]) > PARALLEL_RTOL * abs(ref_m[k]):
+                            raise AssertionError(f"dp fused ({label}) rank {r} {k}: {got[k]} "
+                                                 f"vs {ref_m[k]}")
+                for (name, got), want_p, ok in zip(x["params"].items(), ref_params, resolved):
+                    want_p = want_p.cpu().numpy()
+                    diff = np.abs(got - want_p)
+                    limit = PARALLEL_ATOL + PARALLEL_PARAMS_RTOL * np.abs(want_p)
+                    params_err = max(params_err, float(diff[ok].max()) if ok.any() else 0.0)
+                    loose += int((~ok).sum())
+                    loose_err = max(loose_err, float(diff[~ok].max()) if (~ok).any() else 0.0)
+                    if (diff[ok] > limit[ok]).any():
+                        raise AssertionError(f"dp fused ({label}) rank {r} param {name}: max "
+                                             f"|diff| {diff[ok].max():.3e} where resolved")
+                if label == "eager" and x["launches"] != want:
+                    raise AssertionError(f"dp fused rank {r}: expected {want} launches")
+                if label == "programs" and (x["launches"] != fused_launches(T)
+                                            or x["env_calls"] != steps):
+                    raise AssertionError(
+                        f"dp fused programs rank {r}: calls on the card {x['launches']}, "
+                        f"env_schedule {x['env_calls']}; expected {fused_launches(T)}, {steps}")
+            print(f"  {label}: params max |diff| {params_err:.2e} where the raw gradient was "
+                  f"resolved in both updates (limit {PARALLEL_ATOL} + {PARALLEL_PARAMS_RTOL} "
+                  f"|p|); {loose // len(ranks)} entries a rank below {RESOLVED_RTOL} of their "
+                  f"group's largest, which Adam moves by roundoff, differ by up to "
+                  f"{loose_err:.2e}", flush=True)
+        for r, (x, y) in enumerate(zip(dp_fused_prog, dp_fused)):
+            hold_leaves(f"dp = 2 fused trainer, rank {r}", x, y,
+                        ("metrics", "ring", "params", "replay", "losses", "generators"))
+            print(f"  rank {r}: wall s, programs against eager: warm-up "
+                  f"{x['iter_seconds'][0]:.3f} / {y['iter_seconds'][0]:.3f}, iteration "
+                  f"{x['iter_seconds'][1]:.3f} / {y['iter_seconds'][1]:.3f} (the programs' "
+                  f"captures in both), one more iteration {x['timed_seconds'][0]:.3f} / "
+                  f"{y['timed_seconds'][0]:.3f}; calls on the card {x['launches']}, env_schedule "
+                  f"{x['env_calls']}; programs {json.dumps(x['program_stats'])}", flush=True)
         ctx.phase_launches["parallel_fused_dp2"] = summed(dp_fused)
+        ctx.phase_launches["parallel_fused_dp2_programs"] = summed(dp_fused_prog)
 
         for r, x in enumerate(dp_update):
             raw = [torch.from_numpy(x["grads"][n]).to(DEVICE) for n in names]
@@ -2971,7 +3016,60 @@ def parallel_phases(ctx):
                 raise AssertionError(f"dp update rank {r}: launches {x['launches']}")
         rank_lines(dp_update)
         ctx.phase_launches["parallel_update_dp2"] = summed(dp_update)
+        one = per_update_launches(T)
+        for r, (x, y) in enumerate(zip(dp_update_prog, dp_update)):
+            if not x["captures"] or x["programs"] != ["('grads', True)", "step"]:
+                raise AssertionError(f"dp update rank {r}: programs {x['programs']}, captures "
+                                     f"{x['captures']} ({x['captures_reason']})")
+            if (x["loss"], x["qvals"]) != (y["loss"], y["qvals"]):
+                raise AssertionError(f"dp update rank {r}: LossQ, QVals {x['loss']}, "
+                                     f"{x['qvals']} on programs, {y['loss']}, {y['qvals']} eager")
+            hold_leaves(f"dp = 2 update, rank {r}", x, y,
+                        ("after_grads", "params", "targets", "adam"))
+            if x["launches"] != rank_launches(one) or x["timed_calls"] != one:
+                raise AssertionError(f"dp update programs rank {r}: launches {x['launches']} "
+                                     f"(the first call), {x['timed_calls']} on the card in a "
+                                     f"replay; expected {one}")
+            print(f"  dp = 2 update, rank {r}: median of {PARALLEL_TIMED} updates "
+                  f"{x['ms']:.2f} ms replayed, {y['ms']:.2f} ms eager; the card busy "
+                  f"{busy_text(x['device_ms'])} / {busy_text(y['device_ms'])}; the collectives "
+                  f"{x['collectives']['calls']} calls, {x['collectives']['ms']:.2f} ms / "
+                  f"{y['collectives']['calls']} calls, {y['collectives']['ms']:.2f} ms; the "
+                  f"first call (eager, then the captures) {x['ms_first']:.2f} ms; programs "
+                  f"{json.dumps(x['program_stats'])}", flush=True)
+        ctx.phase_launches["parallel_update_dp2_programs"] = summed(
+            [dict(x, launches=x["timed_calls"]) for x in dp_update_prog])
         del single, learner
+
+
+def busy_text(ms):
+    """A profiler's busy ms as printed: "not measured" where it saw none."""
+    return "not measured" if ms is None else f"{ms:.2f} ms"
+
+
+def hold_leaves(what, got, want, keys):
+    """Raise unless the results ``got`` and ``want`` (trees of dicts and
+    lists of numpy arrays and numbers) are equal bit for bit under ``keys``."""
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            items = [(f"{prefix}{key}.", sub) for key, sub in tree.items()]
+        elif isinstance(tree, (list, tuple)):
+            items = [(f"{prefix}{i}.", sub) for i, sub in enumerate(tree)]
+        else:
+            return {prefix: np.asarray(tree)}
+        return {k: v for path, sub in items for k, v in leaves(sub, path).items()}
+
+    bad = []
+    for key in keys:
+        a, b = leaves(got[key], f"{key}."), leaves(want[key], f"{key}.")
+        bad += sorted(a.keys() ^ b.keys())
+        bad += [k for k in a.keys() & b.keys() if a[k].dtype != b[k].dtype
+                or a[k].shape != b[k].shape or a[k].tobytes() != b[k].tobytes()]
+    if bad:
+        raise AssertionError(f"{what}: the programs differ from the eager path in {len(bad)} "
+                             f"leaves: {bad[:8]}")
+    print(f"  {what}: the programs equal the eager path bit for bit ({', '.join(keys)})",
+          flush=True)
 
 
 # The programs (graph_phases): each CUDA-graph path held to its eager twin, bit for bit.

@@ -12,7 +12,8 @@ trainers keep their ring on the device (:class:`DeviceRing`).
 import numpy as np
 import torch
 
-from uav_bs_ctrl_tpu_torch.parallel.dist import all_reduce_tree
+from uav_bs_ctrl_tpu_torch import graphs as programs
+from uav_bs_ctrl_tpu_torch.parallel.dist import all_reduce, all_reduce_tree
 
 SEQ_KEYS = ("obs", "h", "state")  # fields that carry the trailing next-value
 
@@ -100,14 +101,22 @@ class RingShard:
     global slot to its rank and local slot. A sample draws the single-rank
     trainer's global indices; rank r trains on rows ``[r B/dp, (r+1) B/dp)``
     of that batch, fetched from their owners by one all-reduce (per dtype)
-    of a zero-filled global batch into which each owner writes its rows:
-    every backend has it, and it moves the whole batch, about 0.5 MB a chunk
-    at the exp3 8-UBS width (16 MB at B = 32)."""
+    of the global batch that each owner fills with its rows and zeros
+    elsewhere (:meth:`fill`): every backend has it, and it moves the whole
+    batch, about 0.5 MB a chunk at the exp3 8-UBS width (16 MB at B = 32).
+    Each entry of the sum has one non-zero contribution, so it is exact.
+
+    :meth:`fill` is a fixed-shape gather by mask, from ``owner`` and
+    ``local`` kept on the device too (:meth:`books`, refreshed in place by
+    every :meth:`record`, outside any graph), so a program can run it; the
+    host then runs the all-reduce (:meth:`gathered`) between replays.
+    :meth:`fetch` is the two in a row."""
 
     def __init__(self, capacity, dp, rank, group):
         self.dp, self.rank, self.group = dp, rank, group
         self.owner = torch.full((capacity,), -1, dtype=torch.long)
         self.local = torch.zeros((capacity,), dtype=torch.long)
+        self._books = None            # (owner, local) on the device, for fill
 
     def rows(self, n):
         """``(lo, hi, n)``: this rank's block of ``n`` worlds."""
@@ -120,23 +129,43 @@ class RingShard:
         j = torch.arange(total)
         self.owner[ptr:ptr + total] = j // per
         self.local[ptr:ptr + total] = ptr // self.dp + j % per
+        if self._books is not None:
+            for book, host in zip(self._books, (self.owner, self.local)):
+                book.copy_(host)
+
+    def books(self, device):
+        """``(owner, local)`` as tensors on ``device``, made once and kept
+        up to date in place, so that a captured graph reads each record."""
+        if self._books is None:
+            self._books = (self.owner.to(device), self.local.to(device))
+        return self._books
+
+    def fill(self, replay, idx):
+        """The batch at global slots ``idx`` [N] (on the device) with this
+        rank's own chunks in their rows and zeros in every other row: summed
+        over the ranks (:func:`all_reduce_tree`), the whole batch."""
+        owner, local = self.books(idx.device)
+        mine, src = owner[idx] == self.rank, local[idx]
+
+        def rows(store):
+            mask = mine.view((-1,) + (1,) * (store.dim() - 1))
+            return torch.where(mask, store[src], store.new_zeros(()))
+
+        return tree_map(rows, replay)
+
+    def gathered(self, full, b):
+        """``full``, this rank's fill of ``k b`` slots (``k`` batches of
+        ``b``), summed over the ranks: this rank's rows of each batch."""
+        summed = iter(all_reduce_tree(tree_leaves(full), self.group))
+        full = tree_map(lambda _: next(summed), full)
+        lo, hi, _ = self.rows(b)
+        k = tree_leaves(full)[0].shape[0] // b
+        return [tree_map(lambda x: x[j * b + lo:j * b + hi], full) for j in range(k)]
 
     def fetch(self, replay, idx):
-        """This rank's rows of the batch at global slots ``idx``."""
-        mine = (self.owner[idx] == self.rank).nonzero()[:, 0]
-        device = tree_leaves(replay)[0].device
-        src, dst = self.local[idx[mine]].to(device), mine.to(device)
-
-        def fill(store):
-            full = torch.zeros((len(idx),) + tuple(store.shape[1:]), dtype=store.dtype,
-                               device=device)
-            full[dst] = store[src]
-            return full
-
-        full = tree_map(fill, replay)
-        summed = iter(all_reduce_tree(tree_leaves(full), self.group))
-        lo, hi, _ = self.rows(len(idx))
-        return tree_map(lambda _: next(summed)[lo:hi], full)
+        """This rank's rows of the batch at global slots ``idx`` (on the
+        device)."""
+        return self.gathered(self.fill(replay, idx), len(idx))[0]
 
 
 class DeviceRing:
@@ -147,6 +176,7 @@ class DeviceRing:
     ``_size`` count global slots."""
 
     ring_shard = None
+    _fill = None                       # the sharded ring's fetch program (``_fetched``)
 
     def _write(self, chunk):
         """Write ``chunk`` (leaves [n, ...]; on a sharded ring this rank's n
@@ -169,10 +199,9 @@ class DeviceRing:
     def sample_batch(self):
         """B chunks drawn with replacement from the ``size`` written ones (a
         sharded ring: this rank's rows of them)."""
-        idx = self._draw_sample()
+        idx = self._draw_sample().to(self.device)
         if self.ring_shard is not None:
             return self.ring_shard.fetch(self.replay, idx)
-        idx = idx.to(self.device)
         return tree_map(lambda store: store[idx], self.replay)
 
     def _draw_sample(self):
@@ -188,30 +217,63 @@ class DeviceRing:
             rows = rows.pin_memory()
         return rows.to(self.device, non_blocking=True)
 
-    @staticmethod
-    def _host_means(stats):
-        """Each stat's mean, brought to the host in one copy."""
-        return dict(zip(stats, torch.stack([v.mean() for v in stats.values()]).tolist()))
+    def _means(self, stats, losses=None):
+        """Each stat's mean over the worlds (every rank's on a sharded ring),
+        after the mean of ``losses`` as ``LossQ`` when given, brought to the
+        host in one copy."""
+        keys = (["LossQ"] if losses is not None else []) + list(stats)
+        if self.ring_shard is None:
+            means = torch.stack([v.mean() for v in stats.values()])
+        else:
+            sums = all_reduce(torch.stack([v.sum() for v in stats.values()]),
+                              self.ring_shard.group)
+            means = sums / (next(iter(stats.values())).numel() * self.ring_shard.dp)
+        if losses is not None:
+            means = torch.cat([losses.mean()[None], means])
+        return dict(zip(keys, means.tolist()))
 
     # A program writes by slot index (a slice at the host's ``ptr`` would be
     # frozen into a captured graph): ``_claim`` keeps the books of a write of
     # ``n`` chunks as ``_write`` does and returns its slots, the program's
-    # input, and ``_write_slots`` writes there. Unsharded rings only.
+    # input, and ``_write_slots`` writes there. On a sharded ring the slots
+    # are this rank's local ones and the books stay on the host
+    # (``RingShard.record``); ``_fetched`` is the programs' ``sample_batch``.
 
     def _make_ring(self, layout):
-        """The ring from ``layout``, a tree of ``(chunk shape, dtype)``."""
+        """The ring from ``layout``, a tree of ``(chunk shape, dtype)``: this
+        rank's ``capacity / dp`` slots on a sharded ring."""
+        dp = 1 if self.ring_shard is None else self.ring_shard.dp
         self.replay = tree_map(lambda spec: torch.zeros(
-            (self.capacity,) + tuple(spec[0]), dtype=spec[1], device=self.device), layout)
+            (self.capacity // dp,) + tuple(spec[0]), dtype=spec[1], device=self.device), layout)
 
     def _claim(self, n):
-        """The slots [n] (int64, on the host) of a write of ``n`` chunks at
-        ``ptr``; ``ptr`` and ``size`` advance as ``_write``'s."""
+        """The slots (int64, on the host) of a write of ``n`` chunks at
+        ``ptr``: [n], or on a sharded ring this rank's local slots [n / dp]
+        of its block (``ptr / dp + [0, n / dp)``); ``ptr`` and ``size``
+        advance as ``_write``'s, in global slots."""
         if self._ptr + n > self.capacity:
             raise AssertionError("a ring write must not wrap")
-        slots = torch.arange(self._ptr, self._ptr + n)
+        dp = 1 if self.ring_shard is None else self.ring_shard.dp
+        slots = torch.arange(self._ptr // dp, (self._ptr + n) // dp)
+        if self.ring_shard is not None:
+            self.ring_shard.record(self._ptr, n)
         self._size = min(self._size + n, self.capacity)
         self._ptr = (self._ptr + n) % self.capacity
         return slots
+
+    def _fetched(self, rows):
+        """The batches at ring slots ``rows`` [k, B] (on the device) of a
+        sharded ring, as :meth:`sample_batch` fetches them one by one: one
+        fill program over all ``k B`` slots (``RingShard.fill``), then one
+        all-reduce per dtype and this rank's rows of each batch
+        (``RingShard.gathered``)."""
+        if self._fill is None:
+            self._fill = programs.Program(self._fill_body, self.device, name="ring fetch")
+        return self.ring_shard.gathered(self._fill(rows), rows.shape[1])
+
+    def _fill_body(self, rows):
+        """The fetch's program: :meth:`RingShard.fill` of the flattened slots."""
+        return self.ring_shard.fill(self.replay, rows.reshape(-1))
 
     def _write_slots(self, chunk, slots):
         """Write ``chunk`` (leaves [n, ...]) into the ring at ``slots`` [n]."""

@@ -293,7 +293,7 @@ def draw_steps(generator, n_steps, shape, n_actions, eps, reads_key):
 
 
 def draw_episode(env_params, n_layouts, generator, n_worlds, eps, noise_shape, device,
-                 slots=None):
+                 slots=None, rows=None):
     """Every draw of one episode of ``n_worlds`` worlds from a pool of
     ``n_layouts``, made by the eager path's calls in its order: the reset's,
     then each step's seed (only when ``noise_shape``, the shape of one step's
@@ -304,19 +304,26 @@ def draw_episode(env_params, n_layouts, generator, n_worlds, eps, noise_shape, d
     [W, S] for S ring chunks a world), its ring slots (:func:`unpack_draws`
     reads them); ``noise`` [T, ...] each step's noise drawn on ``device``
     from its seed, as ``StepKey.noise`` draws it, or None. The single-UBS
-    env's episodes (``collect_subs``) draw the same with A = 1."""
+    env's episodes (``collect_subs``) draw the same with A = 1.
+
+    With ``rows=(lo, hi, W)`` (``W`` = ``n_worlds``, ``noise_shape`` that of
+    the W worlds) every draw is made at the W worlds, as the eager
+    ``_DrawAsYouGo`` and ``StepKey`` make them, and worlds ``[lo, hi)`` are
+    kept (the noise too); ``slots`` are then the block's."""
     T, A = env_params.episode_limit, n_agents_of(env_params)
     idx, prior = draw_reset(env_params.n_gts, n_layouts, generator, n_worlds)
     rand, explore, seeds = draw_steps(generator, T, (n_worlds, A), env_params.n_actions, eps,
                                       noise_shape is not None)
-    cols = [idx[:, None], prior, rand.reshape(n_worlds, T * A), explore.to(torch.int64)]
+    lo, hi = (0, n_worlds) if rows is None else rows[:2]
+    cols = [idx[lo:hi, None], prior[lo:hi], rand[lo:hi].reshape(hi - lo, T * A),
+            explore[lo:hi].to(torch.int64)]
     if slots is not None:
-        cols.append(slots.reshape(n_worlds, -1))
+        cols.append(slots.reshape(hi - lo, -1))
     draws = torch.cat(cols, 1)
     if torch.device(device).type == "cuda":
         draws = draws.pin_memory()
     noise = None if noise_shape is None else torch.stack(
-        [gumbel_noise(noise_shape, seed, device) for seed in seeds])
+        [gumbel_noise(noise_shape, seed, device)[lo:hi] for seed in seeds])
     return draws, noise
 
 

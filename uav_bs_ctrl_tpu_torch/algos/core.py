@@ -67,7 +67,19 @@ an eager update in between (``graphs=False``, or :meth:`backward` and
 the same params and AdamW tensors in place. Loading params or AdamW state
 (:meth:`load_params`, :meth:`load_adam_state`, :meth:`load_state_dict`)
 drops the programs, which read the old optimizer's tensors; the next update
-captures anew. A sharded learner (``sharding`` set) runs eagerly.
+captures anew.
+
+A sharded learner's update is two programs with its collectives run by the
+host between them, since a capture holds no collective: the gradient
+program (:meth:`_grads_body`: the backward, the raw gradients and metrics
+packed flat), the dp sum (``sharding.sum_ranks``), then AdamW's step
+prepared and the step program (:meth:`_step_body`, reading the summed tensor
+as its input: the division by dp, the clip, AdamW and Polyak on the rank's
+shards), then the mp all-gather of the shards (``sharding.gather``). That
+holds where ``sharding.captures``: the mp compute split and the gp routing
+run collectives inside the forward and backward, so those updates stay
+eager (``sharding.captures_reason``), and under gp routing so does
+:meth:`act`.
 
 :meth:`load_checkpoint` resumes a JAX checkpoint as the JAX package's does:
 params, mixer, LR scale and the AdamW state. The optax chain's
@@ -235,15 +247,17 @@ class RecurrentQLearner:
         ``rng.random()`` (``rng`` default ``np.random``, as JAX) keeps them
         when above ``eps_thres``, else ``rng.randint`` draws every agent's.
 
-        With ``graphs`` (and no sharding) the policy step is a program (JAX's
-        ``_act_jit``), on the card a CUDA graph for each observation shape:
-        DiscreteComm's Gumbel noise is drawn first, the observation and h go
-        in through pinned buffers, and the greedy actions and h' come back in
-        one copy; the eager path's bits."""
+        With ``graphs`` the policy step is a program (JAX's ``_act_jit``), on
+        the card a CUDA graph for each observation shape: DiscreteComm's
+        Gumbel noise is drawn first, the observation and h go in through
+        pinned buffers, and the greedy actions and h' come back in one copy;
+        the eager path's bits. A sharded learner's act never splits its
+        compute, so it is a program unless the gp routing puts collectives
+        into its forward."""
         rng = np.random if rng is None else rng
         shape = self.net.noise_shape((1,), self.n_agents)
         key = None if shape is None else gumbel_draw(shape, self.noise_generator, self.device)
-        if self.graphs and self.sharding is None:
+        if self.graphs and (self.sharding is None or not self.sharding.gp_routed):
             out = self.program("act", self._act_body)(
                 {k: self._staged(k, v) for k, v in obs.items()},
                 self._staged("h", np.asarray(h, np.float32)), key).cpu().numpy()
@@ -440,20 +454,30 @@ class RecurrentQLearner:
         """One update from a batch on the device; returns ``{LossQ, QVals}`` as
         0-d tensors (no host sync). The clipped gradients stay in ``.grad``.
         ``noise`` is :meth:`draw_noise`'s, drawn here when not given. With
-        ``graphs`` (and no sharding) the update is a program's replay."""
+        ``graphs`` the update is a program's replay; a sharded learner's,
+        where ``sharding.captures``, the replays of its gradient and step
+        programs with the collectives run between and after them."""
         if noise is None:
             noise = self.draw_noise(batch)
-        if not self.graphs or self.sharding is not None:
+        if not self.graphs or not (self.sharding is None or self.sharding.captures):
             metrics = self._backward(batch, use_kernels, noise)
             self.apply_grads()
             return metrics
-        program = self.program(("batch", use_kernels), self._update_body, use_kernels)
-        return self.replay_update(program, batch, noise)
+        if self.sharding is None:
+            program = self.program(("batch", use_kernels), self._update_body, use_kernels)
+            return self.replay_update(program, batch, noise)
+        grads = self.program(("grads", use_kernels), self._grads_body, use_kernels)
+        summed = self.sharding.sum_ranks(grads(batch, noise))
+        metrics = self.replay_update(self.program("step", self._step_body), summed)
+        self.sharding.gather()
+        return metrics
 
     def program(self, name, fn, *extra):
         """The program ``name``, made on first use: an update program's
-        ``fn(*inputs, *extra)`` must end in :meth:`_update_body` and return
-        its result; ``"act"`` is :meth:`act`'s. Every program that reads this
+        ``fn(*inputs, *extra)`` must end in :meth:`_update_body` (or, sharded,
+        :meth:`_step_body`) and return its result; ``"act"`` is :meth:`act`'s,
+        and a sharded learner's gradient program :meth:`_grads_body`. Every
+        program that reads this
         learner's tensors is kept here, so that loading new params or
         optimizer state drops them all (:meth:`drop_programs`)."""
         if name not in self._programs:
@@ -484,6 +508,21 @@ class RecurrentQLearner:
         self._step()
         return metrics, [p.grad for p in self.parameters()]
 
+    def _grads_body(self, batch, noise, use_kernels):
+        """A sharded update's gradient program: the backward on this rank's
+        rows, its raw gradients and metrics packed into one flat tensor
+        (``sharding.pack``), which the host sums over the ranks."""
+        return self.sharding.pack(self._raw_backward(batch, use_kernels, noise))
+
+    def _step_body(self, summed):
+        """A sharded update's step program, on the ranks' summed tensor:
+        the dp means into ``.grad`` (``sharding.unpack``), the clip, AdamW
+        and Polyak on the rank's shards; returns the metrics and the clipped
+        gradients, as :meth:`_update_body`. The host gathers the shards."""
+        metrics = self.sharding.unpack(summed)
+        self._step_shards()
+        return metrics, [p.grad for p in self.parameters()]
+
     def backward(self, batch, use_kernels=True, noise=None):
         """The loss and its raw gradients in ``.grad`` (no clip, no step); a
         sharded learner's are the dp means (``batch`` holds this rank's rows)."""
@@ -492,14 +531,18 @@ class RecurrentQLearner:
         return self._backward(batch, use_kernels, noise)
 
     def _backward(self, batch, use_kernels, noise):
+        metrics = self._raw_backward(batch, use_kernels, noise)
+        return metrics if self.sharding is None else self.sharding.reduce(metrics)
+
+    def _raw_backward(self, batch, use_kernels, noise):
+        """The loss's gradients in ``.grad``, unreduced; returns the metrics."""
         for p in self.parameters():       # the optimizer's may be a sharding's masters
             p.grad = None
         with (contextlib.nullcontext() if self.sharding is None
               else self.sharding.split_compute(use_kernels)):
             loss, qvals = self._loss(batch, use_kernels, noise)
         loss.backward()
-        metrics = dict(LossQ=loss.detach(), QVals=qvals.detach().mean())
-        return metrics if self.sharding is None else self.sharding.reduce(metrics)
+        return dict(LossQ=loss.detach(), QVals=qvals.detach().mean())
 
     def apply_grads(self):
         """Clip the net's ``.grad`` to [-1, 1], step AdamW at ``lr * lr_scale``
@@ -562,7 +605,14 @@ class RecurrentQLearner:
                 p.addcmul_(ratio, step_size)
 
     def _step(self):
-        """The clip, AdamW's step and Polyak, with the step prepared."""
+        """The clip, AdamW's step and Polyak, with the step prepared (a
+        sharded learner: on its shards, then gathered into the modules)."""
+        self._step_shards()
+        if self.sharding is not None:
+            self.sharding.gather()
+
+    def _step_shards(self):
+        """:meth:`_step` up to the gather: it holds no collective."""
         for p in self.parameters():       # optax updates (and decays) every leaf
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -576,8 +626,6 @@ class RecurrentQLearner:
         with torch.no_grad():
             for t, p in zip(targets, params):
                 t.mul_(self.polyak).add_(p, alpha=1.0 - self.polyak)
-        if self.sharding is not None:
-            self.sharding.gather()
 
     def update(self, rng=None):
         """One update from a host-buffer sample (without replacement, drawn

@@ -172,7 +172,7 @@ class FusedDrqnTrainer(DeviceRing):
         """:meth:`run_iteration` as programs; one host sync, for the metrics."""
         stats = self._collect_replayed(eps)
         if warmup:
-            return self._host_means(stats)
+            return self._means(stats)
         learner = self.learner
         update = learner.program("ring", self._ring_update_body)
         rows = self._draw_rows(self.updates_per_iter)
@@ -180,9 +180,8 @@ class FusedDrqnTrainer(DeviceRing):
                                         learner.draw_noise_for(learner.batch_size, 1))["LossQ"]
                   for k in range(self.updates_per_iter)]
         self.last_losses = torch.stack(losses)
-        return self._host_means(dict(LossQ=self.last_losses, EpRet=stats["EpRet"],
-                                     FairIdx=stats["FairIdx"],
-                                     AvgGlobalUtility=stats["AvgGlobalUtility"]))
+        return self._means(dict(EpRet=stats["EpRet"], FairIdx=stats["FairIdx"],
+                                AvgGlobalUtility=stats["AvgGlobalUtility"]), self.last_losses)
 
     # ------------------------------------------------------------------ #
 

@@ -17,7 +17,7 @@ the eager path's calls in its order) and hands them over in one copy; before
 a sub-iteration's updates it draws their ``[K/S, B]`` sample indices, and
 before each update the learner draws its noise. The test episodes are
 ``collect.EpisodeProgram``. The eager path (``graphs=False``) makes the same
-draws as it goes and gives the same bits; a dp ``mesh`` runs it.
+draws as it goes and gives the same bits.
 
 ``mesh`` (a ``DeviceMesh`` of ``parallel.mesh.make_mesh``; JAX
 ``fused.py:97-119``) shards the whole loop over ``dp``: rank r collects its
@@ -27,7 +27,14 @@ learner distributed (``parallel.mesh.distribute_learner``). Every rank
 advances the generator exactly as the single-rank trainer does (it draws the
 full-size tensors and keeps its rows), so the dp trainer reproduces the
 single-rank one; the metrics are means over every rank's worlds, and the
-test episodes run whole on every rank.
+test episodes run whole on every rank. JAX jits this loop whole with XLA's
+collectives inside; a capture holds none, so on the program path the host
+runs each collective between two replays: the rank's collection is one
+program over its block (its ring rows written at its local slots), a
+sub-iteration's batches are fetched by one fill program and one all-reduce
+(``DeviceRing._fetched``), and each update is the learner's gradient
+program, the dp all-reduce and its step program. The metrics' all-reduce
+(:meth:`_means`) is the iteration's one host sync.
 
 Under ``o='mlp'`` the policy and the ring see the flat observation
 ``[agent | gt | ubs]`` per agent (and the talk graph), as the JAX trainer's
@@ -47,7 +54,6 @@ from uav_bs_ctrl_tpu_torch.algos.buffer import DeviceRing, RingShard, tree_map
 from uav_bs_ctrl_tpu_torch.algos.madrqn.learner import MultiAgentQLearner
 from uav_bs_ctrl_tpu_torch.config import DEFAULT_CONFIG, check_args_sanity
 from uav_bs_ctrl_tpu_torch.envs import torch_env
-from uav_bs_ctrl_tpu_torch.parallel.dist import all_reduce
 from uav_bs_ctrl_tpu_torch.parallel.mesh import distribute_learner
 
 
@@ -117,7 +123,7 @@ class FusedMadrqnTrainer(DeviceRing):
             distribute_learner(self.learner, mesh)
             self.ring_shard = RingShard(capacity_chunks, dp, mesh.get_local_rank("dp"),
                                         mesh.get_group("dp"))
-        self.graphs = graphs and mesh is None
+        self.graphs = graphs
         if self.graphs:
             self._pool = collect.pool_on(self.pool, self.device)
             self._collection = programs.Program(self._collect_body, self.device,
@@ -175,13 +181,16 @@ class FusedMadrqnTrainer(DeviceRing):
     def _collect_replayed(self, eps, n_worlds):
         """One collection of ``n_worlds`` episodes into the ring, as a
         program: the ring's books kept and every draw made on the host, then
-        the replay; returns its stats [W] (cloned)."""
+        the replay; returns its stats [W] (cloned; a sharded ring's rank:
+        its block's)."""
         if self.replay is None:
             self._make_ring(self._chunk_layout())
+        rows = None if self.ring_shard is None else self.ring_shard.rows(n_worlds)
         slots = self._claim(n_worlds)
         draws, noise = collect.draw_episode(self.env_params, len(self.pool[0]),
                                             self.generator, n_worlds, eps,
-                                            self._noise_shape(n_worlds), self.device, slots)
+                                            self._noise_shape(n_worlds), self.device, slots,
+                                            rows)
         return programs.clone_tree(self._collection(draws, noise))
 
     @torch.no_grad()
@@ -201,24 +210,31 @@ class FusedMadrqnTrainer(DeviceRing):
         return self.learner._update_body(batch, noise, True)
 
     def _run_programs(self, eps, warmup):
-        """:meth:`run_iteration` as programs; one host sync, for the metrics."""
+        """:meth:`run_iteration` as programs; one host sync, for the metrics.
+        On a sharded ring each sub-iteration's batches are fetched in one go
+        and each update is the sharded learner's (its programs and
+        collectives)."""
         if warmup:
-            return self._host_means(self._collect_replayed(eps, self.n_worlds))
+            return self._means(self._collect_replayed(eps, self.n_worlds))
         sub_worlds = self.n_worlds // self.interleave
         k_sub = self.updates_per_iter // self.interleave
         learner = self.learner
-        update = learner.program("ring", self._ring_update_body)
         losses, all_stats = [], []
         for _ in range(self.interleave):
             all_stats.append(self._collect_replayed(eps, sub_worlds))
             rows = self._draw_rows(k_sub)                                      # [K/S, B]
+            if self.ring_shard is not None:
+                for batch in self._fetched(rows):
+                    losses.append(learner.update_on_batch(batch)["LossQ"])
+                continue
+            update = learner.program("ring", self._ring_update_body)
             for k in range(k_sub):
                 noise = learner.draw_noise_for(learner.batch_size, self.env_params.n_ubs)
                 losses.append(learner.replay_update(update, rows[k], noise)["LossQ"])
         stats = {k: torch.cat([s[k] for s in all_stats])
                  for k in ("EpRet", "FairIdx", "AvgGlobalUtility")}
         self.last_losses = torch.stack(losses)
-        return self._host_means(dict(LossQ=self.last_losses, **stats))
+        return self._means(stats, self.last_losses)
 
     # ------------------------------------------------------------------ #
 
@@ -254,13 +270,4 @@ class FusedMadrqnTrainer(DeviceRing):
         stats = {k: torch.cat([s[k] for s in all_stats])
                  for k in ("EpRet", "FairIdx", "AvgGlobalUtility")}
         self.last_losses = torch.stack(losses)
-        return dict(LossQ=float(self.last_losses.mean()), **self._means(stats))
-
-    def _means(self, stats):
-        """Each stat's mean over the worlds (every rank's on a sharded ring)."""
-        if self.ring_shard is None:
-            return {k: float(v.mean()) for k, v in stats.items()}
-        sums = all_reduce(torch.stack([v.sum() for v in stats.values()]),
-                          self.ring_shard.group)
-        n = next(iter(stats.values())).numel() * self.ring_shard.dp
-        return {k: float(v / n) for k, v in zip(stats, sums)}
+        return self._means(stats, self.last_losses)

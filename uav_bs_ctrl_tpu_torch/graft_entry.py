@@ -144,7 +144,9 @@ def run_case(rank, world, device, label, dims):
         np.testing.assert_allclose(b, a, atol=c["params_atol"], rtol=PARAMS_RTOL)
     return dict(label=label, dims=dims, backend=torch.distributed.get_backend(), loss=loss,
                 loss_single=loss_single, launches=launches, shapes=shapes,
-                plan=learner.sharding.plan, plan_line=learner.sharding.plan_line, ms=ms,
+                plan=learner.sharding.plan, plan_line=learner.sharding.plan_line,
+                captures=learner.sharding.captures,
+                captures_reason=learner.sharding.captures_reason, ms=ms,
                 collective_ms=coll["ms"], collective_calls=coll["calls"],
                 grad_err=max(float(np.abs(a - b).max()) for a, b in zip(grads_single, grads)),
                 params_err=max(float(np.abs(a - b).max())
@@ -182,6 +184,8 @@ def dryrun_multichip(n_devices, device=None, cases=tuple(CASES), dims=None):
               f"{r0['loss']:.6f} == single-rank {r0['loss_single']:.6f} (grads max |diff| "
               f"{max(r['grad_err'] for r in ranks):.2e}, params "
               f"{max(r['params_err'] for r in ranks):.2e}) OK", flush=True)
+        if not r0["captures"]:
+            print(f"  the sharded update stays eager: {r0['captures_reason']}", flush=True)
         if dims[1] > 1 and c["kernels"]:
             for r, x in enumerate(ranks):
                 print(f"  rank {r}: #2/#3 at (heads, H*F) {x['shapes']['flash_gat_fused']}, the "

@@ -28,6 +28,19 @@
   ``gp`` group, so that ``gat_backend``/``comm_backend='graph_parallel'`` run
   the edge-partitioned functions of :mod:`.graph_parallel`; they give every
   gp rank the dense gradient, so nothing is reduced over ``gp``.
+
+The update as programs (``graphs.Program``, CUDA graphs on the card): a
+capture may hold no collective (NCCL refuses two ranks on one card, and gloo
+stages through the host), so a sharded update is cut where its collectives
+are. :meth:`LearnerSharding.reduce` is :meth:`~LearnerSharding.pack` (the
+flat ``[grads | metrics]``), :meth:`~LearnerSharding.sum_ranks` (the
+collectives) and :meth:`~LearnerSharding.unpack` (the division by dp and the
+``.grad`` leaves); the learner's gradient program ends in ``pack``, its step
+program starts from ``unpack``, and the host runs ``sum_ranks`` between the
+two replays and :meth:`~LearnerSharding.gather` after the second. That holds
+whenever the forward and backward themselves hold no collective
+(:attr:`~LearnerSharding.captures`): the mp compute split and the gp routing
+run theirs inside autograd, so those updates stay eager.
 """
 
 import contextlib
@@ -116,7 +129,9 @@ class LearnerSharding:
     and the mp compute split (``plan``: ``{module: its share, or
     'replicated'}``; ``split``: per param, whether its gradient is a share)."""
 
-    def __init__(self, learner, mesh):
+    METRICS = ("LossQ", "QVals")      # an update's metrics, packed after the gradients
+
+    def __init__(self, learner, mesh, graph_parallel=False):
         self.mesh = mesh
         self.dp, self.dp_rank, self.dp_group = _coords(mesh, "dp")
         self.mp, self.mp_rank, self.mp_group = _coords(mesh, "mp")
@@ -147,8 +162,17 @@ class LearnerSharding:
                 f"net.{path} {share.hi - share.lo} of {share.whole} {share.unit}"
                 for path, share in shares.items()) or "none") +
             "; computed whole on every mp rank: " + ", ".join(replicated))
+        self.gp_routed = graph_parallel and any(
+            getattr(m, "backend", None) == "graph_parallel" for m in learner.net.modules())
+        self.captures_reason = (
+            "the mp compute split runs its collectives inside the forward and backward"
+            if any(self.split) else
+            "the gp routing runs its collectives inside the forward and backward"
+            if self.gp_routed else None)
         if self.rank == 0 and self.mp > 1:
             print(self.plan_line, flush=True)
+        if self.rank == 0 and not self.captures:
+            print(f"sharded update eager, not programs: {self.captures_reason}", flush=True)
         optimizer = learner._make_optimizer(self.masters)
         for p, m, s in zip(self.params, self.masters, self.sliced):
             if p in learner.optimizer.state:
@@ -172,40 +196,60 @@ class LearnerSharding:
         self.split_active = bool(use_kernels) and any(self.split)
         return mp_split.splitting() if self.split_active else contextlib.nullcontext()
 
+    @property
+    def captures(self):
+        """Whether the update can run as programs: its forward and backward
+        hold no collective (no mp compute split planned, no gp routing); else
+        ``captures_reason`` says why not."""
+        return self.captures_reason is None
+
     def reduce(self, metrics):
         """The dp mean of the module params' raw gradients (in ``.grad``) and
-        of ``metrics`` (0-d tensors), by one sum and a division by dp. Under
-        the compute split the sum also runs over mp, where a split gradient
-        is the rank's share and a replicated one (and the metrics) comes from
-        mp rank 0 alone: one collective over dp x mp (over mp, then dp, when
-        the mesh also has a gp axis)."""
+        of ``metrics`` (0-d tensors, :attr:`METRICS`), by one sum and a
+        division by dp: :meth:`pack`, :meth:`sum_ranks`, :meth:`unpack`.
+        Under the compute split the sum also runs over mp, where a split
+        gradient is the rank's share and a replicated one (and the metrics)
+        comes from mp rank 0 alone: one collective over dp x mp (over mp,
+        then dp, when the mesh also has a gp axis)."""
+        return self.unpack(self.sum_ranks(self.pack(metrics)))
+
+    def pack(self, metrics):
+        """The raw gradients (zeros where there is none) and ``metrics``, in
+        :attr:`METRICS`' order, as one flat tensor; under the compute split
+        an mp rank other than 0 gives zeros for every replicated part."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        split = self.split_active
-        if self.dp == 1 and not split:
-            return metrics
-        keys = list(metrics)
         grads = [p.grad.reshape(-1) for p in self.params]
-        values = [metrics[k].reshape(1).to(self.params[0].dtype) for k in keys]
-        if split and self.mp_rank != 0:
+        values = [metrics[k].reshape(1).to(self.params[0].dtype) for k in self.METRICS]
+        if self.split_active and self.mp_rank != 0:
             grads = [g if s else torch.zeros_like(g) for g, s in zip(grads, self.split)]
             values = [torch.zeros_like(v) for v in values]
-        flat = torch.cat(grads + values)
-        if not split:
-            groups = [self.dp_group]
+        return torch.cat(grads + values)
+
+    def sum_ranks(self, flat):
+        """The sum of :meth:`pack`'s tensor over the ranks that share it, out
+        of place: dp, or under the compute split dp x mp (none at dp = 1
+        without it)."""
+        if not self.split_active:
+            groups = [self.dp_group] if self.dp > 1 else []
         elif "gp" in self.mesh.mesh_dim_names:      # dp x mp is not every rank
             groups = [self.mp_group] + ([self.dp_group] if self.dp > 1 else [])
         else:
             groups = [None]                          # every rank: dp x mp
         for group in groups:
             flat = all_reduce(flat, group)
+        return flat
+
+    def unpack(self, flat):
+        """The summed tensor divided by dp, its gradients made the params'
+        ``.grad`` (views of it); returns the metrics."""
         if self.dp > 1:
             flat = flat / self.dp
-        parts = torch.split(flat, [p.numel() for p in self.params] + [1] * len(keys))
+        parts = torch.split(flat, [p.numel() for p in self.params] + [1] * len(self.METRICS))
         for p, g in zip(self.params, parts):
-            p.grad.copy_(g.reshape(p.shape))
-        return {k: v.reshape(()) for k, v in zip(keys, parts[len(self.params):])}
+            p.grad = g.view(p.shape)
+        return {k: v.reshape(()) for k, v in zip(self.METRICS, parts[len(self.params):])}
 
     def take_grads(self):
         """Each master's gradient: its shard of the module's reduced one."""
@@ -252,7 +296,10 @@ def distribute_learner(learner, mesh, graph_parallel=False):
 
     Over ``mp > 1`` the update also splits its work (:func:`compute_plan`;
     ``learner.sharding.plan``, and one line on rank 0 naming each split
-    module, its share and what stays whole)."""
+    module, its share and what stays whole). An update whose forward and
+    backward hold no collective runs as programs on a learner made with
+    ``graphs`` (``learner.sharding.captures``); else rank 0 prints why it
+    stays eager."""
     dp = mesh.size(mesh.mesh_dim_names.index("dp"))
     assert learner.batch_size % dp == 0, \
         f"batch_size={learner.batch_size} must divide dp={dp}"
@@ -260,5 +307,5 @@ def distribute_learner(learner, mesh, graph_parallel=False):
         assert "gp" in mesh.mesh_dim_names and mesh.size(mesh.mesh_dim_names.index("gp")) > 1, \
             "graph_parallel=True needs a mesh with a 'gp' axis (make_mesh(gp=...))"
         set_graph_parallel_mesh(mesh, "gp")
-    learner.sharding = LearnerSharding(learner, mesh)
+    learner.sharding = LearnerSharding(learner, mesh, graph_parallel)
     return learner

@@ -7,8 +7,9 @@ this module imports neither the tests nor JAX, so that the ranks stay light.
   given inputs, outputs and the gradients of ``sum(out * cotangent)``;
 - :func:`learner_update`: one update of a ``MultiAgentQLearner`` distributed
   over a ``(dp, mp, gp)`` mesh, from given weights or a checkpoint, on a
-  given global batch;
-- :func:`fused_train`: the dp-sharded fused trainer's iterations;
+  given global batch, eagerly or, with ``graphs``, as programs;
+- :func:`fused_train`: the dp-sharded fused trainer's iterations, eagerly or
+  as programs;
 - :func:`stats_probe` and :func:`logger_probe`: the cross-rank statistics
   and the rank-0 logger.
 
@@ -17,7 +18,10 @@ column-split entry points in its work (0 on the CPU, where the wrappers run
 their plain versions), the shapes #2/#3 and the split #4/#5 ran at
 (``shapes``: heads and width, the GRU's columns) and the host time of its
 collectives (``parallel.dist.COLLECTIVES``; ``parallel.mp_split``'s own by
-kind).
+kind). A replayed program passes no wrapper, so on the program path the
+caller counts the card's launches: ``launches`` is a context manager
+factory (``chip_smoke.card_launches``) whose namespace has ``calls`` set
+when its block ends.
 """
 
 import contextlib
@@ -75,20 +79,25 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def timed_update(learner, batch, use_kernels=True, noise=None):
+def timed_update(learner, batch, use_kernels=True, noise=None, n=1):
     """Host ms of one more update on ``batch`` (the card synchronised before
-    and after), and its collectives ``{"ms", "calls"}``."""
+    and after; with ``n`` > 1 the median of ``n`` updates), and the
+    collectives of one ``{"ms", "calls"}``."""
     device = learner.device
-    _sync(device)
-    pdist.reset_collectives()
-    mp_split.reset_collectives()
-    t0 = time.perf_counter()
-    with torch.enable_grad():
-        learner.update_on_batch(batch, use_kernels, noise)
-    _sync(device)
-    ms = (time.perf_counter() - t0) * 1e3
-    return ms, dict(ms=pdist.COLLECTIVES["seconds"] * 1e3, calls=pdist.COLLECTIVES["calls"],
-                    split=dict(mp_split.COLLECTIVES))
+    times, colls = [], []
+    for _ in range(n):
+        _sync(device)
+        pdist.reset_collectives()
+        mp_split.reset_collectives()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            learner.update_on_batch(batch, use_kernels, noise)
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        colls.append(dict(ms=pdist.COLLECTIVES["seconds"] * 1e3,
+                          calls=pdist.COLLECTIVES["calls"], split=dict(mp_split.COLLECTIVES)))
+    mid = sorted(range(n), key=times.__getitem__)[n // 2]
+    return times[mid], colls[mid]
 
 
 def device_ms(learner, batch, use_kernels=True, noise=None):
@@ -173,21 +182,40 @@ def _named(learner, tensors):
     return dict(zip(names, tensors))
 
 
+def _adam_state(learner):
+    """AdamW's state of each master (the rank's shards), keyed by the
+    module param's name."""
+    masters = (learner.parameters() if learner.sharding is None
+               else learner.sharding.masters)
+    state = learner.optimizer.state
+    return {name: {k: v.detach().cpu().numpy().copy() for k, v in state[m].items()}
+            for name, m in _named(learner, masters).items() if m in state}
+
+
 def learner_update(rank, world, device, cfg, env_info, batch, dims, tree=None, ckpt=None,
-                   graph_parallel=False, noise=None, save=None, profile=False):
+                   graph_parallel=False, noise=None, save=None, profile=False, graphs=False,
+                   n_timed=1, launches=None):
     """One update of a ``MultiAgentQLearner`` (``DEFAULT_CONFIG`` overlaid
     with ``cfg``; weights from the JAX tree ``tree`` or the checkpoint
     ``ckpt``, else seed 0's) distributed over a ``dims`` = (dp, mp, gp)
     mesh, on this rank's rows of the global ``batch`` (numpy leaves). With
     ``noise`` (the global batch's per-step noise) the update takes its rows;
     ``drawn`` is what ``draw_noise`` gives this rank first. ``save`` writes
-    the checkpoint after the update. Returns the dp-mean raw gradients, the
-    params and targets after, as full tensors keyed by name, the launches,
-    shapes and mp plan of the update, then times one more update (``ms``,
-    ``collectives``) and, with ``profile``, takes the card's busy ms of
-    another (``device_ms``)."""
+    the checkpoint after the update. Returns the params and targets after,
+    as full tensors keyed by name, ``.grad`` after (``after_grads``), the
+    rank's AdamW state (``adam``), the launches, shapes and mp plan of the
+    update and whether it ``captures`` (with the reason not), then times
+    ``n_timed`` more updates (``ms``, their median; ``collectives``) and,
+    with ``profile``, takes the card's busy ms of another (``device_ms``).
+
+    ``graphs=False`` (the eager path) runs ``backward`` and ``apply_grads``
+    and also returns the dp-mean raw gradients (``grads``); ``graphs=True``
+    runs ``update_on_batch`` on a learner made with programs, which are its
+    gradient and step programs where the sharding ``captures``, and counts
+    the timed updates' launches on the card by ``launches`` (``timed_calls``:
+    the calls of one)."""
     args = check_args_sanity(SN(**{**DEFAULT_CONFIG, **cfg, "device": str(device)}))
-    learner = MultiAgentQLearner(env_info, args, seed=0)
+    learner = MultiAgentQLearner(env_info, args, seed=0, graphs=graphs)
     if tree is not None:
         learner.load_params(tree)
     if ckpt is not None:
@@ -205,23 +233,36 @@ def learner_update(rank, world, device, cfg, env_info, batch, dims, tree=None, c
         reset_counts()
         _sync(device)
         t0 = time.perf_counter()
+        grads = None
         with torch.enable_grad():
-            metrics = learner.backward(local, noise=noise)
-            grads = [p.grad.detach().clone() for p in learner.parameters()]
-            learner.apply_grads()
+            if graphs:
+                metrics = learner.update_on_batch(local, noise=noise)
+            else:
+                metrics = learner.backward(local, noise=noise)
+                grads = [p.grad.detach().clone() for p in learner.parameters()]
+                learner.apply_grads()
         _sync(device)
+        sharding = learner.sharding
         out = dict(ms_first=(time.perf_counter() - t0) * 1e3, launches=counts(),
-                   shapes=shapes(), plan=learner.sharding.plan,
-                   plan_line=learner.sharding.plan_line,
+                   shapes=shapes(), plan=sharding.plan, plan_line=sharding.plan_line,
+                   captures=sharding.captures, captures_reason=sharding.captures_reason,
+                   programs=sorted(str(k) for k in learner._programs),
                    loss=float(metrics["LossQ"]), qvals=float(metrics["QVals"]), spec=spec,
                    backend=torch.distributed.get_backend(),
-                   grads=_numpy(_named(learner, grads)),
+                   grads=None if grads is None else _numpy(_named(learner, grads)),
+                   after_grads=_numpy(_named(learner, [p.grad for p in learner.parameters()])),
                    params=_numpy(_named(learner, learner.parameters())),
                    targets=_numpy(_named(learner, learner.target_parameters())),
+                   adam=_adam_state(learner),
                    drawn=None if drawn is None else _numpy(drawn))
         if save is not None:
             learner.save_checkpoint(save, dict(epoch=1, t=0))
-        out["ms"], out["collectives"] = timed_update(learner, local, noise=noise)
+        out["ms"], out["collectives"] = timed_update(learner, local, noise=noise, n=n_timed)
+        if launches is not None:
+            with launches() as seen:
+                timed_update(learner, local, noise=noise)
+            out["timed_calls"] = seen.calls
+        out["program_stats"] = {str(k): v.stats() for k, v in learner._programs.items()}
         if profile:
             t0 = time.perf_counter()
             out["device_ms"] = device_ms(learner, local, noise=noise)
@@ -231,31 +272,60 @@ def learner_update(rank, world, device, cfg, env_info, batch, dims, tree=None, c
     return out
 
 
-def fused_train(rank, world, device, map_id, train_kwargs, trainer_kw, schedule, ckpt=None):
+def fused_train(rank, world, device, map_id, train_kwargs, trainer_kw, schedule, ckpt=None,
+                graphs=False, launches=None, timed=(), evaluate=0):
     """The fused trainer sharded over a dp mesh of every rank, resumed from
     the checkpoint ``ckpt`` if given: ``schedule`` is a list of ``(eps,
-    warmup)`` iterations. Returns each iteration's metrics, the params after,
-    the ring's size and pointer, the launches, the wall seconds and the
-    collectives."""
+    warmup)`` iterations, eager or, with ``graphs``, as programs. Returns
+    each iteration's metrics and wall seconds (``iter_seconds``), the params
+    after, the rank's ring and its size and pointer, the last iteration's
+    losses, both generators' states, the launches (by ``launches``, the
+    card's calls, when given), the wall seconds and the collectives; then,
+    after the results are taken, the test stats of ``evaluate`` episodes
+    (``evaluate``, when non-zero) and the wall seconds of the iterations
+    ``timed`` (``timed_seconds``)."""
     mesh = make_mesh(world)
     trainer = FusedMadrqnTrainer(map_id, dict(train_kwargs, device=str(device)), mesh=mesh,
-                                 **trainer_kw)
+                                 graphs=graphs, **trainer_kw)
     if ckpt is not None:
         trainer.learner.load_checkpoint(ckpt)
     reset_counts()
     pdist.reset_collectives()
-    _sync(device)
-    t0 = time.perf_counter()
-    with torch.enable_grad():
-        metrics = [trainer.run_iteration(eps, warmup=warmup) for eps, warmup in schedule]
-    _sync(device)
+
+    def run(entries):
+        metrics, seconds = [], []
+        for eps, warmup in entries:
+            _sync(device)
+            t0 = time.perf_counter()
+            metrics.append(trainer.run_iteration(eps, warmup=warmup))
+            _sync(device)
+            seconds.append(time.perf_counter() - t0)
+        return metrics, seconds
+
+    with torch.enable_grad(), (launches() if launches else contextlib.nullcontext()) as seen:
+        metrics, iter_seconds = run(schedule)
     learner = trainer.learner
-    return dict(metrics=metrics, seconds=time.perf_counter() - t0, launches=counts(),
-                params=_numpy(_named(learner, learner.parameters())),
-                ring=(trainer._size, trainer._ptr), local_rows=tree_map(
-                    lambda x: x.shape[0], trainer.replay)["act"],
-                collectives=dict(ms=pdist.COLLECTIVES["seconds"] * 1e3,
-                                 calls=pdist.COLLECTIVES["calls"]))
+    out = dict(metrics=metrics, iter_seconds=iter_seconds, seconds=sum(iter_seconds),
+               launches=counts() if seen is None else seen.calls,
+               env_calls=None if seen is None else seen.env,
+               params=_numpy(_named(learner, learner.parameters())),
+               ring=(trainer._size, trainer._ptr), local_rows=tree_map(
+                   lambda x: x.shape[0], trainer.replay)["act"],
+               replay=tree_map(lambda x: x.cpu().numpy(), trainer.replay),
+               losses=trainer.last_losses.cpu().numpy(),
+               generators=[trainer.generator.get_state().numpy(),
+                           learner.noise_generator.get_state().cpu().numpy()],
+               collectives=dict(ms=pdist.COLLECTIVES["seconds"] * 1e3,
+                                calls=pdist.COLLECTIVES["calls"]))
+    if evaluate:
+        out["evaluate"] = trainer.evaluate(evaluate)
+    with torch.enable_grad():
+        out["timed_seconds"] = run(timed)[1]
+    out["program_stats"] = {name: program.stats() for name, program in (
+        [(str(k), v) for k, v in learner._programs.items()] +
+        [("collection", getattr(trainer, "_collection", None)),
+         ("ring fetch", trainer._fill)]) if program is not None}
+    return out
 
 
 def stats_probe(rank, world, device, samples, with_min_and_max=True):
